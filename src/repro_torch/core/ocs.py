@@ -1,0 +1,166 @@
+"""Opportunistic Carrier Sensing (OCS) max-pooling with missed sensing —
+paper §III, Alg. 1, the noisy subset the training curves run.
+
+Each element k is one sub-frame.  Every worker contends with its word
+``[D-bit value code | id code]`` MSB first: in each sub-slot the workers
+whose bit is 1 transmit a blocking signal, and a silent worker that hears
+one quits.  A worker misses a blocking signal with probability ``p_miss``
+per sub-slot; missed detections leave false survivors, whose payloads
+collide, and the survivors re-contend, up to ``max_rounds`` rounds, after
+which the lowest index captures the channel.
+
+The batched core is lane-leading: ``h (L, N, K)``, one PRNG key and one
+``p_miss`` per lane, so every p_miss lane of a training step shares one
+call.  The sensing draws are packed into bit-plane words and the
+tournament runs in the ``ocs_contention`` wrapper: the kernel on a CUDA
+tensor, its plain loop over rounds and sub-slots on the CPU.  The draws
+are the JAX package's: ``sensing_heard`` at key
+``fold_in(fold_in(rng, r), d)`` for round r, sub-slot d.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Union
+
+import torch
+
+from repro_torch import random as jr
+from repro_torch.core import quantize as qz
+from repro_torch.kernels.maxpool import ops as maxpool_ops
+from repro_torch.kernels.ocs_contention.ref import lane_mask
+from repro_torch.kernels.ocs_quant.ref import from_int64, to_int64
+
+NOISY_BACKENDS = ("scan", "pallas")
+
+
+@dataclasses.dataclass(frozen=True)
+class NoisyOCSResult:
+    """Outcome under imperfect sensing, one row per lane."""
+
+    winner: torch.Tensor            # (L, K) int32 — final payload transmitter
+    correct: torch.Tensor           # (L, K) bool  — winner holds the max code
+    collisions: torch.Tensor        # (L,) int32 — collided (sub-frame, round)
+    rounds: torch.Tensor            # (L,) int32 — rounds until all resolved
+    contention_slots: torch.Tensor  # (L,) int32 — sub-slots billed to the
+    #   sub-frames still unresolved at the start of each round
+
+
+def host_id_bits(n_workers: int) -> int:
+    """ID sub-slots needed to tie-break N workers: ceil(log2(max(N, 2)))."""
+    return max(1, math.ceil(math.log2(max(n_workers, 2))))
+
+
+def _id_codes(n_workers: int, id_bits: int, device=None) -> torch.Tensor:
+    """Per-worker tie-break codes ``2^id_bits - 1 - index`` (int64, taken
+    mod 2^32): the lowest index wins the max.  Indices past
+    ``2^id_bits`` wrap and must be masked out (padded workers)."""
+    idx = torch.arange(n_workers, dtype=torch.int64, device=device)
+    return (((1 << int(id_bits)) - 1) - idx) & 0xFFFFFFFF
+
+
+def sensing_keep_prob(p_miss, dtype=torch.float32, lanes: bool = False
+                      ) -> torch.Tensor:
+    """Per-sub-slot hear probability ``1 - p_miss`` shaped to broadcast
+    over an (N, K) slot: ``()`` for a scalar, ``(N, 1)`` for a per-worker
+    ``(N,)`` vector.  With ``lanes`` the leading axis is the lane axis:
+    ``(L,)`` gives ``(L, 1, 1)`` and ``(L, N)`` gives ``(L, N, 1)``."""
+    dt = dtype if dtype.is_floating_point else torch.float32
+    p = torch.as_tensor(p_miss, dtype=dt)
+    base = p.ndim - int(lanes)
+    if base not in (0, 1):
+        raise ValueError(f"p_miss must be scalar or (N,) per lane, got "
+                         f"shape {tuple(p.shape)}")
+    keep = 1.0 - p
+    return keep.reshape(keep.shape + (1,) * (2 - base)) if lanes or base \
+        else keep
+
+
+def sensing_heard(key: torch.Tensor, p_keep: torch.Tensor, n: int,
+                  k: int) -> torch.Tensor:
+    """One sub-slot of sensing draws: heard[..., n, k] ~ Bern(p_keep).
+
+    ``key`` may carry leading dims (lanes, rounds, sub-slots); ``p_keep``
+    broadcasts against ``key.shape[:-1] + (n, k)``.  The one place the
+    sensing randomness is drawn, for both the plain loop and the packed
+    draws of the contention kernel."""
+    return jr.bernoulli(key, p_keep, (n, k))
+
+
+def ocs_maxpool_noisy_core(h: torch.Tensor, mask, id_bits: int,
+                           rng: torch.Tensor, p_miss, *, bits: int,
+                           max_id_bits: int, max_rounds: int = 3,
+                           backend: str = "scan",
+                           codes: Union[torch.Tensor, None] = None
+                           ) -> NoisyOCSResult:
+    """Batched imperfect-sensing core over a padded worker axis.
+
+    Args:
+      h:       (L, N, K) features of L lanes; padded worker rows ignored.
+      mask:    (N,) or (L, N) bool — real workers.
+      id_bits: tie-break sub-slots of the real worker count.
+      rng:     (L, 2) sensing keys, one per lane.
+      p_miss:  (L,) or (L, N) miss probabilities.
+      bits, max_id_bits, max_rounds: as in the JAX core; the scan runs
+               ``bits + max_id_bits`` sub-slots, those past
+               ``bits + id_bits`` inert.
+      backend: ``"scan"`` or ``"pallas"``; both give the same bits, and
+               the device decides: a CUDA tensor runs the kernel.
+      codes:   ``quantize(h, bits)`` if the caller has it already.
+    """
+    if bits + max_id_bits > 32:
+        raise ValueError(
+            f"contention word overflows uint32: bits={bits} + "
+            f"max_id_bits={max_id_bits} > 32")
+    if backend not in NOISY_BACKENDS:
+        raise ValueError(
+            f"unknown noisy-OCS backend {backend!r}; valid: {NOISY_BACKENDS}")
+    lanes, n, k = h.shape
+    if codes is None:
+        codes = qz.quantize(h, bits)
+    codes64 = to_int64(codes)
+    id_bits = int(id_bits)
+    word = (codes64 << id_bits) | _id_codes(n, id_bits, h.device)[:, None]
+    total_bits = bits + id_bits
+    n_slots = bits + max_id_bits
+    p_keep = sensing_keep_prob(
+        torch.as_tensor(p_miss, device=h.device), h.dtype, lanes=True)
+    m = lane_mask(mask, lanes, n, h.device)
+
+    # imported here: the wrapper draws through this module's sensing_heard
+    from repro_torch.kernels.ocs_contention import ops as contention_ops
+
+    winner, contending, collided = contention_ops.noisy_contention(
+        from_int64(word, torch.uint32), m, total_bits, rng, p_keep,
+        n_slots=n_slots, max_rounds=max_rounds)
+    slots = (total_bits * contending.sum(-1)).to(torch.int32)
+    rounds = (contending > 0).sum(-1).to(torch.int32)
+    collisions = collided.sum(-1).to(torch.int32)
+
+    # the true max code of the real workers, by the maxpool kernel
+    masked = torch.where(m[:, :, None], codes64, 0).to(codes.dtype)
+    true_code, _ = maxpool_ops.maxpool_fused(masked, dim=1)
+    win_code = codes64.gather(1, winner[:, None].long())[:, 0]
+    correct = win_code == to_int64(true_code)
+    return NoisyOCSResult(winner=winner, correct=correct,
+                          collisions=collisions, rounds=rounds,
+                          contention_slots=slots)
+
+
+def ocs_maxpool_noisy(h: torch.Tensor, rng: torch.Tensor, bits: int = 16,
+                      p_miss=0.0, max_rounds: int = 3,
+                      backend: str = "scan") -> NoisyOCSResult:
+    """One round of Alg. 1 with miss detection over ``h (N, K)`` (all
+    workers real), one key ``rng (2,)``, ``p_miss`` scalar or ``(N,)``.
+    Fields come back without the lane axis."""
+    if h.ndim != 2:
+        raise ValueError(f"h must be (N, K), got {tuple(h.shape)}")
+    n = h.shape[0]
+    id_bits = host_id_bits(n)
+    res = ocs_maxpool_noisy_core(
+        h[None], torch.ones((n,), dtype=torch.bool, device=h.device),
+        id_bits, rng[None], torch.as_tensor(p_miss)[None], bits=bits,
+        max_id_bits=id_bits, max_rounds=max_rounds, backend=backend)
+    return NoisyOCSResult(**{f.name: getattr(res, f.name)[0]
+                             for f in dataclasses.fields(res)})

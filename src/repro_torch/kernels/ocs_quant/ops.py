@@ -1,0 +1,57 @@
+"""Wrappers of the Eq. 7 code kernels (``csrc/ocs_quant.cu``).
+
+``encode``/``decode`` take the plain version (``ref.py``) for a tensor on
+the CPU and launch the CUDA kernel for a tensor on the card.  The kernel
+covers D <= 16 (``uint8``/``uint16`` codes), which are the codes the TPU
+kernel covers; a wider code on the card raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch import kernels
+from repro_torch.kernels.ocs_quant import ref
+
+MAX_KERNEL_BITS = 16
+
+
+def _check_bits(bits: int, dtype: torch.dtype) -> None:
+    w = ref.width(dtype)
+    if not 1 <= bits <= w:
+        raise ValueError(f"bits must be in [1, {w}], got {bits}")
+    if bits > MAX_KERNEL_BITS:
+        raise ValueError(
+            f"bits={bits}: the ocs_quant CUDA kernel covers codes of at most "
+            f"{MAX_KERNEL_BITS} bits (uint8/uint16)")
+
+
+def encode(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """Float tensor -> D-bit monotone codes of the same shape."""
+    if x.device.type == "cpu":
+        return ref.encode(x, bits)
+    _check_bits(bits, x.dtype)
+    x = x.contiguous()
+    out = torch.empty(x.shape, dtype=ref.code_dtype(bits), device=x.device)
+    kernels.check_operands(x, out)
+    kernels.launch("ocs_quant.encode", "ocs_encode", x.device,
+                   x.data_ptr(), out.data_ptr(), x.numel(),
+                   x.element_size(), out.element_size(), bits)
+    return out
+
+
+def decode(code: torch.Tensor, bits: int, dtype: torch.dtype) -> torch.Tensor:
+    """D-bit codes -> the lowest float of each bucket (lowest -> -inf)."""
+    if code.device.type == "cpu":
+        return ref.decode(code, bits, dtype)
+    _check_bits(bits, dtype)
+    if code.dtype != ref.code_dtype(bits):
+        raise ValueError(f"{bits}-bit codes are {ref.code_dtype(bits)}, "
+                         f"got {code.dtype}")
+    code = code.contiguous()
+    out = torch.empty(code.shape, dtype=dtype, device=code.device)
+    kernels.check_operands(code, out)
+    kernels.launch("ocs_quant.decode", "ocs_decode", code.device,
+                   code.data_ptr(), out.data_ptr(), code.numel(),
+                   code.element_size(), kernels.KIND[dtype], bits)
+    return out

@@ -1,0 +1,298 @@
+"""Plain versions of the port's kernels against the JAX package's Pallas
+kernels (run in interpret mode on the CPU, as the JAX tests run them) and
+their ``ref.py`` oracles — bit for bit, over dtype x bits x shape grids.
+
+The wrappers (``ops.py``) take the plain version for CPU tensors, so on
+this host they are what the port runs; on a tensor that is not on the
+CPU they launch the CUDA kernel or raise, which the last tests check.
+``tests/test_torch_cuda.py`` holds each CUDA kernel to its plain version
+on the card.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from proptest import grid, random_floats
+from repro.core import ocs as jocs
+from repro.kernels.maxpool import maxpool as JMP
+from repro.kernels.maxpool import ref as JMPR
+from repro.kernels.ocs_contention import ops as JCO
+from repro.kernels.ocs_contention import ref as JCR
+from repro.kernels.ocs_quant import ocs_quant as JQ
+from repro.kernels.ocs_quant import ref as JQR
+from repro_torch import random as jr
+from repro_torch.core import ocs as tocs
+from repro_torch.kernels.maxpool import ops as MPO
+from repro_torch.kernels.maxpool import ref as MPR
+from repro_torch.kernels.ocs_contention import ops as CO
+from repro_torch.kernels.ocs_contention import ref as CR
+from repro_torch.kernels.ocs_quant import ops as QO
+from repro_torch.kernels.ocs_quant import ref as QR
+
+torch.set_num_threads(1)
+
+_DT = {"float32": (jnp.float32, torch.float32),
+       "bfloat16": (jnp.bfloat16, torch.bfloat16),
+       "float16": (jnp.float16, torch.float16)}
+
+
+def _pair(x_np, dtype):
+    """The same values as a JAX array and a torch tensor of ``dtype``."""
+    jdt, tdt = _DT[dtype]
+    xj = jnp.asarray(x_np).astype(jdt)
+    return xj, torch.from_numpy(np.array(xj.astype(jnp.float32))).to(tdt)
+
+
+def _bits_of(a) -> np.ndarray:
+    """Raw bits of a JAX array or torch tensor, for exact comparison."""
+    if isinstance(a, torch.Tensor):
+        if a.dtype in (torch.bfloat16, torch.float16, torch.uint16):
+            return a.view(torch.int16).numpy().view(np.uint16)
+        if a.dtype in (torch.float32, torch.uint32):
+            return a.view(torch.int32).numpy().view(np.uint32)
+        return a.numpy()
+    a = np.asarray(a)
+    if a.dtype.itemsize == 2 and a.dtype.kind in "fV" or a.dtype == jnp.bfloat16:
+        return a.view(np.uint16)
+    if a.dtype == np.float32:
+        return a.view(np.uint32)
+    return a
+
+
+def _same(a, b, what=""):
+    x, y = _bits_of(a), _bits_of(b)
+    assert x.shape == y.shape, (what, x.shape, y.shape)
+    assert x.dtype == y.dtype, (what, x.dtype, y.dtype)
+    assert np.array_equal(x, y), what
+
+
+# ---------------------------------------------------------------------------
+# ocs_quant: encode / decode
+# ---------------------------------------------------------------------------
+
+_QUANT = list(grid(shape=[(64, 128), (3, 5, 7)], scale=[0.1, 100.0],
+                   seed=[0, 1], bits=[1, 8, 11, 16],
+                   dtype=["float32", "bfloat16", "float16"]))
+
+
+@pytest.mark.parametrize("case", _QUANT, ids=str)
+def test_encode_decode_match_jax(case):
+    x_np = random_floats(case["seed"], case["shape"], scale=case["scale"])
+    xj, xt = _pair(x_np, case["dtype"])
+    bits = case["bits"]
+    codes_t = QO.encode(xt, bits)
+    _same(JQR.encode(xj, bits), codes_t, "encode vs ref")
+    if len(case["shape"]) == 2:           # the Pallas kernel takes (M, K)
+        _same(JQ.encode(xj, bits), codes_t, "encode vs kernel")
+    codes_j = JQR.encode(xj, bits)
+    dec_t = QO.decode(codes_t, bits, _DT[case["dtype"]][1])
+    _same(JQR.decode(codes_j, bits, _DT[case["dtype"]][0]), dec_t,
+          "decode vs ref")
+    if len(case["shape"]) == 2:
+        _same(JQ.decode(codes_j, bits, _DT[case["dtype"]][0]), dec_t,
+              "decode vs kernel")
+
+
+@pytest.mark.parametrize("bits", [1, 8, 16])
+def test_decode_every_code(bits):
+    """Every reachable 16-bit code (and the NaN buckets) decodes as JAX's."""
+    codes = np.arange(1 << bits, dtype=np.uint16 if bits > 8 else np.uint8)
+    for dtype in ("float32", "bfloat16", "float16"):
+        jdt, tdt = _DT[dtype]
+        want = JQR.decode(jnp.asarray(codes), bits, jdt)
+        _same(want, QO.decode(torch.from_numpy(codes), bits, tdt), dtype)
+
+
+# ---------------------------------------------------------------------------
+# maxpool: fused max + first argmax, and the winner-routed backward
+# ---------------------------------------------------------------------------
+
+_POOL = list(grid(n=[1, 4, 9], m=[8, 64], k=[128], seed=[0, 1],
+                  dtype=["float32", "bfloat16", "float16", "u8", "u16"]))
+
+
+def _pool_input(case):
+    shape = (case["n"], case["m"], case["k"])
+    rng = np.random.default_rng(case["seed"])
+    if case["dtype"] in ("u8", "u16"):
+        hi = 256 if case["dtype"] == "u8" else 1 << 16
+        npdt = np.uint8 if case["dtype"] == "u8" else np.uint16
+        # few distinct values: ties exercise the first-argmax rule
+        x = (rng.integers(0, 6, shape) * (hi // 6)).astype(npdt)
+        return jnp.asarray(x), torch.from_numpy(x)
+    x = rng.integers(-3, 4, shape).astype(np.float32) * 0.5
+    return _pair(x, case["dtype"])
+
+
+@pytest.mark.parametrize("case", _POOL, ids=str)
+def test_maxpool_fused_matches_jax(case):
+    hj, ht = _pool_input(case)
+    vj, wj = JMP.maxpool_fused(hj)
+    vt, wt = MPO.maxpool_fused(ht, 0)
+    _same(vj, vt, "pooled")
+    _same(wj, wt, "winner")
+    rvj, rwj = JMPR.maxpool_fused(hj)
+    _same(rvj, vt, "pooled vs ref")
+    _same(rwj, wt, "winner vs ref")
+
+
+def test_maxpool_fused_lane_batch_and_nan():
+    """A leading lane axis pools each lane on its own; NaN wins, first."""
+    x = np.random.default_rng(3).standard_normal((3, 4, 50)).astype(
+        np.float32)
+    x[1, 2, 7] = np.nan
+    x[1, 3, 7] = np.nan
+    v, w = MPO.maxpool_fused(torch.from_numpy(x), 1)
+    for lane in range(3):
+        vj, wj = JMP.maxpool_fused(jnp.asarray(x[lane])[:, None, :])
+        assert np.array_equal(np.asarray(wj)[0], w[lane].numpy())
+        assert np.array_equal(np.asarray(vj)[0], v[lane].numpy(),
+                              equal_nan=True)
+    assert w[1, 7] == 2
+
+
+@pytest.mark.parametrize("n", [1, 4, 9])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_winner_bwd_matches_jax(n, dtype):
+    rng = np.random.default_rng(n)
+    w = rng.integers(0, n, (16, 128)).astype(np.int32)
+    gj, gt = _pair(rng.standard_normal((16, 128)).astype(np.float32), dtype)
+    got = MPO.maxpool_winner_bwd(torch.from_numpy(w), gt, n)
+    # bitwise against the pooling laws' form: g * onehot, a zero with g's
+    # sign off the winner
+    onehot = (jnp.arange(n)[:, None, None] == jnp.asarray(w)[None]
+              ).astype(gj.dtype)
+    _same(gj[None] * onehot, got, "product form")
+    # the TPU kernel and its reference write +0.0 off the winner: equal up
+    # to the sign of those zeros
+    got_f = got.float().numpy()
+    for want in (JMP.maxpool_winner_bwd(jnp.asarray(w), gj, n),
+                 JMPR.maxpool_winner_bwd(jnp.asarray(w), gj, n)):
+        assert np.array_equal(np.asarray(want, np.float32), got_f)
+
+
+# ---------------------------------------------------------------------------
+# ocs_contention: packed sensing draws and the tournament
+# ---------------------------------------------------------------------------
+
+_CONTEND = list(grid(n=[4], n_real=[4, 3], k=[96], n_slots=[10, 14],
+                     total_bits=[10], max_rounds=[1, 3],
+                     p_miss=[0.0, 0.2, 0.9], seed=[0, 1])) + \
+    list(grid(n=[8], n_real=[5], k=[64], n_slots=[16], total_bits=[14],
+              max_rounds=[2], p_miss=[0.15], seed=[3]))
+
+
+def _contend_operands(case):
+    n, k, n_slots = case["n"], case["k"], case["n_slots"]
+    rng = np.random.default_rng(case["seed"])
+    word = rng.integers(0, 1 << case["total_bits"], (n, k), dtype=np.uint32)
+    mask = np.arange(n) < case["n_real"]
+    p_keep_j = jocs.sensing_keep_prob(case["p_miss"], jnp.float32)
+    heard_j = JCO.draw_heard_packed(
+        jax.random.PRNGKey(case["seed"]), p_keep_j, n, k, n_slots=n_slots,
+        max_rounds=case["max_rounds"])
+    return word, mask, heard_j
+
+
+@pytest.mark.parametrize("case", _CONTEND, ids=str)
+def test_draw_heard_packed_matches_jax(case):
+    word, mask, heard_j = _contend_operands(case)
+    p_keep = tocs.sensing_keep_prob(torch.tensor([case["p_miss"]]),
+                                    lanes=True)
+    heard_t = CO.draw_heard_packed(
+        jr.PRNGKey(case["seed"])[None], p_keep, case["n"], case["k"],
+        n_slots=case["n_slots"], max_rounds=case["max_rounds"])
+    _same(np.asarray(heard_j), heard_t[0], "packed planes")
+
+
+@pytest.mark.parametrize("case", _CONTEND, ids=str)
+def test_contend_matches_jax(case):
+    word, mask, heard_j = _contend_operands(case)
+    kw = dict(n_slots=case["n_slots"], max_rounds=case["max_rounds"])
+    tb = case["total_bits"]
+    want_k = JCO.contend(jnp.asarray(word), heard_j, jnp.asarray(mask),
+                         jnp.int32(tb), **kw)
+    want_r = JCR.contend(jnp.asarray(word), heard_j, jnp.asarray(mask),
+                         jnp.int32(tb), **kw)
+    got = CO.contend(torch.from_numpy(word)[None],
+                     torch.from_numpy(np.array(heard_j))[None],
+                     torch.from_numpy(mask), tb, **kw)
+    for a, b, c, what in zip(want_k, want_r, got,
+                             ("winner", "contending", "collided")):
+        _same(a, c[0], what + " vs kernel")
+        _same(b, c[0], what + " vs ref")
+
+
+def test_contend_lanes_and_per_lane_mask():
+    """Lanes are independent tournaments; a (L, N) mask masks per lane."""
+    rng = np.random.default_rng(5)
+    lanes, n, k, r, s = 3, 6, 40, 2, 12
+    word = rng.integers(0, 1 << 12, (lanes, n, k), dtype=np.uint32)
+    heard = rng.integers(0, 1 << 32, (lanes, r, n, k), dtype=np.uint32)
+    mask = rng.random((lanes, n)) < 0.7
+    mask[:, 0] = True
+    got = CO.contend(torch.from_numpy(word), torch.from_numpy(heard),
+                     torch.from_numpy(mask), 12, n_slots=s, max_rounds=r)
+    for lane in range(lanes):
+        want = JCR.contend(jnp.asarray(word[lane]), jnp.asarray(heard[lane]),
+                           jnp.asarray(mask[lane]), jnp.int32(12),
+                           n_slots=s, max_rounds=r)
+        for a, b in zip(want, got):
+            _same(a, b[lane])
+
+
+# ---------------------------------------------------------------------------
+# dispatch: CPU tensors take the plain version, others the kernel or raise
+# ---------------------------------------------------------------------------
+
+def test_wrappers_take_plain_version_on_cpu():
+    x = torch.randn(4, 4, 32)
+    assert torch.equal(QO.encode(x, 8), QR.encode(x, 8))
+    codes = QO.encode(x, 16)
+    assert torch.equal(QO.decode(codes[0], 16, torch.float32),
+                       QR.decode(codes[0], 16, torch.float32))
+    v, w = MPO.maxpool_fused(codes, 1)
+    rv, rw = MPR.maxpool_fused(codes, 1)
+    assert torch.equal(v.to(torch.int32), rv.to(torch.int32))
+    assert torch.equal(w, rw)
+    g = torch.randn(4, 32)
+    assert torch.equal(MPO.maxpool_winner_bwd(w, g, 4, 1),
+                       MPR.maxpool_winner_bwd(w, g, 4, 1))
+    word = torch.randint(0, 1 << 10, (4, 4, 32), dtype=torch.int32)
+    heard = torch.randint(0, 1 << 10, (4, 3, 4, 32), dtype=torch.int32)
+    mask = torch.ones(4, dtype=torch.bool)
+    a = CO.contend(word, heard, mask, 10, n_slots=10, max_rounds=3)
+    b = CR.contend(word, heard, mask, 10, n_slots=10, max_rounds=3)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_wrappers_never_run_the_plain_version_off_the_cpu():
+    """A tensor that is not on the CPU goes to the kernel path, which here
+    refuses it (a CUDA tensor would launch): no quiet plain fallback."""
+    x = torch.empty((4, 4, 32), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        QO.encode(x, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        QO.decode(torch.empty((4, 32), dtype=torch.uint8, device="meta"), 8,
+                  torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        MPO.maxpool_fused(x, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        MPO.maxpool_winner_bwd(
+            torch.empty((4, 32), dtype=torch.int32, device="meta"),
+            torch.empty((4, 32), device="meta"), 4, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        CO.contend(torch.empty((1, 4, 32), dtype=torch.int32, device="meta"),
+                   torch.empty((1, 3, 4, 32), dtype=torch.int32,
+                               device="meta"),
+                   torch.ones(4, dtype=torch.bool), 10, n_slots=10,
+                   max_rounds=3)
+
+
+def test_wide_codes_refused_on_the_card_path():
+    x = torch.empty((4, 32), device="meta")
+    with pytest.raises(ValueError, match="at most 16 bits"):
+        QO.encode(x, 24)
