@@ -8,23 +8,38 @@ Phases, in order; any failed check raises and the script exits non-zero:
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` for
    ``sm_90a`` and print the build seconds;
-3. for each kernel, at the shapes the main path gives it (4 p_miss lanes x
-   4 workers x a 64 x 64 batch of embeddings; contention at bits 8 and 16),
-   check the kernel bitwise against its plain PyTorch version on the card
-   and time both (CUDA events);
+3. for each kernel, at the shapes the two main paths give it, check the
+   kernel against its plain PyTorch version on the card and time both:
+   the curves' kernels bitwise at 4 p_miss lanes x 4 workers x a 64 x 64
+   batch of embeddings (contention at bits 8 and 16) and at the serving
+   tick's 16 workers x 8 slots x 1024 bf16 features; flash attention
+   within the JAX parity test's tolerances at the prefill shapes and the
+   JAX test's float32 GQA cases;
 4. check that at ``p_miss=0`` ``Protocol.ocs(bits).aggregate`` equals
    ``Protocol.ideal_max(bits, tie_break="first").aggregate`` bitwise,
    forward and input gradient, at bits 8 and 16;
 5. run ``run_curves`` at the fedocs-cifar width (4 workers, 32 x 32 images,
    encoders (256, 128), K = 64, head (512, 512, 512), 10 classes) for 60
    steps with every launch count set to 0 just before and read just after;
-   every kernel must have launched, every loss be finite, and the
-   ``p_miss=0`` lanes must have trained bit for bit as the ideal runs;
+   every kernel of the path must have launched, every loss be finite, and
+   the ``p_miss=0`` lanes must have trained bit for bit as the ideal runs;
 6. run a small grid on the card and on the CPU (plain versions) and
    compare losses and accuracies;
-7. profile a short run at the main path's width (device busy time, idle
-   share, time by kernel; the table goes to ``chiprun_out/``);
-8. print one ``{"kernels": [...]}`` line and, last, the device line.
+7. profile a short run at the curves' width (device busy time, idle share,
+   time by kernel; the table goes to ``chiprun_out/``);
+8. serve ``qwen1.5-0.5b`` at its full width (bf16, random weights from a
+   seed, flash prefill) with ``Protocol.ocs(bits=8, p_miss=0.05)`` in every
+   decode tick: 16 Poisson requests of 256-token prompts for 32 tokens
+   over 8 slots, launch counts set to 0 just before and read just after;
+   flash must launch once per layer per request, contention once per layer
+   per tick, every logit be finite and the billing add up;
+9. check that at ``p_miss=0`` the OCS engine serves the tokens of
+   ``Protocol.ideal_max(8, "first")`` at the full width;
+10. serve the reduced qwen config on the card and on the CPU and compare
+    prefill logits and tokens;
+11. profile 10 decode ticks at the full width (the table goes to
+    ``chiprun_out/``);
+12. print one ``{"kernels": [...]}`` line and, last, the device line.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -39,6 +54,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -47,32 +63,48 @@ sys.path.insert(0, str(ROOT / "src"))
 # the port itself: a copy of this script alone fails here
 from repro_torch import kernels, tree  # noqa: E402
 from repro_torch import random as jr  # noqa: E402
+from repro_torch.configs import get_config, get_reduced  # noqa: E402
 from repro_torch.core import ocs  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.maxpool import ops as mp_ops  # noqa: E402
 from repro_torch.kernels.maxpool import ref as mp_ref  # noqa: E402
 from repro_torch.kernels.ocs_contention import ops as ct_ops  # noqa: E402
 from repro_torch.kernels.ocs_contention import ref as ct_ref  # noqa: E402
 from repro_torch.kernels.ocs_quant import ops as q_ops  # noqa: E402
 from repro_torch.kernels.ocs_quant import ref as q_ref  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
 from repro_torch.protocol import Protocol  # noqa: E402
+from repro_torch.serve import engine as se  # noqa: E402
+from repro_torch.serve.load import poisson_requests  # noqa: E402
 from repro_torch.sim import results  # noqa: E402
 from repro_torch.sim import train_curves as tc  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate
 NONTENSOR_OPS_PER_S = 67e12    # H100 SXM float32 rate outside tensor cores
+BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 LANES, N, B, K, ROUNDS = 4, 4, 64, 64, 3
 EVAL_ROWS = 512                # CurveConfig.n_val
+# serving: qwen1.5-0.5b (24 layers, d_model 1024, 16 heads of 64, 16
+# workers), 8 slots, 16 Poisson requests of 256-token prompts, 32 tokens
+QWEN = "qwen1.5-0.5b"
+QWEN_LAYERS, QWEN_D, QWEN_HEADS, QWEN_WORKERS = 24, 1024, 16, 16
+SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_PROMPT, SERVE_NEW = 8, 512, 256, 32
+SERVE_REQUESTS, SERVE_RATE, SERVE_P_MISS = 16, 0.5, 0.05
 SOURCES = {"ocs_quant.encode": "ocs_quant.cu",
            "ocs_quant.decode": "ocs_quant.cu", "maxpool.fwd": "maxpool.cu",
            "maxpool.winner_bwd": "maxpool.cu",
-           "ocs_contention.contend": "ocs_contention.cu"}
+           "ocs_contention.contend": "ocs_contention.cu",
+           "flash_attention.fwd": "flash_attention.cu"}
 REPLACES = {
     "ocs_quant.encode": "src/repro/kernels/ocs_quant/ocs_quant.py:27",
     "ocs_quant.decode": "src/repro/kernels/ocs_quant/ocs_quant.py:37",
     "maxpool.fwd": "src/repro/kernels/maxpool/maxpool.py:31",
     "maxpool.winner_bwd": "src/repro/kernels/maxpool/maxpool.py:72",
     "ocs_contention.contend":
-        "src/repro/kernels/ocs_contention/ocs_contention.py:50"}
+        "src/repro/kernels/ocs_contention/ocs_contention.py:50",
+    "flash_attention.fwd":
+        "src/repro/kernels/flash_attention/flash_attention.py:32"}
 
 
 def _time_ms(fn, iters: int = 200) -> float:
@@ -114,9 +146,9 @@ def _device_ms(fn, iters: int = 50):
     return total_us / iters / 1e3, "profiler"
 
 
-def _bound(nbytes: float, ops: float):
+def _bound(nbytes: float, ops: float, ops_per_s: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / NONTENSOR_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -150,83 +182,98 @@ def _check_equal(name, launch, plain, extra) -> float:
     return err
 
 
-def _kernel_cases(dev, lanes: int, cols: int, bits: int, seed: int):
+def _kernel_cases(dev, lanes: int, cols: int, bits: int, seed: int,
+                  n: int = N, dtype=torch.float32,
+                  p_miss=(0.0, 0.02, 0.05, 0.1)):
     """(name, launch, plain, nbytes, ops, library call or None, shape) of
-    each kernel at ``lanes`` x N workers x ``cols`` pooled elements: the
-    embeddings flattened the way the pooling laws hand them over."""
+    each kernel at ``lanes`` x ``n`` workers x ``cols`` pooled elements of
+    ``dtype``: the features flattened the way the pooling laws hand them
+    over."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
-    h = (torch.randn((lanes, N, cols), generator=gen) * 3.0).to(dev)
-    g = torch.randn((lanes, cols), generator=gen).to(dev)
+    h = (torch.randn((lanes, n, cols), generator=gen) * 3.0).to(dtype).to(dev)
+    g = torch.randn((lanes, cols), generator=gen).to(dtype).to(dev)
+    fb = h.element_size()
     codes = q_ops.encode(h, bits)
     cb = codes.element_size()
     pooled, winner = mp_ops.maxpool_fused(codes, 1)
-    # the contention word and the packed sensing planes of one step
-    id_bits = ocs.host_id_bits(N)
+    # the contention word and the packed sensing planes of one call
+    id_bits = ocs.host_id_bits(n)
     word = q_ref.from_int64((codes.to(torch.int64) << id_bits)
-                            | ocs._id_codes(N, id_bits, dev)[:, None],
+                            | ocs._id_codes(n, id_bits, dev)[:, None],
                             torch.uint32)
     total = n_slots = bits + id_bits
     keys = jr.split(jr.PRNGKey(bits, dev), lanes)
     p_keep = ocs.sensing_keep_prob(
-        torch.tensor([0.0, 0.02, 0.05, 0.1][:lanes], device=dev), lanes=True)
-    heard = ct_ops.draw_heard_packed(keys, p_keep, N, cols, n_slots=n_slots,
+        torch.tensor(p_miss[:lanes], device=dev), dtype, lanes=True)
+    heard = ct_ops.draw_heard_packed(keys, p_keep, n, cols, n_slots=n_slots,
                                      max_rounds=ROUNDS)
-    mask = torch.ones((N,), dtype=torch.bool, device=dev)
+    mask = torch.ones((n,), dtype=torch.bool, device=dev)
     kw = dict(n_slots=n_slots, max_rounds=ROUNDS)
-    shape = [lanes, N, cols]
+    shape = [lanes, n, cols]
     return [
         ("ocs_quant.encode", lambda: q_ops.encode(h, bits),
-         lambda: q_ref.encode(h, bits), h.numel() * (4 + cb), 4 * h.numel(),
-         None, shape),
-        ("ocs_quant.decode", lambda: q_ops.decode(pooled, bits, torch.float32),
-         lambda: q_ref.decode(pooled, bits, torch.float32),
-         pooled.numel() * (cb + 4), 8 * pooled.numel(), None,
+         lambda: q_ref.encode(h, bits), h.numel() * (fb + cb),
+         4 * h.numel(), None, shape),
+        ("ocs_quant.decode", lambda: q_ops.decode(pooled, bits, dtype),
+         lambda: q_ref.decode(pooled, bits, dtype),
+         pooled.numel() * (cb + fb), 8 * pooled.numel(), None,
          list(pooled.shape)),
         ("maxpool.fwd", lambda: mp_ops.maxpool_fused(codes, 1),
          lambda: mp_ref.maxpool_fused(codes, 1),
          codes.numel() * cb + pooled.numel() * (cb + 4),
-         pooled.numel() * (N - 1),
+         pooled.numel() * (n - 1),
          (lambda: torch.max(codes, dim=1)) if bits == 8 else None, shape),
         ("maxpool.winner_bwd", lambda: mp_ops.maxpool_winner_bwd(
-            winner, g, N, 1), lambda: mp_ref.maxpool_winner_bwd(
-            winner, g, N, 1), winner.numel() * 8 + g.numel() * N * 4,
-         g.numel() * N, None, shape),
+            winner, g, n, 1), lambda: mp_ref.maxpool_winner_bwd(
+            winner, g, n, 1), winner.numel() * 4 + g.numel() * (1 + n) * fb,
+         g.numel() * n, None, shape),
         ("ocs_contention.contend",
          lambda: ct_ops.contend(word, heard, mask, total, **kw),
          lambda: ct_ref.contend(word, heard, mask, total, **kw),
          word.numel() * 4 + heard.numel() * 4 + lanes * cols * 4,
-         lanes * cols * ROUNDS * n_slots * (6 * N + 3), None, shape),
+         lanes * cols * ROUNDS * n_slots * (6 * n + 3), None, shape),
     ]
+
+
+def _record(name, launch, plain, nbytes, ops, lib, extra, err,
+            ops_per_s=NONTENSOR_OPS_PER_S) -> dict:
+    """Time ``launch`` (the kernel), ``plain`` and ``lib`` on the card and
+    build the kernel's record for the ``{"kernels": [...]}`` line."""
+    (ms, src_k), (plain_ms, src_p) = _device_ms(launch), _device_ms(plain)
+    lib_ms, src_l = _device_ms(lib) if lib is not None else (None, None)
+    bound_ms, bound_by = _bound(nbytes, ops, ops_per_s)
+    # "events": the profiler saw no device time and a number is the host's
+    # issue rate, not device time
+    ms_source = ("profiler" if {src_k, src_p, src_l} <= {"profiler", None}
+                 else "events")
+    rec = {"name": name, "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/" + SOURCES[name],
+           "replaces": REPLACES[name], "launches": 0, "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": lib_ms,
+           "ms_source": ms_source, "host_ms": _time_ms(launch), **extra}
+    lib_txt = "" if lib_ms is None else f", {lib_ms:.6f} ms library"
+    print(f"kernel {name} {extra}: max abs err {err:.3g}; device {ms:.6f} "
+          f"ms kernel, {plain_ms:.6f} ms plain{lib_txt}, bound "
+          f"{bound_ms:.6f} ms ({bound_by}, {ms_source}); "
+          f"{rec['host_ms']:.6f} ms per call back to back", flush=True)
+    return rec
 
 
 def check_kernels(dev) -> dict:
     """Phase 3: every kernel bitwise against its plain version at the
     training step's shape (4 lanes x 4 workers x a 64 x 64 batch of
-    embeddings), timed; and bitwise, untimed, at the other shapes the main
-    path launches: the ideal run's single lane, and the evaluation's 512 x
-    64 elements (4 noisy lanes and the ideal lane)."""
+    embeddings), timed; bitwise, untimed, at the other shapes the curves
+    launch: the ideal run's single lane, and the evaluation's 512 x 64
+    elements (4 noisy lanes and the ideal lane); and bitwise, timed, at the
+    serving tick's shape (one lane of 16 workers x 8 slots x d_model 1024
+    bf16 features, bits 8, p_miss 0.05; the winner bwd is not on serving).
+    Then flash attention (:func:`check_flash`)."""
     rows = {}
 
     def row(name, launch, plain, nbytes, ops, lib, extra):
         err = _check_equal(name, launch, plain, extra)
-        (ms, src_k), (plain_ms, src_p) = _device_ms(launch), _device_ms(plain)
-        lib_ms, src_l = _device_ms(lib) if lib is not None else (None, None)
-        bound_ms, bound_by = _bound(nbytes, ops)
-        # "events": the profiler saw no device time and a number is the
-        # host's issue rate, not device time
-        ms_source = ("profiler" if {src_k, src_p, src_l} <= {"profiler", None}
-                     else "events")
-        rec = {"name": name, "route": "cuda",
-               "source": "src/repro_torch/kernels/csrc/" + SOURCES[name],
-               "replaces": REPLACES[name], "launches": 0, "max_abs_err": err,
-               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "library_ms": lib_ms,
-               "ms_source": ms_source, "host_ms": _time_ms(launch), **extra}
-        print(f"kernel {name} {extra}: bitwise equal; device {ms:.6f} ms "
-              f"kernel, {plain_ms:.6f} ms plain, bound {bound_ms:.6f} ms "
-              f"({bound_by}, {ms_source}); {rec['host_ms']:.6f} ms per call "
-              "back to back", flush=True)
-        return rec
+        return _record(name, launch, plain, nbytes, ops, lib, extra, err)
 
     for bits in (8, 16):
         for name, launch, plain, nbytes, ops, lib, shape in _kernel_cases(
@@ -242,7 +289,68 @@ def check_kernels(dev) -> dict:
                 _check_equal(name, launch, plain, dict(bits=bits, shape=shape))
         print(f"kernels at bits={bits}: bitwise equal also at the ideal "
               "lane and the evaluation shapes", flush=True)
+    for name, launch, plain, nbytes, ops, lib, shape in _kernel_cases(
+            dev, 1, SERVE_SLOTS * QWEN_D, 8, seed=99, n=QWEN_WORKERS,
+            dtype=torch.bfloat16, p_miss=(0.05,)):
+        if name != "maxpool.winner_bwd":
+            rows[(name, "serve")] = row(name, launch, plain, nbytes, ops, lib,
+                                        dict(bits=8, shape=shape,
+                                             dtype="bfloat16"))
+    rows[("flash_attention.fwd", "serve")] = check_flash(dev)
     return rows
+
+
+def _flash_inputs(dev, h, hkv, s, dtype, seed):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.randn(shape, generator=gen).to(dtype).to(dev)
+            for shape in ((1, h, s, 64), (1, hkv, s, 64), (1, hkv, s, 64))]
+
+
+def check_flash(dev) -> dict:
+    """Phase 3, flash attention: the kernel against its plain version on
+    the card within the JAX parity test's tolerances (atol 3e-5 in float32,
+    0.05 in bfloat16: the kernel sums in another order than the whole
+    softmax) at the prefill shapes — (1, 16, S, 64) bf16 causal for S 128,
+    256 (this run's prompts) and 512 — and at the JAX test's float32 GQA
+    cases (1, 4, 192, 64), Hkv 1, 2, 4, causal and not, blocks of 64; 192
+    at the default blocks of 128 must be refused.  Timed at S = 256."""
+    cases = ([(16, 16, s, torch.bfloat16, True, 128) for s in (128, 256, 512)]
+             + [(4, hkv, 192, torch.float32, causal, 64)
+                for hkv in (1, 2, 4) for causal in (True, False)])
+    for h, hkv, s, dtype, causal, block in cases:
+        q, k, v = _flash_inputs(dev, h, hkv, s, dtype, seed=s + hkv)
+        got = fa_ops.flash_attention(q, k, v, causal, block, block)
+        want = fa_ref.flash_attention(q, k, v, causal)
+        err = float((got.float() - want.float()).abs().max())
+        tol = 0.05 if dtype == torch.bfloat16 else 3e-5
+        print(f"flash {(1, h, s, 64)} Hkv {hkv} {dtype} causal={causal}: "
+              f"max abs err {err:.3g} (tolerance {tol})", flush=True)
+        if not err <= tol:
+            raise AssertionError(f"flash kernel != plain: {err} > {tol}")
+    q, k, v = _flash_inputs(dev, 4, 2, 192, torch.float32, seed=0)
+    try:
+        fa_ops.flash_attention(q, k, v)
+    except ValueError:
+        print("flash: S=192 at blocks of 128 refused, as JAX asserts",
+              flush=True)
+    else:
+        raise AssertionError("flash: S=192 at blocks of 128 was accepted")
+
+    h, s, d = QWEN_HEADS, SERVE_PROMPT, 64
+    q, k, v = _flash_inputs(dev, h, h, s, torch.bfloat16, seed=1)
+    err = float((fa_ops.flash_attention(q, k, v).float()
+                 - fa_ref.flash_attention(q, k, v).float()).abs().max())
+    # bytes: q, k, v read once, out written once; operations: the causal
+    # pairs' two products (QK^T and PV), 2 flops a multiply-add, on the
+    # bf16 tensor-core rate
+    nbytes = 4 * q.numel() * q.element_size()
+    ops = 4 * h * d * s * (s + 1) // 2
+    return _record(
+        "flash_attention.fwd", lambda: fa_ops.flash_attention(q, k, v),
+        lambda: fa_ref.flash_attention(q, k, v), nbytes, ops,
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+        dict(shape=[1, h, s, d], dtype="bfloat16", causal=True), err,
+        BF16_TENSOR_OPS_PER_S)
 
 
 def check_p0_equivalence(dev) -> None:
@@ -292,7 +400,9 @@ def run_main_path(dev):
     print(f"run_curves fedocs-cifar width: {ccfg.steps} steps x "
           f"{len(ccfg.bits)} bits x {len(ccfg.p_miss)} lanes + ideal: "
           f"{wall:.3f} s wall; launches {counts}", flush=True)
-    missing = [k for k, v in counts.items() if v == 0]
+    # flash attention is serving's kernel (phase 8), not the curves'
+    missing = [k for k, v in counts.items()
+               if v == 0 and k != "flash_attention.fwd"]
     assert not missing, f"kernels not launched on the main path: {missing}"
     for arr in (res.loss_history, res.ideal_loss_history, res.nll,
                 res.nll_ideal):
@@ -370,6 +480,205 @@ def check_against_cpu(dev) -> None:
     assert acc_err <= 2, acc_err
 
 
+# ---------------------------------------------------------------------------
+# serving: qwen1.5-0.5b with the OCS channel in every decode tick
+# ---------------------------------------------------------------------------
+
+def _ocs(p_miss: float) -> Protocol:
+    return Protocol.ocs(bits=8, p_miss=np.full((QWEN_WORKERS,), p_miss,
+                                               np.float32))
+
+
+def _watch_logits(m, dev) -> dict:
+    """Wrap the model's prefill and channel decode so that every logit
+    they return is checked finite on the card, without a sync per tick;
+    ``state["ok"]`` is read once at the end."""
+    state = {"ok": torch.ones((), dtype=torch.bool, device=dev)}
+    prefill, step = m.prefill, m.decode_step_channel
+
+    def checked_prefill(*args, **kw):
+        logits, cache = prefill(*args, **kw)
+        state["ok"] = state["ok"] & torch.isfinite(logits).all()
+        return logits, cache
+
+    def checked_step(*args, **kw):
+        logits, cache, chan = step(*args, **kw)
+        state["ok"] = state["ok"] & torch.isfinite(logits).all()
+        return logits, cache, chan
+
+    m.prefill, m.decode_step_channel = checked_prefill, checked_step
+    return state
+
+
+def run_serving(dev):
+    """Phase 8: the serving main path at the full qwen1.5-0.5b width (bf16,
+    random weights from seed 0, flash prefill), OCS at p_miss 0.05 for all
+    16 workers in every decode tick: 16 Poisson requests (rate 0.5 a tick)
+    of 256-token prompts for 32 tokens each over 8 slots, launch counts set
+    to 0 just before and read just after."""
+    cfg = get_config(QWEN, use_flash=True)
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_workers) == \
+        (QWEN_LAYERS, QWEN_D, QWEN_HEADS, QWEN_WORKERS)
+    m = M.build(cfg)
+    values = m.init(torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(t.numel() for t in tree.leaves(values))
+    finite = _watch_logits(m, dev)
+    proto = _ocs(SERVE_P_MISS)
+    eng = se.ServeEngine(m, values, se.ServeConfig(
+        batch_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, eos_id=-1,
+        protocol=proto), device=dev)
+    reqs = poisson_requests(SERVE_REQUESTS, SERVE_RATE, cfg.vocab_size,
+                            prompt_len=SERVE_PROMPT,
+                            max_new_tokens=SERVE_NEW, seed=0)
+    # warm-up (cuBLAS handles, the allocator's pools), not counted
+    eng.run([se.Request(rid=0, prompt=reqs[0].prompt, max_new_tokens=2)])
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    se.reset_dispatch_counts()
+    t0 = time.perf_counter()
+    outs = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    ticks = se.dispatch_counts()["tick"]
+    n_tokens = sum(len(c.tokens) for c in outs.values())
+    print(f"serve {QWEN} full width ({n_params} parameters, bf16): "
+          f"{len(outs)} requests, {n_tokens} tokens, {ticks} ticks in "
+          f"{wall:.3f} s wall; {1e3 * wall / ticks:.2f} ms per tick "
+          f"(prefills included); {n_tokens / wall:.2f} tokens per second; "
+          f"launches {counts}", flush=True)
+    sites = m.channel_sites()
+    assert sites == QWEN_LAYERS
+    assert counts["flash_attention.fwd"] == QWEN_LAYERS * SERVE_REQUESTS, \
+        counts
+    assert counts["ocs_contention.contend"] == sites * ticks, (counts, ticks)
+    for name in ("ocs_quant.encode", "ocs_quant.decode", "maxpool.fwd"):
+        assert counts[name] > 0, f"{name} not launched while serving"
+    assert bool(finite["ok"]), "a logit is not finite"
+    per_tok = proto.comm_load(QWEN_WORKERS, QWEN_D).uplink_bits * sites
+    assert sorted(outs) == list(range(SERVE_REQUESTS))
+    for c in outs.values():
+        assert len(c.tokens) == SERVE_NEW, (c.rid, len(c.tokens))
+        assert c.channel_slots > 0, c.rid
+        assert c.uplink_bits == (len(c.tokens) - 1) * per_tok, c.rid
+    lat = [c.latency_us(eng.config.clock) for c in outs.values()]
+    print(f"serve: every request {SERVE_NEW} tokens, every logit finite, "
+          f"channel "
+          f"slots per request {min(c.channel_slots for c in outs.values())}"
+          f"-{max(c.channel_slots for c in outs.values())}, uplink bits "
+          f"per request {outs[0].uplink_bits}; ChannelClock latency "
+          f"{min(lat):.0f}-{max(lat):.0f} us", flush=True)
+    return dict(counts=counts, wall=wall, ticks=ticks, tokens=n_tokens,
+                m=m, values=values, eng=eng, reqs=reqs, proto=proto)
+
+
+def check_serving_p0(dev, serve) -> None:
+    """Phase 9: at p_miss 0 the OCS engine serves bitwise the tokens of
+    ``Protocol.ideal_max(8, "first")`` at the full width (4 requests, 8
+    tokens: tests/test_serve.py's contract)."""
+    eng = se.ServeEngine(serve["m"], serve["values"], se.ServeConfig(
+        batch_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, eos_id=-1),
+        device=dev)
+    reqs = poisson_requests(4, SERVE_RATE, serve["m"].cfg.vocab_size,
+                            prompt_len=SERVE_PROMPT, max_new_tokens=8,
+                            seed=1)
+    a = eng.run(reqs, protocol=_ocs(0.0))
+    b = eng.run(reqs, protocol=Protocol.ideal_max(8, tie_break="first"))
+    for rid in a:
+        assert a[rid].tokens == b[rid].tokens, (rid, a[rid].tokens,
+                                                b[rid].tokens)
+    print("serve p0: OCS(p_miss=0) == ideal_max(8, 'first') in every token "
+          f"of {len(a)} requests x 8 at {QWEN}'s width", flush=True)
+
+
+def check_serving_against_cpu(dev) -> None:
+    """Phase 10: the reduced qwen config in float32 with the flash prefill,
+    the same weights on the card and the CPU: prefill logits within 1e-4
+    (float order), a channel-free run serves equal tokens; under OCS at
+    p_miss 0.05 the agreeing tokens and channel slots are reported."""
+    cfg = get_reduced(QWEN, use_flash=True)
+    m = M.build(cfg)
+    cpu_values = m.init(torch.Generator().manual_seed(0))
+    gpu_values = tree.map(lambda t: t.to(dev), cpu_values)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32))
+    lc, _ = m.prefill(cpu_values, {"tokens": toks}, max_seq=96)
+    lg, _ = m.prefill(gpu_values, {"tokens": toks.to(dev)}, max_seq=96)
+    err = float((lg.cpu() - lc).abs().max())
+    print(f"serve reduced, card vs CPU: prefill logits max diff {err:.3g}",
+          flush=True)
+    assert err <= 1e-4, err
+    reqs = poisson_requests(6, SERVE_RATE, cfg.vocab_size, prompt_len=64,
+                            max_new_tokens=12, seed=2)
+    p = np.full((cfg.n_workers,), SERVE_P_MISS, np.float32)
+    for proto in (None, Protocol.ocs(bits=8, p_miss=p)):
+        config = se.ServeConfig(batch_slots=2, max_seq=96, eos_id=-1,
+                                protocol=proto)
+        want = se.ServeEngine(m, cpu_values, config, device="cpu").run(reqs)
+        got = se.ServeEngine(m, gpu_values, config, device=dev).run(reqs)
+        same_tok = sum(a == b for rid in want for a, b in
+                       zip(got[rid].tokens, want[rid].tokens))
+        total = sum(len(c.tokens) for c in want.values())
+        same_slots = sum(got[r].channel_slots == want[r].channel_slots
+                         for r in want)
+        what = "channel-free" if proto is None else "OCS p_miss 0.05"
+        print(f"serve reduced, card vs CPU, {what}: {same_tok} of {total} "
+              f"tokens equal, channel_slots equal for {same_slots} of "
+              f"{len(want)} requests", flush=True)
+        for rid in want:
+            if got[rid].tokens != want[rid].tokens:
+                first = next(i for i, (a, b) in enumerate(
+                    zip(got[rid].tokens, want[rid].tokens)) if a != b)
+                print(f"  request {rid}: first differing token at {first}: "
+                      f"card {got[rid].tokens} CPU {want[rid].tokens}",
+                      flush=True)
+        if proto is None:
+            assert same_tok == total, "channel-free tokens differ"
+
+
+def profile_serving(dev, serve) -> None:
+    """Phase 11: where a decode tick's time goes at the full width: the 8
+    slots filled (prefills not profiled), 10 ticks timed unprofiled, then
+    10 more under torch.profiler (device busy time, idle share, time by
+    kernel; the table goes to chiprun_out/profile_serve.txt)."""
+    eng, proto = serve["eng"], serve["proto"]
+    eng._reset()
+    for slot, req in enumerate(serve["reqs"][:SERVE_SLOTS]):
+        eng._insert(slot, req)
+    eng._tick(proto, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(1, 11):
+        eng._tick(proto, t)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for t in range(11, 21):
+            eng._tick(proto, t)
+        torch.cuda.synchronize()
+    by_name, launches = {}, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+            launches += 1
+    device_s = sum(by_name.values()) / 1e6
+    int64_s = sum(us for name, us in by_name.items()
+                  if "<long" in name or "Functor<long" in name) / 1e6
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "profile_serve.txt").write_text(prof.key_averages().table(
+        sort_by="self_device_time_total", row_limit=60))
+    print(f"profile, 10 decode ticks at the full width ({SERVE_SLOTS} slots, "
+          f"OCS p {SERVE_P_MISS}): wall {wall:.4f} s unprofiled ({100 * wall:.2f} ms per "
+          f"tick), device busy {device_s:.4f} s, idle share "
+          f"{1 - device_s / wall:.3f}; {launches} device kernels and copies; "
+          f"int64 elementwise kernels {int64_s:.4f} s of the device time",
+          flush=True)
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"  {us / 1e3:10.3f} ms  {name[:100]}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -390,16 +699,34 @@ def main() -> int:
 
     rows = check_kernels(dev)
     check_p0_equivalence(dev)
-    counts, wall, _ = run_main_path(dev)
+    curve_counts, wall, _ = run_main_path(dev)
     check_against_cpu(dev)
     profile_main_path(dev)
+    serve = run_serving(dev)
+    check_serving_p0(dev, serve)
+    check_serving_against_cpu(dev)
+    profile_serving(dev, serve)
 
     line = []
     for name in kernels.KERNELS:
-        # the rows timed at the main path's first depth (bits=8)
-        rec = rows[(name, 8)]
-        line.append(dict(rec, launches=counts[name]))
+        # the curves' kernels timed at the main path's first depth (bits=8),
+        # with their serving-shape timing beside; flash at the prefill shape
+        if name == "flash_attention.fwd":
+            rec = dict(rows[(name, "serve")])
+        else:
+            rec = dict(rows[(name, 8)])
+            srv = rows.get((name, "serve"))
+            if srv is not None:
+                rec["serve"] = {k: srv[k] for k in (
+                    "shape", "dtype", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "max_abs_err", "ms_source")}
+        by_path = {"run_curves": curve_counts[name],
+                   "serve": serve["counts"][name]}
+        line.append(dict(rec, launches=sum(by_path.values()),
+                         launches_by_path=by_path))
     print(f"run_curves wall seconds: {wall}", flush=True)
+    print(f"serve wall seconds: {serve['wall']} ({serve['ticks']} ticks, "
+          f"{serve['tokens']} tokens); {smi}", flush=True)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,34 @@
+"""Architecture config registry: ``--arch <id>`` resolution.
+
+It holds the architectures the port builds; the others come with the
+slices that port their modules (ROADMAP queue 1, item 17)."""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig, check_ported
+
+_MODULES = {
+    "qwen1.5-0.5b": "qwen1_5_0_5b",
+}
+
+ARCH_IDS = tuple(_MODULES)
+
+
+def _module(arch_id: str):
+    if arch_id not in _MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
+
+
+def get_config(arch_id: str, **overrides) -> ModelConfig:
+    return _module(arch_id).config(**overrides)
+
+
+def get_reduced(arch_id: str, **overrides) -> ModelConfig:
+    return _module(arch_id).reduced(**overrides)
+
+
+__all__ = ["ModelConfig", "ARCH_IDS", "check_ported", "get_config",
+           "get_reduced"]

@@ -1,8 +1,8 @@
 """Hand-written Hopper kernels and their build.
 
-Each kernel package (``ocs_quant``, ``maxpool``, ``ocs_contention``) holds
-``ops.py``, the wrapper the port calls, and ``ref.py``, the kernel's plain
-PyTorch version.  A wrapper runs the plain version only for a tensor on the
+Each kernel package (``ocs_quant``, ``maxpool``, ``ocs_contention``,
+``flash_attention``) holds ``ops.py``, the wrapper the port calls, and
+``ref.py``, the kernel's plain PyTorch version.  A wrapper runs the plain version only for a tensor on the
 CPU; for a CUDA tensor it launches the kernel or raises.
 
 The CUDA C++ sources live in ``csrc/``.  :func:`library` compiles them at
@@ -32,17 +32,20 @@ from typing import Dict, Optional
 import torch
 
 CSRC = pathlib.Path(__file__).with_name("csrc")
-SOURCES = ("ocs_quant.cu", "maxpool.cu", "ocs_contention.cu")
+SOURCES = ("ocs_quant.cu", "maxpool.cu", "ocs_contention.cu",
+           "flash_attention.cu")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 KERNELS = ("ocs_quant.encode", "ocs_quant.decode", "maxpool.fwd",
-           "maxpool.winner_bwd", "ocs_contention.contend")
+           "maxpool.winner_bwd", "ocs_contention.contend",
+           "flash_attention.fwd")
 _LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
-_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                    ctypes.c_float)
 _ARGTYPES = {
     # (x, out, n, in_bytes, out_bytes, bits, stream)
     "ocs_encode": (_P, _P, _I64, _I, _I, _I, _P),
@@ -56,6 +59,9 @@ _ARGTYPES = {
     #  n_slots, max_rounds, total_bits, mask_lane_stride, stream)
     "ocs_contend": (_P, _P, _P, _P, _P, _P, _I, _I, _I64, _I, _I, _I, _I,
                     _P),
+    # (q, k, v, out, batch, heads, kv_heads, sq, sk, head_dim, kind,
+    #  causal, scale, stream)
+    "flash_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

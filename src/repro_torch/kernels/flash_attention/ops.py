@@ -1,0 +1,86 @@
+"""Wrapper of the flash-attention forward kernel
+(``csrc/flash_attention.cu``), with the JAX wrapper's contract.
+
+``flash_attention(q, k, v, causal, block_q, block_k)`` takes q ``(B, H,
+Sq, D)`` and k, v ``(B, Hkv, Sk, D)`` and refuses the shapes the JAX
+kernel asserts on (``Sq % min(block_q, Sq)``, the same for Sk); the CUDA
+kernel's own tile is its choice.  It is an ``autograd.Function`` whose
+backward recomputes through the plain version (``ref.py``), as the JAX
+``ops.py`` does.  A CPU tensor runs the plain version; a CUDA tensor
+launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch import kernels
+from repro_torch.kernels.flash_attention import ref
+
+HEAD_DIMS = (16, 32, 64, 128)
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def _check_shapes(q, k, v, block_q: int, block_k: int) -> None:
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"q (B,H,Sq,D), k = v (B,Hkv,Sk,D); got "
+                         f"{tuple(q.shape)} {tuple(k.shape)} "
+                         f"{tuple(v.shape)}")
+    b, h, sq, d = q.shape
+    bk_, hkv, sk, dk = k.shape
+    if bk_ != b or dk != d or hkv < 1 or h % hkv:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
+                         f"pair (batch, head_dim, heads % kv_heads)")
+    bq, bk = min(block_q, sq), min(block_k, sk)
+    if bq < 1 or bk < 1 or sq % bq or sk % bk:
+        raise ValueError(f"Sq={sq} and Sk={sk} must be multiples of the "
+                         f"blocks {bq} and {bk}")
+
+
+def _forward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool) -> torch.Tensor:
+    """Launch the forward kernel on CUDA tensors (no autograd)."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the flash kernel takes head_dim {HEAD_DIMS}, "
+                         f"got {d}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v of one type of {_DTYPES}, got {q.dtype} "
+                         f"{k.dtype} {v.dtype}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    kernels.check_operands(q, k, v, out)
+    if out.numel():
+        kernels.launch("flash_attention.fwd", "flash_fwd", q.device,
+                       q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       out.data_ptr(), b, h, hkv, sq, sk, d,
+                       kernels.KIND[q.dtype], int(causal), d ** -0.5)
+    return out
+
+
+class _Flash(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        if q.device.type == "cpu":
+            return ref.flash_attention(q, k, v, causal)
+        return _forward_kernel(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            prim = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = ref.flash_attention(*prim, causal=ctx.causal)
+            grads = torch.autograd.grad(out, prim, g)
+        return (*grads, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, block_q: int = 128,
+                    block_k: int = 128) -> torch.Tensor:
+    """q: (B, H, Sq, D); k/v: (B, Hkv, Sk, D) -> (B, H, Sq, D)."""
+    _check_shapes(q, k, v, block_q, block_k)
+    return _Flash.apply(q, k, v, bool(causal))

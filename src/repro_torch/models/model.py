@@ -1,0 +1,136 @@
+"""Top-level model API: init / forward / prefill / decode_step.
+
+Pure functions over a ``ModelConfig`` and the value tree (plain tensors,
+the JAX package's tree leaf for leaf); ``build(cfg)`` binds them into a
+``types.SimpleNamespace``, as the JAX package does (a namespace, not an
+``nn.Module``: the parameters stay a plain tree that ``convert`` fills).
+
+Batch conventions (token frontend)
+----------------------------------
+prefill  {"tokens": (B,S) int} -> (last_logits (B,V), cache)
+decode   (token (B,1) int, positions (B,) int, cache)
+
+The decode functions update the KV cache in place and return it.
+``loss_fn`` comes with the training slice and ``input_specs`` with the
+dry-run (ROADMAP queue 1, items 16 and 19).
+"""
+
+from __future__ import annotations
+
+import functools
+import types
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, check_ported
+from repro_torch.models import layers, transformer
+
+
+def init(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    """Random parameters on ``gen``'s device, in the JAX package's tree."""
+    check_ported(cfg)
+    p: Dict[str, Any] = {
+        "embed": layers.embed_init(cfg, gen),
+        "blocks": transformer.stack_init(cfg, gen, cfg.layer_plan(),
+                                         cfg.n_periods),
+        "final_norm": layers.norm_init(cfg, gen),
+    }
+    p.update(layers.unembed_init(cfg, gen))
+    return p
+
+
+def _head(v: dict) -> dict:
+    return {k: v[k] for k in ("head",) if k in v}
+
+
+def _embed_inputs(cfg, v, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x (B,S,d), positions (B,S) int32)."""
+    tokens = batch["tokens"]
+    x = layers.embed_tokens(cfg, v["embed"], tokens)
+    b, s = tokens.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device)[None].expand(b, s)
+    return x, positions
+
+
+def forward(cfg, v, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full forward to final hidden states. Returns (x, aux_loss)."""
+    x, positions = _embed_inputs(cfg, v, batch)
+    x, aux = transformer.stack_full(cfg, v["blocks"], x, positions,
+                                    cfg.layer_plan())
+    return layers.norm_apply(cfg, v["final_norm"], x), aux
+
+
+def logits_fn(cfg, v, batch) -> torch.Tensor:
+    x, _ = forward(cfg, v, batch)
+    return layers.unembed_apply(cfg, _head(v), v["embed"], x)
+
+
+def prefill(cfg, v, batch, max_seq: Optional[int] = None
+            ) -> Tuple[torch.Tensor, dict]:
+    """Returns (last-position logits (B,V), decode cache)."""
+    x, positions = _embed_inputs(cfg, v, batch)
+    max_seq = max_seq or x.shape[1]
+    x, cache, _ = transformer.stack_prefill(
+        cfg, v["blocks"], x, positions, cfg.layer_plan(), max_seq)
+    x = layers.norm_apply(cfg, v["final_norm"], x)
+    logits = layers.unembed_apply(cfg, _head(v), v["embed"], x[:, -1:])
+    return logits[:, 0], cache
+
+
+def decode_step(cfg, v, token: torch.Tensor, positions: torch.Tensor,
+                cache: dict) -> Tuple[torch.Tensor, dict]:
+    """token: (B,1) int; positions: (B,) current write index."""
+    x = layers.embed_tokens(cfg, v["embed"], token)
+    x, cache, _ = transformer.stack_step(cfg, v["blocks"], x, positions,
+                                         cache, cfg.layer_plan())
+    x = layers.norm_apply(cfg, v["final_norm"], x)
+    logits = layers.unembed_apply(cfg, _head(v), v["embed"], x)[:, 0]
+    return logits, cache
+
+
+def decode_step_channel(cfg, v, token: torch.Tensor, positions: torch.Tensor,
+                        cache: dict, protocol, rng: torch.Tensor
+                        ) -> Tuple[torch.Tensor, dict, dict]:
+    """:func:`decode_step` with the wireless channel in the loop.
+
+    Every mlp fusion of the stack aggregates the per-worker partials
+    through ``protocol`` under the sensing key ``rng``; the attention
+    fusions stay on the ideal ``tp_fusion``.  Returns ``(logits, cache,
+    chan)``, ``chan`` the summed channel-accounting dict over the tick's
+    :func:`channel_sites` aggregate calls."""
+    x = layers.embed_tokens(cfg, v["embed"], token)
+    x, cache, _, chan = transformer.stack_step(
+        cfg, v["blocks"], x, positions, cache, cfg.layer_plan(),
+        protocol=protocol, rng=rng)
+    x = layers.norm_apply(cfg, v["final_norm"], x)
+    logits = layers.unembed_apply(cfg, _head(v), v["embed"], x)[:, 0]
+    return logits, cache, chan
+
+
+def channel_sites(cfg) -> int:
+    """Channel aggregate calls per decode tick: one per mlp-FFN layer."""
+    return cfg.n_periods * sum(1 for _, ffn in cfg.layer_plan()
+                               if ffn == "mlp")
+
+
+def cache_init(cfg, batch: int, max_seq: int, device=None) -> dict:
+    return transformer.stack_cache_init(
+        cfg, cfg.layer_plan(), cfg.n_periods, batch, max_seq, cfg.dtype,
+        device)
+
+
+def build(cfg: ModelConfig) -> types.SimpleNamespace:
+    check_ported(cfg)
+    return types.SimpleNamespace(
+        cfg=cfg,
+        init=functools.partial(init, cfg),
+        logits=functools.partial(logits_fn, cfg),
+        forward=functools.partial(forward, cfg),
+        prefill=functools.partial(prefill, cfg),
+        decode_step=functools.partial(decode_step, cfg),
+        decode_step_channel=functools.partial(decode_step_channel, cfg),
+        channel_sites=functools.partial(channel_sites, cfg),
+        cache_init=functools.partial(cache_init, cfg),
+    )

@@ -104,21 +104,37 @@ def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     return b1 ^ b2
 
 
-def uniform(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32)`` in [0, 1)."""
-    bits = (random_bits(key, shape) >> 9) | 0x3F800000
-    return bits.to(torch.int32).view(torch.float32) - 1.0
+# (bits drawn, mantissa bits, the bits of 1.0, the int view) per type: JAX
+# draws at least 8 bits, so bfloat16 (7 mantissa bits) takes 8, not 16
+_FLOAT_DRAWS = {torch.float32: (32, 23, 0x3F800000, torch.int32),
+                torch.bfloat16: (8, 7, 0x3F80, torch.int16),
+                torch.float16: (16, 10, 0x3C00, torch.int16)}
+
+
+def uniform(key: torch.Tensor, shape: Sequence[int],
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, dtype)`` in [0, 1), for float32,
+    bfloat16 and float16.
+
+    A draw of fewer bits (16 for float16, 8 for bfloat16) is the low bits
+    of ``bits1 ^ bits2``; the mantissa is its top ``nmant`` bits under the
+    exponent of 1.0, and 1.0 is subtracted in ``dtype`` (exactly)."""
+    if dtype not in _FLOAT_DRAWS:
+        raise ValueError(f"uniform draws {tuple(_FLOAT_DRAWS)}, got {dtype}")
+    rng_bits, nmant, one, view = _FLOAT_DRAWS[dtype]
+    bits = random_bits(key, shape) & ((1 << rng_bits) - 1)
+    floats = ((bits >> (rng_bits - nmant)) | one).to(view).view(dtype)
+    return floats - torch.ones((), dtype=dtype, device=floats.device)
 
 
 def bernoulli(key: torch.Tensor, p: torch.Tensor,
               shape: Sequence[int]) -> torch.Tensor:
-    """``jax.random.bernoulli(key, p, shape)`` for float32 ``p``.
+    """``jax.random.bernoulli(key, p, shape)``: ``uniform < p``, drawn and
+    compared in ``p``'s float type.
 
     ``p`` broadcasts against ``key.shape[:-1] + shape`` (a lane stack of
     keys with ``(L, 1, ...)`` probabilities, say)."""
-    if p.dtype != torch.float32:
-        raise ValueError(f"bernoulli draws float32 uniforms; p is {p.dtype}")
-    return uniform(key, shape) < p
+    return uniform(key, shape, p.dtype) < p
 
 
 def randint(key: torch.Tensor, shape: Sequence[int], minval: int,

@@ -1,0 +1,297 @@
+"""Channel-in-the-loop serving: slot-based continuous batching with the
+wireless aggregation protocol inside the decode tick (the JAX package's
+``serve/engine.py``).
+
+A fixed budget of B slots decodes in lock-step.  Each tick decodes through
+the stack (optionally aggregating every mlp-FFN worker fusion through a
+simulated :class:`repro_torch.protocol.Protocol` channel), picks the next
+token greedily and advances the positions, all on the engine's device; the
+host reads the tick's tokens, positions and channel slots back in one
+copy.  Finished slots (EOS, budget or length cap) retire and refill from
+the arrival queue by a single-request prefill whose KV cache is copied
+into the batch cache at the slot, in place.
+
+Airtime accounting: the contention core measures the channel slots each
+tick consumed (``ProtocolAccounting`` summed over the stack's
+``channel_sites``), and a :class:`ChannelClock` converts ticks + slots to
+wall time, so every :class:`Completion` carries its latency decomposed
+into compute ticks and channel slots.
+
+``dispatch_counts()["tick"]`` counts decode ticks.  The JAX package's
+``trace_counts`` has no counterpart: nothing here compiles.  Fault
+injection and sampling are not ported yet (ROADMAP queue 1): a
+``ServeConfig`` asking for either raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import random as jr
+from repro_torch import tree
+from repro_torch.protocol import Protocol
+
+_DISPATCH_COUNTS = {"tick": 0}
+
+
+def dispatch_counts() -> Dict[str, int]:
+    return dict(_DISPATCH_COUNTS)
+
+
+def reset_dispatch_counts() -> None:
+    _DISPATCH_COUNTS["tick"] = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ChannelClock:
+    """Converts the engine's discrete accounting to wall time.
+
+    ``tick_us`` is the compute cost of one lock-step decode tick;
+    ``slot_us`` the airtime of one channel sub-slot (contention bit-slots
+    and payload bits are both billed in ``contention_slots`` units)."""
+
+    tick_us: float = 50.0
+    slot_us: float = 1.0
+
+    def __post_init__(self):
+        if self.tick_us <= 0 or self.slot_us <= 0:
+            raise ValueError("ChannelClock times must be positive")
+
+    def latency_us(self, ticks: int, slots: int) -> float:
+        return ticks * self.tick_us + slots * self.slot_us
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Typed serving surface.
+
+    ``protocol=None`` serves channel-free.  An OCS protocol must carry a
+    bound ``p_miss``; ``ServeEngine.run(requests, protocol=...)``
+    overrides it per run.  ``fault`` and ``greedy=False`` exist for the
+    JAX package's surface and raise until their slices land."""
+
+    batch_slots: int = 4
+    max_seq: int = 128
+    eos_id: int = 1
+    greedy: bool = True
+    protocol: Optional[Protocol] = None
+    fault: object = None
+    clock: ChannelClock = dataclasses.field(default_factory=ChannelClock)
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.batch_slots < 1:
+            raise ValueError("batch_slots must be >= 1")
+        if self.max_seq < 2:
+            raise ValueError("max_seq must be >= 2")
+        if self.protocol is not None and self.protocol.kind == "concat":
+            raise ValueError(
+                "concat protocols cannot serve in-block fusion (the fused "
+                "width N*K does not match the residual width K)")
+        if self.fault is not None and self.protocol is None:
+            raise ValueError(
+                "fault injection needs a channel protocol (fault models "
+                "perturb the sensing channel)")
+        if self.fault is not None:
+            raise NotImplementedError(
+                "fault injection in the serve tick is not ported yet "
+                "(ROADMAP queue 1, item 13: faults)")
+        if not self.greedy:
+            raise NotImplementedError(
+                "sampling (jax.random.categorical) is not ported yet "
+                "(ROADMAP queue 1, item 18: serving's remainder)")
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray           # (S,) int32
+    max_new_tokens: int = 32
+    arrival_tick: int = 0        # Poisson load generators set this
+
+
+@dataclasses.dataclass
+class Completion:
+    """One served request under the channel budget.
+
+    ``latency_ticks`` spans arrival to retirement (queue wait included);
+    ``channel_slots`` is the measured contention+payload airtime the
+    shared channel consumed over that span; ``uplink_bits`` the analytic
+    uplink (``Protocol.comm_load`` per aggregate call x channel sites x
+    channel-decoded tokens).  All three channel fields are 0 when serving
+    channel-free.  ``degraded_tokens`` and ``retry_ticks`` belong to fault
+    injection and stay 0 here."""
+
+    rid: int
+    tokens: List[int]
+    prompt_len: int
+    latency_ticks: int = 0
+    channel_slots: int = 0
+    uplink_bits: int = 0
+    degraded_tokens: int = 0
+    retry_ticks: int = 0
+
+    def latency_us(self, clock: ChannelClock) -> float:
+        return clock.latency_us(self.latency_ticks, self.channel_slots)
+
+
+_UNSET = object()
+
+
+class ServeEngine:
+    """Slot-batched serving engine over an optional simulated channel.
+
+    ``device`` defaults to ``cuda`` and raises without a GPU; pass
+    ``device="cpu"`` to serve on the CPU (the kernels' plain versions)."""
+
+    def __init__(self, model, values, config: ServeConfig, *, device=None):
+        dev = torch.device("cuda" if device is None else device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("ServeEngine runs on cuda by default and no "
+                               "GPU is visible; pass device='cpu'")
+        self.m = model
+        self.device = dev
+        self.values = tree.map(lambda t: t.to(dev), values)
+        self.config = config
+        self.B = config.batch_slots
+        self.max_seq = config.max_seq
+        self.eos = config.eos_id
+        self._sites = model.channel_sites()
+        self._d_model = model.cfg.d_model
+        self._n_workers = model.cfg.n_workers
+        self.cache = model.cache_init(self.B, self.max_seq, dev)
+        self._base_key = jr.PRNGKey(config.seed, dev)
+        self._reset()
+
+    # -- analytic uplink accounting ----------------------------------------
+
+    def _uplink_bits_per_tick(self, protocol: Optional[Protocol]) -> int:
+        """Per-slot analytic uplink bits of one channel-decoded token."""
+        if protocol is None:
+            return 0
+        load = protocol.comm_load(self._n_workers, self._d_model)
+        return load.uplink_bits * self._sites
+
+    # -- slot management ----------------------------------------------------
+
+    def _reset(self) -> None:
+        """Clear slot state between runs (the cache is reused: a prefill
+        copy overwrites a slot's rows end to end before it activates)."""
+        self.positions = torch.zeros((self.B,), dtype=torch.int32,
+                                     device=self.device)
+        self.cur_token = torch.zeros((self.B, 1), dtype=torch.int32,
+                                     device=self.device)
+        self.active = np.zeros((self.B,), bool)
+        self.budget = np.zeros((self.B,), np.int64)
+        self.slot_req: List[Optional[Request]] = [None] * self.B
+        self.outputs: Dict[int, Completion] = {}
+
+    @torch.no_grad()
+    def _insert(self, slot: int, req: Request):
+        tokens = torch.as_tensor(np.asarray(req.prompt, np.int32),
+                                 device=self.device)[None]
+        logits, cache1 = self.m.prefill(self.values, {"tokens": tokens},
+                                        max_seq=self.max_seq)
+
+        def put(batch_leaf, one_leaf):
+            # (periods, B, S, kv, hd) <- (periods, 1, S, kv, hd) at `slot`
+            batch_leaf[:, slot] = one_leaf[:, 0].to(batch_leaf.dtype)
+
+        tree.map(put, self.cache, cache1)
+        tok = int(torch.argmax(logits, -1)[0])
+        self.cur_token[slot, 0] = tok
+        self.positions[slot] = len(req.prompt)
+        self.active[slot] = True
+        self.budget[slot] = req.max_new_tokens - 1
+        self.slot_req[slot] = req
+        self.outputs[req.rid] = Completion(
+            rid=req.rid, tokens=[tok], prompt_len=len(req.prompt))
+
+    def _retire(self, slot: int):
+        self.active[slot] = False
+        self.slot_req[slot] = None
+
+    @torch.no_grad()
+    def _tick(self, protocol: Optional[Protocol], tick: int):
+        """One decode tick over all B slots; returns (next tokens,
+        positions, channel slots of the tick) read back in one copy."""
+        if protocol is None:
+            logits, self.cache = self.m.decode_step(
+                self.values, self.cur_token, self.positions, self.cache)
+            chan_slots = None
+        else:
+            rng = jr.fold_in(self._base_key, tick)
+            logits, self.cache, chan = self.m.decode_step_channel(
+                self.values, self.cur_token, self.positions, self.cache,
+                protocol, rng)
+            chan_slots = chan["contention_slots"].reshape(1)
+        nxt = torch.argmax(logits, -1).to(torch.int32)
+        self.positions = self.positions + 1
+        self.cur_token = nxt[:, None]
+        parts = [nxt, self.positions]
+        if chan_slots is not None:
+            parts.append(chan_slots.to(torch.int32))
+        host = torch.cat(parts).cpu().numpy().astype(np.int64)
+        slots = int(host[2 * self.B]) if chan_slots is not None else 0
+        return host[:self.B], host[self.B:2 * self.B], slots
+
+    # -- main loop ----------------------------------------------------------
+
+    def run(self, requests: List[Request],
+            protocol=_UNSET, fault=_UNSET) -> Dict[int, Completion]:
+        """Serve ``requests`` to completion; returns ``{rid: Completion}``.
+
+        Requests are admitted FIFO by ``arrival_tick`` (ties keep
+        submission order); with no slot busy and no arrival due, the tick
+        counter jumps to the next arrival.  ``protocol`` overrides the
+        config's (``None`` for an explicitly channel-free run)."""
+        proto = self.config.protocol if protocol is _UNSET else protocol
+        if fault is not _UNSET and fault is not None:
+            raise NotImplementedError(
+                "fault injection in the serve tick is not ported yet "
+                "(ROADMAP queue 1, item 13: faults)")
+        bits_per_tok = self._uplink_bits_per_tick(proto)
+        self._reset()
+        pending = sorted(requests, key=lambda r: r.arrival_tick)
+        admissible: List[Request] = []
+        tick = 0
+        total_slots = 0                       # cumulative measured airtime
+        slots_at_arrival: Dict[int, int] = {}
+        arrival_of: Dict[int, int] = {}
+        while pending or admissible or self.active.any():
+            while pending and pending[0].arrival_tick <= tick:
+                r = pending.pop(0)
+                admissible.append(r)
+                slots_at_arrival[r.rid] = total_slots
+                arrival_of[r.rid] = r.arrival_tick
+            if not self.active.any() and not admissible:
+                tick = pending[0].arrival_tick   # idle: jump to next arrival
+                continue
+            for slot in range(self.B):
+                if not self.active[slot] and admissible:
+                    self._insert(slot, admissible.pop(0))
+            _DISPATCH_COUNTS["tick"] += 1
+            nxt, pos, slots = self._tick(proto, tick)
+            tick += 1
+            total_slots += slots
+            for slot in range(self.B):
+                if not self.active[slot]:
+                    continue
+                req = self.slot_req[slot]
+                out = self.outputs[req.rid]
+                out.tokens.append(int(nxt[slot]))
+                out.uplink_bits += bits_per_tok
+                self.budget[slot] -= 1
+                done = (int(nxt[slot]) == self.eos
+                        or self.budget[slot] <= 0
+                        or int(pos[slot]) >= self.max_seq - 1)
+                if done:
+                    out.latency_ticks = tick - arrival_of[req.rid]
+                    out.channel_slots = (
+                        total_slots - slots_at_arrival[req.rid])
+                    self._retire(slot)
+        return self.outputs

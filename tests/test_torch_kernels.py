@@ -296,3 +296,87 @@ def test_wide_codes_refused_on_the_card_path():
     x = torch.empty((4, 32), device="meta")
     with pytest.raises(ValueError, match="at most 16 bits"):
         QO.encode(x, 24)
+
+
+# ---------------------------------------------------------------------------
+# flash attention: the plain version (what the port runs on the CPU) against
+# the JAX Pallas kernel in interpret mode, at tests/test_kernels_flash.py's
+# cases and tolerances (the streaming kernel sums in another order than the
+# whole-matrix softmax: atol 3e-5 in float32, 0.05 in bfloat16)
+# ---------------------------------------------------------------------------
+
+from repro.kernels.flash_attention import flash_attention as JFK  # noqa: E402
+from repro.kernels.flash_attention import ops as JFO  # noqa: E402
+from repro.kernels.flash_attention import ref as JFR  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as FO  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as FR  # noqa: E402
+
+_FLASH = (list(grid(h=[4], hkv=[1, 2, 4], s=[128, 192], d=[64], seed=[0, 1],
+                    causal=[True, False], dtype=["float32"], atol=[3e-5]))
+          + list(grid(h=[2], hkv=[2], s=[128], d=[64], seed=[0],
+                      causal=[True], dtype=["bfloat16"], atol=[0.05])))
+
+
+def _flash_qkv(case):
+    rng = np.random.default_rng(case["seed"])
+    b, h, hkv, s, d = 1, case["h"], case["hkv"], case["s"], case["d"]
+    return [_pair(rng.standard_normal(shape), case["dtype"])
+            for shape in ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d))]
+
+
+@pytest.mark.parametrize("case", _FLASH, ids=lambda c: "-".join(
+    f"{k}{v}" for k, v in c.items() if k not in ("d", "atol")))
+def test_flash_forward_matches_jax_kernel(case):
+    (qj, qt), (kj, kt), (vj, vt) = _flash_qkv(case)
+    want = JFK.flash_attention(qj, kj, vj, causal=case["causal"],
+                               block_q=64, block_k=64)
+    got = FO.flash_attention(qt, kt, vt, case["causal"], 64, 64)
+    assert got.dtype == _DT[case["dtype"]][1] and got.shape == qt.shape
+    err = np.max(np.abs(np.asarray(want.astype(jnp.float32))
+                        - got.float().numpy()))
+    assert err <= case["atol"], err
+    # and the two plain versions agree with each other as tightly
+    ref = JFR.flash_attention(qj, kj, vj, causal=case["causal"])
+    err = np.max(np.abs(np.asarray(ref.astype(jnp.float32))
+                        - FR.flash_attention(qt, kt, vt,
+                                             case["causal"]).float().numpy()))
+    assert err <= case["atol"], err
+
+
+def test_flash_gradient_matches_jax():
+    """The recompute backward against ``jax.vjp`` of the JAX ``ops``
+    wrapper (the test_kernels_flash.py case: cotangent ``2 * out``, the
+    gradient of ``sum(out ** 2)``; grad atol 1e-4)."""
+    case = dict(h=2, hkv=1, s=64, d=32, seed=1, dtype="float32")
+    (qj, qt), (kj, kt), (vj, vt) = _flash_qkv(case)
+    out_j, vjp = jax.vjp(lambda q, k, v: JFO.flash_attention(q, k, v, True),
+                         qj, kj, vj)
+    grads_j = vjp(2.0 * out_j)
+    prim = [t.clone().requires_grad_(True) for t in (qt, kt, vt)]
+    out_t = FO.flash_attention(*prim, causal=True)
+    grads_t = torch.autograd.grad(out_t, prim, 2.0 * out_t.detach())
+    assert np.max(np.abs(np.asarray(out_j) - out_t.detach().numpy())) <= 3e-5
+    for gj, gt in zip(grads_j, grads_t):
+        assert np.max(np.abs(np.asarray(gj) - gt.numpy())) <= 1e-4
+
+
+def test_flash_wrapper_contract():
+    """The JAX wrapper's shape asserts, as ValueErrors; a tensor off the
+    CPU goes to the kernel path (here refused: no CUDA), never the plain
+    version."""
+    q = torch.randn(1, 4, 192, 64)
+    kv = torch.randn(1, 2, 192, 64)
+    with pytest.raises(ValueError, match="multiples"):
+        FO.flash_attention(q, kv, kv)                 # 192 % 128
+    FO.flash_attention(q, kv, kv, block_q=64, block_k=64)
+    FO.flash_attention(q[:, :, :5], kv[:, :, :5], kv[:, :, :5])  # S < block
+    with pytest.raises(ValueError, match="pair"):
+        FO.flash_attention(q, torch.randn(1, 3, 192, 64),
+                           torch.randn(1, 3, 192, 64), block_q=64,
+                           block_k=64)
+    m = torch.empty((1, 4, 128, 64), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        FO.flash_attention(m, m, m)
+    m = torch.empty((1, 4, 128, 48), device="meta")
+    with pytest.raises(ValueError, match="head_dim"):
+        FO.flash_attention(m, m, m)

@@ -1,0 +1,390 @@
+"""The port's model stack (``repro_torch.models``, ``repro_torch.configs``)
+against the JAX package's, at ``get_reduced("qwen1.5-0.5b")`` in float32.
+
+Both packages start from the JAX package's parameters, carried across by
+``repro_torch.convert.params_from_jax``, and see the same numpy inputs.
+
+Tolerances.  Float results are compared with ``FLOAT_TOL`` (rtol 1e-5,
+atol 1e-5): the two packages multiply and reduce in other orders (XLA's
+CPU dot and reductions against PyTorch's), which moves float32 results by
+a few ulp per operation; the logits here are O(1-10) and measured gaps are
+~1e-5 at most.  The rotary angles go through two libraries' ``pow``,
+``sin`` and ``cos``: ``ROPE_TOL`` (atol 1e-5) covers their ulp gaps at
+positions up to 64.  What is selected rather than computed — D-bit codes,
+winners, the channel accounting — is compared bitwise.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as j_get_config
+from repro.configs import get_reduced as j_get_reduced
+from repro.models import attention as JA
+from repro.models import layers as JL
+from repro.models import mlp as JMLP
+from repro.models import model as JM
+from repro.parallel.sharding import split_tree
+from repro.protocol import Protocol as JP
+from repro_torch import random as jr
+from repro_torch import tree
+from repro_torch.configs import ARCH_IDS, get_config, get_reduced
+from repro_torch.convert import params_from_jax
+from repro_torch.models import attention as TA
+from repro_torch.models import layers as TL
+from repro_torch.models import mlp as TMLP
+from repro_torch.models import model as TM
+from repro_torch.protocol import Protocol as TP
+
+torch.set_num_threads(1)
+
+FLOAT_TOL = dict(rtol=1e-5, atol=1e-5)
+ROPE_TOL = dict(rtol=0, atol=1e-5)
+ARCH = "qwen1.5-0.5b"
+
+
+def _np(x):
+    return np.asarray(x.detach() if isinstance(x, torch.Tensor) else x)
+
+
+def _close(got, want, tol=FLOAT_TOL, what=""):
+    np.testing.assert_allclose(_np(got), _np(want), err_msg=what, **tol)
+
+
+def _to_torch(values):
+    return params_from_jax(jax.tree.map(np.asarray, values))
+
+
+def _values(init_fn, *args):
+    values, _ = split_tree(init_fn(*args))
+    return values
+
+
+@pytest.fixture(scope="module")
+def reduced():
+    """(JAX cfg, port cfg, JAX model values, port model values)."""
+    jcfg, tcfg = j_get_reduced(ARCH), get_reduced(ARCH)
+    jv = _values(JM.init, jcfg, jax.random.PRNGKey(0))
+    return jcfg, tcfg, jv, _to_torch(jv)
+
+
+def _x(shape, seed=0, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal(shape)
+            * scale).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# configs
+# ---------------------------------------------------------------------------
+
+_DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
+
+
+@pytest.mark.parametrize("which", ["config", "reduced"])
+def test_config_matches_jax(which):
+    jc = (j_get_config if which == "config" else j_get_reduced)(ARCH)
+    tc = (get_config if which == "config" else get_reduced)(ARCH)
+    for f in dataclasses.fields(tc):
+        want = getattr(jc, f.name)
+        want = _DTYPES.get(want, want)
+        assert getattr(tc, f.name) == want, f.name
+    assert tc.layer_plan() == jc.layer_plan()
+    assert (tc.period, tc.n_periods, tc.head_dim_) == \
+        (jc.period, jc.n_periods, jc.head_dim_)
+    assert ARCH_IDS == (ARCH,)
+
+
+def test_config_checks_and_unported_plans():
+    with pytest.raises(AssertionError):
+        get_reduced(ARCH, tp_fusion="median")
+    with pytest.raises(AssertionError):
+        get_reduced(ARCH, n_layers=3, block_pattern=("attn", "attn"))
+    for kw, what in ((dict(block_pattern=("mamba",)), "mamba"),
+                     (dict(ffn_pattern=("moe",)), "moe"),
+                     (dict(encoder_decoder=True), "encoder-decoder"),
+                     (dict(frontend="patch"), "frontend")):
+        with pytest.raises(NotImplementedError, match="ROADMAP") as e:
+            TM.build(get_reduced(ARCH, **kw))
+        assert what in str(e.value)
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("norm", ["rmsnorm", "layernorm"])
+def test_norm_apply(norm):
+    jcfg = j_get_reduced(ARCH, norm=norm)
+    tcfg = get_reduced(ARCH, norm=norm)
+    x = _x((2, 5, 64), scale=3.0)
+    p = {"scale": _x((64,), 1) + 1.0}
+    if norm == "layernorm":
+        p["bias"] = _x((64,), 2)
+    want = JL.norm_apply(jcfg, jax.tree.map(jnp.asarray, p), jnp.asarray(x))
+    got = TL.norm_apply(tcfg, params_from_jax(p), torch.from_numpy(x))
+    _close(got, want)
+
+
+@pytest.mark.parametrize("rotary_frac", [1.0, 0.5])
+def test_apply_rope(rotary_frac):
+    jcfg = j_get_reduced(ARCH, rotary_frac=rotary_frac)
+    tcfg = get_reduced(ARCH, rotary_frac=rotary_frac)
+    x = _x((2, 7, 4, 16))
+    pos = np.stack([np.arange(7), np.arange(7) + 57]).astype(np.int32)
+    _close(TL.rope_freqs(tcfg, 16), JL.rope_freqs(jcfg, 16), ROPE_TOL)
+    want = JL.apply_rope(jcfg, jnp.asarray(x), jnp.asarray(pos))
+    got = TL.apply_rope(tcfg, torch.from_numpy(x), torch.from_numpy(pos))
+    _close(got, want, ROPE_TOL)
+
+
+def test_embed_and_unembed(reduced):
+    jcfg, tcfg, jv, tv = reduced
+    toks = np.array([[1, 5, 255], [0, 7, 7]], np.int32)
+    want = JL.embed_tokens(jcfg, jv["embed"], jnp.asarray(toks))
+    got = TL.embed_tokens(tcfg, tv["embed"], torch.from_numpy(toks))
+    assert np.array_equal(_np(got), np.asarray(want))     # a gather: exact
+    x = _x((2, 3, 64))
+    _close(TL.unembed_apply(tcfg, {}, tv["embed"], torch.from_numpy(x)),
+           JL.unembed_apply(jcfg, {}, jv["embed"], jnp.asarray(x)))
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_activation(act):
+    x = _x((64,), scale=4.0)
+    want = JL.activation(j_get_reduced(ARCH, act=act), jnp.asarray(x))
+    _close(TL.activation(get_reduced(ARCH, act=act), torch.from_numpy(x)),
+           want)
+
+
+# ---------------------------------------------------------------------------
+# mlp, for every tp_fusion, and through the channel
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("fusion", ["sum", "max", "max_q16", "max_q8",
+                                    "concat"])
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_mlp_apply(fusion, act):
+    jcfg = j_get_reduced(ARCH, tp_fusion=fusion, act=act)
+    tcfg = get_reduced(ARCH, tp_fusion=fusion, act=act)
+    jp = _values(JMLP.mlp_init, jcfg, jax.random.PRNGKey(3))
+    x = _x((2, 3, 64), 4)
+    want = JMLP.mlp_apply(jcfg, jp, jnp.asarray(x))
+    got = TMLP.mlp_apply(tcfg, _to_torch(jp), torch.from_numpy(x))
+    _close(got, want, what=fusion)
+
+
+def test_mlp_apply_through_the_channel():
+    jcfg, tcfg = j_get_reduced(ARCH), get_reduced(ARCH)
+    jp = _values(JMLP.mlp_init, jcfg, jax.random.PRNGKey(3))
+    x = _x((2, 3, 64), 4)
+    p = np.array([0.05, 0.3], np.float32)
+    want, acct_j = JMLP.mlp_apply(jcfg, jp, jnp.asarray(x),
+                                  protocol=JP.ocs(bits=8, p_miss=p),
+                                  rng=jax.random.PRNGKey(11))
+    got, acct_t = TMLP.mlp_apply(tcfg, _to_torch(jp), torch.from_numpy(x),
+                                 protocol=TP.ocs(bits=8, p_miss=p),
+                                 rng=jr.PRNGKey(11))
+    # the pooled values are D-bit bucket floors of near-equal partials
+    _close(got, want)
+    for f in ("rounds", "collisions", "contention_slots", "correct_frac"):
+        assert np.array_equal(np.asarray(getattr(acct_j, f)),
+                              _np(getattr(acct_t, f))), f
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("use_flash", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("n_kv_heads", [4, 2])
+def test_attn_full(use_flash, causal, n_kv_heads):
+    jcfg = j_get_reduced(ARCH, use_flash=use_flash, n_kv_heads=n_kv_heads)
+    tcfg = get_reduced(ARCH, use_flash=use_flash, n_kv_heads=n_kv_heads)
+    jp = _values(JA.attn_init, jcfg, jax.random.PRNGKey(4))
+    jp["bq"] = jnp.asarray(_x(jp["bq"].shape, 8, 0.1))   # nonzero biases
+    x = _x((2, 16, 64), 5)
+    pos = np.broadcast_to(np.arange(16, dtype=np.int32), (2, 16))
+    want, kv_j = JA.attn_full(jcfg, jp, jnp.asarray(x), jnp.asarray(pos),
+                              causal=causal, return_kv=True)
+    got, kv_t = TA.attn_full(tcfg, _to_torch(jp), torch.from_numpy(x),
+                             torch.from_numpy(pos.copy()), causal=causal,
+                             return_kv=True)
+    _close(got, want)
+    for name in ("k", "v"):
+        _close(kv_t[name], kv_j[name])
+
+
+_LAYOUTS = {
+    "worker": ({}, "worker"),
+    # 3 heads over 2 workers take the plain out-projection
+    "plain": (dict(n_heads=3, n_kv_heads=1, head_dim=16), "plain"),
+    # 3 heads padded to 4: the worker layout with a zero-masked head
+    "padded": (dict(n_heads=3, n_kv_heads=1, head_dim=16, pad_heads_to=4),
+               "worker"),
+}
+
+
+def test_attn_full_bf16_scores():
+    """``scores_dtype="bf16"``: the score matrix rounded to bfloat16 in
+    both packages (JAX's ``preferred_element_type``, the port's cast of
+    the float32 product) and the softmax in bfloat16; outputs agree to the
+    bfloat16 resolution of the scores (2^-8 relative, atol 1e-2 here)."""
+    jcfg = j_get_reduced(ARCH, scores_dtype="bf16")
+    tcfg = get_reduced(ARCH, scores_dtype="bf16")
+    jp = _values(JA.attn_init, jcfg, jax.random.PRNGKey(4))
+    x = _x((2, 16, 64), 5)
+    pos = np.broadcast_to(np.arange(16, dtype=np.int32), (2, 16))
+    want = JA.attn_full(jcfg, jp, jnp.asarray(x), jnp.asarray(pos))
+    got = TA.attn_full(tcfg, _to_torch(jp), torch.from_numpy(x),
+                       torch.from_numpy(pos.copy()))
+    _close(got, want, dict(rtol=0, atol=1e-2))
+
+
+@pytest.mark.parametrize("layout", sorted(_LAYOUTS))
+def test_attn_step(layout):
+    kw, want_layout = _LAYOUTS[layout]
+    jcfg, tcfg = j_get_reduced(ARCH, **kw), get_reduced(ARCH, **kw)
+    assert JA.attn_layout(jcfg) == TA.attn_layout(tcfg) == want_layout
+    assert JA.n_heads_padded(jcfg) == TA.n_heads_padded(tcfg)
+    jp = _values(JA.attn_init, jcfg, jax.random.PRNGKey(4))
+    cache_np = {n: _x((3, 12, tcfg.n_kv_heads, 16), s)
+                for n, s in (("k", 1), ("v", 2))}
+    x = _x((3, 1, 64), 6)
+    pos = np.array([0, 5, 11], np.int32)
+    want, new_j = JA.attn_step(jcfg, jp, jnp.asarray(x), jnp.asarray(pos),
+                               jax.tree.map(jnp.asarray, cache_np))
+    cache_t = params_from_jax(cache_np)
+    got, new_t = TA.attn_step(tcfg, _to_torch(jp), torch.from_numpy(x),
+                              torch.from_numpy(pos), cache_t)
+    assert new_t is cache_t                       # updated in place
+    _close(got, want)
+    for name in ("k", "v"):
+        _close(new_t[name], new_j[name])
+
+
+def test_attn_step_clamps_past_the_cache():
+    """A position at or past the cache end writes the last row, as JAX's
+    ``dynamic_update_slice`` clamps (the engine's idle slots get there)."""
+    jcfg, tcfg = j_get_reduced(ARCH), get_reduced(ARCH)
+    jp = _values(JA.attn_init, jcfg, jax.random.PRNGKey(4))
+    cache_np = {n: _x((2, 6, 4, 16), s) for n, s in (("k", 1), ("v", 2))}
+    x = _x((2, 1, 64), 6)
+    pos = np.array([6, 40], np.int32)
+    want, new_j = JA.attn_step(jcfg, jp, jnp.asarray(x), jnp.asarray(pos),
+                               jax.tree.map(jnp.asarray, cache_np))
+    got, new_t = TA.attn_step(tcfg, _to_torch(jp), torch.from_numpy(x),
+                              torch.from_numpy(pos), params_from_jax(cache_np))
+    _close(got, want)
+    _close(new_t["k"], new_j["k"])
+
+
+# ---------------------------------------------------------------------------
+# the model: prefill, decode, decode through the channel
+# ---------------------------------------------------------------------------
+
+def _prompt(b=2, s=8, vocab=256, seed=0):
+    return np.random.default_rng(seed).integers(0, vocab, (b, s)).astype(
+        np.int32)
+
+
+@pytest.mark.parametrize("use_flash", [False, True])
+def test_prefill_logits_and_cache(reduced, use_flash):
+    jcfg, tcfg, jv, tv = reduced
+    jm = JM.build(jcfg.with_(use_flash=use_flash))
+    tm = TM.build(tcfg.with_(use_flash=use_flash))
+    toks = _prompt()
+    want, cache_j = jm.prefill(jv, {"tokens": jnp.asarray(toks)}, max_seq=16)
+    got, cache_t = tm.prefill(tv, {"tokens": torch.from_numpy(toks)},
+                              max_seq=16)
+    _close(got, want)
+    jl, tl = jax.tree.leaves(cache_j), tree.leaves(cache_t)
+    assert len(jl) == len(tl)
+    for a, b in zip(tl, jl):
+        assert a.shape == b.shape
+        _close(a, b)
+    _close(tm.logits(tv, {"tokens": torch.from_numpy(toks)}),
+           jm.logits(jv, {"tokens": jnp.asarray(toks)}))
+
+
+def _prefilled(jm, tm, jv, tv):
+    toks = _prompt()
+    _, cache_j = jm.prefill(jv, {"tokens": jnp.asarray(toks)}, max_seq=16)
+    _, cache_t = tm.prefill(tv, {"tokens": torch.from_numpy(toks)},
+                            max_seq=16)
+    return cache_j, cache_t, np.array([[3], [5]], np.int32), \
+        np.array([8, 8], np.int32)
+
+
+def test_decode_step(reduced):
+    jcfg, tcfg, jv, tv = reduced
+    jm, tm = JM.build(jcfg), TM.build(tcfg)
+    cache_j, cache_t, tok, pos = _prefilled(jm, tm, jv, tv)
+    for _ in range(3):
+        want, cache_j = jm.decode_step(jv, jnp.asarray(tok),
+                                       jnp.asarray(pos), cache_j)
+        got, cache_t = tm.decode_step(tv, torch.from_numpy(tok),
+                                      torch.from_numpy(pos), cache_t)
+        _close(got, want)
+        tok = np.asarray(jnp.argmax(want, -1)).astype(np.int32)[:, None]
+        pos = pos + 1
+    for a, b in zip(tree.leaves(cache_t), jax.tree.leaves(cache_j)):
+        _close(a, b)
+
+
+@pytest.mark.parametrize("p_miss", [0.0, 0.05, 0.4])
+def test_decode_step_channel(reduced, p_miss):
+    """Logits within FLOAT_TOL; the channel accounting of the tick (24
+    sites' summed rounds, collisions, slots, correct fractions) bitwise —
+    the sensing keys are the JAX package's split/fold_in keys."""
+    jcfg, tcfg, jv, tv = reduced
+    jm, tm = JM.build(jcfg), TM.build(tcfg)
+    cache_j, cache_t, tok, pos = _prefilled(jm, tm, jv, tv)
+    p = np.full((2,), p_miss, np.float32)
+    for tick in range(3):
+        want, cache_j, chan_j = jm.decode_step_channel(
+            jv, jnp.asarray(tok), jnp.asarray(pos), cache_j,
+            JP.ocs(bits=8, p_miss=p),
+            jax.random.fold_in(jax.random.PRNGKey(0), tick))
+        got, cache_t, chan_t = tm.decode_step_channel(
+            tv, torch.from_numpy(tok), torch.from_numpy(pos), cache_t,
+            TP.ocs(bits=8, p_miss=p), jr.fold_in(jr.PRNGKey(0), tick))
+        _close(got, want)
+        assert set(chan_t) == set(chan_j)
+        for k in chan_j:
+            assert chan_t[k].dtype == {jnp.int32: torch.int32,
+                                       jnp.float32: torch.float32}[
+                chan_j[k].dtype.type]
+            assert np.array_equal(_np(chan_t[k]), np.asarray(chan_j[k])), k
+        assert int(chan_t["calls"]) == tm.channel_sites() == 2
+        tok = np.asarray(jnp.argmax(want, -1)).astype(np.int32)[:, None]
+        pos = pos + 1
+
+
+# ---------------------------------------------------------------------------
+# parameters across: bfloat16 trees
+# ---------------------------------------------------------------------------
+
+def test_params_from_jax_carries_bf16_tree_bitwise():
+    """``torch.from_numpy`` refuses ``ml_dtypes.bfloat16``; the bf16
+    parameter tree of the reduced qwen config comes across bit for bit,
+    leaf for leaf, in the port's own init layout."""
+    jcfg = j_get_reduced(ARCH, dtype=jnp.bfloat16, param_dtype=jnp.bfloat16)
+    jv = _values(JM.init, jcfg, jax.random.PRNGKey(0))
+    tv = _to_torch(jv)
+    jl = jax.tree.leaves(jv)
+    tl = tree.leaves(tv)
+    assert len(jl) == len(tl)
+    for a, b in zip(tl, jl):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert np.array_equal(a.view(torch.int16).numpy().view(np.uint16),
+                              np.asarray(b).view(np.uint16))
+    tcfg = get_reduced(ARCH, dtype=torch.bfloat16,
+                       param_dtype=torch.bfloat16)
+    own = TM.init(tcfg, torch.Generator().manual_seed(0))
+    assert tree.map(lambda t: (tuple(t.shape), t.dtype), own) == \
+        tree.map(lambda t: (tuple(t.shape), t.dtype), tv)

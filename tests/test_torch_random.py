@@ -90,3 +90,92 @@ def test_randint(seed, lo, hi):
     got = jr.randint(jr.PRNGKey(seed), (64,), lo, hi)
     assert got.dtype == torch.int32
     assert np.array_equal(np.asarray(want), got.numpy())
+
+
+# ---------------------------------------------------------------------------
+# 16-bit draws: the OCS channel over bfloat16 / float16 activations
+# ---------------------------------------------------------------------------
+
+_HALF = {"bfloat16": (jnp.bfloat16, torch.bfloat16),
+         "float16": (jnp.float16, torch.float16)}
+
+
+@pytest.mark.parametrize("dtype", sorted(_HALF))
+@pytest.mark.parametrize("seed", SEEDS[:4])
+@pytest.mark.parametrize("shape", [(7,), (4, 33), (2, 3, 5)])
+def test_uniform_and_bernoulli_16_bit(dtype, seed, shape):
+    """bfloat16 draws 8 random bits (7 mantissa bits), float16 16; the
+    uniforms and the comparison ``u < p`` are in the 16-bit type."""
+    jdt, tdt = _HALF[dtype]
+    kj, kt = _jkey(seed), jr.PRNGKey(seed)
+    want = np.asarray(jax.random.uniform(kj, shape, jdt))
+    got = jr.uniform(kt, shape, tdt)
+    assert got.dtype == tdt
+    assert np.array_equal(want.view(np.uint16),
+                          got.view(torch.int16).numpy().view(np.uint16))
+    for p in (0.0, 0.05, 0.3, 0.98):
+        pj = jnp.asarray(p, jnp.float32).astype(jdt)
+        want = jax.random.bernoulli(kj, pj, shape)
+        got = jr.bernoulli(kt, torch.tensor(p).to(tdt), shape)
+        assert np.array_equal(np.asarray(want), got.numpy())
+
+
+@pytest.mark.parametrize("dtype", sorted(_HALF))
+def test_bernoulli_per_worker_p_16_bit(dtype):
+    jdt, tdt = _HALF[dtype]
+    p = np.array([0.05, 0.5, 0.9, 0.99], np.float32)[:, None]
+    want = jax.random.bernoulli(_jkey(3), jnp.asarray(p).astype(jdt), (4, 50))
+    got = jr.bernoulli(jr.PRNGKey(3), torch.from_numpy(p).to(tdt), (4, 50))
+    assert np.array_equal(np.asarray(want), got.numpy())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_sensing_keep_prob_keeps_feature_dtype(dtype):
+    """``1 - p_miss`` in the features' type, as the JAX core draws it."""
+    from repro.core import ocs as jocs
+    from repro_torch.core import ocs as tocs
+    jdt, tdt = {"float32": (jnp.float32, torch.float32), **_HALF}[dtype]
+    for p in (0.05, np.array([0.0, 0.05, 0.1, 0.3], np.float32)):
+        want = np.asarray(jocs.sensing_keep_prob(p, jdt)).astype(np.float32)
+        got = tocs.sensing_keep_prob(torch.as_tensor(p), tdt)
+        assert got.dtype == tdt
+        assert np.array_equal(want, got.float().numpy())
+        lanes = tocs.sensing_keep_prob(torch.as_tensor(p)[None], tdt,
+                                       lanes=True)
+        assert lanes.dtype == tdt
+        assert np.array_equal(want, lanes[0].reshape(want.shape).float()
+                              .numpy())
+
+
+@pytest.mark.parametrize("p_miss", [0.05, 0.3])
+def test_ocs_aggregate_bf16_matches_jax(p_miss):
+    """``Protocol.ocs(8, p).aggregate`` over bf16 (16 workers, 2 x 1 x 64)
+    — the serving path's fusion site — bitwise: pooled values, winners (by
+    the winner-routed gradient) and accounting."""
+    from repro.protocol import Protocol as JP
+    from repro_torch.protocol import Protocol as TP
+    h_np = np.random.default_rng(5).standard_normal((16, 2, 1, 64)) * 2.0
+    hj = jnp.asarray(h_np, jnp.float32).astype(jnp.bfloat16)
+    ht = torch.from_numpy(np.array(hj.astype(jnp.float32))).to(
+        torch.bfloat16).requires_grad_(True)
+    p = np.full((16,), p_miss, np.float32)
+    g_np = np.random.default_rng(6).standard_normal((2, 1, 64))
+    gj = jnp.asarray(g_np, jnp.float32).astype(jnp.bfloat16)
+    (want, acct_j), vjp = jax.vjp(
+        lambda h: JP.ocs(bits=8, p_miss=p).aggregate(h, jax.random.PRNGKey(9)),
+        hj)
+    (gh_j,) = vjp((gj, jax.tree.map(jnp.zeros_like, acct_j)))
+    got, acct_t = TP.ocs(bits=8, p_miss=p).aggregate(ht, jr.PRNGKey(9))
+    (gh_t,) = torch.autograd.grad(
+        got, ht, torch.from_numpy(np.array(gj.astype(jnp.float32))).to(
+            torch.bfloat16))
+    assert got.dtype == torch.bfloat16
+    assert np.array_equal(np.asarray(want).view(np.uint16),
+                          got.detach().view(torch.int16).numpy()
+                          .view(np.uint16))
+    # the gradient lands on the winner alone: equal gradients, equal winners
+    assert np.array_equal(np.asarray(gh_j).view(np.uint16),
+                          gh_t.view(torch.int16).numpy().view(np.uint16))
+    for f in ("rounds", "collisions", "contention_slots", "correct_frac"):
+        assert np.array_equal(np.asarray(getattr(acct_j, f)),
+                              getattr(acct_t, f).numpy()), f

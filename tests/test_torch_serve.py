@@ -1,0 +1,357 @@
+"""The port's serving engine (``repro_torch.serve``) against the JAX
+package's, and the contracts of ``tests/test_serve.py`` on the port.
+
+Both engines serve the same requests from the same parameters (the JAX
+package's, carried across by ``convert``) at ``tests/test_serve.py``'s
+fixture size, on the CPU.  Tokens, ``latency_ticks``, ``channel_slots`` and
+``uplink_bits`` are integers and must be equal: the logits differ by float
+order only (~1e-6, see ``test_torch_models.py``), the greedy argmax over
+them is the same, and the channel's draws and D-bit codes are the JAX
+package's bit for bit.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as j_get_config
+from repro.configs import get_reduced as j_get_reduced
+from repro.models import model as JM
+from repro.parallel.sharding import split_tree
+from repro.protocol import Protocol as JP
+from repro.serve import engine as jse
+from repro.serve import load as jload
+from repro_torch.configs import get_config, get_reduced
+from repro_torch.convert import params_from_jax
+from repro_torch.models import model as TM
+from repro_torch.protocol import Protocol as TP
+from repro_torch.serve import engine as se
+from repro_torch.serve.engine import (ChannelClock, Completion, Request,
+                                      ServeConfig, ServeEngine)
+from repro_torch.serve.load import near_far_protocol, poisson_requests
+
+torch.set_num_threads(1)
+
+N_WORKERS = 2
+VOCAB = 64
+FIXTURE = dict(n_layers=2, d_model=32, n_heads=2, n_kv_heads=2, d_ff=64,
+               vocab_size=VOCAB, n_workers=N_WORKERS)
+
+
+@pytest.fixture(scope="module")
+def models():
+    """(JAX model, JAX values, port model, port values) at the fixture."""
+    jm = JM.build(j_get_reduced("qwen1.5-0.5b", **FIXTURE))
+    jv, _ = split_tree(jm.init(jax.random.PRNGKey(0)))
+    tm = TM.build(get_reduced("qwen1.5-0.5b", **FIXTURE))
+    return jm, jv, tm, params_from_jax(jax.tree.map(np.asarray, jv))
+
+
+def _engine(models, **kw):
+    _, _, tm, tv = models
+    return ServeEngine(tm, tv, ServeConfig(**kw), device="cpu")
+
+
+def _ocs(p, protocol=TP):
+    return protocol.ocs(bits=8, p_miss=np.full((N_WORKERS,), p, np.float32))
+
+
+def _fields(c):
+    return (c.tokens, c.latency_ticks, c.channel_slots, c.uplink_bits)
+
+
+def _manual_decode(m, values, prompt, max_new, max_seq, eos=-1):
+    logits, cache = m.prefill(values, {"tokens": torch.as_tensor(prompt)[None]},
+                              max_seq=max_seq)
+    tok = int(torch.argmax(logits, -1)[0])
+    toks = [tok]
+    pos = len(prompt)
+    budget = max_new - 1
+    while tok != eos and budget > 0 and pos < max_seq - 1:
+        logits, cache = m.decode_step(values, torch.tensor([[tok]]),
+                                      torch.tensor([pos]), cache)
+        tok = int(torch.argmax(logits, -1)[0])
+        toks.append(tok)
+        pos += 1
+        budget -= 1
+    return toks
+
+
+# -- the engine against the JAX engine --------------------------------------
+
+def _mixed_requests():
+    """More requests than slots, prompts of several lengths, a late
+    arrival, budgets that retire at different ticks."""
+    rng = np.random.default_rng(1)
+    return [Request(rid=i, prompt=rng.integers(0, VOCAB, 3 + i).astype(
+        np.int32), max_new_tokens=3 + (i % 3), arrival_tick=(0, 0, 1, 4, 12)[i])
+            for i in range(5)]
+
+
+@pytest.mark.parametrize("channel", ["free", "ocs0.05", "ocs0.3",
+                                     "near_far"])
+def test_engine_matches_jax_engine(models, channel):
+    jm, jv, tm, tv = models
+    protos = {"free": (None, None),
+              "ocs0.05": (_ocs(0.05, JP), _ocs(0.05)),
+              "ocs0.3": (_ocs(0.3, JP), _ocs(0.3)),
+              "near_far": (jload.near_far_protocol(N_WORKERS, p_far=0.4),
+                           near_far_protocol(N_WORKERS, p_far=0.4))}
+    pj, pt = protos[channel]
+    kw = dict(batch_slots=2, max_seq=16, eos_id=-1, seed=3)
+    reqs = _mixed_requests()
+    want = jse.ServeEngine(jm, jv, jse.ServeConfig(protocol=pj, **kw)).run(
+        [jse.Request(**dataclasses.asdict(r)) for r in reqs])
+    got = ServeEngine(tm, tv, ServeConfig(protocol=pt, **kw),
+                      device="cpu").run(reqs)
+    assert sorted(got) == sorted(want)
+    for rid in want:
+        assert _fields(got[rid]) == _fields(want[rid]), rid
+    if pj is not None:
+        assert all(c.channel_slots > 0 for c in got.values())
+
+
+def test_full_layer_width_matches_jax():
+    """One qwen1.5-0.5b layer at its full widths (d_model 1024, 16 heads of
+    64, d_ff 2816 over 16 workers; vocabulary cut to 1024) in float32,
+    prefill through the flash path, OCS at p 0.05: 2 slots serve two
+    128-token prompts for 3 tokens each, token for token and slot for
+    slot as the JAX engine."""
+    kw = dict(n_layers=1, vocab_size=1024, use_flash=True)
+    jcfg = j_get_config("qwen1.5-0.5b", dtype=jnp.float32,
+                        param_dtype=jnp.float32, **kw)
+    tcfg = get_config("qwen1.5-0.5b", dtype=torch.float32,
+                      param_dtype=torch.float32, **kw)
+    jm, tm = JM.build(jcfg), TM.build(tcfg)
+    jv, _ = split_tree(jm.init(jax.random.PRNGKey(0)))
+    tv = params_from_jax(jax.tree.map(np.asarray, jv))
+    p = np.full((16,), 0.05, np.float32)
+    reqs = poisson_requests(2, 1.0, 1024, prompt_len=128, max_new_tokens=3,
+                            seed=0)
+    cfg = dict(batch_slots=2, max_seq=160, eos_id=-1)
+    want = jse.ServeEngine(jm, jv, jse.ServeConfig(
+        protocol=JP.ocs(bits=8, p_miss=p), **cfg)).run(
+        [jse.Request(**dataclasses.asdict(r)) for r in reqs])
+    got = ServeEngine(tm, tv, ServeConfig(protocol=TP.ocs(bits=8, p_miss=p),
+                                          **cfg), device="cpu").run(reqs)
+    for rid in want:
+        assert got[rid].tokens == want[rid].tokens, rid
+        assert got[rid].channel_slots == want[rid].channel_slots, rid
+        assert got[rid].uplink_bits == want[rid].uplink_bits, rid
+
+
+# -- refill / retire semantics ---------------------------------------------
+
+def test_all_requests_complete(models):
+    eng = _engine(models, batch_slots=2, max_seq=40, eos_id=-1)
+    reqs = [Request(rid=i, prompt=np.arange(3 + i, dtype=np.int32) % VOCAB,
+                    max_new_tokens=6) for i in range(5)]
+    outs = eng.run(reqs)
+    assert set(outs) == set(range(5))
+    assert all(len(c.tokens) == 6 for c in outs.values())
+
+
+def test_eos_retires_early_and_slot_is_reused(models):
+    _, _, tm, tv = models
+    prompt = np.arange(5, dtype=np.int32)
+    ref = _manual_decode(tm, tv, prompt, 8, 40)
+    eos = ref[2]
+    stop_at = next(i for i in range(1, len(ref)) if ref[i] == eos) + 1
+    assert stop_at < 8
+    eng = _engine(models, batch_slots=1, max_seq=40, eos_id=eos)
+    outs = eng.run([Request(rid=i, prompt=prompt, max_new_tokens=8)
+                    for i in range(3)])
+    assert set(outs) == {0, 1, 2}
+    for c in outs.values():
+        assert c.tokens[-1] == eos and len(c.tokens) == stop_at
+
+
+def test_length_cap_retires_at_max_seq(models):
+    eng = _engine(models, batch_slots=1, max_seq=8, eos_id=-1)
+    out = eng.run([Request(rid=0, prompt=np.arange(5, dtype=np.int32),
+                           max_new_tokens=100)])[0]
+    assert len(out.tokens) == 8 - 5
+
+
+@pytest.mark.parametrize("n_requests", [3, 4])
+def test_one_slot_queue_drains_fifo(models, n_requests):
+    """With one slot, requests finish strictly in arrival order (and more
+    requests than slots reuse the slot)."""
+    eng = _engine(models, batch_slots=1, max_seq=40, eos_id=-1)
+    reqs = [Request(rid=i, prompt=np.arange(4, dtype=np.int32),
+                    max_new_tokens=4) for i in range(n_requests)]
+    outs = eng.run(reqs)
+    finish = [outs[i].latency_ticks for i in range(n_requests)]
+    assert finish == sorted(finish) and len(set(finish)) == n_requests
+
+
+def test_late_arrivals_wait_for_their_tick(models):
+    _, _, tm, tv = models
+    eng = _engine(models, batch_slots=2, max_seq=32, eos_id=-1)
+    reqs = [Request(rid=0, prompt=np.arange(4, dtype=np.int32),
+                    max_new_tokens=3, arrival_tick=0),
+            Request(rid=1, prompt=np.arange(4, dtype=np.int32),
+                    max_new_tokens=3, arrival_tick=10)]
+    outs = eng.run(reqs)
+    assert outs[1].latency_ticks >= 2
+    assert outs[1].tokens == _manual_decode(tm, tv, reqs[1].prompt, 3, 32)
+
+
+# -- channel-free parity and the channel's billing --------------------------
+
+def test_greedy_serving_matches_manual_decode(models):
+    _, _, tm, tv = models
+    eng = _engine(models, batch_slots=2, max_seq=32, eos_id=-1)
+    prompts = [np.arange(5, dtype=np.int32),
+               (np.arange(7, dtype=np.int32) * 3) % VOCAB,
+               np.arange(4, dtype=np.int32) + 9]
+    outs = eng.run([Request(rid=i, prompt=p, max_new_tokens=4)
+                    for i, p in enumerate(prompts)])
+    for i, p in enumerate(prompts):
+        assert outs[i].tokens == _manual_decode(tm, tv, p, 4, 32)
+
+
+def test_channel_free_completion_has_zero_channel_fields(models):
+    eng = _engine(models, batch_slots=2, max_seq=32, eos_id=-1)
+    c = eng.run([Request(rid=0, prompt=np.arange(4, dtype=np.int32),
+                         max_new_tokens=4)])[0]
+    assert c.latency_ticks > 0
+    assert c.channel_slots == 0 and c.uplink_bits == 0
+    assert c.latency_us(ChannelClock(tick_us=50.0)) == c.latency_ticks * 50.0
+
+
+def test_channel_serving_bills_airtime_and_uplink(models):
+    _, _, tm, _ = models
+    eng = _engine(models, batch_slots=2, max_seq=32, eos_id=-1,
+                  protocol=_ocs(0.05))
+    outs = eng.run([Request(rid=i, prompt=np.arange(4, dtype=np.int32),
+                            max_new_tokens=4) for i in range(2)])
+    per_tok = _ocs(0.05).comm_load(N_WORKERS, 32).uplink_bits * \
+        tm.channel_sites()
+    for c in outs.values():
+        assert c.channel_slots > 0
+        assert c.uplink_bits == (len(c.tokens) - 1) * per_tok
+
+
+def test_error_free_channel_matches_ideal_max(models):
+    """OCS at p_miss=0 serves the same tokens as Protocol.ideal_max."""
+    eng = _engine(models, batch_slots=2, max_seq=32, eos_id=-1)
+    reqs = [Request(rid=i, prompt=np.arange(4 + i, dtype=np.int32),
+                    max_new_tokens=4) for i in range(2)]
+    under_ocs = eng.run(reqs, protocol=_ocs(0.0))
+    ideal = eng.run(reqs, protocol=TP.ideal_max(8, tie_break="first"))
+    for i in under_ocs:
+        assert under_ocs[i].tokens == ideal[i].tokens
+
+
+@pytest.mark.parametrize("protocol", ["ocs0.2", "near_far"])
+def test_channel_serving_deterministic(models, protocol):
+    proto = (_ocs(0.2) if protocol == "ocs0.2"
+             else near_far_protocol(N_WORKERS, p_far=0.4))
+    eng = _engine(models, batch_slots=2, max_seq=32, eos_id=-1,
+                  protocol=proto)
+    reqs = [Request(rid=i, prompt=np.arange(5, dtype=np.int32),
+                    max_new_tokens=5) for i in range(2)]
+    a, b = eng.run(reqs), eng.run(reqs)
+    for i in a:
+        assert _fields(a[i]) == _fields(b[i])
+
+
+def test_one_dispatch_per_decode_tick(models):
+    eng = _engine(models, batch_slots=2, max_seq=32, eos_id=-1)
+    reqs = [Request(rid=i, prompt=np.arange(4, dtype=np.int32),
+                    max_new_tokens=5) for i in range(3)]
+    se.reset_dispatch_counts()
+    outs = eng.run(reqs)
+    ticks = se.dispatch_counts()["tick"]
+    decode_tokens = sum(len(c.tokens) - 1 for c in outs.values())
+    assert -(-decode_tokens // 2) <= ticks <= decode_tokens
+
+
+# -- load generation --------------------------------------------------------
+
+@pytest.mark.parametrize("seed,rate,prompt_len", [(3, 0.5, 6), (0, 2.0, 256)])
+def test_poisson_requests_match_jax(seed, rate, prompt_len):
+    want = jload.poisson_requests(16, rate, 151936, prompt_len=prompt_len,
+                                  max_new_tokens=4, seed=seed)
+    got = poisson_requests(16, rate, 151936, prompt_len=prompt_len,
+                           max_new_tokens=4, seed=seed)
+    for a, b in zip(got, want):
+        assert (a.rid, a.arrival_tick, a.max_new_tokens) == \
+            (b.rid, b.arrival_tick, b.max_new_tokens)
+        assert a.prompt.dtype == b.prompt.dtype == np.int32
+        assert np.array_equal(a.prompt, b.prompt)
+
+
+def test_poisson_requests_validation():
+    with pytest.raises(ValueError):
+        poisson_requests(0, 1.0, VOCAB)
+    with pytest.raises(ValueError):
+        poisson_requests(4, 0.0, VOCAB)
+
+
+@pytest.mark.parametrize("n", [2, 4, 5, 16])
+def test_near_far_protocol_p_miss_profile(n):
+    want = jload.near_far_protocol(n, p_near=0.01, p_far=0.25)
+    got = near_far_protocol(n, p_near=0.01, p_far=0.25)
+    pm = np.asarray(got.p_miss)
+    assert pm.dtype == np.float32
+    assert np.array_equal(pm, np.asarray(want.p_miss))
+    assert (got.kind, got.bits, got.max_rounds) == \
+        (want.kind, want.bits, want.max_rounds)
+
+
+# -- config surfaces --------------------------------------------------------
+
+def test_serve_config_validation():
+    with pytest.raises(ValueError):
+        ServeConfig(batch_slots=0)
+    with pytest.raises(ValueError):
+        ServeConfig(max_seq=1)
+    with pytest.raises(ValueError):
+        ServeConfig(protocol=TP.concat())
+    with pytest.raises(ValueError):
+        ChannelClock(tick_us=0.0)
+    with pytest.raises(ValueError):
+        ChannelClock(slot_us=-1.0)
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        cfg = ServeConfig()
+        cfg.batch_slots = 8
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServeConfig(protocol=_ocs(0.1), fault=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServeConfig(greedy=False)
+
+
+def test_engine_device_defaults_to_cuda(models):
+    _, _, tm, tv = models
+    if torch.cuda.is_available():
+        assert ServeEngine(tm, tv, ServeConfig()).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServeEngine(tm, tv, ServeConfig())
+
+
+def test_completion_latency_decomposition():
+    c = Completion(rid=0, tokens=[1, 2], prompt_len=3,
+                   latency_ticks=7, channel_slots=120, uplink_bits=640)
+    assert c.latency_us(ChannelClock(tick_us=10.0, slot_us=0.5)) == \
+        7 * 10.0 + 120 * 0.5
+
+
+def test_serve_launcher_on_the_cpu(capsys):
+    """``python -m repro_torch.launch.serve`` at the reduced config."""
+    from repro_torch.launch import serve as launcher
+    launcher.main(["--arch", "qwen1.5-0.5b", "--smoke", "--device", "cpu",
+                   "--p-miss", "0.05", "--requests", "3", "--max-new", "3",
+                   "--prompt-len", "16"])
+    out = capsys.readouterr().out
+    assert out.count("req ") == 3 and "3 requests, 9 tokens" in out
+    launcher.main(["--arch", "qwen1.5-0.5b", "--smoke", "--device", "cpu",
+                   "--near-far", "--no-use-flash", "--requests", "2",
+                   "--max-new", "2"])
+    assert "2 requests, 4 tokens" in capsys.readouterr().out
