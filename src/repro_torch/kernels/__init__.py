@@ -41,7 +41,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 KERNELS = ("ocs_quant.encode", "ocs_quant.decode", "maxpool.fwd",
            "maxpool.winner_bwd", "ocs_contention.contend",
-           "flash_attention.fwd")
+           "ocs_contention.noisy", "flash_attention.fwd")
 _LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
@@ -59,6 +59,11 @@ _ARGTYPES = {
     #  n_slots, max_rounds, total_bits, mask_lane_stride, stream)
     "ocs_contend": (_P, _P, _P, _P, _P, _P, _I, _I, _I64, _I, _I, _I, _I,
                     _P),
+    # (word, mask, lane_keys, p_keep, p_kind, p_worker_stride, winner,
+    #  contending, collided, lanes, n, k, n_slots, max_rounds, total_bits,
+    #  mask_lane_stride, stream)
+    "ocs_noisy": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I64, _I, _I,
+                  _I, _I, _P),
     # (q, k, v, out, batch, heads, kv_heads, sq, sk, head_dim, kind,
     #  causal, scale, stream)
     "flash_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),

@@ -4,114 +4,321 @@
 // per-round counts of still-contending and collided sub-frames.
 //
 // Replaces src/repro/kernels/ocs_contention/ocs_contention.py::
-// _contention_kernel.  One thread owns one element column of one lane
-// (blockIdx.y is the lane, so one launch serves every p_miss lane of a
-// step).  The live set of the column's N <= 64 workers is one uint64_t
-// mask; each sub-slot is a few word operations on registers:
-//   tx    = alive & plane(d)          (workers whose bit d is 1 transmit)
-//   heard = plane of the packed sensing draws
-//   alive = tx ? alive & (tx | ~heard) : alive
-// and the winner is the lowest set bit (__ffsll).  The words and the
-// packed draws are read once (4 bytes each per worker and round), so the
-// kernel is bound by memory at large K and by the launch at the paper's
-// K of a few thousand columns.  The counts are integers, reduced per block
-// with warp shuffles and added with one atomicAdd per block and round, so
-// their order does not matter.
+// _contention_kernel, in two entries that share one tournament body, a
+// template on where a sensing bit comes from:
+//   ocs_contend  reads the bit from pre-drawn packed planes (the TPU
+//                kernel's interface: bit n_slots-1-d of heard[l, r, n, k]);
+//   ocs_noisy    hashes it in place: the threefry2x32 stream of
+//                repro_torch.random (jax_threefry_partitionable), so bit
+//                heard[l, r, d, n, k] is one hash of the key
+//                fold_in(fold_in(rng_l, r), d) at counter n*K + k, and the
+//                sensing stream is never materialised.
+//
+// Layout.  The worker axis runs across the lanes of a warp: a column
+// (one element k of one lane l) is a segment of SEG = next_pow2(N) lanes
+// (32 for N > 16), and a warp holds 32 / SEG columns; for 33 <= N <= 64
+// each lane holds two workers (n and n + 32).  A sub-slot is
+//   tx    = __ballot_sync(alive && bit d of my word)   (the segment's bits)
+//   a silent alive worker that hears a transmission quits,
+// and the winner is the lowest set bit of the alive ballot.  A sensing bit
+// is read, and so hashed, only where it can matter: sub-slot d <
+// total_bits, worker alive and silent, and some worker of the column
+// transmitting.  A resolved column (at most one survivor) never changes
+// again, so a warp stops as soon as all its columns are resolved; the
+// counts of the rounds it skips are 0, as the TPU kernel counts them.
+// The counts are integer adds (per warp a popcount of a ballot, per block
+// shared atomics, one global atomicAdd per block and round): exact in any
+// order.
+//
+// What bounds it on an H100.  ocs_noisy: the hashes its inputs need,
+// ~85 integer operations each (20 rounds of add, rotate, xor plus the key
+// injections and the uniform), against the INT32 rate of 132 SMs x 64
+// lanes per clock; at the serving tick's 16 workers x 8192 columns that is
+// far below the memory time of the words, so what is left is the launch.
+// The layout gives the tick's 8192 columns 131,072 threads instead of
+// 8,192, so the serial part per thread is a few sub-slots of one worker.
+// ocs_contend: bytes (a word and a plane word per worker and column).
 #include "common.cuh"
 
 namespace {
 
-__device__ __forceinline__ int warp_sum(int v) {
+constexpr int kThreadsCT = 256;
+constexpr int kMaxRounds = 64;
+
+// ---------------------------------------------------------------------------
+// threefry2x32 (20 rounds), as repro_torch/random.py::threefry2x32
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
+  return __funnelshift_l(x, x, r);
+}
+
+__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
+                                             uint32_t& x0, uint32_t& x1) {
+  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  constexpr int kRot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  x0 += ks[0];
+  x1 += ks[1];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// Sum `v` over the block; thread 0 adds it to *dst.  Every thread calls.
-__device__ __forceinline__ void block_add(int v, int* smem, int32_t* dst) {
-  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_sum(v);
-  if (lane == 0) smem[warp] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int total = 0;
-    for (int i = 0; i < (blockDim.x + 31) / 32; ++i) total += smem[i];
-    if (total) atomicAdd(dst, total);
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x0 += x1;
+      x1 = rotl32(x1, kRot[i % 2][j]) ^ x0;
+    }
+    x0 += ks[(i + 1) % 3];
+    x1 += ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
   }
-  __syncthreads();
 }
 
-template <int NMAX>
-__global__ void contend_kernel(const uint32_t* __restrict__ word,
-                               const uint32_t* __restrict__ heard,
-                               const uint8_t* __restrict__ mask,
-                               int32_t* __restrict__ winner,
-                               int32_t* __restrict__ contending,
-                               int32_t* __restrict__ collided, int n,
-                               int64_t k, int n_slots, int max_rounds,
-                               int total_bits, int mask_lane_stride) {
-  __shared__ int smem[2][32];
+// ---------------------------------------------------------------------------
+// Where a sensing bit comes from
+// ---------------------------------------------------------------------------
+
+// The TPU kernel's operand: one 32-bit plane word per (lane, round,
+// worker, column), read once per round for each live worker.
+template <int WPL>
+struct PackedPlanes {
+  const uint32_t* heard;
+  int n_slots, max_rounds, n;
+  int64_t k;
+  uint32_t plane[WPL];
+
+  __device__ void begin_round(int lane, int r, const int (&worker)[WPL],
+                              const bool (&alive)[WPL], int64_t col) {
+#pragma unroll
+    for (int i = 0; i < WPL; ++i)
+      plane[i] = alive[i]
+          ? heard[((static_cast<int64_t>(lane) * max_rounds + r) * n +
+                   worker[i]) * k + col]
+          : 0u;
+  }
+  __device__ bool heard_bit(int i, int /*r*/, int d, int /*worker*/,
+                            int64_t /*col*/) const {
+    return (plane[i] >> (n_slots - 1 - d)) & 1u;
+  }
+};
+
+// The hashed stream: keys[r * kd + d] is fold_in(fold_in(rng_l, r), d) in
+// shared memory; the uniform is drawn in p_keep's type (random.uniform):
+// float32 from the top 23 of 32 bits, bfloat16 from the low 8 bits (the
+// top 7 of them), float16 from the low 16 bits (the top 10), each exact in
+// float32, so the compare with p_keep widened to float32 is the compare in
+// p_keep's type.
+template <int WPL>
+struct HashedStream {
+  const uint32_t* keys;   // shared: (max_rounds * kd, 2)
+  int kd, kind;
+  int64_t k;
+  float p[WPL];
+
+  __device__ void begin_round(int, int, const int (&)[WPL],
+                              const bool (&)[WPL], int64_t) {}
+  __device__ bool heard_bit(int i, int r, int d, int worker,
+                            int64_t col) const {
+    const uint32_t* key = keys + 2 * (r * kd + d);
+    const uint64_t c = static_cast<uint64_t>(worker) * k + col;
+    uint32_t x0 = static_cast<uint32_t>(c >> 32);
+    uint32_t x1 = static_cast<uint32_t>(c);
+    threefry2x32(key[0], key[1], x0, x1);
+    const uint32_t bits = x0 ^ x1;
+    float u;
+    if (kind == rt::kF32)
+      u = static_cast<float>(bits >> 9) * 1.1920928955078125e-7f;   // 2^-23
+    else if (kind == rt::kBF16)
+      u = static_cast<float>((bits & 0xFFu) >> 1) * 0.0078125f;     // 2^-7
+    else
+      u = static_cast<float>((bits & 0xFFFFu) >> 6) * 0.0009765625f;  // 2^-10
+    return u < p[i];
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The tournament body, shared by both entries
+// ---------------------------------------------------------------------------
+
+template <int SEG, int WPL, class Src>
+__device__ void tournament(Src& src, const uint32_t* __restrict__ word,
+                           const uint8_t* __restrict__ mask,
+                           int32_t* __restrict__ winner, int* cnt, int n,
+                           int64_t k, int kd, int max_rounds,
+                           int total_bits, int mask_lane_stride) {
+  constexpr unsigned kFull = 0xffffffffu;
+  constexpr unsigned kSegBits = SEG == 32 ? kFull : ((1u << SEG) - 1u);
   const int lane = blockIdx.y;
-  const int64_t col = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                      threadIdx.x;
+  const int tid = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int seg = tid / SEG, in_seg = tid % SEG;
+  const unsigned seg_shift = static_cast<unsigned>(seg * SEG);
+  const int64_t col =
+      (static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + warp) *
+          (32 / SEG) + seg;
   const bool live = col < k;
 
-  uint32_t w[NMAX];
-  uint64_t alive = 0;
+  int worker[WPL];
+  bool alive[WPL];
+  uint32_t w[WPL];
 #pragma unroll
-  for (int i = 0; i < NMAX; ++i) {
-    w[i] = 0;
-    if (i < n && live) {
-      w[i] = word[(static_cast<int64_t>(lane) * n + i) * k + col];
-      if (mask[lane * mask_lane_stride + i]) alive |= 1ull << i;
-    }
+  for (int i = 0; i < WPL; ++i) {
+    worker[i] = in_seg + 32 * i;
+    alive[i] = live && worker[i] < n &&
+               mask[lane * mask_lane_stride + worker[i]] != 0;
+    w[i] = alive[i]
+        ? word[(static_cast<int64_t>(lane) * n + worker[i]) * k + col]
+        : 0u;
   }
-  bool done = !live;   // a padding thread contends in no round
+  // the segment's alive set, identical in each of its lanes
+  auto seg_alive = [&](unsigned& lo, unsigned& hi) {
+    lo = (__ballot_sync(kFull, alive[0]) >> seg_shift) & kSegBits;
+    hi = WPL == 2 ? __ballot_sync(kFull, alive[WPL - 1]) : 0u;
+  };
+
+  bool done = !live;   // a padding column contends in no round
   for (int r = 0; r < max_rounds; ++r) {
-    uint32_t hw[NMAX];
+    if (__all_sync(kFull, done)) break;   // later rounds count 0
+    src.begin_round(lane, r, worker, alive, col);
+    for (int d = 0; d < kd; ++d) {
+      unsigned lo, hi;
+      seg_alive(lo, hi);
+      // one survivor (or none) per column: the rest of the round is inert
+      if (!__any_sync(kFull, __popc(lo) + __popc(hi) > 1)) break;
+      const int shift = total_bits - 1 - d;
+      bool tx[WPL];
 #pragma unroll
-    for (int i = 0; i < NMAX; ++i) {
-      hw[i] = 0;
-      if (i < n && live)
-        hw[i] = heard[((static_cast<int64_t>(lane) * max_rounds + r) * n + i)
-                      * k + col];
-    }
-    const int cont = done ? 0 : 1;
-    for (int d = 0; d < n_slots && d < total_bits; ++d) {
-      const int shift = total_bits - 1 - d, hshift = n_slots - 1 - d;
-      uint64_t tx = 0, hm = 0;
+      for (int i = 0; i < WPL; ++i) tx[i] = alive[i] && ((w[i] >> shift) & 1u);
+      unsigned any = (__ballot_sync(kFull, tx[0]) >> seg_shift) & kSegBits;
+      if (WPL == 2) any |= __ballot_sync(kFull, tx[WPL - 1]);
+      if (any) {
 #pragma unroll
-      for (int i = 0; i < NMAX; ++i) {
-        if (i < n) {
-          tx |= static_cast<uint64_t>((w[i] >> shift) & 1u) << i;
-          hm |= static_cast<uint64_t>((hw[i] >> hshift) & 1u) << i;
-        }
+        for (int i = 0; i < WPL; ++i)
+          if (alive[i] && !tx[i] && src.heard_bit(i, r, d, worker[i], col))
+            alive[i] = false;
       }
-      tx &= alive;
-      // a sensing worker quits only if someone transmitted AND it heard
-      if (tx) alive &= (tx | ~hm);
     }
-    const int coll = __popcll(alive) > 1 ? 1 : 0;
+    unsigned lo, hi;
+    seg_alive(lo, hi);
+    const bool coll = live && __popc(lo) + __popc(hi) > 1;
+    const bool lead = in_seg == 0;
+    const int n_cont = __popc(__ballot_sync(kFull, lead && !done));
+    const int n_coll = __popc(__ballot_sync(kFull, lead && coll));
+    if (tid == 0) {
+      if (n_cont) atomicAdd(&cnt[r], n_cont);
+      if (n_coll) atomicAdd(&cnt[max_rounds + r], n_coll);
+    }
     done = done || !coll;
-    block_add(cont, smem[0], contending + lane * max_rounds + r);
-    block_add(coll, smem[1], collided + lane * max_rounds + r);
   }
-  if (live)
+  unsigned lo, hi;
+  seg_alive(lo, hi);
+  if (live && in_seg == 0)
     winner[static_cast<int64_t>(lane) * k + col] =
-        alive ? __ffsll(static_cast<long long>(alive)) - 1 : 0;
+        lo ? __ffs(lo) - 1 : (hi ? 32 + __ffs(hi) - 1 : 0);
 }
 
-template <int NMAX>
-void launch(const uint32_t* word, const uint32_t* heard, const uint8_t* mask,
-            int32_t* winner, int32_t* contending, int32_t* collided,
-            int lanes, int n, int64_t k, int n_slots, int max_rounds,
-            int total_bits, int mask_lane_stride, cudaStream_t s) {
-  dim3 grid(static_cast<unsigned>((k + rt::kThreads - 1) / rt::kThreads),
-            static_cast<unsigned>(lanes));
-  contend_kernel<NMAX><<<grid, rt::kThreads, 0, s>>>(
-      word, heard, mask, winner, contending, collided, n, k, n_slots,
-      max_rounds, total_bits, mask_lane_stride);
+// After the body: the block's per-round counts to the output, one
+// atomicAdd each.
+__device__ __forceinline__ void flush_counts(const int* cnt,
+                                             int32_t* contending,
+                                             int32_t* collided,
+                                             int max_rounds) {
+  __syncthreads();
+  const int lane = blockIdx.y;
+  for (int i = threadIdx.x; i < 2 * max_rounds; i += blockDim.x) {
+    if (!cnt[i]) continue;
+    int32_t* dst = i < max_rounds ? contending + lane * max_rounds + i
+                                  : collided + lane * max_rounds +
+                                        (i - max_rounds);
+    atomicAdd(dst, cnt[i]);
+  }
 }
+
+template <int SEG, int WPL>
+__global__ void __launch_bounds__(kThreadsCT)
+    contend_kernel(const uint32_t* __restrict__ word,
+                   const uint32_t* __restrict__ heard,
+                   const uint8_t* __restrict__ mask,
+                   int32_t* __restrict__ winner,
+                   int32_t* __restrict__ contending,
+                   int32_t* __restrict__ collided, int n, int64_t k,
+                   int n_slots, int max_rounds, int total_bits,
+                   int mask_lane_stride) {
+  __shared__ int cnt[2 * kMaxRounds];
+  for (int i = threadIdx.x; i < 2 * max_rounds; i += blockDim.x) cnt[i] = 0;
+  __syncthreads();
+  PackedPlanes<WPL> src{heard, n_slots, max_rounds, n, k, {}};
+  tournament<SEG, WPL>(src, word, mask, winner, cnt, n, k,
+                       max(0, min(n_slots, total_bits)), max_rounds,
+                       total_bits, mask_lane_stride);
+  flush_counts(cnt, contending, collided, max_rounds);
+}
+
+template <int SEG, int WPL>
+__global__ void __launch_bounds__(kThreadsCT)
+    noisy_kernel(const uint32_t* __restrict__ word,
+                 const uint8_t* __restrict__ mask,
+                 const uint32_t* __restrict__ lane_keys,
+                 const void* __restrict__ p_keep, int p_kind,
+                 int p_worker_stride, int32_t* __restrict__ winner,
+                 int32_t* __restrict__ contending,
+                 int32_t* __restrict__ collided, int n, int64_t k, int kd,
+                 int max_rounds, int total_bits, int mask_lane_stride) {
+  extern __shared__ uint32_t keys[];   // (max_rounds * kd + max_rounds, 2)
+  __shared__ int cnt[2 * kMaxRounds];
+  const int lane = blockIdx.y;
+  uint32_t* round_keys = keys + 2 * max_rounds * kd;
+  for (int i = threadIdx.x; i < 2 * max_rounds; i += blockDim.x) cnt[i] = 0;
+  // fold_in(key, x) = threefry2x32(key, (0, x))
+  for (int r = threadIdx.x; r < max_rounds; r += blockDim.x) {
+    uint32_t x0 = 0, x1 = static_cast<uint32_t>(r);
+    threefry2x32(lane_keys[2 * lane], lane_keys[2 * lane + 1], x0, x1);
+    round_keys[2 * r] = x0;
+    round_keys[2 * r + 1] = x1;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < max_rounds * kd; i += blockDim.x) {
+    const int r = i / kd, d = i % kd;
+    uint32_t x0 = 0, x1 = static_cast<uint32_t>(d);
+    threefry2x32(round_keys[2 * r], round_keys[2 * r + 1], x0, x1);
+    keys[2 * i] = x0;
+    keys[2 * i + 1] = x1;
+  }
+  __syncthreads();
+
+  HashedStream<WPL> src{keys, kd, p_kind, k, {}};
+  const int p_lane_stride = p_worker_stride ? n : 1;
+#pragma unroll
+  for (int i = 0; i < WPL; ++i) {
+    const int seg_lane = (threadIdx.x & 31) % SEG;
+    const int wk = min(seg_lane + 32 * i, n - 1);   // padding lanes read 0's
+    const int64_t at = static_cast<int64_t>(lane) * p_lane_stride +
+                       (p_worker_stride ? wk : 0);
+    const uint32_t bits = p_kind == rt::kF32
+        ? static_cast<const uint32_t*>(p_keep)[at]
+        : static_cast<const uint16_t*>(p_keep)[at];
+    src.p[i] = rt::bits_to_float(bits, p_kind);
+  }
+  tournament<SEG, WPL>(src, word, mask, winner, cnt, n, k, kd, max_rounds,
+                       total_bits, mask_lane_stride);
+  flush_counts(cnt, contending, collided, max_rounds);
+}
+
+inline unsigned col_blocks(int64_t k, int seg) {
+  const int64_t cols = (kThreadsCT / 32) * (32 / seg);
+  return static_cast<unsigned>((k + cols - 1) / cols);
+}
+
+bool bad_shape(int lanes, int n, int64_t k, int n_slots, int max_rounds) {
+  return n < 1 || n > 64 || n_slots < 1 || n_slots > 32 || max_rounds < 1 ||
+         max_rounds > kMaxRounds || lanes < 1 || lanes > 65535 || k < 0;
+}
+
+// CALL(SEG, WPL) for the segment of n workers
+#define RT_BY_SEGMENT(n, CALL)         \
+  if ((n) <= 1) CALL(1, 1);            \
+  else if ((n) <= 2) CALL(2, 1);       \
+  else if ((n) <= 4) CALL(4, 1);       \
+  else if ((n) <= 8) CALL(8, 1);       \
+  else if ((n) <= 16) CALL(16, 1);     \
+  else if ((n) <= 32) CALL(32, 1);     \
+  else CALL(32, 2)
 
 }  // namespace
 
@@ -126,25 +333,53 @@ int ocs_contend(const void* word, const void* heard, const void* mask,
                 int n, int64_t k, int n_slots, int max_rounds,
                 int total_bits, int mask_lane_stride, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n < 1 || n > 64 || n_slots < 1 || n_slots > 32 || max_rounds < 1 ||
-      lanes < 1 || k < 0 || lanes > 65535)
+  if (bad_shape(lanes, n, k, n_slots, max_rounds))
     return static_cast<int>(cudaErrorInvalidValue);
   if (k == 0) return 0;
-  auto* w = static_cast<const uint32_t*>(word);
-  auto* h = static_cast<const uint32_t*>(heard);
-  auto* m = static_cast<const uint8_t*>(mask);
-  auto* win = static_cast<int32_t*>(winner);
-  auto* cont = static_cast<int32_t*>(contending);
-  auto* coll = static_cast<int32_t*>(collided);
-#define RT_CONTEND(NM)                                                     \
-  launch<NM>(w, h, m, win, cont, coll, lanes, n, k, n_slots, max_rounds,   \
-             total_bits, mask_lane_stride, s)
-  if (n <= 4) RT_CONTEND(4);
-  else if (n <= 8) RT_CONTEND(8);
-  else if (n <= 16) RT_CONTEND(16);
-  else if (n <= 32) RT_CONTEND(32);
-  else RT_CONTEND(64);
+#define RT_CONTEND(SEG, WPL)                                              \
+  contend_kernel<SEG, WPL>                                                \
+      <<<dim3(col_blocks(k, SEG), static_cast<unsigned>(lanes)),          \
+         kThreadsCT, 0, s>>>(                                             \
+          static_cast<const uint32_t*>(word),                             \
+          static_cast<const uint32_t*>(heard),                            \
+          static_cast<const uint8_t*>(mask), static_cast<int32_t*>(winner), \
+          static_cast<int32_t*>(contending),                              \
+          static_cast<int32_t*>(collided), n, k, n_slots, max_rounds,     \
+          total_bits, mask_lane_stride)
+  RT_BY_SEGMENT(n, RT_CONTEND);
 #undef RT_CONTEND
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tournament with the sensing stream hashed in place.  lane_keys
+// (lanes, 2) u32 raw threefry keys; p_keep (lanes, 1) or (lanes, n) raw
+// words of p_kind (float32, bfloat16, float16), per worker when
+// p_worker_stride is 1; the rest as ocs_contend.
+int ocs_noisy(const void* word, const void* mask, const void* lane_keys,
+              const void* p_keep, int p_kind, int p_worker_stride,
+              void* winner, void* contending, void* collided, int lanes,
+              int n, int64_t k, int n_slots, int max_rounds, int total_bits,
+              int mask_lane_stride, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bad_shape(lanes, n, k, n_slots, max_rounds) ||
+      (p_kind != rt::kF32 && p_kind != rt::kBF16 && p_kind != rt::kF16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (k == 0) return 0;
+  const int kd = max(0, min(n_slots, total_bits));
+  const size_t smem = sizeof(uint32_t) * 2 * max_rounds * (kd + 1);
+#define RT_NOISY(SEG, WPL)                                                \
+  noisy_kernel<SEG, WPL>                                                  \
+      <<<dim3(col_blocks(k, SEG), static_cast<unsigned>(lanes)),          \
+         kThreadsCT, smem, s>>>(                                          \
+          static_cast<const uint32_t*>(word),                             \
+          static_cast<const uint8_t*>(mask),                              \
+          static_cast<const uint32_t*>(lane_keys), p_keep, p_kind,        \
+          p_worker_stride, static_cast<int32_t*>(winner),                 \
+          static_cast<int32_t*>(contending),                              \
+          static_cast<int32_t*>(collided), n, k, kd, max_rounds,          \
+          total_bits, mask_lane_stride)
+  RT_BY_SEGMENT(n, RT_NOISY);
+#undef RT_NOISY
   return static_cast<int>(cudaGetLastError());
 }
 

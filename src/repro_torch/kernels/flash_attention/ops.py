@@ -48,7 +48,10 @@ def _forward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v of one type of {_DTYPES}, got {q.dtype} "
                          f"{k.dtype} {v.dtype}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # the tensor-core design reads q, k, v through TMA, which takes
+    # 16-byte aligned rows: a view that starts off that grid is copied
+    q, k, v = (t.contiguous() if t.data_ptr() % 16 == 0 else t.clone(
+        memory_format=torch.contiguous_format) for t in (q, k, v))
     out = torch.empty_like(q)
     kernels.check_operands(q, k, v, out)
     if out.numel():

@@ -1,11 +1,11 @@
-"""Wrapper of the noisy contention kernel (``csrc/ocs_contention.cu``) and
-the packing of the sensing draws it consumes.
+"""Wrappers of the noisy contention kernel (``csrc/ocs_contention.cu``).
 
 Every operand is lane-leading: one launch runs the tournament of all
-p_miss lanes.  ``draw_heard_packed`` makes the per-(round, sub-slot)
-Bernoulli draws of the JAX package's scan (``ocs.sensing_heard`` at key
-``fold_in(fold_in(rng, r), d)``) in one batched draw and packs them into
-one 32-bit plane word per (lane, round, worker, element).
+p_miss lanes.  ``noisy_contention`` is what the protocol core calls: on a
+CUDA tensor its kernel hashes each sensing bit it reads in place (the
+threefry stream of ``ref.draw_heard_packed``, bit for bit) and no sensing
+tensor exists; on the CPU it is ``ref.noisy_contention``.  ``contend``
+takes pre-drawn packed planes, the TPU kernel's interface.
 """
 
 from __future__ import annotations
@@ -13,27 +13,34 @@ from __future__ import annotations
 import torch
 
 from repro_torch import kernels
-from repro_torch import random as jr
-from repro_torch.core import ocs
 from repro_torch.kernels.ocs_contention import ref
 from repro_torch.kernels.ocs_quant.ref import from_int64
 
+MAX_ROUNDS = 64      # csrc/ocs_contention.cu: kMaxRounds
 
-def draw_heard_packed(rng: torch.Tensor, p_keep: torch.Tensor, n: int,
-                      k: int, *, n_slots: int,
-                      max_rounds: int) -> torch.Tensor:
-    """rng (L, 2) keys, p_keep (L, 1, 1) or (L, N, 1) -> (L, max_rounds,
-    N, K) ``uint32`` where bit ``n_slots - 1 - d`` of ``[l, r, n, k]`` is
-    lane l's sub-slot d draw in round r."""
-    dev = rng.device
-    r_keys = jr.fold_in(rng[:, None], torch.arange(max_rounds, device=dev))
-    rd_keys = jr.fold_in(r_keys[:, :, None],
-                         torch.arange(n_slots, device=dev))  # (L, R, S, 2)
-    p = p_keep.reshape(p_keep.shape[:1] + (1, 1) + p_keep.shape[1:])
-    heard = ocs.sensing_heard(rd_keys, p, n, k)               # (L,R,S,N,K)
-    plane = 1 << torch.arange(n_slots - 1, -1, -1, device=dev)
-    packed = (heard.to(torch.int64) * plane[:, None, None]).sum(dim=2)
-    return from_int64(packed, torch.uint32)
+
+def _check_kernel_operands(word: torch.Tensor, n_slots: int,
+                           max_rounds: int) -> None:
+    n = word.shape[1]
+    if not 1 <= n <= 64:
+        raise ValueError(f"the contention kernel takes 1..64 workers, got {n}")
+    if not 1 <= max_rounds <= MAX_ROUNDS:
+        raise ValueError(f"the contention kernel takes 1..{MAX_ROUNDS} "
+                         f"rounds, got {max_rounds}")
+    if word.dtype not in (torch.uint32, torch.int32):
+        raise ValueError(f"32-bit words expected, got {word.dtype}")
+
+
+def _mask_and_outputs(word: torch.Tensor, mask: torch.Tensor,
+                      max_rounds: int):
+    """The (1 or L, N) uint8 mask, its lane stride, and the outputs."""
+    lanes, n, k = word.shape
+    m = ref.lane_mask(mask, lanes, n, word.device)
+    m8 = (m[:1] if mask.ndim == 1 else m).to(torch.uint8).contiguous()
+    winner = torch.empty((lanes, k), dtype=torch.int32, device=word.device)
+    counts = torch.zeros((2, lanes, max_rounds), dtype=torch.int32,
+                         device=word.device)
+    return m8, (0 if mask.ndim == 1 else n), winner, counts
 
 
 def contend(word: torch.Tensor, heard: torch.Tensor, mask: torch.Tensor,
@@ -55,23 +62,18 @@ def contend(word: torch.Tensor, heard: torch.Tensor, mask: torch.Tensor,
     if word.device.type == "cpu":
         return ref.contend(word, heard, mask, int(total_bits),
                            n_slots=n_slots, max_rounds=max_rounds)
-    if not 1 <= n <= 64:
-        raise ValueError(f"the contention kernel takes 1..64 workers, got {n}")
-    for t in (word, heard):
-        if t.dtype not in (torch.uint32, torch.int32):
-            raise ValueError(f"32-bit words expected, got {t.dtype}")
-    m = ref.lane_mask(mask, lanes, n, word.device)
-    m8 = (m[:1] if mask.ndim == 1 else m).to(torch.uint8).contiguous()
+    _check_kernel_operands(word, n_slots, max_rounds)
+    if heard.dtype not in (torch.uint32, torch.int32):
+        raise ValueError(f"32-bit words expected, got {heard.dtype}")
     word, heard = word.contiguous(), heard.contiguous()
-    winner = torch.empty((lanes, k), dtype=torch.int32, device=word.device)
-    counts = torch.zeros((2, lanes, max_rounds), dtype=torch.int32,
-                         device=word.device)
+    m8, mask_stride, winner, counts = _mask_and_outputs(word, mask,
+                                                        max_rounds)
     kernels.check_operands(word, heard, m8, winner, counts)
     kernels.launch("ocs_contention.contend", "ocs_contend", word.device,
                    word.data_ptr(), heard.data_ptr(), m8.data_ptr(),
                    winner.data_ptr(), counts[0].data_ptr(),
                    counts[1].data_ptr(), lanes, n, k, n_slots, max_rounds,
-                   int(total_bits), 0 if mask.ndim == 1 else n)
+                   int(total_bits), mask_stride)
     return winner, counts[0], counts[1]
 
 
@@ -79,9 +81,38 @@ def noisy_contention(word: torch.Tensor, mask: torch.Tensor,
                      total_bits: int, rng: torch.Tensor,
                      p_keep: torch.Tensor, *, n_slots: int,
                      max_rounds: int):
-    """Draw the sensing stream and run the tournament (see ``contend``)."""
+    """The tournament under the sensing stream of ``rng``.
+
+    word (L, N, K) 32-bit words, mask (N,) or (L, N), rng (L, 2) int64 keys,
+    p_keep (L, 1, 1) or (L, N, 1) hear probabilities in float32, bfloat16
+    or float16 (the draw's type) -> the outputs of ``contend``, equal bit
+    for bit to ``ref.noisy_contention``."""
+    if not 1 <= n_slots <= 32:
+        raise ValueError(f"n_slots must be in [1, 32], got {n_slots}")
     lanes, n, k = word.shape
-    heard = draw_heard_packed(rng, p_keep, n, k, n_slots=n_slots,
-                              max_rounds=max_rounds)
-    return contend(word, heard, mask, total_bits, n_slots=n_slots,
-                   max_rounds=max_rounds)
+    if word.device.type == "cpu":
+        return ref.noisy_contention(word, mask, int(total_bits), rng, p_keep,
+                                    n_slots=n_slots, max_rounds=max_rounds)
+    _check_kernel_operands(word, n_slots, max_rounds)
+    if p_keep.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        raise ValueError(f"p_keep must be float32, bfloat16 or float16, got "
+                         f"{p_keep.dtype}")
+    p = p_keep.reshape(lanes, -1)
+    if p.shape[1] not in (1, n) or rng.shape != (lanes, 2):
+        raise ValueError(f"p_keep (L, 1, 1) or (L, N, 1) and rng (L, 2) for "
+                         f"L={lanes}, N={n}; got {tuple(p_keep.shape)} and "
+                         f"{tuple(rng.shape)}")
+    p_bits = p.contiguous().view(torch.int32 if p.dtype == torch.float32
+                                 else torch.int16)
+    keys = from_int64(rng, torch.uint32).contiguous()
+    word = word.contiguous()
+    m8, mask_stride, winner, counts = _mask_and_outputs(word, mask,
+                                                        max_rounds)
+    kernels.check_operands(word, keys, p_bits, m8, winner, counts)
+    kernels.launch("ocs_contention.noisy", "ocs_noisy", word.device,
+                   word.data_ptr(), m8.data_ptr(), keys.data_ptr(),
+                   p_bits.data_ptr(), kernels.KIND[p.dtype],
+                   int(p.shape[1] > 1), winner.data_ptr(),
+                   counts[0].data_ptr(), counts[1].data_ptr(), lanes, n, k,
+                   n_slots, max_rounds, int(total_bits), mask_stride)
+    return winner, counts[0], counts[1]

@@ -20,6 +20,7 @@ from repro_torch.kernels.flash_attention import ref as FR
 from repro_torch.kernels.maxpool import ops as MPO
 from repro_torch.kernels.maxpool import ref as MPR
 from repro_torch.kernels.ocs_contention import ops as CO
+from repro_torch.kernels.ocs_contention import ref as CR
 from repro_torch.kernels.ocs_quant import ops as QO
 from repro_torch.kernels.ocs_quant import ref as QR
 from repro_torch.models import model as TM
@@ -94,9 +95,9 @@ def test_contend_matches_plain(cuda_device, n, n_real, bits, id_pad,
     mask = torch.arange(n) < n_real
     keys = jr.split(jr.PRNGKey(n), lanes)
     p_keep = ocs.sensing_keep_prob(torch.full((lanes,), p_miss), lanes=True)
-    heard = CO.draw_heard_packed(keys, p_keep, n, k, n_slots=n_slots,
+    heard = CR.draw_heard_packed(keys, p_keep, n, k, n_slots=n_slots,
                                  max_rounds=rounds)
-    heard_c = CO.draw_heard_packed(keys.to(cuda_device),
+    heard_c = CR.draw_heard_packed(keys.to(cuda_device),
                                    p_keep.to(cuda_device), n, k,
                                    n_slots=n_slots, max_rounds=rounds)
     _same(heard, heard_c)
@@ -108,25 +109,85 @@ def test_contend_matches_plain(cuda_device, n, n_real, bits, id_pad,
         _same(a, b)
 
 
-# flash attention: the prefill shapes (bf16, causal) and the JAX parity
-# test's float32 GQA cases at blocks of 64; tolerances are the JAX test's
-# (the kernel sums in another order than the whole-matrix softmax)
-_FLASH_CASES = ([(16, 16, 128, torch.bfloat16, True, 128),
-                 (16, 16, 512, torch.bfloat16, True, 128)]
-                + [(4, hkv, 192, torch.float32, causal, 64)
+# the fused kernel's cases: (lanes, workers, real workers, elements, p
+# dtype, bits, id sub-slots past the real ones, p_miss per lane, per worker)
+_NOISY_CASES = {
+    "curves-bits8": (4, 4, 4, 4096, torch.float32, 8, 0,
+                     (0.0, 0.02, 0.05, 0.1), False),
+    "curves-bits16": (4, 4, 4, 4096, torch.float32, 16, 0,
+                      (0.0, 0.02, 0.05, 0.1), False),
+    "serve-bf16": (1, 16, 16, 8192, torch.bfloat16, 8, 0, (0.05,), False),
+    "f16": (2, 8, 8, 1000, torch.float16, 8, 0, (0.1, 0.3), False),
+    "per-worker": (3, 9, 6, 700, torch.float32, 8, 0, (0.05, 0.2, 0.5),
+                   True),
+    "padded-id": (2, 33, 20, 900, torch.bfloat16, 16, 3, (0.1, 0.4), False),
+    "n64": (2, 64, 64, 777, torch.float32, 8, 0, (0.02, 0.3), False),
+}
+
+
+def noisy_operands(dev, lanes, n, n_real, k, dtype, bits, id_pad, p_miss,
+                   per_worker, seed=0):
+    """Contention words, mask, lane keys and p_keep of one case."""
+    id_bits = ocs.host_id_bits(n_real)
+    gen = torch.Generator().manual_seed(seed + n)
+    h = (torch.randn((lanes, n, k), generator=gen) * 3).to(dtype)
+    codes = QR.to_int64(QR.encode(h, bits))
+    word = QR.from_int64((codes << id_bits)
+                         | ocs._id_codes(n, id_bits)[:, None], torch.uint32)
+    mask = torch.arange(n) < n_real
+    keys = jr.split(jr.PRNGKey(seed + bits), lanes)
+    p = torch.tensor(p_miss)
+    if per_worker:      # worker i misses a little more than worker i - 1
+        p = p[:, None] + 0.01 * torch.arange(n)[None]
+    p_keep = ocs.sensing_keep_prob(p, dtype, lanes=True)
+    kw = dict(n_slots=bits + id_bits + id_pad, max_rounds=3)
+    return [t.to(dev) for t in (word, mask, keys, p_keep)], \
+        bits + id_bits, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_NOISY_CASES))
+def test_noisy_matches_plain(cuda_device, case):
+    """The tournament that hashes its own sensing bits against the packed
+    draw + tournament on the CPU, bit for bit, winners and counts."""
+    ops_in, total, kw = noisy_operands(cuda_device, *_NOISY_CASES[case])
+    got = CO.noisy_contention(*ops_in[:2], total, *ops_in[2:], **kw)
+    want = CR.noisy_contention(*(t.cpu() for t in ops_in[:2]), total,
+                               *(t.cpu() for t in ops_in[2:]), **kw)
+    for a, b in zip(want, got):
+        _same(a, b)
+    # and against the packed-plane kernel on the same draws
+    word, mask, keys, p_keep = ops_in
+    heard = CR.draw_heard_packed(keys, p_keep, word.shape[1], word.shape[2],
+                                 **kw)
+    for a, b in zip(CO.contend(word, heard, mask, total, **kw), got):
+        _same(a, b)
+
+
+# flash attention: the prefill shapes (bf16, causal) up to long prompts,
+# float16, head_dim 128, and the JAX parity test's float32 GQA cases at
+# blocks of 64; tolerances are the JAX test's (the kernel sums in another
+# order than the whole-matrix softmax, and rounds P to 16 bits before PV)
+_FLASH_CASES = ([(16, 16, s, torch.bfloat16, True, 128, 64)
+                 for s in (128, 512, 1024, 4096)]
+                + [(16, 16, 256, torch.float16, True, 128, 64),
+                   (8, 2, 384, torch.float16, False, 128, 64),
+                   (4, 2, 256, torch.bfloat16, True, 128, 128),
+                   (4, 4, 192, torch.bfloat16, True, 64, 32)]
+                + [(4, hkv, 192, torch.float32, causal, 64, 64)
                    for hkv in (1, 2, 4) for causal in (True, False)])
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,hkv,s,dtype,causal,block", _FLASH_CASES)
-def test_flash_matches_plain(cuda_device, h, hkv, s, dtype, causal, block):
+@pytest.mark.parametrize("h,hkv,s,dtype,causal,block,d", _FLASH_CASES)
+def test_flash_matches_plain(cuda_device, h, hkv, s, dtype, causal, block,
+                             d):
     gen = torch.Generator().manual_seed(s + hkv)
     q, k, v = (torch.randn(shape, generator=gen).to(dtype).to(cuda_device)
-               for shape in ((1, h, s, 64), (1, hkv, s, 64),
-                             (1, hkv, s, 64)))
+               for shape in ((1, h, s, d), (1, hkv, s, d), (1, hkv, s, d)))
     got = FO.flash_attention(q, k, v, causal, block, block)
     want = FR.flash_attention(q, k, v, causal)
-    atol = 0.05 if dtype == torch.bfloat16 else 3e-5
+    atol = 3e-5 if dtype == torch.float32 else 0.05
     assert got.dtype == dtype
     assert float((got.float() - want.float()).abs().max()) <= atol
 

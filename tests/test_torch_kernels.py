@@ -202,7 +202,7 @@ def test_draw_heard_packed_matches_jax(case):
     word, mask, heard_j = _contend_operands(case)
     p_keep = tocs.sensing_keep_prob(torch.tensor([case["p_miss"]]),
                                     lanes=True)
-    heard_t = CO.draw_heard_packed(
+    heard_t = CR.draw_heard_packed(
         jr.PRNGKey(case["seed"])[None], p_keep, case["n"], case["k"],
         n_slots=case["n_slots"], max_rounds=case["max_rounds"])
     _same(np.asarray(heard_j), heard_t[0], "packed planes")
@@ -244,6 +244,90 @@ def test_contend_lanes_and_per_lane_mask():
             _same(a, b[lane])
 
 
+# the fused tournament's contract: the sensing stream of the lane keys,
+# drawn in p_keep's type, scalar or per worker, with padded id sub-slots
+_NOISY = list(grid(dtype=["float32", "bfloat16", "float16"],
+                   per_worker=[False, True], id_pad=[0, 2], seed=[0]))
+
+
+def _noisy_operands(case, lanes=2, n=6, n_real=5, k=40, bits=8):
+    rng = np.random.default_rng(case["seed"])
+    id_bits = tocs.host_id_bits(n_real)
+    codes = rng.integers(0, 1 << bits, (lanes, n, k), dtype=np.uint32)
+    word = (codes << id_bits) | ((1 << id_bits) - 1
+                                 - np.arange(n, dtype=np.uint32))[:, None]
+    word &= np.uint32((1 << (bits + id_bits)) - 1)
+    mask = np.arange(n) < n_real
+    shape = (lanes, n) if case["per_worker"] else (lanes,)
+    p_miss = rng.uniform(0.05, 0.6, shape).astype(np.float32)
+    keys = np.stack([np.asarray(jax.random.PRNGKey(case["seed"] * 10 + i))
+                     for i in range(lanes)]).astype(np.uint32)
+    kw = dict(n_slots=bits + id_bits + case["id_pad"], max_rounds=3)
+    return word, mask, p_miss, keys, bits + id_bits, kw
+
+
+@pytest.mark.parametrize("case", _NOISY, ids=str)
+def test_noisy_contention_matches_jax(case):
+    """``ops.noisy_contention`` on the CPU against the JAX package's
+    ``noisy_contention`` (the Pallas kernel in interpret mode, which takes
+    one lane at a time), bit for bit: winners and both counts."""
+    word, mask, p_miss, keys, total, kw = _noisy_operands(case)
+    jdt, tdt = _DT[case["dtype"]]
+    p_keep = tocs.sensing_keep_prob(torch.from_numpy(p_miss), tdt,
+                                    lanes=True)
+    got = CO.noisy_contention(torch.from_numpy(word), torch.from_numpy(mask),
+                              total, torch.from_numpy(keys.astype(np.int64)),
+                              p_keep, **kw)
+    for lane in range(word.shape[0]):
+        p_keep_j = jocs.sensing_keep_prob(jnp.asarray(p_miss[lane]), jdt)
+        _same(p_keep_j, p_keep[lane].reshape(p_keep_j.shape), "p_keep")
+        want = JCO.noisy_contention(
+            jnp.asarray(word[lane]), jnp.asarray(mask), jnp.int32(total),
+            jnp.asarray(keys[lane]), p_keep_j, interpret=True, **kw)
+        for a, b, what in zip(want, got, ("winner", "contending",
+                                          "collided")):
+            _same(a, b[lane], what)
+
+
+# the uniform of one 32-bit draw in p_keep's type, as the kernel computes
+# it: (bits taken, mantissa shift, scale of one mantissa step)
+_UNIFORM = {torch.float32: (0xFFFFFFFF, 9, 2.0 ** -23),
+            torch.bfloat16: (0xFF, 1, 2.0 ** -7),
+            torch.float16: (0xFFFF, 6, 2.0 ** -10)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("per_worker", [False, True])
+def test_noisy_kernel_index_formula(dtype, per_worker):
+    """The scalar derivation ``ocs_contention.noisy`` computes per sensing
+    bit gives ``draw_heard_packed``'s bit at sampled (l, r, d, n, k): key
+    ``fold_in(fold_in(rng_l, r), d)``, one threefry2x32 hash at counter
+    ``c = n * K + k`` split ``(c >> 32, c & 0xffffffff)``, ``bits1 ^
+    bits2``, the uniform in p_keep's type, heard = uniform < p_keep."""
+    tdt = _DT[dtype][1]
+    lanes, n, k, n_slots, rounds = 3, 5, 300, 12, 3
+    rng = np.random.default_rng(7)
+    keys = jr.split(jr.PRNGKey(11), lanes)
+    shape = (lanes, n) if per_worker else (lanes,)
+    p_keep = tocs.sensing_keep_prob(
+        torch.from_numpy(rng.uniform(0.05, 0.9, shape).astype(np.float32)),
+        tdt, lanes=True)
+    packed = CR.draw_heard_packed(keys, p_keep, n, k, n_slots=n_slots,
+                                  max_rounds=rounds)
+    planes = QR.to_int64(packed)
+    take, shift, step = _UNIFORM[tdt]
+    for l_, r, d, w, col in zip(*(rng.integers(0, hi, 200) for hi in (
+            lanes, rounds, n_slots, n, k))):
+        key_rd = jr.fold_in(jr.fold_in(keys[l_], int(r)), int(d))
+        c = torch.tensor(int(w) * k + int(col), dtype=torch.int64)
+        b1, b2 = jr.threefry2x32(key_rd[0], key_rd[1], c >> 32,
+                                 c & 0xFFFFFFFF)
+        u = ((int(b1 ^ b2) & take) >> shift) * step
+        p = float(p_keep[l_, w if per_worker else 0, 0])
+        bit = (int(planes[l_, r, w, col]) >> (n_slots - 1 - int(d))) & 1
+        assert bit == int(u < p), (l_, r, d, w, col)
+
+
 # ---------------------------------------------------------------------------
 # dispatch: CPU tensors take the plain version, others the kernel or raise
 # ---------------------------------------------------------------------------
@@ -266,6 +350,13 @@ def test_wrappers_take_plain_version_on_cpu():
     mask = torch.ones(4, dtype=torch.bool)
     a = CO.contend(word, heard, mask, 10, n_slots=10, max_rounds=3)
     b = CR.contend(word, heard, mask, 10, n_slots=10, max_rounds=3)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    keys = jr.split(jr.PRNGKey(3), 4)
+    p_keep = tocs.sensing_keep_prob(torch.full((4,), 0.2), lanes=True)
+    a = CO.noisy_contention(word, mask, 10, keys, p_keep, n_slots=10,
+                            max_rounds=3)
+    b = CR.noisy_contention(word, mask, 10, keys, p_keep, n_slots=10,
+                            max_rounds=3)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
@@ -290,6 +381,12 @@ def test_wrappers_never_run_the_plain_version_off_the_cpu():
                                device="meta"),
                    torch.ones(4, dtype=torch.bool), 10, n_slots=10,
                    max_rounds=3)
+    with pytest.raises(ValueError, match="CUDA"):
+        CO.noisy_contention(
+            torch.empty((1, 4, 32), dtype=torch.int32, device="meta"),
+            torch.ones(4, dtype=torch.bool, device="meta"), 10,
+            torch.empty((1, 2), dtype=torch.int64, device="meta"),
+            torch.empty((1, 1, 1), device="meta"), n_slots=10, max_rounds=3)
 
 
 def test_wide_codes_refused_on_the_card_path():
