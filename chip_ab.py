@@ -2,6 +2,7 @@
 turns (this, other, other, this), so that both see the same card and host.
 
     python3 chip_ab.py OTHER --flash     # the flash forward's device time
+    python3 chip_ab.py OTHER --kernels   # the channel kernels' device time
     python3 chip_ab.py OTHER --paths     # the curves and serving paths
 
 ``OTHER`` is the root of another checkout (the parent commit unpacked with
@@ -12,6 +13,11 @@ turns (this, other, other, this), so that both see the same card and host.
 device time per call of ``flash_attention.fwd`` alone (profiler) at
 (1, 16, S, 64) bf16 causal, S 256, 1024 and 4096, and that of
 ``scaled_dot_product_attention`` beside.
+
+``--kernels``: both checkouts' kernel libraries loaded in one process; the
+device time per call of each channel kernel alone (profiler) at the
+curves' shape (4 lanes x 4 workers x 4096, bits 8, float32) and serving's
+(1 x 16 x 8192, bits 8, bfloat16), for every kernel both libraries have.
 
 ``--paths``: each turn a fresh process that runs the checkout's own
 ``chip_smoke.py`` phases 5, 7, 8 and 11 (``run_curves`` at the
@@ -34,6 +40,62 @@ ROOT = pathlib.Path(__file__).resolve().parent
 def _csrc(other: pathlib.Path) -> pathlib.Path:
     nested = other / "src" / "repro_torch" / "kernels" / "csrc"
     return nested if nested.is_dir() else other
+
+
+def _load(csrc: pathlib.Path):
+    """Build and load the kernel library of ``csrc``, binding the entries
+    it has (another checkout may lack a newer one)."""
+    import ctypes
+
+    from repro_torch import kernels
+
+    kernels.CSRC = csrc
+    lib = ctypes.CDLL(str(kernels.build()))
+    for fn, argtypes in kernels._ARGTYPES.items():
+        f = getattr(lib, fn, None)
+        if f is not None:
+            f.argtypes, f.restype = argtypes, ctypes.c_int
+    return lib
+
+
+def compare_kernels(other: pathlib.Path) -> None:
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as C  # noqa: E402  (puts this checkout's src first)
+    from repro_torch import kernels
+
+    csrc = kernels.CSRC
+    libs = {"this": _load(csrc), "other": _load(_csrc(other))}
+    kernels.CSRC, kernels._lib = csrc, libs["this"]
+    dev = torch.device("cuda")
+    shapes = {"curves": dict(lanes=C.LANES, cols=C.B * C.K),
+              "serve": dict(lanes=1, cols=C.SERVE_SLOTS * C.QWEN_D,
+                            n=C.QWEN_WORKERS, dtype=torch.bfloat16,
+                            p_miss=(0.05,))}
+    entry = {"maxpool.fwd": "maxpool_fwd", "maxpool.decode": "maxpool_decode",
+             "ocs_quant.decode": "ocs_decode", "ocs_quant.encode": "ocs_encode"}
+    for what, kw in shapes.items():
+        cases = [(name, launch) for name, launch, *_ in C._kernel_cases(
+            dev, bits=8, seed=0, **kw) if name in entry]
+        # the ideal lane's form: no mask, no winner, the first argmax
+        dtype = kw.get("dtype", torch.float32)
+        codes = C._contention_operands(dev, kw["lanes"], kw.get("n", C.N),
+                                       kw["cols"], 8, 0, dtype,
+                                       (0.0,) * kw["lanes"])[1]
+        cases.append(("maxpool.decode", lambda codes=codes, dtype=dtype:
+                      C.mp_ops.maxpool_decode(codes, 8, dtype, argmax=True)))
+        for i, (name, launch) in enumerate(cases):
+            if not all(hasattr(lib, entry[name]) for lib in libs.values()):
+                continue
+            form = " (ideal form)" if i == len(cases) - 1 else ""
+            got = {}
+            for turn in ("this", "other", "other", "this"):
+                kernels._lib = libs[turn]
+                got.setdefault(turn, []).append(
+                    C._device_ms(launch, symbol=C.SYMBOLS[name])[2])
+            print(f"{name}{form} {what}: this {got['this']} ms, other "
+                  f"{got['other']} ms", flush=True)
 
 
 def compare_flash(other: pathlib.Path) -> None:
@@ -84,6 +146,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", type=pathlib.Path)
     ap.add_argument("--flash", action="store_true")
+    ap.add_argument("--kernels", action="store_true")
     ap.add_argument("--paths", action="store_true")
     ap.add_argument("--one-turn", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -99,6 +162,8 @@ def main() -> int:
                          text=True, check=True).stdout.strip(), flush=True)
     if args.flash:
         compare_flash(args.other.resolve())
+    if args.kernels:
+        compare_kernels(args.other.resolve())
     if args.paths:
         keep = ("wall", "profile", "launches", "tokens per second")
         for name, root in (("this", ROOT), ("other", args.other.resolve()),

@@ -12,7 +12,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
    kernel against its plain PyTorch version on the card and time both:
    the curves' kernels bitwise at 4 p_miss lanes x 4 workers x a 64 x 64
    batch of embeddings (contention at bits 8 and 16) and at the serving
-   tick's 16 workers x 8 slots x 1024 bf16 features; the contention that
+   tick's 16 workers x 8 slots x 1024 bf16 features; the fused pooling
+   epilogue (``maxpool.decode``) timed at both shapes in the noisy site's
+   form and held bitwise for every subset of its outputs, with and
+   without a winner, under a per-lane mask and the paths' mask; the
+   contention that
    hashes its own sensing bits (``ocs_contention.noisy``) bitwise against
    the packed draw + tournament also with float16, per-worker ``p_keep``,
    padded id sub-slots and 64 workers; flash attention within the JAX
@@ -25,9 +29,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
    encoders (256, 128), K = 64, head (512, 512, 512), 10 classes) for 60
    steps with every launch count set to 0 just before and read just after;
    every kernel of the path must have launched (the fused contention once
-   per step and evaluation, the packed draw never on the card), every loss
-   be finite, and the ``p_miss=0`` lanes must have trained bit for bit as
-   the ideal runs;
+   per step and evaluation, ``maxpool.decode`` once per noisy and once per
+   ideal pooling, the standalone ``maxpool.fwd`` and ``ocs_quant.decode``
+   and the packed draw never), every loss be finite, and the ``p_miss=0``
+   lanes must have trained bit for bit as the ideal runs;
 6. run a small grid on the card and on the CPU (plain versions) and
    compare losses and accuracies;
 7. profile a short run at the curves' width (device busy time, idle share,
@@ -37,14 +42,16 @@ Phases, in order; any failed check raises and the script exits non-zero:
    decode tick: 16 Poisson requests of 256-token prompts for 32 tokens
    over 8 slots, launch counts set to 0 just before and read just after;
    flash must launch once per layer per request, the fused contention
-   once per layer per tick (the packed draw never on the card), every
-   logit be finite and the billing add up;
+   and ``maxpool.decode`` once per layer per tick (``maxpool.fwd``,
+   ``ocs_quant.decode`` and the packed draw never), every logit be finite
+   and the billing add up;
 9. check that at ``p_miss=0`` the OCS engine serves the tokens of
    ``Protocol.ideal_max(8, "first")`` at the full width;
 10. serve the reduced qwen config on the card and on the CPU and compare
     prefill logits and tokens;
-11. profile 10 decode ticks at the full width: launches per tick and the
-    idle share (the table goes to ``chiprun_out/``);
+11. profile 10 decode ticks at the full width: device launches per tick,
+    the port's kernel launches per tick and the idle share (the table goes
+    to ``chiprun_out/``);
 12. print one ``{"kernels": [...]}`` line and, last, the device line.
 
 It imports nothing of JAX or of the JAX package ``repro``.
@@ -106,13 +113,14 @@ SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_PROMPT, SERVE_NEW = 8, 512, 256, 32
 SERVE_REQUESTS, SERVE_RATE, SERVE_P_MISS = 16, 0.5, 0.05
 SOURCES = {"ocs_quant.encode": "ocs_quant.cu",
            "ocs_quant.decode": "ocs_quant.cu", "maxpool.fwd": "maxpool.cu",
-           "maxpool.winner_bwd": "maxpool.cu",
+           "maxpool.decode": "maxpool.cu", "maxpool.winner_bwd": "maxpool.cu",
            "ocs_contention.contend": "ocs_contention.cu",
            "ocs_contention.noisy": "ocs_contention.cu",
            "flash_attention.fwd": "flash_attention.cu"}
 # a substring of each kernel's device function name, for its own time
 SYMBOLS = {"ocs_quant.encode": "Encode", "ocs_quant.decode": "Decode",
            "maxpool.fwd": "maxpool_fwd_kernel",
+           "maxpool.decode": "maxpool_decode_kernel",
            "maxpool.winner_bwd": "winner_bwd_kernel",
            "ocs_contention.contend": "contend_kernel",
            "ocs_contention.noisy": "noisy_kernel",
@@ -121,6 +129,8 @@ REPLACES = {
     "ocs_quant.encode": "src/repro/kernels/ocs_quant/ocs_quant.py:27",
     "ocs_quant.decode": "src/repro/kernels/ocs_quant/ocs_quant.py:37",
     "maxpool.fwd": "src/repro/kernels/maxpool/maxpool.py:31",
+    "maxpool.decode": "src/repro/kernels/maxpool/maxpool.py:31 + "
+                      "src/repro/kernels/ocs_quant/ocs_quant.py:37",
     "maxpool.winner_bwd": "src/repro/kernels/maxpool/maxpool.py:72",
     "ocs_contention.contend":
         "src/repro/kernels/ocs_contention/ocs_contention.py:48",
@@ -152,7 +162,10 @@ def _device_ms(fn, iters: int = 50, symbol=None):
     a profiled window of ``iters`` calls (source ``"profiler"``), and of
     the kernels whose name holds ``symbol`` alone.  Where the profiler sees
     no device time, CUDA-event timing of calls back to back, which is the
-    host's issue rate (source ``"events"``), for both."""
+    host's issue rate (source ``"events"``), for both.  Each call launches
+    the ``symbol`` kernel once, so where the profiler recorded it fewer
+    than ``iters`` times (it can drop records) both times
+    are taken per recorded call."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -169,9 +182,12 @@ def _device_ms(fn, iters: int = 50, symbol=None):
               flush=True)
         ms = _time_ms(fn)
         return ms, "events", ms
-    own_us = sum(e.device_time_total for e in dev
-                 if symbol is not None and symbol in e.name)
-    return total_us / iters / 1e3, "profiler", own_us / iters / 1e3
+    own_us = [e.device_time_total for e in dev
+              if symbol is not None and symbol in e.name]
+    calls = len(own_us) or iters
+    if calls != iters:
+        print(f"profiler recorded {calls} of {iters} calls", flush=True)
+    return total_us / calls / 1e3, "profiler", sum(own_us) / calls / 1e3
 
 
 def _bound(nbytes: float, ops: float, ops_per_s: float):
@@ -269,6 +285,9 @@ def _kernel_cases(dev, lanes: int, cols: int, bits: int, seed: int,
     fb = h.element_size()
     cb = codes.element_size()
     pooled, winner = mp_ops.maxpool_fused(codes, 1)
+    # the noisy site's epilogue: the contention's winners, the paths' mask
+    won = ct_ops.noisy_contention(word, mask, total, keys, p_keep, **kw)[0]
+    site = dict(mask=mask.expand(lanes, n), winner=won, correct=True)
     # the packed sensing planes of the same call
     heard = ct_ref.draw_heard_packed(keys, p_keep, n, cols, **kw)
     hashes = _needed_hashes(word, heard, mask, total, **kw) if bounds else 0
@@ -286,6 +305,14 @@ def _kernel_cases(dev, lanes: int, cols: int, bits: int, seed: int,
          codes.numel() * cb + pooled.numel() * (cb + 4),
          pooled.numel() * (n - 1),
          (lambda: torch.max(codes, dim=1)) if bits == 8 else None, shape),
+        # bytes: codes, mask and winners read, pooled and correct written;
+        # operations: a compare and a select per code for the max, a
+        # compare for the winner, and the decode
+        ("maxpool.decode",
+         lambda: _present(mp_ops.maxpool_decode(codes, bits, dtype, **site)),
+         lambda: _present(mp_ref.maxpool_decode(codes, bits, dtype, **site)),
+         codes.numel() * cb + n + lanes * cols * (4 + fb + 1),
+         codes.numel() * 3 + lanes * cols * 8, None, shape),
         ("maxpool.winner_bwd", lambda: mp_ops.maxpool_winner_bwd(
             winner, g, n, 1), lambda: mp_ref.maxpool_winner_bwd(
             winner, g, n, 1), winner.numel() * 4 + g.numel() * (1 + n) * fb,
@@ -306,6 +333,48 @@ def _kernel_cases(dev, lanes: int, cols: int, bits: int, seed: int,
          + p_keep.numel() * p_keep.element_size() + lanes * cols * 4
          + 2 * lanes * ROUNDS * 4, hashes * OPS_PER_HASH, None, shape),
     ]
+
+
+def _present(out: tuple) -> tuple:
+    """The outputs a ``maxpool_decode`` call wrote."""
+    return tuple(t for t in out if t is not None)
+
+
+def check_decode_outputs(dev) -> None:
+    """Phase 3, ``maxpool.decode`` bitwise against its plain version at
+    both paths' shapes (curves: 4 lanes x 4 workers x 4096, bits 8 and 16,
+    float32; serving: 1 x 16 x 8192, bits 8, bfloat16) for every subset of
+    its outputs, with and without a winner, under a per-lane mask with dark
+    workers (lane 0 all dark) and under the paths' all-on mask."""
+    cases = [(LANES, N, B * K, bits, torch.float32) for bits in (8, 16)] + \
+        [(1, QWEN_WORKERS, SERVE_SLOTS * QWEN_D, 8, torch.bfloat16)]
+    for lanes, n, cols, bits, dtype in cases:
+        gen = torch.Generator(device="cpu").manual_seed(cols + bits)
+        h = (torch.randn((lanes, n, cols), generator=gen) * 3).to(dtype)
+        codes = q_ops.encode(h.to(dev), bits)
+        lane_mask = torch.rand((lanes, n), generator=gen) < 0.7
+        lane_mask[0] = False
+        masks = {"per-lane": lane_mask.to(dev),
+                 "all on": torch.ones(n, dtype=torch.bool, device=dev)}
+        winner = torch.randint(0, n, (lanes, cols), generator=gen,
+                               dtype=torch.int32).to(dev)
+        # correct compares the winner's code: only with a winner
+        subsets = [dict(winner=w, max_code=m, argmax=a, correct=c)
+                   for w in (None, winner) for m in (False, True)
+                   for a in (False, True) for c in (False, True)
+                   if w is not None or not c]
+        for what, mask in masks.items():
+            for kw in subsets:
+                _check_equal(
+                    "maxpool.decode",
+                    lambda: _present(mp_ops.maxpool_decode(
+                        codes, bits, dtype, mask=mask, **kw)),
+                    lambda: _present(mp_ref.maxpool_decode(
+                        codes, bits, dtype, mask=mask, **kw)),
+                    dict(kw, mask=what, winner=kw["winner"] is not None))
+        print(f"maxpool.decode {(lanes, n, cols)} bits {bits} {dtype}: "
+              f"bitwise equal to plain for {len(subsets)} output subsets x "
+              f"{len(masks)} masks", flush=True)
 
 
 def _record(name, launch, plain, nbytes, ops, lib, extra, err,
@@ -377,6 +446,7 @@ def check_kernels(dev) -> dict:
             rows[(name, "serve")] = row(name, launch, plain, nbytes, ops, lib,
                                         dict(bits=8, shape=shape,
                                              dtype="bfloat16"))
+    check_decode_outputs(dev)
     check_noisy_cases(dev)
     rows[("flash_attention.fwd", "serve")] = check_flash(dev)
     return rows
@@ -549,15 +619,21 @@ def run_main_path(dev):
           f"{len(ccfg.bits)} bits x {len(ccfg.p_miss)} lanes + ideal: "
           f"{wall:.3f} s wall; launches {counts}; packed draws on the card "
           f"{draws['calls']}", flush=True)
-    # flash attention is serving's kernel (phase 8), not the curves'; the
-    # packed-plane contention is the TPU kernel's interface (phase 3)
-    missing = [k for k, v in counts.items() if v == 0 and k not in (
-        "flash_attention.fwd", "ocs_contention.contend")]
+    # not on this path: flash attention is serving's kernel (phase 8); the
+    # packed-plane contention is the TPU kernel's interface, and the
+    # standalone max-pool and decode have given their work to
+    # maxpool.decode (phase 3 holds all three)
+    off_path = ("flash_attention.fwd", "ocs_contention.contend",
+                "maxpool.fwd", "ocs_quant.decode")
+    missing = [k for k, v in counts.items() if v == 0 and k not in off_path]
     assert not missing, f"kernels not launched on the main path: {missing}"
-    # one fused tournament per training step and per evaluation, each bits
+    # one fused tournament per training step and per evaluation, each bits;
+    # one pooling epilogue for the noisy lanes and one for the ideal lane
     sites = (ccfg.steps + 1) * len(ccfg.bits)
     assert counts["ocs_contention.noisy"] == sites, (counts, sites)
-    assert counts["ocs_contention.contend"] == 0, counts
+    assert counts["maxpool.decode"] == 2 * sites, (counts, sites)
+    for name in off_path[1:]:
+        assert counts[name] == 0, (name, counts)
     assert draws["calls"] == 0, "the packed sensing draw ran on the card"
     for arr in (res.loss_history, res.ideal_loss_history, res.nll,
                 res.nll_ideal):
@@ -710,10 +786,11 @@ def run_serving(dev):
     assert counts["flash_attention.fwd"] == QWEN_LAYERS * SERVE_REQUESTS, \
         counts
     assert counts["ocs_contention.noisy"] == sites * ticks, (counts, ticks)
-    assert counts["ocs_contention.contend"] == 0, counts
+    assert counts["maxpool.decode"] == sites * ticks, (counts, ticks)
+    assert counts["ocs_quant.encode"] > 0, counts
+    for name in ("ocs_contention.contend", "maxpool.fwd", "ocs_quant.decode"):
+        assert counts[name] == 0, (name, counts)
     assert draws["calls"] == 0, "the packed sensing draw ran on the card"
-    for name in ("ocs_quant.encode", "ocs_quant.decode", "maxpool.fwd"):
-        assert counts[name] > 0, f"{name} not launched while serving"
     assert bool(finite["ok"]), "a logit is not finite"
     per_tok = proto.comm_load(QWEN_WORKERS, QWEN_D).uplink_bits * sites
     assert sorted(outs) == list(range(SERVE_REQUESTS))
@@ -807,11 +884,13 @@ def profile_serving(dev, serve) -> None:
         eng._insert(slot, req)
     eng._tick(proto, 0)
     torch.cuda.synchronize()
+    kernels.reset_launch_counts()
     t0 = time.perf_counter()
     for t in range(1, 11):
         eng._tick(proto, t)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    per_tick = {k: v / 10 for k, v in kernels.launch_counts().items() if v}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for t in range(11, 21):
@@ -833,8 +912,9 @@ def profile_serving(dev, serve) -> None:
           f"OCS p {SERVE_P_MISS}): wall {wall:.4f} s unprofiled "
           f"({100 * wall:.2f} ms per tick), device busy {device_s:.4f} s, "
           f"idle share {1 - device_s / wall:.3f}; {launches} device kernels "
-          f"and copies ({launches / 10:.0f} per tick); int64 elementwise "
-          f"kernels {int64_s:.4f} s of the device time", flush=True)
+          f"and copies ({launches / 10:.0f} launches per tick); int64 "
+          f"elementwise kernels {int64_s:.4f} s of the device time; the "
+          f"port's kernel launches per tick {per_tick}", flush=True)
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  {us / 1e3:10.3f} ms  {name[:100]}", flush=True)
 

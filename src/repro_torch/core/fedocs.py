@@ -12,9 +12,11 @@ winning worker only, as ``g * onehot``.  ``tie_break="all"`` instead gives
 every worker tied at the max the full cotangent; ``"first"`` gives it to
 the lowest tied index, which is what the OCS protocol transmits.
 
-The laws are ``torch.autograd.Function``s.  Their forwards run the Eq. 7
-code kernels, the max-pool kernel and (noisy law) the contention kernel on
-a CUDA tensor, and their backwards the winner-routed scatter kernel.  The
+The laws are ``torch.autograd.Function``s.  On a CUDA tensor their
+forwards run the Eq. 7 encode kernel, then the max-pool kernel (``max``)
+or the fused pooling epilogue ``maxpool.decode`` (the quantized laws,
+after the contention kernel for the noisy one), and their backwards the
+winner-routed scatter kernel.  The
 noisy law is lane-leading (``h: (L, N, ..., K)``, one key and one
 ``p_miss`` per lane) so that every p_miss lane of a step pools in one
 call (:func:`noisy_pool`); :func:`maxpool_noisy` takes a single run.
@@ -27,7 +29,6 @@ import torch
 from repro_torch.core import ocs
 from repro_torch.core import quantize as qz
 from repro_torch.kernels.maxpool import ops as maxpool_ops
-from repro_torch.kernels.ocs_quant.ref import to_int64
 
 VALID_MODES = ("sum", "max", "max_q16", "max_q8", "max_noisy", "mean",
                "concat")
@@ -84,13 +85,16 @@ class _MaxPoolQuantized(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, bits, tie_break, dim):
         codes = qz.quantize(h, bits)
-        pooled_code, winner = maxpool_ops.maxpool_fused(codes, dim)
+        first = tie_break == "first"
+        # one launch: the pooled value and what the backward routes by
+        out = maxpool_ops.maxpool_decode(codes, bits, h.dtype, dim=dim,
+                                         argmax=first, max_code=not first)
         ctx.tie_break, ctx.dim, ctx.n = tie_break, dim, h.shape[dim]
-        if tie_break == "first":
-            ctx.save_for_backward(winner)
+        if first:
+            ctx.save_for_backward(out.argmax)
         else:
-            ctx.save_for_backward(codes, pooled_code)
-        return qz.dequantize(pooled_code, bits, h.dtype)
+            ctx.save_for_backward(codes, out.max_code)
+        return out.pooled
 
     @staticmethod
     def backward(ctx, g):
@@ -129,12 +133,9 @@ def _maxpool_noisy_impl(h, rng, p_miss, bits, max_rounds, backend,
     id_bits = ocs.host_id_bits(n)
     mask = (torch.ones((n,), dtype=torch.bool, device=h.device)
             if online is None else online)
-    codes = qz.quantize(flat, bits)
-    res = ocs.ocs_maxpool_noisy_core(
+    res, pooled = ocs.ocs_maxpool_noisy_core(
         flat, mask, id_bits, rng, p_miss, bits=bits, max_id_bits=id_bits,
-        max_rounds=max_rounds, backend=backend, codes=codes)
-    win_code = to_int64(codes).gather(1, res.winner[:, None].long())[:, 0]
-    pooled = qz.dequantize(win_code.to(codes.dtype), bits, h.dtype)
+        max_rounds=max_rounds, backend=backend, with_pooled=True)
     return pooled.reshape((lanes,) + h.shape[2:]), res.winner, res
 
 

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Union
+from typing import Tuple, Union
 
 import torch
 
@@ -91,9 +91,9 @@ def sensing_heard(key: torch.Tensor, p_keep: torch.Tensor, n: int,
 def ocs_maxpool_noisy_core(h: torch.Tensor, mask, id_bits: int,
                            rng: torch.Tensor, p_miss, *, bits: int,
                            max_id_bits: int, max_rounds: int = 3,
-                           backend: str = "scan",
-                           codes: Union[torch.Tensor, None] = None
-                           ) -> NoisyOCSResult:
+                           backend: str = "scan", with_pooled: bool = False
+                           ) -> Union[NoisyOCSResult,
+                                      Tuple[NoisyOCSResult, torch.Tensor]]:
     """Batched imperfect-sensing core over a padded worker axis.
 
     Args:
@@ -107,7 +107,9 @@ def ocs_maxpool_noisy_core(h: torch.Tensor, mask, id_bits: int,
                ``bits + id_bits`` inert.
       backend: ``"scan"`` or ``"pallas"``; both give the same bits, and
                the device decides: a CUDA tensor runs the kernel.
-      codes:   ``quantize(h, bits)`` if the caller has it already.
+      with_pooled: also return the pooled value ``(L, K)`` in h's dtype,
+               the winner's D-bit payload decoded (the noisy law's
+               forward), as ``(result, pooled)``.
     """
     if bits + max_id_bits > 32:
         raise ValueError(
@@ -117,8 +119,7 @@ def ocs_maxpool_noisy_core(h: torch.Tensor, mask, id_bits: int,
         raise ValueError(
             f"unknown noisy-OCS backend {backend!r}; valid: {NOISY_BACKENDS}")
     lanes, n, k = h.shape
-    if codes is None:
-        codes = qz.quantize(h, bits)
+    codes = qz.quantize(h, bits)
     codes64 = to_int64(codes)
     id_bits = int(id_bits)
     word = (codes64 << id_bits) | _id_codes(n, id_bits, h.device)[:, None]
@@ -138,14 +139,14 @@ def ocs_maxpool_noisy_core(h: torch.Tensor, mask, id_bits: int,
     rounds = (contending > 0).sum(-1).to(torch.int32)
     collisions = collided.sum(-1).to(torch.int32)
 
-    # the true max code of the real workers, by the maxpool kernel
-    masked = torch.where(m[:, :, None], codes64, 0).to(codes.dtype)
-    true_code, _ = maxpool_ops.maxpool_fused(masked, dim=1)
-    win_code = codes64.gather(1, winner[:, None].long())[:, 0]
-    correct = win_code == to_int64(true_code)
-    return NoisyOCSResult(winner=winner, correct=correct,
-                          collisions=collisions, rounds=rounds,
-                          contention_slots=slots)
+    # one pooling epilogue: the true max code of the real workers, whether
+    # the winner holds it, and the winner's payload decoded
+    out = maxpool_ops.maxpool_decode(codes, bits, h.dtype, mask=m,
+                                     winner=winner, correct=True)
+    res = NoisyOCSResult(winner=winner, correct=out.correct,
+                         collisions=collisions, rounds=rounds,
+                         contention_slots=slots)
+    return (res, out.pooled) if with_pooled else res
 
 
 def ocs_maxpool_noisy(h: torch.Tensor, rng: torch.Tensor, bits: int = 16,

@@ -40,7 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 KERNELS = ("ocs_quant.encode", "ocs_quant.decode", "maxpool.fwd",
-           "maxpool.winner_bwd", "ocs_contention.contend",
+           "maxpool.decode", "maxpool.winner_bwd", "ocs_contention.contend",
            "ocs_contention.noisy", "flash_attention.fwd")
 _LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
@@ -53,6 +53,10 @@ _ARGTYPES = {
     "ocs_decode": (_P, _P, _I64, _I, _I, _I, _P),
     # (h, v, winner, batch, n, e, kind, stream)
     "maxpool_fwd": (_P, _P, _P, _I64, _I, _I64, _I, _P),
+    # (codes, mask, mask_stride, winner, pooled, max_code, argmax, correct,
+    #  batch, n, e, code_bytes, out_kind, bits, stream)
+    "maxpool_decode": (_P, _P, _I64, _P, _P, _P, _P, _P, _I64, _I, _I64, _I,
+                       _I, _I, _P),
     # (winner, g, out, batch, n, e, kind, stream)
     "maxpool_winner_bwd": (_P, _P, _P, _I64, _I, _I64, _I, _P),
     # (word, heard, mask, winner, contending, collided, lanes, n, k,

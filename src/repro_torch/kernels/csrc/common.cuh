@@ -1,6 +1,8 @@
-// Shared helpers of the port's kernels: launch geometry and the bit views
-// of the float types (float32, bfloat16, float16 are carried as raw
-// uint32_t / uint16_t words, so every kernel here is exact integer code).
+// Shared helpers of the port's kernels: launch geometry, the bit views of
+// the float types (float32, bfloat16, float16 are carried as raw uint32_t
+// / uint16_t words, so every kernel here is exact integer code), and the
+// one definition of the Eq. 7 codes that ocs_quant.cu and maxpool.cu both
+// use.
 #pragma once
 
 #include <cstdint>
@@ -49,6 +51,54 @@ __device__ __forceinline__ uint32_t zero_product_bits(uint32_t b, int kind) {
   uint32_t sign16 = (rb >> 16) & 0x8000u;
   if (r != r) return sign16 | (kind == kBF16 ? 0x7FC0u : 0x7E00u);
   return sign16;
+}
+
+template <typename U>
+struct Sign {
+  static constexpr U value = static_cast<U>(U(1) << (sizeof(U) * 8 - 1));
+};
+
+// Eq. 7 encode: a float's raw word (UIn) -> its order-embedded unsigned
+// code (the sign-flip trick) shifted down to D = width - shift bits.
+template <typename UIn, typename UOut>
+struct Encode {
+  int shift;
+  __device__ __forceinline__ UOut operator()(UIn b) const {
+    constexpr UIn s = Sign<UIn>::value;
+    UIn code = (b & s) ? static_cast<UIn>(~b) : static_cast<UIn>(b | s);
+    return static_cast<UOut>(code >> shift);
+  }
+};
+
+// Eq. 7 decode: a D-bit code -> the raw word of its bucket's lowest float
+// (low bits zero-filled).  The lowest bucket lands in NaN bit space and
+// decodes to -inf, as any NaN word would.
+template <typename UCode, typename UOut>
+struct Decode {
+  int shift;
+  UOut exp_mask, man_mask, neg_inf;
+  __device__ __forceinline__ UOut operator()(UCode c) const {
+    constexpr UOut s = Sign<UOut>::value;
+    UOut full = static_cast<UOut>(static_cast<UOut>(c) << shift);
+    UOut b = (full & s) ? static_cast<UOut>(full & static_cast<UOut>(~s))
+                        : static_cast<UOut>(~full);
+    bool nan = (b & exp_mask) == exp_mask && (b & man_mask) != 0;
+    return nan ? neg_inf : b;
+  }
+};
+
+// The decode of `bits`-bit codes into floats of `kind`: UOut is uint32_t
+// for float32, uint16_t for bfloat16 and float16.
+template <typename UCode, typename UOut>
+inline Decode<UCode, UOut> decode_for(int kind, int bits) {
+  uint32_t exp = 0x7F800000u, man = 0x007FFFFFu, ninf = 0xFF800000u;
+  if (kind == kBF16) {
+    exp = 0x7F80u, man = 0x007Fu, ninf = 0xFF80u;
+  } else if (kind == kF16) {
+    exp = 0x7C00u, man = 0x03FFu, ninf = 0xFC00u;
+  }
+  return {static_cast<int>(8 * sizeof(UOut)) - bits, static_cast<UOut>(exp),
+          static_cast<UOut>(man), static_cast<UOut>(ninf)};
 }
 
 }  // namespace rt

@@ -13,34 +13,7 @@
 
 namespace {
 
-template <typename U>
-struct Sign {
-  static constexpr U value = static_cast<U>(U(1) << (sizeof(U) * 8 - 1));
-};
-
-template <typename UIn, typename UOut>
-struct Encode {
-  int shift;
-  __device__ __forceinline__ UOut operator()(UIn b) const {
-    constexpr UIn s = Sign<UIn>::value;
-    UIn code = (b & s) ? static_cast<UIn>(~b) : static_cast<UIn>(b | s);
-    return static_cast<UOut>(code >> shift);
-  }
-};
-
-template <typename UCode, typename UOut>
-struct Decode {
-  int shift;
-  UOut exp_mask, man_mask, neg_inf;
-  __device__ __forceinline__ UOut operator()(UCode c) const {
-    constexpr UOut s = Sign<UOut>::value;
-    UOut full = static_cast<UOut>(static_cast<UOut>(c) << shift);
-    UOut b = (full & s) ? static_cast<UOut>(full & static_cast<UOut>(~s))
-                        : static_cast<UOut>(~full);
-    bool nan = (b & exp_mask) == exp_mask && (b & man_mask) != 0;
-    return nan ? neg_inf : b;
-  }
-};
+using rt::Encode;
 
 template <typename T, int N>
 struct alignas(sizeof(T) * N) Vec {
@@ -109,20 +82,17 @@ int ocs_decode(const void* codes, void* out, int64_t n, int code_bytes,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n == 0) return 0;
   if (out_kind == rt::kF32) {
-    Decode<uint8_t, uint32_t> d8{32 - bits, 0x7F800000u, 0x007FFFFFu,
-                                 0xFF800000u};
-    Decode<uint16_t, uint32_t> d16{32 - bits, 0x7F800000u, 0x007FFFFFu,
-                                   0xFF800000u};
-    if (code_bytes == 1) return run<uint8_t, uint32_t, 4>(codes, out, n, d8, s);
-    return run<uint16_t, uint32_t, 4>(codes, out, n, d16, s);
+    if (code_bytes == 1)
+      return run<uint8_t, uint32_t, 4>(
+          codes, out, n, rt::decode_for<uint8_t, uint32_t>(out_kind, bits), s);
+    return run<uint16_t, uint32_t, 4>(
+        codes, out, n, rt::decode_for<uint16_t, uint32_t>(out_kind, bits), s);
   }
-  uint16_t exp = out_kind == rt::kBF16 ? 0x7F80u : 0x7C00u;
-  uint16_t man = out_kind == rt::kBF16 ? 0x007Fu : 0x03FFu;
-  uint16_t ninf = out_kind == rt::kBF16 ? 0xFF80u : 0xFC00u;
-  Decode<uint8_t, uint16_t> d8{16 - bits, exp, man, ninf};
-  Decode<uint16_t, uint16_t> d16{16 - bits, exp, man, ninf};
-  if (code_bytes == 1) return run<uint8_t, uint16_t, 8>(codes, out, n, d8, s);
-  return run<uint16_t, uint16_t, 8>(codes, out, n, d16, s);
+  if (code_bytes == 1)
+    return run<uint8_t, uint16_t, 8>(
+        codes, out, n, rt::decode_for<uint8_t, uint16_t>(out_kind, bits), s);
+  return run<uint16_t, uint16_t, 8>(
+      codes, out, n, rt::decode_for<uint16_t, uint16_t>(out_kind, bits), s);
 }
 
 }  // extern "C"

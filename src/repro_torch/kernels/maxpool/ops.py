@@ -1,19 +1,24 @@
 """Wrappers of the worker max-pool kernels (``csrc/maxpool.cu``).
 
-Both take the plain version (``ref.py``) for a tensor on the CPU and launch
-the CUDA kernel for a tensor on the card.  The pooled axis is ``dim``; the
-axes before it are a batch (the p_miss lanes) and the axes after it are
-the pooled elements, so the kernels see a ``(B, N, E)`` layout.
+Each takes the plain version (``ref.py``) for a tensor on the CPU and
+launches the CUDA kernel for a tensor on the card.  The pooled axis is
+``dim``; the axes before it are a batch (the p_miss lanes) and the axes
+after it are the pooled elements, so the kernels see a ``(B, N, E)``
+layout.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 from repro_torch import kernels
 from repro_torch.kernels.maxpool import ref
+from repro_torch.kernels.ocs_quant.ref import code_dtype
+
+MAX_DECODE_BITS = 16
 
 _FWD_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.uint8,
                torch.uint16)
@@ -37,6 +42,70 @@ def maxpool_fused(h: torch.Tensor, dim: int = 0):
                    math.prod(h.shape[:dim]), h.shape[dim],
                    math.prod(h.shape[dim + 1:]), kernels.KIND[h.dtype])
     return v, w
+
+
+def maxpool_decode(codes: torch.Tensor, bits: int, dtype: torch.dtype, *,
+                   mask: Optional[torch.Tensor] = None,
+                   winner: Optional[torch.Tensor] = None, dim: int = 1,
+                   max_code: bool = False, argmax: bool = False,
+                   correct: bool = False) -> ref.PoolDecode:
+    """D-bit codes -> their pooled max over ``dim`` decoded to ``dtype``,
+    in one launch: ``pooled`` always, ``max_code``/``argmax``/``correct``
+    only where asked (see ``ref.maxpool_decode``).  Codes of at most 16
+    bits, as the code kernels."""
+    if codes.device.type == "cpu":
+        return ref.maxpool_decode(codes, bits, dtype, mask=mask,
+                                  winner=winner, dim=dim, max_code=max_code,
+                                  argmax=argmax, correct=correct)
+    if dtype not in _BWD_DTYPES:
+        raise ValueError(f"maxpool decode writes {_BWD_DTYPES}, got {dtype}")
+    if not 1 <= bits <= min(MAX_DECODE_BITS, 8 * dtype.itemsize):
+        raise ValueError(f"maxpool decode takes codes of 1 to "
+                         f"{MAX_DECODE_BITS} bits, got bits={bits}")
+    if codes.dtype != code_dtype(bits):
+        raise ValueError(f"{bits}-bit codes are {code_dtype(bits)}, got "
+                         f"{codes.dtype}")
+    if correct and winner is None:
+        raise ValueError("correct compares the winner's code: pass winner")
+    batch, n, e, out_shape = ref.pool_layout(codes, dim)
+    codes = codes.contiguous()
+    operands = [codes]
+    mask_stride = 0
+    if mask is not None:
+        if mask.dtype != torch.bool:
+            raise ValueError(f"mask must be bool, got {mask.dtype}")
+        if mask.ndim == 2 and mask.stride(0) == 0:
+            mask = mask[0]                  # one (N,) row expanded over lanes
+        ref.check_mask(mask, batch, n)
+        mask = mask.contiguous()
+        mask_stride = 0 if mask.ndim == 1 else n
+        operands.append(mask)
+    if winner is not None:
+        if winner.dtype != torch.int32 or winner.shape != out_shape:
+            raise ValueError(f"winner must be int32 of shape {out_shape}, "
+                             f"got {winner.dtype} {tuple(winner.shape)}")
+        winner = winner.contiguous()
+        operands.append(winner)
+
+    def empty(want: bool, dt: torch.dtype) -> Optional[torch.Tensor]:
+        return torch.empty(out_shape, dtype=dt, device=codes.device) \
+            if want else None
+
+    out = ref.PoolDecode(pooled=empty(True, dtype),
+                         max_code=empty(max_code, codes.dtype),
+                         argmax=empty(argmax, torch.int32),
+                         correct=empty(correct, torch.bool))
+    operands += [t for t in out if t is not None]
+    kernels.check_operands(*operands)
+
+    def ptr(t: Optional[torch.Tensor]):
+        return None if t is None else t.data_ptr()
+
+    kernels.launch("maxpool.decode", "maxpool_decode", codes.device,
+                   codes.data_ptr(), ptr(mask), mask_stride, ptr(winner),
+                   *map(ptr, out), batch, n, e, codes.element_size(),
+                   kernels.KIND[dtype], bits)
+    return out
 
 
 def maxpool_winner_bwd(winner: torch.Tensor, g: torch.Tensor, n: int,

@@ -109,6 +109,73 @@ def test_contend_matches_plain(cuda_device, n, n_real, bits, id_pad,
         _same(a, b)
 
 
+# maxpool.decode: (lanes, workers, elements, bits, output dtype, how the
+# operands lie): the curves' and serving's shapes, an odd E, views one
+# element past an aligned address, and 64 workers (four batches of rows)
+_DECODE_CASES = {
+    "curves-bits8": (4, 4, 4096, 8, torch.float32, "fresh"),
+    "curves-bits16": (4, 4, 4096, 16, torch.float32, "fresh"),
+    "serve-bf16": (1, 16, 8192, 8, torch.bfloat16, "fresh"),
+    "odd-e": (3, 5, 4099, 8, torch.float16, "fresh"),
+    "misaligned": (2, 4, 4096, 16, torch.bfloat16, "offset"),
+    "n64": (2, 64, 776, 8, torch.float32, "fresh"),
+}
+_DECODE_OUTPUTS = [(w, m, a, c) for w in (False, True) for m in (False, True)
+                   for a in (False, True) for c in ((False, True) if w
+                                                     else (False,))]
+
+
+def _offset(t: torch.Tensor) -> torch.Tensor:
+    """The same values in a contiguous view one element past an aligned
+    address."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("outputs", _DECODE_OUTPUTS, ids=str)
+@pytest.mark.parametrize("case", sorted(_DECODE_CASES))
+def test_maxpool_decode_matches_plain(cuda_device, case, outputs):
+    """The fused pooling epilogue against its plain version, bit for bit,
+    per lane mask with dark workers (lane 0 all dark), for every subset of
+    its outputs, with and without a winner."""
+    lanes, n, e, bits, dtype, lay = _DECODE_CASES[case]
+    with_winner, max_code, argmax, correct = outputs
+    gen = torch.Generator().manual_seed(n + e)
+    h = (torch.randn((lanes, n, e), generator=gen) * 3).to(dtype)
+    codes = QR.encode(h, bits)
+    codes.view(-1)[::11] = 0                    # the lowest code -> -inf
+    mask = torch.rand((lanes, n), generator=gen) < 0.7
+    mask[0] = False
+    winner = torch.randint(0, n, (lanes, e), generator=gen,
+                           dtype=torch.int32) if with_winner else None
+    kw = dict(max_code=max_code, argmax=argmax, correct=correct)
+    want = MPR.maxpool_decode(codes, bits, dtype, mask=mask, winner=winner,
+                              **kw)
+    dev = [t if t is None else t.to(cuda_device)
+           for t in (codes, mask, winner)]
+    if lay == "offset":
+        dev = [t if t is None else _offset(t) for t in dev]
+        assert dev[0].data_ptr() % 8 != 0
+    got = MPO.maxpool_decode(dev[0], bits, dtype, mask=dev[1],
+                             winner=dev[2], **kw)
+    for a, b in zip(want, got):
+        assert (a is None) == (b is None)
+        if a is not None:
+            _same(a, b)
+    # the main paths' mask: one (N,) row expanded over the lanes
+    all_on = torch.ones(n, dtype=torch.bool, device=cuda_device)
+    got = MPO.maxpool_decode(dev[0], bits, dtype,
+                             mask=all_on.expand(lanes, n), winner=dev[2],
+                             **kw)
+    want = MPR.maxpool_decode(codes, bits, dtype, winner=winner, **kw)
+    for a, b in zip(want, got):
+        if a is not None:
+            _same(a, b)
+
+
 # the fused kernel's cases: (lanes, workers, real workers, elements, p
 # dtype, bits, id sub-slots past the real ones, p_miss per lane, per worker)
 _NOISY_CASES = {

@@ -23,6 +23,7 @@ from repro.kernels.ocs_contention import ops as JCO
 from repro.kernels.ocs_contention import ref as JCR
 from repro.kernels.ocs_quant import ocs_quant as JQ
 from repro.kernels.ocs_quant import ref as JQR
+from repro_torch import kernels
 from repro_torch import random as jr
 from repro_torch.core import ocs as tocs
 from repro_torch.kernels.maxpool import ops as MPO
@@ -154,6 +155,18 @@ def test_maxpool_fused_lane_batch_and_nan():
     assert w[1, 7] == 2
 
 
+def test_maxpool_fused_uint32_codes_exact():
+    """Codes wider than float32's 24-bit mantissa (D > 24, which the port
+    pools on the CPU) keep their order: neighbours near 2^31 are told
+    apart, as by the JAX reference."""
+    x = (np.uint32(1 << 31) + np.random.default_rng(4).integers(
+        0, 3, (5, 2, 64))).astype(np.uint32)
+    vj, wj = JMPR.maxpool_fused(jnp.asarray(x))
+    vt, wt = MPO.maxpool_fused(torch.from_numpy(x), 0)
+    _same(vj, vt, "pooled")
+    _same(wj, wt, "winner")
+
+
 @pytest.mark.parametrize("n", [1, 4, 9])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_winner_bwd_matches_jax(n, dtype):
@@ -172,6 +185,104 @@ def test_winner_bwd_matches_jax(n, dtype):
     for want in (JMP.maxpool_winner_bwd(jnp.asarray(w), gj, n),
                  JMPR.maxpool_winner_bwd(jnp.asarray(w), gj, n)):
         assert np.array_equal(np.asarray(want, np.float32), got_f)
+
+
+# ---------------------------------------------------------------------------
+# maxpool.decode: the fused pooling epilogue of a channel site
+# ---------------------------------------------------------------------------
+
+_OUTPUTS = {False: [(m, a, False) for m in (False, True)
+                    for a in (False, True)],
+            True: [(m, a, c) for m in (False, True) for a in (False, True)
+                   for c in (False, True)]}
+_DECODE = [dict(bits=bits, dtype=dtype, winner=w, mask=mask, max_code=m,
+                argmax=a, correct=c)
+           for bits in (8, 16) for dtype in ("float32", "bfloat16", "float16")
+           for w in (False, True) for mask in ("none", "lanes")
+           for m, a, c in _OUTPUTS[w]]
+
+
+def _decode_operands(case, lanes=3, n=5, e=40):
+    """Codes with many ties and the lowest code (which decodes to -inf);
+    with ``mask="lanes"`` a (lanes, n) mask with dark workers and lane 0
+    all dark, so each of its columns pools to code 0."""
+    rng = np.random.default_rng(case["bits"] + len(case["dtype"]))
+    top = 1 << case["bits"]
+    codes = (rng.integers(0, 6, (lanes, n, e)) * (top // 6)).astype(
+        np.uint8 if case["bits"] <= 8 else np.uint16)
+    codes[:, :, :3] = 0
+    mask = rng.random((lanes, n)) < 0.6
+    mask[0] = False
+    mask[1:, 0] = True
+    if case["mask"] == "none":
+        mask = np.ones((lanes, n), bool)
+    winner = rng.integers(0, n, (lanes, e)).astype(np.int32)
+    return codes, mask, winner
+
+
+@pytest.mark.parametrize("case", _DECODE, ids=lambda c: "-".join(
+    f"{k}{v}" for k, v in c.items()))
+def test_maxpool_decode_matches_jax(case):
+    """``maxpool_decode`` (its plain version, what the port runs on the
+    CPU) against the JAX package's own composition at the channel site,
+    bit for bit: ``jnp.max``/``jnp.argmax`` of ``jnp.where(mask, codes,
+    0)`` (``core/ocs.py``), the winner's code by ``take_along_axis`` and
+    ``repro.core.quantize.dequantize`` (``core/fedocs.py``)."""
+    from repro.core import quantize as jq
+
+    codes, mask, winner = _decode_operands(case)
+    bits = case["bits"]
+    jdt, tdt = _DT[case["dtype"]]
+    masked = jnp.where(jnp.asarray(mask)[:, :, None], jnp.asarray(codes), 0)
+    want_max = jnp.max(masked, axis=1)
+    want = dict(max_code=want_max,
+                argmax=jnp.argmax(masked, axis=1).astype(jnp.int32))
+    picked = want_max
+    if case["winner"]:
+        picked = jnp.take_along_axis(jnp.asarray(codes),
+                                     jnp.asarray(winner)[:, None], 1)[:, 0]
+        want["correct"] = picked == want_max
+    want["pooled"] = jq.dequantize(picked, bits, jdt)
+    got = MPO.maxpool_decode(
+        torch.from_numpy(codes), bits, tdt,
+        mask=None if case["mask"] == "none" else torch.from_numpy(mask),
+        winner=torch.from_numpy(winner) if case["winner"] else None,
+        max_code=case["max_code"], argmax=case["argmax"],
+        correct=case["correct"])
+    assert got.pooled.dtype == tdt
+    _same(want["pooled"], got.pooled, "pooled")
+    for name in ("max_code", "argmax", "correct"):
+        if case[name]:
+            _same(want[name], getattr(got, name), name)
+        else:
+            assert getattr(got, name) is None, name
+    if case["mask"] == "lanes" and not case["winner"]:
+        # lane 0 is all dark: its max is code 0, which decodes to -inf
+        assert bool(torch.isneginf(got.pooled[0]).all())
+
+
+def test_maxpool_decode_takes_plain_version_on_cpu():
+    """On CPU tensors the wrapper is the plain version and launches
+    nothing; on any other device it takes the kernel path (here refused),
+    never the plain version.  ``correct`` needs a winner."""
+    codes = torch.randint(0, 256, (2, 4, 24), dtype=torch.int32).to(
+        torch.uint8)
+    mask = torch.tensor([True, False, True, True])
+    winner = torch.randint(0, 4, (2, 24), dtype=torch.int32)
+    before = kernels.launch_counts()["maxpool.decode"]
+    kw = dict(mask=mask, winner=winner, max_code=True, argmax=True,
+              correct=True)
+    got = MPO.maxpool_decode(codes, 8, torch.bfloat16, **kw)
+    want = MPR.maxpool_decode(codes, 8, torch.bfloat16, **kw)
+    for a, b in zip(got, want):
+        _same(a, b)
+    assert kernels.launch_counts()["maxpool.decode"] == before
+    for fn in (MPO.maxpool_decode, MPR.maxpool_decode):
+        with pytest.raises(ValueError, match="winner"):
+            fn(codes, 8, torch.float32, correct=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        MPO.maxpool_decode(codes.to("meta"), 8, torch.float32,
+                           winner=winner.to("meta"), correct=True)
 
 
 # ---------------------------------------------------------------------------
