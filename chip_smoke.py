@@ -11,17 +11,20 @@ Phases, in order; any failed check raises and the script exits non-zero:
 3. for each kernel, at the shapes the two main paths give it, check the
    kernel against its plain PyTorch version on the card and time both:
    the curves' kernels bitwise at 4 p_miss lanes x 4 workers x a 64 x 64
-   batch of embeddings (contention at bits 8 and 16) and at the serving
-   tick's 16 workers x 8 slots x 1024 bf16 features; the fused pooling
-   epilogue (``maxpool.decode``) timed at both shapes in the noisy site's
-   form and held bitwise for every subset of its outputs, with and
-   without a winner, under a per-lane mask and the paths' mask; the
-   contention that
-   hashes its own sensing bits (``ocs_contention.noisy``) bitwise against
-   the packed draw + tournament also with float16, per-worker ``p_keep``,
-   padded id sub-slots and 64 workers; flash attention within the JAX
-   parity test's tolerances at the prefill shapes and the JAX test's
-   float32 GQA cases, timed at S 256, 1024 and 4096;
+   batch of embeddings (contention at bits 8 and 16; the winner-routed
+   backward at the 5-lane stack, the noisy lanes and the ideal lane) and
+   at the serving tick's 16 workers x 8 slots x 1024 bf16 features; the
+   fused pooling epilogue (``maxpool.decode``) timed at both shapes in the
+   noisy site's form from the float features (its codes formed in the
+   kernel) and from codes, and held bitwise for every subset of its
+   outputs from both, with and without a winner, under a per-lane mask
+   and the paths' mask; the contention over the float features that forms
+   its words, hashes its own sensing bits and reduces its accounting
+   (``ocs_contention.noisy``) bitwise against the words + packed draw +
+   tournament + accounting also with float16, per-worker ``p_keep``,
+   padded id sub-slots, 64 workers and 1 and 64 rounds; flash attention
+   within the JAX parity test's tolerances at the prefill shapes and the
+   JAX test's float32 GQA cases, timed at S 256, 1024 and 4096;
 4. check that at ``p_miss=0`` ``Protocol.ocs(bits).aggregate`` equals
    ``Protocol.ideal_max(bits, tie_break="first").aggregate`` bitwise,
    forward and input gradient, at bits 8 and 16;
@@ -30,9 +33,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
    steps with every launch count set to 0 just before and read just after;
    every kernel of the path must have launched (the fused contention once
    per step and evaluation, ``maxpool.decode`` once per noisy and once per
-   ideal pooling, the standalone ``maxpool.fwd`` and ``ocs_quant.decode``
-   and the packed draw never), every loss be finite, and the ``p_miss=0``
-   lanes must have trained bit for bit as the ideal runs;
+   ideal pooling, the winner-routed backward once per step over the whole
+   lane stack; ``ocs_quant.encode``, the standalone ``maxpool.fwd`` and
+   ``ocs_quant.decode`` and the packed draw never), every loss be finite,
+   and the ``p_miss=0`` lanes must have trained bit for bit as the ideal
+   runs;
 6. run a small grid on the card and on the CPU (plain versions) and
    compare losses and accuracies;
 7. profile a short run at the curves' width (device busy time, idle share,
@@ -42,9 +47,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
    decode tick: 16 Poisson requests of 256-token prompts for 32 tokens
    over 8 slots, launch counts set to 0 just before and read just after;
    flash must launch once per layer per request, the fused contention
-   and ``maxpool.decode`` once per layer per tick (``maxpool.fwd``,
-   ``ocs_quant.decode`` and the packed draw never), every logit be finite
-   and the billing add up;
+   and ``maxpool.decode`` once per layer per tick (``ocs_quant.encode``,
+   ``maxpool.fwd``, ``ocs_quant.decode``, the winner backward and the
+   packed draw never), every logit be finite and the billing add up;
 9. check that at ``p_miss=0`` the OCS engine serves the tokens of
    ``Protocol.ideal_max(8, "first")`` at the full width;
 10. serve the reduced qwen config on the card and on the CPU and compare
@@ -162,21 +167,24 @@ def _device_ms(fn, iters: int = 50, symbol=None):
     a profiled window of ``iters`` calls (source ``"profiler"``), and of
     the kernels whose name holds ``symbol`` alone.  Where the profiler sees
     no device time, CUDA-event timing of calls back to back, which is the
-    host's issue rate (source ``"events"``), for both.  Each call launches
-    the ``symbol`` kernel once, so where the profiler recorded it fewer
-    than ``iters`` times (it can drop records) both times
-    are taken per recorded call."""
+    host's issue rate (source ``"events"``), for both; the window is
+    profiled a second time before that.  Each call launches the ``symbol``
+    kernel once, so where the profiler recorded it fewer than ``iters``
+    times (it can drop records) both times are taken per recorded call."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    total_us = sum(e.device_time_total for e in dev)
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        total_us = sum(e.device_time_total for e in dev)
+        if total_us:
+            break
     if total_us == 0:
         print("profiler saw no device time; timing with CUDA events",
               flush=True)
@@ -227,28 +235,28 @@ def _check_equal(name, launch, plain, extra) -> float:
 
 
 def _contention_operands(dev, lanes, n, cols, bits, seed, dtype, p_miss,
-                         n_real=None, id_pad=0, per_worker=False):
-    """Codes, contention words, mask, lane keys, p_keep, live sub-slots and
-    the tournament's keywords of one call: ``lanes`` x ``n`` workers (the
-    first ``n_real`` real) x ``cols`` features of ``dtype``, ``id_pad``
-    scan sub-slots past the real id bits, ``p_miss`` per lane (and, with
-    ``per_worker``, a little more for each later worker)."""
+                         n_real=None, id_pad=0, per_worker=False,
+                         rounds=ROUNDS):
+    """Features, mask, lane keys, p_keep, id bits and the tournament's
+    keywords of one call: ``lanes`` x ``n`` workers (the first ``n_real``
+    real) x ``cols`` features of ``dtype`` (16 columns where every worker
+    ties), ``id_pad`` scan sub-slots past the real id bits, ``p_miss`` per
+    lane (and, with ``per_worker``, a little more for each later worker),
+    ``rounds`` rounds."""
     n_real = n if n_real is None else n_real
     gen = torch.Generator(device="cpu").manual_seed(seed)
-    h = (torch.randn((lanes, n, cols), generator=gen) * 3.0).to(dtype).to(dev)
-    codes = q_ops.encode(h, bits)
+    h = (torch.randn((lanes, n, cols), generator=gen) * 3.0).to(dtype)
+    h[:, :, :16] = h[:, :1, :16]
+    h = h.to(dev)
     id_bits = ocs.host_id_bits(n_real)
-    word = q_ref.from_int64((codes.to(torch.int64) << id_bits)
-                            | ocs._id_codes(n, id_bits, dev)[:, None],
-                            torch.uint32)
     p = torch.tensor(p_miss[:lanes], device=dev)
     if per_worker:
         p = p[:, None] + 0.01 * torch.arange(n, device=dev)[None]
     p_keep = ocs.sensing_keep_prob(p, dtype, lanes=True)
     keys = jr.split(jr.PRNGKey(bits + seed, dev), lanes)
     mask = torch.arange(n, device=dev) < n_real
-    kw = dict(n_slots=bits + id_bits + id_pad, max_rounds=ROUNDS)
-    return h, codes, word, mask, keys, p_keep, bits + id_bits, kw
+    kw = dict(n_slots=bits + id_bits + id_pad, max_rounds=rounds)
+    return h, mask, keys, p_keep, id_bits, kw
 
 
 def _needed_hashes(word, heard, mask, total, n_slots, max_rounds) -> int:
@@ -276,22 +284,37 @@ def _kernel_cases(dev, lanes: int, cols: int, bits: int, seed: int,
     """(name, launch, plain, nbytes, ops, library call or None, shape) of
     each kernel at ``lanes`` x ``n`` workers x ``cols`` pooled elements of
     ``dtype``: the features flattened the way the pooling laws hand them
-    over.  ``ops`` of the fused contention is the hashes these inputs
-    need x ``OPS_PER_HASH`` (counted only with ``bounds``)."""
-    h, codes, word, mask, keys, p_keep, total, kw = _contention_operands(
+    over.  A name with a ``[form]`` suffix is another form of that
+    kernel, not on the main paths.  ``ops`` of the fused contention is the
+    hashes these inputs need x ``OPS_PER_HASH`` (counted only with
+    ``bounds``)."""
+    h, mask, keys, p_keep, id_bits, kw = _contention_operands(
         dev, lanes, n, cols, bits, seed, dtype, p_miss)
+    total = bits + id_bits
     gen = torch.Generator(device="cpu").manual_seed(seed + 1)
-    g = torch.randn((lanes, cols), generator=gen).to(dtype).to(dev)
+    # the winner bwd's operands: the curves' lane stack, the noisy lanes
+    # and the ideal lane (L + 1), one winner and cotangent per column
+    stack_w = torch.randint(0, n, (lanes + 1, cols), generator=gen,
+                            dtype=torch.int32).to(dev)
+    g = torch.randn((lanes + 1, cols), generator=gen).to(dtype).to(dev)
     fb = h.element_size()
+    codes = q_ops.encode(h, bits)
     cb = codes.element_size()
-    pooled, winner = mp_ops.maxpool_fused(codes, 1)
+    pooled = mp_ops.maxpool_fused(codes, 1)[0]
+    word = ct_ref.contention_words(h, bits, id_bits)
     # the noisy site's epilogue: the contention's winners, the paths' mask
-    won = ct_ops.noisy_contention(word, mask, total, keys, p_keep, **kw)[0]
+    won = ct_ops.noisy_contention(h, mask, bits, id_bits, keys, p_keep,
+                                  **kw).winner
     site = dict(mask=mask.expand(lanes, n), winner=won, correct=True)
     # the packed sensing planes of the same call
     heard = ct_ref.draw_heard_packed(keys, p_keep, n, cols, **kw)
     hashes = _needed_hashes(word, heard, mask, total, **kw) if bounds else 0
     shape = [lanes, n, cols]
+    # maxpool.decode's bytes: the rows, mask and winners read, pooled and
+    # correct written; operations: a compare and a select per code for the
+    # max, a compare for the winner, the decode (and, from floats, the
+    # encode: a test, a select and a shift per element)
+    site_io = n + lanes * cols * (4 + fb + 1)
     return [
         ("ocs_quant.encode", lambda: q_ops.encode(h, bits),
          lambda: q_ref.encode(h, bits), h.numel() * (fb + cb),
@@ -305,33 +328,38 @@ def _kernel_cases(dev, lanes: int, cols: int, bits: int, seed: int,
          codes.numel() * cb + pooled.numel() * (cb + 4),
          pooled.numel() * (n - 1),
          (lambda: torch.max(codes, dim=1)) if bits == 8 else None, shape),
-        # bytes: codes, mask and winners read, pooled and correct written;
-        # operations: a compare and a select per code for the max, a
-        # compare for the winner, and the decode
         ("maxpool.decode",
+         lambda: _present(mp_ops.maxpool_decode(h, bits, dtype, **site)),
+         lambda: _present(mp_ref.maxpool_decode(h, bits, dtype, **site)),
+         h.numel() * fb + site_io, h.numel() * 6 + lanes * cols * 8, None,
+         shape),
+        ("maxpool.decode[codes]",
          lambda: _present(mp_ops.maxpool_decode(codes, bits, dtype, **site)),
          lambda: _present(mp_ref.maxpool_decode(codes, bits, dtype, **site)),
-         codes.numel() * cb + n + lanes * cols * (4 + fb + 1),
-         codes.numel() * 3 + lanes * cols * 8, None, shape),
+         codes.numel() * cb + site_io, codes.numel() * 3 + lanes * cols * 8,
+         None, shape),
         ("maxpool.winner_bwd", lambda: mp_ops.maxpool_winner_bwd(
-            winner, g, n, 1), lambda: mp_ref.maxpool_winner_bwd(
-            winner, g, n, 1), winner.numel() * 4 + g.numel() * (1 + n) * fb,
-         g.numel() * n, None, shape),
+            stack_w, g, n, 1), lambda: mp_ref.maxpool_winner_bwd(
+            stack_w, g, n, 1),
+         stack_w.numel() * 4 + g.numel() * (1 + n) * fb, g.numel() * n,
+         None, [lanes + 1, n, cols]),
         ("ocs_contention.contend",
          lambda: ct_ops.contend(word, heard, mask, total, **kw),
          lambda: ct_ref.contend(word, heard, mask, total, **kw),
          word.numel() * 4 + heard.numel() * 4 + lanes * cols * 4,
          lanes * cols * ROUNDS * kw["n_slots"] * (6 * n + 3), None, shape),
-        # bytes: words, mask, keys and p_keep read, winners and counts
-        # written; operations: the hashes these inputs need, on INT32
+        # bytes: features, mask, keys and p_keep read, winners, counts and
+        # accounting written; operations: the hashes these inputs need, on
+        # INT32
         ("ocs_contention.noisy",
-         lambda: ct_ops.noisy_contention(word, mask, total, keys, p_keep,
-                                         **kw),
-         lambda: ct_ref.noisy_contention(word, mask, total, keys, p_keep,
-                                         **kw),
-         word.numel() * 4 + mask.numel() + keys.numel() * 4
+         lambda: ct_ops.noisy_contention(h, mask, bits, id_bits, keys,
+                                         p_keep, **kw),
+         lambda: ct_ref.noisy_contention(h, mask, bits, id_bits, keys,
+                                         p_keep, **kw),
+         h.numel() * fb + mask.numel() + keys.numel() * 8
          + p_keep.numel() * p_keep.element_size() + lanes * cols * 4
-         + 2 * lanes * ROUNDS * 4, hashes * OPS_PER_HASH, None, shape),
+         + (2 * lanes * ROUNDS + 1 + 3 * lanes) * 4,
+         hashes * OPS_PER_HASH, None, shape),
     ]
 
 
@@ -343,15 +371,18 @@ def _present(out: tuple) -> tuple:
 def check_decode_outputs(dev) -> None:
     """Phase 3, ``maxpool.decode`` bitwise against its plain version at
     both paths' shapes (curves: 4 lanes x 4 workers x 4096, bits 8 and 16,
-    float32; serving: 1 x 16 x 8192, bits 8, bfloat16) for every subset of
-    its outputs, with and without a winner, under a per-lane mask with dark
-    workers (lane 0 all dark) and under the paths' all-on mask."""
+    float32; serving: 1 x 16 x 8192, bits 8, bfloat16), from the float
+    features and from codes, for every subset of its outputs, with and
+    without a winner, under a per-lane mask with dark workers (lane 0 all
+    dark) and under the paths' all-on mask."""
     cases = [(LANES, N, B * K, bits, torch.float32) for bits in (8, 16)] + \
         [(1, QWEN_WORKERS, SERVE_SLOTS * QWEN_D, 8, torch.bfloat16)]
     for lanes, n, cols, bits, dtype in cases:
         gen = torch.Generator(device="cpu").manual_seed(cols + bits)
         h = (torch.randn((lanes, n, cols), generator=gen) * 3).to(dtype)
-        codes = q_ops.encode(h.to(dev), bits)
+        h.view(-1)[::13] = -float("inf")        # the lowest code
+        h = h.to(dev)
+        sources = {"floats": h, "codes": q_ops.encode(h, bits)}
         lane_mask = torch.rand((lanes, n), generator=gen) < 0.7
         lane_mask[0] = False
         masks = {"per-lane": lane_mask.to(dev),
@@ -363,18 +394,27 @@ def check_decode_outputs(dev) -> None:
                    for w in (None, winner) for m in (False, True)
                    for a in (False, True) for c in (False, True)
                    if w is not None or not c]
-        for what, mask in masks.items():
-            for kw in subsets:
-                _check_equal(
-                    "maxpool.decode",
-                    lambda: _present(mp_ops.maxpool_decode(
-                        codes, bits, dtype, mask=mask, **kw)),
-                    lambda: _present(mp_ref.maxpool_decode(
-                        codes, bits, dtype, mask=mask, **kw)),
-                    dict(kw, mask=what, winner=kw["winner"] is not None))
+        for src, x in sources.items():
+            for what, mask in masks.items():
+                for kw in subsets:
+                    _check_equal(
+                        "maxpool.decode",
+                        lambda: _present(mp_ops.maxpool_decode(
+                            x, bits, dtype, mask=mask, **kw)),
+                        lambda: _present(mp_ref.maxpool_decode(
+                            x, bits, dtype, mask=mask, **kw)),
+                        dict(kw, src=src, mask=what,
+                             winner=kw["winner"] is not None))
         print(f"maxpool.decode {(lanes, n, cols)} bits {bits} {dtype}: "
               f"bitwise equal to plain for {len(subsets)} output subsets x "
-              f"{len(masks)} masks", flush=True)
+              f"{len(masks)} masks x {len(sources)} inputs (floats, codes)",
+              flush=True)
+
+
+def _base(name: str) -> str:
+    """The kernel of a case name: ``maxpool.decode[codes]`` is a form of
+    ``maxpool.decode``."""
+    return name.split("[")[0]
 
 
 def _record(name, launch, plain, nbytes, ops, lib, extra, err,
@@ -383,20 +423,21 @@ def _record(name, launch, plain, nbytes, ops, lib, extra, err,
     build the kernel's record for the ``{"kernels": [...]}`` line: ``ms``
     is the kernel's own device time, ``call_ms`` all device work of the
     wrapper's call (its small conversions and the zeroed counts too)."""
-    call_ms, src_k, ms = _device_ms(launch, symbol=SYMBOLS[name])
+    base = _base(name)
+    call_ms, src_k, ms = _device_ms(launch, symbol=SYMBOLS[base])
     plain_ms, src_p, _ = _device_ms(plain, iters=10 if ops > 1e10 else 50)
     lib_ms, src_l, _ = _device_ms(lib) if lib is not None else (
         None, None, None)
-    if name == "ocs_contention.noisy":
+    if base == "ocs_contention.noisy":
         ops_per_s = INT32_LANES * SM_CLOCK_HZ
     bound_ms, bound_by = _bound(nbytes, ops, ops_per_s)
     # "events": the profiler saw no device time and a number is the host's
     # issue rate, not device time
     ms_source = ("profiler" if {src_k, src_p, src_l} <= {"profiler", None}
                  else "events")
-    rec = {"name": name, "route": "cuda",
-           "source": "src/repro_torch/kernels/csrc/" + SOURCES[name],
-           "replaces": REPLACES[name], "launches": 0, "max_abs_err": err,
+    rec = {"name": base, "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/" + SOURCES[base],
+           "replaces": REPLACES[base], "launches": 0, "max_abs_err": err,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "library_ms": lib_ms, "call_ms": call_ms,
            "ms_source": ms_source, "host_ms": _time_ms(launch), **extra}
@@ -412,11 +453,12 @@ def _record(name, launch, plain, nbytes, ops, lib, extra, err,
 def check_kernels(dev) -> dict:
     """Phase 3: every kernel bitwise against its plain version at the
     training step's shape (4 lanes x 4 workers x a 64 x 64 batch of
-    embeddings), timed; bitwise, untimed, at the other shapes the curves
-    launch: the ideal run's single lane, and the evaluation's 512 x 64
-    elements (4 noisy lanes and the ideal lane); and bitwise, timed, at the
-    serving tick's shape (one lane of 16 workers x 8 slots x d_model 1024
-    bf16 features, bits 8, p_miss 0.05; the winner bwd is not on serving).
+    embeddings; the winner bwd over the 5-lane stack), timed; bitwise,
+    untimed, at the other shapes the curves launch: the ideal run's single
+    lane, and the evaluation's 512 x 64 elements (4 noisy lanes and the
+    ideal lane); and bitwise, timed, at the serving tick's shape (one lane
+    of 16 workers x 8 slots x d_model 1024 bf16 features, bits 8, p_miss
+    0.05; the winner bwd is not on serving).
     Then the fused contention's other cases (:func:`check_noisy_cases`)
     and flash attention (:func:`check_flash`)."""
     rows = {}
@@ -429,7 +471,7 @@ def check_kernels(dev) -> dict:
         for name, launch, plain, nbytes, ops, lib, shape in _kernel_cases(
                 dev, LANES, B * K, bits, seed=0, bounds=True):
             if name == "maxpool.winner_bwd" and bits == 16:
-                continue            # takes the float cotangent, not codes
+                continue            # the float cotangent: the same call
             rows[(name, bits)] = row(name, launch, plain, nbytes, ops, lib,
                                      dict(bits=bits, shape=shape))
         for lanes, cols in ((1, B * K), (LANES, EVAL_ROWS * K),
@@ -454,10 +496,12 @@ def check_kernels(dev) -> dict:
 
 def check_noisy_cases(dev) -> None:
     """Phase 3, the fused contention beyond the two paths' shapes, bitwise
-    against ``ct_ref.noisy_contention`` (the packed draw + tournament) on
-    the card: float16 ``p_keep``, a per-worker ``(L, N, 1)`` ``p_keep``, a
-    padded scan (``max_id_bits > id_bits``: 3 inert id sub-slots and 20
-    real workers of 33) and 64 workers (two per lane of a warp)."""
+    against ``ct_ref.noisy_contention`` (the words, the packed draw, the
+    tournament and the accounting) on the card: float16 features and
+    ``p_keep``, a per-worker ``(L, N, 1)`` ``p_keep``, a padded scan
+    (``max_id_bits > id_bits``: 3 inert id sub-slots and 20 real workers
+    of 33), 64 workers (two per lane of a warp), and 1 and 64 rounds (the
+    accounting's last-block reduction over every round)."""
     cases = {
         "float16": dict(lanes=2, n=8, cols=1000, bits=8,
                         dtype=torch.float16, p_miss=(0.1, 0.3)),
@@ -470,20 +514,30 @@ def check_noisy_cases(dev) -> None:
                                     n_real=20, id_pad=3),
         "64 workers": dict(lanes=2, n=64, cols=777, bits=8,
                            dtype=torch.float32, p_miss=(0.02, 0.3)),
+        "1 round": dict(lanes=3, n=4, cols=4096, bits=8, dtype=torch.float32,
+                        p_miss=(0.1, 0.3, 0.6), rounds=1),
+        "64 rounds": dict(lanes=3, n=4, cols=4096, bits=8,
+                          dtype=torch.float32, p_miss=(0.1, 0.3, 0.6),
+                          rounds=64),
+        "64 rounds bf16": dict(lanes=2, n=16, cols=2048, bits=8,
+                               dtype=torch.bfloat16, p_miss=(0.2, 0.7),
+                               n_real=12, per_worker=True, rounds=64),
     }
     for what, case in cases.items():
-        _, _, word, mask, keys, p_keep, total, kw = _contention_operands(
+        bits = case["bits"]
+        h, mask, keys, p_keep, id_bits, kw = _contention_operands(
             dev, seed=len(what), **case)
         _check_equal(
             "ocs_contention.noisy",
-            lambda: ct_ops.noisy_contention(word, mask, total, keys, p_keep,
-                                            **kw),
-            lambda: ct_ref.noisy_contention(word, mask, total, keys, p_keep,
-                                            **kw), what)
-        print(f"ocs_contention.noisy {what} {tuple(word.shape)} "
-              f"{p_keep.dtype} p_keep {tuple(p_keep.shape)} n_slots "
-              f"{kw['n_slots']} of {total} live: bitwise equal to the "
-              "packed draw + tournament", flush=True)
+            lambda: tuple(ct_ops.noisy_contention(h, mask, bits, id_bits,
+                                                  keys, p_keep, **kw)),
+            lambda: tuple(ct_ref.noisy_contention(h, mask, bits, id_bits,
+                                                  keys, p_keep, **kw)), what)
+        print(f"ocs_contention.noisy {what} {tuple(h.shape)} {h.dtype}, "
+              f"p_keep {tuple(p_keep.shape)}, n_slots {kw['n_slots']} of "
+              f"{bits + id_bits} live, {kw['max_rounds']} rounds: bitwise "
+              "equal to the words + packed draw + tournament + accounting",
+              flush=True)
 
 
 def _flash_inputs(dev, h, hkv, s, dtype, seed):
@@ -620,18 +674,22 @@ def run_main_path(dev):
           f"{wall:.3f} s wall; launches {counts}; packed draws on the card "
           f"{draws['calls']}", flush=True)
     # not on this path: flash attention is serving's kernel (phase 8); the
-    # packed-plane contention is the TPU kernel's interface, and the
+    # packed-plane contention is the TPU kernel's interface, the encode is
+    # formed inside the contention and the pooling epilogue, and the
     # standalone max-pool and decode have given their work to
-    # maxpool.decode (phase 3 holds all three)
+    # maxpool.decode (phase 3 holds all four)
     off_path = ("flash_attention.fwd", "ocs_contention.contend",
-                "maxpool.fwd", "ocs_quant.decode")
+                "maxpool.fwd", "ocs_quant.decode", "ocs_quant.encode")
     missing = [k for k, v in counts.items() if v == 0 and k not in off_path]
     assert not missing, f"kernels not launched on the main path: {missing}"
     # one fused tournament per training step and per evaluation, each bits;
-    # one pooling epilogue for the noisy lanes and one for the ideal lane
+    # one pooling epilogue for the noisy lanes and one for the ideal lane;
+    # one winner-routed backward over the whole lane stack per step
     sites = (ccfg.steps + 1) * len(ccfg.bits)
     assert counts["ocs_contention.noisy"] == sites, (counts, sites)
     assert counts["maxpool.decode"] == 2 * sites, (counts, sites)
+    assert counts["maxpool.winner_bwd"] == ccfg.steps * len(ccfg.bits), \
+        counts
     for name in off_path[1:]:
         assert counts[name] == 0, (name, counts)
     assert draws["calls"] == 0, "the packed sensing draw ran on the card"
@@ -787,8 +845,8 @@ def run_serving(dev):
         counts
     assert counts["ocs_contention.noisy"] == sites * ticks, (counts, ticks)
     assert counts["maxpool.decode"] == sites * ticks, (counts, ticks)
-    assert counts["ocs_quant.encode"] > 0, counts
-    for name in ("ocs_contention.contend", "maxpool.fwd", "ocs_quant.decode"):
+    for name in ("ocs_contention.contend", "maxpool.fwd", "ocs_quant.decode",
+                 "ocs_quant.encode", "maxpool.winner_bwd"):
         assert counts[name] == 0, (name, counts)
     assert draws["calls"] == 0, "the packed sensing draw ran on the card"
     assert bool(finite["ok"]), "a logit is not finite"
@@ -955,19 +1013,26 @@ def main() -> int:
     profile_serving(dev, serve)
 
     line = []
+    keep = ("shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "max_abs_err", "ms_source")
     for name in kernels.KERNELS:
         # the curves' kernels timed at the main path's first depth (bits=8),
-        # with their serving-shape timing beside; flash at the prefill shape
+        # with their serving-shape timing beside; flash at the prefill shape;
+        # a kernel's other forms (off the main paths) under "forms"
         if name == "flash_attention.fwd":
             rec = dict(rows[(name, "serve")])
         else:
             rec = dict(rows[(name, 8)])
             srv = rows.get((name, "serve"))
             if srv is not None:
-                rec["serve"] = {k: srv[k] for k in (
-                    "shape", "dtype", "ms", "call_ms", "plain_ms",
-                    "bound_ms", "bound_by", "library_ms", "max_abs_err",
-                    "ms_source")}
+                rec["serve"] = {k: srv[k] for k in keep + ("dtype",)}
+            forms = {case[len(name) + 1:-1]: {
+                "curves": {k: r[k] for k in keep},
+                "serve": {k: rows[(case, "serve")][k] for k in keep}}
+                for (case, at), r in rows.items()
+                if at == 8 and case.startswith(name + "[")}
+            if forms:
+                rec["forms"] = forms
         by_path = {"run_curves": curve_counts[name],
                    "serve": serve["counts"][name]}
         line.append(dict(rec, launches=sum(by_path.values()),

@@ -11,26 +11,28 @@ which the lowest index captures the channel.
 
 The batched core is lane-leading: ``h (L, N, K)``, one PRNG key and one
 ``p_miss`` per lane, so every p_miss lane of a training step shares one
-call.  The sensing draws are packed into bit-plane words and the
-tournament runs in the ``ocs_contention`` wrapper: the kernel on a CUDA
-tensor, its plain loop over rounds and sub-slots on the CPU.  The draws
-are the JAX package's: ``sensing_heard`` at key
-``fold_in(fold_in(rng, r), d)`` for round r, sub-slot d.
+call.  The core hands the float features to two wrappers: the
+``ocs_contention`` tournament (words, sensing draws and accounting) and
+the ``maxpool.decode`` pooling epilogue.  On a CUDA tensor each is one
+kernel that forms the Eq. 7 codes in registers; on the CPU their plain
+versions encode, build the words, draw the packed sensing planes and loop
+over rounds and sub-slots.  The draws are the JAX package's:
+``sensing_heard`` at key ``fold_in(fold_in(rng, r), d)`` for round r,
+sub-slot d.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
 from repro_torch import random as jr
-from repro_torch.core import quantize as qz
 from repro_torch.kernels.maxpool import ops as maxpool_ops
+from repro_torch.kernels.maxpool.ref import PoolDecode
 from repro_torch.kernels.ocs_contention.ref import lane_mask
-from repro_torch.kernels.ocs_quant.ref import from_int64, to_int64
 
 NOISY_BACKENDS = ("scan", "pallas")
 
@@ -50,14 +52,6 @@ class NoisyOCSResult:
 def host_id_bits(n_workers: int) -> int:
     """ID sub-slots needed to tie-break N workers: ceil(log2(max(N, 2)))."""
     return max(1, math.ceil(math.log2(max(n_workers, 2))))
-
-
-def _id_codes(n_workers: int, id_bits: int, device=None) -> torch.Tensor:
-    """Per-worker tie-break codes ``2^id_bits - 1 - index`` (int64, taken
-    mod 2^32): the lowest index wins the max.  Indices past
-    ``2^id_bits`` wrap and must be masked out (padded workers)."""
-    idx = torch.arange(n_workers, dtype=torch.int64, device=device)
-    return (((1 << int(id_bits)) - 1) - idx) & 0xFFFFFFFF
 
 
 def sensing_keep_prob(p_miss, dtype=torch.float32, lanes: bool = False
@@ -91,7 +85,9 @@ def sensing_heard(key: torch.Tensor, p_keep: torch.Tensor, n: int,
 def ocs_maxpool_noisy_core(h: torch.Tensor, mask, id_bits: int,
                            rng: torch.Tensor, p_miss, *, bits: int,
                            max_id_bits: int, max_rounds: int = 3,
-                           backend: str = "scan", with_pooled: bool = False
+                           backend: str = "scan", with_pooled: bool = False,
+                           out: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                           = None
                            ) -> Union[NoisyOCSResult,
                                       Tuple[NoisyOCSResult, torch.Tensor]]:
     """Batched imperfect-sensing core over a padded worker axis.
@@ -110,6 +106,9 @@ def ocs_maxpool_noisy_core(h: torch.Tensor, mask, id_bits: int,
       with_pooled: also return the pooled value ``(L, K)`` in h's dtype,
                the winner's D-bit payload decoded (the noisy law's
                forward), as ``(result, pooled)``.
+      out:     ``(pooled, winner)``, contiguous ``(L, K)`` tensors of h's
+               dtype and int32 to write the pooled value and the winner
+               into (slices of a larger stack, say).
     """
     if bits + max_id_bits > 32:
         raise ValueError(
@@ -119,34 +118,29 @@ def ocs_maxpool_noisy_core(h: torch.Tensor, mask, id_bits: int,
         raise ValueError(
             f"unknown noisy-OCS backend {backend!r}; valid: {NOISY_BACKENDS}")
     lanes, n, k = h.shape
-    codes = qz.quantize(h, bits)
-    codes64 = to_int64(codes)
     id_bits = int(id_bits)
-    word = (codes64 << id_bits) | _id_codes(n, id_bits, h.device)[:, None]
-    total_bits = bits + id_bits
     n_slots = bits + max_id_bits
     p_keep = sensing_keep_prob(
         torch.as_tensor(p_miss, device=h.device), h.dtype, lanes=True)
     m = lane_mask(mask, lanes, n, h.device)
+    pooled_out, winner_out = (None, None) if out is None else out
 
     # imported here: the wrapper draws through this module's sensing_heard
     from repro_torch.kernels.ocs_contention import ops as contention_ops
 
-    winner, contending, collided = contention_ops.noisy_contention(
-        from_int64(word, torch.uint32), m, total_bits, rng, p_keep,
-        n_slots=n_slots, max_rounds=max_rounds)
-    slots = (total_bits * contending.sum(-1)).to(torch.int32)
-    rounds = (contending > 0).sum(-1).to(torch.int32)
-    collisions = collided.sum(-1).to(torch.int32)
-
+    # the tournament over the words of h's codes, with its accounting
+    con = contention_ops.noisy_contention(
+        h, m, bits, id_bits, rng, p_keep, n_slots=n_slots,
+        max_rounds=max_rounds, out=winner_out)
     # one pooling epilogue: the true max code of the real workers, whether
     # the winner holds it, and the winner's payload decoded
-    out = maxpool_ops.maxpool_decode(codes, bits, h.dtype, mask=m,
-                                     winner=winner, correct=True)
-    res = NoisyOCSResult(winner=winner, correct=out.correct,
-                         collisions=collisions, rounds=rounds,
-                         contention_slots=slots)
-    return (res, out.pooled) if with_pooled else res
+    pooled = maxpool_ops.maxpool_decode(
+        h, bits, h.dtype, mask=m, winner=con.winner, correct=True,
+        out=PoolDecode(pooled_out, None, None, None))
+    res = NoisyOCSResult(winner=con.winner, correct=pooled.correct,
+                         collisions=con.collisions, rounds=con.rounds,
+                         contention_slots=con.contention_slots)
+    return (res, pooled.pooled) if with_pooled else res
 
 
 def ocs_maxpool_noisy(h: torch.Tensor, rng: torch.Tensor, bits: int = 16,

@@ -53,8 +53,8 @@ _ARGTYPES = {
     "ocs_decode": (_P, _P, _I64, _I, _I, _I, _P),
     # (h, v, winner, batch, n, e, kind, stream)
     "maxpool_fwd": (_P, _P, _P, _I64, _I, _I64, _I, _P),
-    # (codes, mask, mask_stride, winner, pooled, max_code, argmax, correct,
-    #  batch, n, e, code_bytes, out_kind, bits, stream)
+    # (src, mask, mask_stride, winner, pooled, max_code, argmax, correct,
+    #  batch, n, e, src_kind, out_kind, bits, stream)
     "maxpool_decode": (_P, _P, _I64, _P, _P, _P, _P, _P, _I64, _I, _I64, _I,
                        _I, _I, _P),
     # (winner, g, out, batch, n, e, kind, stream)
@@ -63,11 +63,11 @@ _ARGTYPES = {
     #  n_slots, max_rounds, total_bits, mask_lane_stride, stream)
     "ocs_contend": (_P, _P, _P, _P, _P, _P, _I, _I, _I64, _I, _I, _I, _I,
                     _P),
-    # (word, mask, lane_keys, p_keep, p_kind, p_worker_stride, winner,
-    #  contending, collided, lanes, n, k, n_slots, max_rounds, total_bits,
-    #  mask_lane_stride, stream)
-    "ocs_noisy": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I64, _I, _I,
-                  _I, _I, _P),
+    # (h, h_kind, bits, id_bits, mask, lane_keys, p_keep, p_kind,
+    #  p_worker_stride, winner, contending, collided, acct, lanes, n, k,
+    #  n_slots, max_rounds, mask_lane_stride, stream)
+    "ocs_noisy": (_P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I,
+                  _I, _I64, _I, _I, _I, _P),
     # (q, k, v, out, batch, heads, kv_heads, sq, sk, head_dim, kind,
     #  causal, scale, stream)
     "flash_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),

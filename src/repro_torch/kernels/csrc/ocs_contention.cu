@@ -5,14 +5,21 @@
 //
 // Replaces src/repro/kernels/ocs_contention/ocs_contention.py::
 // _contention_kernel, in two entries that share one tournament body, a
-// template on where a sensing bit comes from:
-//   ocs_contend  reads the bit from pre-drawn packed planes (the TPU
-//                kernel's interface: bit n_slots-1-d of heard[l, r, n, k]);
-//   ocs_noisy    hashes it in place: the threefry2x32 stream of
+// template on where a worker's word and a sensing bit come from:
+//   ocs_contend  reads pre-formed words and the bit from pre-drawn packed
+//                planes (the TPU kernel's interface: bit n_slots-1-d of
+//                heard[l, r, n, k]);
+//   ocs_noisy    reads the float features themselves and forms each word
+//                in registers as it loads it (the Eq. 7 code of
+//                common.cuh's Encode, shifted above the worker's id code:
+//                core/ocs.py's word, bit for bit), and hashes each sensing
+//                bit in place: the threefry2x32 stream of
 //                repro_torch.random (jax_threefry_partitionable), so bit
 //                heard[l, r, d, n, k] is one hash of the key
-//                fold_in(fold_in(rng_l, r), d) at counter n*K + k, and the
-//                sensing stream is never materialised.
+//                fold_in(fold_in(rng_l, r), d) at counter n*K + k.
+//                Neither the codes, the words nor the sensing stream is
+//                materialised, and each block adds its share of the
+//                lane's accounting (rounds, collisions, contention slots).
 //
 // Layout.  The worker axis runs across the lanes of a warp: a column
 // (one element k of one lane l) is a segment of SEG = next_pow2(N) lanes
@@ -28,15 +35,20 @@
 // counts of the rounds it skips are 0, as the TPU kernel counts them.
 // The counts are integer adds (per warp a popcount of a ballot, per block
 // shared atomics, one global atomicAdd per block and round): exact in any
-// order.
+// order.  ocs_noisy also adds each block's share of its lane's accounting
+// (rounds, collisions, contention slots) with three atomics, so the site
+// needs no reduction kernels after the tournament.
 //
 // What bounds it on an H100.  ocs_noisy: the hashes its inputs need,
 // ~85 integer operations each (20 rounds of add, rotate, xor plus the key
 // injections and the uniform), against the INT32 rate of 132 SMs x 64
 // lanes per clock; at the serving tick's 16 workers x 8192 columns that is
-// far below the memory time of the words, so what is left is the launch.
-// The layout gives the tick's 8192 columns 131,072 threads instead of
-// 8,192, so the serial part per thread is a few sub-slots of one worker.
+// far below the memory time of the features, so what is left is the
+// launch.  The layout gives the tick's 8192 columns 131,072 threads
+// instead of 8,192, so the serial part per thread is a few sub-slots of
+// one worker.  Reading the features in place of words moves fewer bytes
+// (2 a worker and column in bfloat16, where a word is 4) and takes the
+// encode kernel and the word's int64 glue off the site.
 // ocs_contend: bytes (a word and a plane word per worker and column).
 #include "common.cuh"
 
@@ -134,11 +146,38 @@ struct HashedStream {
 };
 
 // ---------------------------------------------------------------------------
+// Where a worker's contention word comes from
+// ---------------------------------------------------------------------------
+
+// Pre-formed 32-bit words (the TPU kernel's operand).
+struct FormedWords {
+  const uint32_t* word;
+  __device__ uint32_t operator()(int64_t at, int /*worker*/) const {
+    return word[at];
+  }
+};
+
+// The word formed from a float's raw bits UIn as it is loaded:
+// [D-bit Eq. 7 code | id code 2^id_bits - 1 - worker], the id code taken
+// mod 2^32 (a padding worker past 2^id_bits wraps, and is masked out), as
+// core/ocs.py forms it.  bits + id_bits <= 32.
+template <typename UIn>
+struct WordsFromFloats {
+  const UIn* h;
+  rt::Encode<UIn, uint32_t> encode;   // shift: the float's width - bits
+  int id_bits;
+  __device__ uint32_t operator()(int64_t at, int worker) const {
+    const uint32_t id = (1u << id_bits) - 1u - static_cast<uint32_t>(worker);
+    return (encode(h[at]) << id_bits) | id;
+  }
+};
+
+// ---------------------------------------------------------------------------
 // The tournament body, shared by both entries
 // ---------------------------------------------------------------------------
 
-template <int SEG, int WPL, class Src>
-__device__ void tournament(Src& src, const uint32_t* __restrict__ word,
+template <int SEG, int WPL, class Src, class Words>
+__device__ void tournament(Src& src, const Words& words,
                            const uint8_t* __restrict__ mask,
                            int32_t* __restrict__ winner, int* cnt, int n,
                            int64_t k, int kd, int max_rounds,
@@ -163,7 +202,8 @@ __device__ void tournament(Src& src, const uint32_t* __restrict__ word,
     alive[i] = live && worker[i] < n &&
                mask[lane * mask_lane_stride + worker[i]] != 0;
     w[i] = alive[i]
-        ? word[(static_cast<int64_t>(lane) * n + worker[i]) * k + col]
+        ? words((static_cast<int64_t>(lane) * n + worker[i]) * k + col,
+                worker[i])
         : 0u;
   }
   // the segment's alive set, identical in each of its lanes
@@ -230,6 +270,42 @@ __device__ __forceinline__ void flush_counts(const int* cnt,
   }
 }
 
+// ocs_noisy's accounting, as core/ocs.py's plain version computes it from
+// the finished counts: rounds = rounds with a contending sub-frame,
+// collisions = the collided sum, contention slots = total_bits x the
+// contending sum (int32, wrapping as the plain version's cast does).  No
+// block waits for the others: a sub-frame resolved stays resolved, so a
+// lane's contending count never grows from one round to the next, nor
+// does any block's share of it, and the lane's rounds are the most rounds
+// any of its blocks counted (an atomicMax); the sums are sums of the
+// blocks' sums mod 2^32 (atomicAdd).  Warp 0 reduces the block's counts
+// with ballots and shuffles; lane 0 adds them.  The caller zeroes acct.
+__device__ __forceinline__ void add_accounting(const int* cnt,
+                                               int32_t* __restrict__ acct,
+                                               int lanes, int max_rounds,
+                                               int total_bits) {
+  if (threadIdx.x >= 32) return;   // after flush_counts' __syncthreads
+  constexpr unsigned kFull = 0xffffffffu;
+  uint32_t cont = 0, coll = 0;
+  unsigned live = 0;
+  for (int r0 = 0; r0 < max_rounds; r0 += 32) {
+    const int r = r0 + static_cast<int>(threadIdx.x);
+    const int c = r < max_rounds ? cnt[r] : 0;
+    cont += static_cast<uint32_t>(c);
+    coll += r < max_rounds ? static_cast<uint32_t>(cnt[max_rounds + r]) : 0u;
+    live += __popc(__ballot_sync(kFull, c > 0));
+  }
+  cont = __reduce_add_sync(kFull, cont);
+  coll = __reduce_add_sync(kFull, coll);
+  if (threadIdx.x != 0) return;
+  const int lane = blockIdx.y;
+  if (live) atomicMax(&acct[lane], static_cast<int>(live));
+  if (coll) atomicAdd(&acct[lanes + lane], static_cast<int>(coll));
+  if (cont)
+    atomicAdd(reinterpret_cast<unsigned*>(&acct[2 * lanes + lane]),
+              static_cast<uint32_t>(total_bits) * cont);
+}
+
 template <int SEG, int WPL>
 __global__ void __launch_bounds__(kThreadsCT)
     contend_kernel(const uint32_t* __restrict__ word,
@@ -244,22 +320,22 @@ __global__ void __launch_bounds__(kThreadsCT)
   for (int i = threadIdx.x; i < 2 * max_rounds; i += blockDim.x) cnt[i] = 0;
   __syncthreads();
   PackedPlanes<WPL> src{heard, n_slots, max_rounds, n, k, {}};
-  tournament<SEG, WPL>(src, word, mask, winner, cnt, n, k,
+  tournament<SEG, WPL>(src, FormedWords{word}, mask, winner, cnt, n, k,
                        max(0, min(n_slots, total_bits)), max_rounds,
                        total_bits, mask_lane_stride);
   flush_counts(cnt, contending, collided, max_rounds);
 }
 
-template <int SEG, int WPL>
+template <int SEG, int WPL, class Words>
 __global__ void __launch_bounds__(kThreadsCT)
-    noisy_kernel(const uint32_t* __restrict__ word,
-                 const uint8_t* __restrict__ mask,
-                 const uint32_t* __restrict__ lane_keys,
+    noisy_kernel(const Words words, const uint8_t* __restrict__ mask,
+                 const int64_t* __restrict__ lane_keys,
                  const void* __restrict__ p_keep, int p_kind,
                  int p_worker_stride, int32_t* __restrict__ winner,
                  int32_t* __restrict__ contending,
-                 int32_t* __restrict__ collided, int n, int64_t k, int kd,
-                 int max_rounds, int total_bits, int mask_lane_stride) {
+                 int32_t* __restrict__ collided, int32_t* __restrict__ acct,
+                 int n, int64_t k, int kd, int max_rounds, int total_bits,
+                 int mask_lane_stride) {
   extern __shared__ uint32_t keys[];   // (max_rounds * kd + max_rounds, 2)
   __shared__ int cnt[2 * kMaxRounds];
   const int lane = blockIdx.y;
@@ -268,7 +344,8 @@ __global__ void __launch_bounds__(kThreadsCT)
   // fold_in(key, x) = threefry2x32(key, (0, x))
   for (int r = threadIdx.x; r < max_rounds; r += blockDim.x) {
     uint32_t x0 = 0, x1 = static_cast<uint32_t>(r);
-    threefry2x32(lane_keys[2 * lane], lane_keys[2 * lane + 1], x0, x1);
+    threefry2x32(static_cast<uint32_t>(lane_keys[2 * lane]),
+                 static_cast<uint32_t>(lane_keys[2 * lane + 1]), x0, x1);
     round_keys[2 * r] = x0;
     round_keys[2 * r + 1] = x1;
   }
@@ -295,9 +372,10 @@ __global__ void __launch_bounds__(kThreadsCT)
         : static_cast<const uint16_t*>(p_keep)[at];
     src.p[i] = rt::bits_to_float(bits, p_kind);
   }
-  tournament<SEG, WPL>(src, word, mask, winner, cnt, n, k, kd, max_rounds,
+  tournament<SEG, WPL>(src, words, mask, winner, cnt, n, k, kd, max_rounds,
                        total_bits, mask_lane_stride);
   flush_counts(cnt, contending, collided, max_rounds);
+  add_accounting(cnt, acct, gridDim.y, max_rounds, total_bits);
 }
 
 inline unsigned col_blocks(int64_t k, int seg) {
@@ -351,34 +429,50 @@ int ocs_contend(const void* word, const void* heard, const void* mask,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tournament with the sensing stream hashed in place.  lane_keys
-// (lanes, 2) u32 raw threefry keys; p_keep (lanes, 1) or (lanes, n) raw
-// words of p_kind (float32, bfloat16, float16), per worker when
-// p_worker_stride is 1; the rest as ocs_contend.
-int ocs_noisy(const void* word, const void* mask, const void* lane_keys,
-              const void* p_keep, int p_kind, int p_worker_stride,
-              void* winner, void* contending, void* collided, int lanes,
-              int n, int64_t k, int n_slots, int max_rounds, int total_bits,
+// The tournament over float features with the sensing stream hashed in
+// place.  h (lanes, n, k) raw words of h_kind (float32, bfloat16,
+// float16), each worker's word [bits-bit Eq. 7 code | id code] formed in
+// the kernel, bits + id_bits <= 32; lane_keys (lanes, 2) int64 threefry
+// keys (repro_torch.random's words, below 2^32); p_keep (lanes, 1) or (lanes, n) raw words of p_kind, per worker
+// when p_worker_stride is 1; mask, winner, contending and collided as
+// ocs_contend; acct (3, lanes) int32 (rounds, collisions, contention
+// slots), which the caller zeroes with the counts.
+int ocs_noisy(const void* h, int h_kind, int bits, int id_bits,
+              const void* mask, const void* lane_keys, const void* p_keep,
+              int p_kind, int p_worker_stride, void* winner,
+              void* contending, void* collided, void* acct,
+              int lanes, int n, int64_t k, int n_slots, int max_rounds,
               int mask_lane_stride, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int width = h_kind == rt::kF32 ? 32 : 16;
   if (bad_shape(lanes, n, k, n_slots, max_rounds) ||
-      (p_kind != rt::kF32 && p_kind != rt::kBF16 && p_kind != rt::kF16))
+      (p_kind != rt::kF32 && p_kind != rt::kBF16 && p_kind != rt::kF16) ||
+      (h_kind != rt::kF32 && h_kind != rt::kBF16 && h_kind != rt::kF16) ||
+      bits < 1 || bits > width || id_bits < 0 || bits + id_bits > 32)
     return static_cast<int>(cudaErrorInvalidValue);
   if (k == 0) return 0;
+  const int total_bits = bits + id_bits;
   const int kd = max(0, min(n_slots, total_bits));
   const size_t smem = sizeof(uint32_t) * 2 * max_rounds * (kd + 1);
 #define RT_NOISY(SEG, WPL)                                                \
   noisy_kernel<SEG, WPL>                                                  \
       <<<dim3(col_blocks(k, SEG), static_cast<unsigned>(lanes)),          \
          kThreadsCT, smem, s>>>(                                          \
-          static_cast<const uint32_t*>(word),                             \
-          static_cast<const uint8_t*>(mask),                              \
-          static_cast<const uint32_t*>(lane_keys), p_keep, p_kind,        \
+          words, static_cast<const uint8_t*>(mask),                       \
+          static_cast<const int64_t*>(lane_keys), p_keep, p_kind,         \
           p_worker_stride, static_cast<int32_t*>(winner),                 \
           static_cast<int32_t*>(contending),                              \
-          static_cast<int32_t*>(collided), n, k, kd, max_rounds,          \
-          total_bits, mask_lane_stride)
-  RT_BY_SEGMENT(n, RT_NOISY);
+          static_cast<int32_t*>(collided), static_cast<int32_t*>(acct),   \
+          n, k, kd, max_rounds, total_bits, mask_lane_stride)
+  if (h_kind == rt::kF32) {
+    const WordsFromFloats<uint32_t> words{
+        static_cast<const uint32_t*>(h), {32 - bits}, id_bits};
+    RT_BY_SEGMENT(n, RT_NOISY);
+  } else {
+    const WordsFromFloats<uint16_t> words{
+        static_cast<const uint16_t*>(h), {16 - bits}, id_bits};
+    RT_BY_SEGMENT(n, RT_NOISY);
+  }
 #undef RT_NOISY
   return static_cast<int>(cudaGetLastError());
 }

@@ -48,21 +48,31 @@ def maxpool_decode(codes: torch.Tensor, bits: int, dtype: torch.dtype, *,
                    mask: Optional[torch.Tensor] = None,
                    winner: Optional[torch.Tensor] = None, dim: int = 1,
                    max_code: bool = False, argmax: bool = False,
-                   correct: bool = False) -> ref.PoolDecode:
-    """D-bit codes -> their pooled max over ``dim`` decoded to ``dtype``,
-    in one launch: ``pooled`` always, ``max_code``/``argmax``/``correct``
-    only where asked (see ``ref.maxpool_decode``).  Codes of at most 16
-    bits, as the code kernels."""
+                   correct: bool = False,
+                   out: Optional[ref.PoolDecode] = None) -> ref.PoolDecode:
+    """D-bit codes, or the float features whose codes the kernel forms as
+    it loads them -> their pooled max over ``dim`` decoded to ``dtype``, in
+    one launch: ``pooled`` always, ``max_code``/``argmax``/``correct`` only
+    where asked (see ``ref.maxpool_decode``).  Codes of at most 16 bits, as
+    the code kernels.  The fields of ``out`` that are not None are
+    contiguous tensors of the output's shape that the kernel writes in
+    place of new ones."""
     if codes.device.type == "cpu":
         return ref.maxpool_decode(codes, bits, dtype, mask=mask,
                                   winner=winner, dim=dim, max_code=max_code,
-                                  argmax=argmax, correct=correct)
+                                  argmax=argmax, correct=correct, out=out)
     if dtype not in _BWD_DTYPES:
         raise ValueError(f"maxpool decode writes {_BWD_DTYPES}, got {dtype}")
-    if not 1 <= bits <= min(MAX_DECODE_BITS, 8 * dtype.itemsize):
+    floats = codes.is_floating_point()
+    if floats and codes.dtype not in _BWD_DTYPES:
+        raise ValueError(f"maxpool decode reads floats of {_BWD_DTYPES}, "
+                         f"got {codes.dtype}")
+    top = min(MAX_DECODE_BITS, 8 * dtype.itemsize,
+              8 * codes.element_size() if floats else MAX_DECODE_BITS)
+    if not 1 <= bits <= top:
         raise ValueError(f"maxpool decode takes codes of 1 to "
                          f"{MAX_DECODE_BITS} bits, got bits={bits}")
-    if codes.dtype != code_dtype(bits):
+    if not floats and codes.dtype != code_dtype(bits):
         raise ValueError(f"{bits}-bit codes are {code_dtype(bits)}, got "
                          f"{codes.dtype}")
     if correct and winner is None:
@@ -86,16 +96,23 @@ def maxpool_decode(codes: torch.Tensor, bits: int, dtype: torch.dtype, *,
                              f"got {winner.dtype} {tuple(winner.shape)}")
         winner = winner.contiguous()
         operands.append(winner)
+    given = out if out is not None else ref.PoolDecode(None, None, None,
+                                                       None)
+    wants = (True, max_code, argmax, correct)
+    dtypes = (dtype, code_dtype(bits), torch.int32, torch.bool)
 
-    def empty(want: bool, dt: torch.dtype) -> Optional[torch.Tensor]:
-        return torch.empty(out_shape, dtype=dt, device=codes.device) \
-            if want else None
+    def output(want: bool, dt: torch.dtype, t: Optional[torch.Tensor]):
+        if not want:
+            return None
+        if t is None:
+            return torch.empty(out_shape, dtype=dt, device=codes.device)
+        if t.shape != out_shape or t.dtype != dt:
+            raise ValueError(f"out tensors are {dt} of shape {out_shape}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+        return t
 
-    out = ref.PoolDecode(pooled=empty(True, dtype),
-                         max_code=empty(max_code, codes.dtype),
-                         argmax=empty(argmax, torch.int32),
-                         correct=empty(correct, torch.bool))
-    operands += [t for t in out if t is not None]
+    res = ref.PoolDecode(*map(output, wants, dtypes, given))
+    operands += [t for t in res if t is not None]
     kernels.check_operands(*operands)
 
     def ptr(t: Optional[torch.Tensor]):
@@ -103,9 +120,9 @@ def maxpool_decode(codes: torch.Tensor, bits: int, dtype: torch.dtype, *,
 
     kernels.launch("maxpool.decode", "maxpool_decode", codes.device,
                    codes.data_ptr(), ptr(mask), mask_stride, ptr(winner),
-                   *map(ptr, out), batch, n, e, codes.element_size(),
+                   *map(ptr, res), batch, n, e, kernels.KIND[codes.dtype],
                    kernels.KIND[dtype], bits)
-    return out
+    return res
 
 
 def maxpool_winner_bwd(winner: torch.Tensor, g: torch.Tensor, n: int,

@@ -9,6 +9,8 @@ has no reductions on ``uint16``/``uint32``.
 ``maxpool_decode`` is ``maxpool_fused`` over D-bit codes composed with the
 Eq. 7 ``decode`` (``ocs_quant.ref``), optionally with a worker mask and the
 code of a given winner: the fused pooling epilogue of a channel site.
+Given the float features in place of codes it encodes them first
+(``ocs_quant.ref.encode``), as its kernel does in registers.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels.ocs_quant.ref import decode, from_int64, to_int64
+from repro_torch.kernels.ocs_quant.ref import (decode, encode, from_int64,
+                                              to_int64)
 
 _UNSIGNED = (torch.uint8, torch.uint16, torch.uint32)
 
@@ -81,16 +84,22 @@ def maxpool_decode(codes: torch.Tensor, bits: int, dtype: torch.dtype, *,
                    mask: Optional[torch.Tensor] = None,
                    winner: Optional[torch.Tensor] = None, dim: int = 1,
                    max_code: bool = False, argmax: bool = False,
-                   correct: bool = False) -> PoolDecode:
+                   correct: bool = False,
+                   out: Optional[PoolDecode] = None) -> PoolDecode:
     """Pool D-bit ``codes`` over the worker axis ``dim`` and decode.
 
-    A worker whose ``mask`` ((N,) or (batch, N) bool) is False counts as
-    code 0, as ``jnp.max(jnp.where(mask, codes, 0))``; ``max_code`` is the
-    max, ``argmax`` its first index.  With ``winner`` (int32, the output's
-    shape) ``pooled`` decodes the winner's own code and ``correct`` says
-    whether it equals the max; without, ``pooled`` decodes the max."""
+    ``codes`` may be the float features themselves, whose D-bit codes are
+    pooled.  A worker whose ``mask`` ((N,) or (batch, N) bool) is False
+    counts as code 0, as ``jnp.max(jnp.where(mask, codes, 0))``;
+    ``max_code`` is the max, ``argmax`` its first index.  With ``winner``
+    (int32, the output's shape) ``pooled`` decodes the winner's own code
+    and ``correct`` says whether it equals the max; without, ``pooled``
+    decodes the max.  The fields of ``out`` that are not None are written
+    in place."""
     if correct and winner is None:
         raise ValueError("correct compares the winner's code: pass winner")
+    if codes.is_floating_point():
+        codes = encode(codes, bits)
     batch, n, e, out_shape = pool_layout(codes, dim)
     c64 = to_int64(codes).reshape(batch, n, e)
     masked = c64
@@ -104,12 +113,16 @@ def maxpool_decode(codes: torch.Tensor, bits: int, dtype: torch.dtype, *,
         sel = c64.gather(1, winner.reshape(batch, 1, e).long())[:, 0]
         picked = from_int64(sel, codes.dtype)
     pooled = decode(picked, bits, dtype)
-    return PoolDecode(
+    res = PoolDecode(
         pooled=pooled.reshape(out_shape),
         max_code=best.reshape(out_shape) if max_code else None,
         argmax=arg.reshape(out_shape) if argmax else None,
         correct=(sel == to_int64(best)).reshape(out_shape) if correct
         else None)
+    if out is None:
+        return res
+    return PoolDecode(*(a if o is None or a is None else o.copy_(a)
+                        for a, o in zip(res, out)))
 
 
 def maxpool_winner_bwd(winner: torch.Tensor, g: torch.Tensor, n: int,

@@ -2,45 +2,47 @@
 
 Every operand is lane-leading: one launch runs the tournament of all
 p_miss lanes.  ``noisy_contention`` is what the protocol core calls: on a
-CUDA tensor its kernel hashes each sensing bit it reads in place (the
-threefry stream of ``ref.draw_heard_packed``, bit for bit) and no sensing
-tensor exists; on the CPU it is ``ref.noisy_contention``.  ``contend``
-takes pre-drawn packed planes, the TPU kernel's interface.
+CUDA tensor its kernel reads the float features, forms each worker's
+contention word in registers, hashes each sensing bit it reads in place
+(the threefry stream of ``ref.draw_heard_packed``, bit for bit) and writes
+each lane's accounting; no code, word or sensing tensor exists.  On the
+CPU it is ``ref.noisy_contention``.  ``contend`` takes pre-formed words and
+pre-drawn packed planes, the TPU kernel's interface.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch import kernels
 from repro_torch.kernels.ocs_contention import ref
-from repro_torch.kernels.ocs_quant.ref import from_int64
+from repro_torch.kernels.ocs_quant.ref import width
 
 MAX_ROUNDS = 64      # csrc/ocs_contention.cu: kMaxRounds
+_FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 
 
-def _check_kernel_operands(word: torch.Tensor, n_slots: int,
-                           max_rounds: int) -> None:
-    n = word.shape[1]
+def _check_kernel_operands(n: int, max_rounds: int) -> None:
     if not 1 <= n <= 64:
         raise ValueError(f"the contention kernel takes 1..64 workers, got {n}")
     if not 1 <= max_rounds <= MAX_ROUNDS:
         raise ValueError(f"the contention kernel takes 1..{MAX_ROUNDS} "
                          f"rounds, got {max_rounds}")
-    if word.dtype not in (torch.uint32, torch.int32):
-        raise ValueError(f"32-bit words expected, got {word.dtype}")
 
 
-def _mask_and_outputs(word: torch.Tensor, mask: torch.Tensor,
-                      max_rounds: int):
-    """The (1 or L, N) uint8 mask, its lane stride, and the outputs."""
-    lanes, n, k = word.shape
-    m = ref.lane_mask(mask, lanes, n, word.device)
-    m8 = (m[:1] if mask.ndim == 1 else m).to(torch.uint8).contiguous()
-    winner = torch.empty((lanes, k), dtype=torch.int32, device=word.device)
-    counts = torch.zeros((2, lanes, max_rounds), dtype=torch.int32,
-                         device=word.device)
-    return m8, (0 if mask.ndim == 1 else n), winner, counts
+def _kernel_mask(mask: torch.Tensor, lanes: int, n: int, device):
+    """The mask as the kernel reads it, (1 or L, N) bytes, and its lane
+    stride: one (N,) row (also a row expanded over the lanes) or one row
+    per lane."""
+    mask = torch.as_tensor(mask, device=device)
+    if mask.dtype != torch.bool:
+        mask = mask.to(torch.bool)
+    if mask.ndim == 2 and mask.stride(0) == 0:
+        mask = mask[0]                  # one (N,) row expanded over lanes
+    ref.lane_mask(mask, lanes, n, device)        # checks the shape
+    return mask.contiguous(), (0 if mask.ndim == 1 else n)
 
 
 def contend(word: torch.Tensor, heard: torch.Tensor, mask: torch.Tensor,
@@ -62,57 +64,85 @@ def contend(word: torch.Tensor, heard: torch.Tensor, mask: torch.Tensor,
     if word.device.type == "cpu":
         return ref.contend(word, heard, mask, int(total_bits),
                            n_slots=n_slots, max_rounds=max_rounds)
-    _check_kernel_operands(word, n_slots, max_rounds)
-    if heard.dtype not in (torch.uint32, torch.int32):
-        raise ValueError(f"32-bit words expected, got {heard.dtype}")
+    _check_kernel_operands(n, max_rounds)
+    for t in (word, heard):
+        if t.dtype not in (torch.uint32, torch.int32):
+            raise ValueError(f"32-bit words expected, got {t.dtype}")
     word, heard = word.contiguous(), heard.contiguous()
-    m8, mask_stride, winner, counts = _mask_and_outputs(word, mask,
-                                                        max_rounds)
-    kernels.check_operands(word, heard, m8, winner, counts)
+    m, mask_stride = _kernel_mask(mask, lanes, n, word.device)
+    winner = torch.empty((lanes, k), dtype=torch.int32, device=word.device)
+    counts = torch.zeros((2, lanes, max_rounds), dtype=torch.int32,
+                         device=word.device)
+    kernels.check_operands(word, heard, m, winner, counts)
     kernels.launch("ocs_contention.contend", "ocs_contend", word.device,
-                   word.data_ptr(), heard.data_ptr(), m8.data_ptr(),
+                   word.data_ptr(), heard.data_ptr(), m.data_ptr(),
                    winner.data_ptr(), counts[0].data_ptr(),
                    counts[1].data_ptr(), lanes, n, k, n_slots, max_rounds,
                    int(total_bits), mask_stride)
     return winner, counts[0], counts[1]
 
 
-def noisy_contention(word: torch.Tensor, mask: torch.Tensor,
-                     total_bits: int, rng: torch.Tensor,
-                     p_keep: torch.Tensor, *, n_slots: int,
-                     max_rounds: int):
-    """The tournament under the sensing stream of ``rng``.
+def noisy_contention(h: torch.Tensor, mask: torch.Tensor, bits: int,
+                     id_bits: int, rng: torch.Tensor, p_keep: torch.Tensor,
+                     *, n_slots: int, max_rounds: int,
+                     out: Optional[torch.Tensor] = None) -> ref.Contention:
+    """The tournament of the features ``h`` under the sensing stream of
+    ``rng``.
 
-    word (L, N, K) 32-bit words, mask (N,) or (L, N), rng (L, 2) int64 keys,
-    p_keep (L, 1, 1) or (L, N, 1) hear probabilities in float32, bfloat16
-    or float16 (the draw's type) -> the outputs of ``contend``, equal bit
-    for bit to ``ref.noisy_contention``."""
+    h (L, N, K) float32, bfloat16 or float16 features, each worker's word
+    ``[bits-bit Eq. 7 code | id code]`` (``ref.contention_words``, ``bits
+    + id_bits <= 32``); mask (N,) or (L, N); rng (L, 2) int64 keys; p_keep
+    (L, 1, 1) or (L, N, 1) hear probabilities in float32, bfloat16 or
+    float16 (the draw's type); ``out`` an (L, K) int32 tensor to write the
+    winner into -> ``ref.Contention``, equal bit for bit to
+    ``ref.noisy_contention``."""
     if not 1 <= n_slots <= 32:
         raise ValueError(f"n_slots must be in [1, 32], got {n_slots}")
-    lanes, n, k = word.shape
-    if word.device.type == "cpu":
-        return ref.noisy_contention(word, mask, int(total_bits), rng, p_keep,
-                                    n_slots=n_slots, max_rounds=max_rounds)
-    _check_kernel_operands(word, n_slots, max_rounds)
-    if p_keep.dtype not in (torch.float32, torch.bfloat16, torch.float16):
-        raise ValueError(f"p_keep must be float32, bfloat16 or float16, got "
-                         f"{p_keep.dtype}")
+    lanes, n, k = h.shape
+    if not 1 <= bits <= width(h.dtype) or id_bits < 0 or \
+            bits + id_bits > 32:
+        raise ValueError(f"bits={bits}, id_bits={id_bits}: a word is 1 to "
+                         f"{width(h.dtype)} code bits and the id bits, at "
+                         "most 32")
+    if out is not None and (out.shape != (lanes, k) or
+                            out.dtype != torch.int32 or
+                            not out.is_contiguous()):
+        raise ValueError(f"out must be contiguous int32 of shape "
+                         f"{(lanes, k)}, got {out.dtype} {tuple(out.shape)}")
+    if h.device.type == "cpu":
+        return ref.noisy_contention(h, mask, bits, id_bits, rng, p_keep,
+                                    n_slots=n_slots, max_rounds=max_rounds,
+                                    out=out)
+    _check_kernel_operands(n, max_rounds)
+    for name, t in (("h", h), ("p_keep", p_keep)):
+        if t.dtype not in _FLOATS:
+            raise ValueError(f"{name} must be float32, bfloat16 or float16, "
+                             f"got {t.dtype}")
     p = p_keep.reshape(lanes, -1)
-    if p.shape[1] not in (1, n) or rng.shape != (lanes, 2):
-        raise ValueError(f"p_keep (L, 1, 1) or (L, N, 1) and rng (L, 2) for "
-                         f"L={lanes}, N={n}; got {tuple(p_keep.shape)} and "
+    if p.shape[1] not in (1, n) or rng.shape != (lanes, 2) or \
+            rng.dtype != torch.int64:
+        raise ValueError(f"p_keep (L, 1, 1) or (L, N, 1) and int64 rng "
+                         f"(L, 2) for L={lanes}, N={n}; got "
+                         f"{tuple(p_keep.shape)} and {rng.dtype} "
                          f"{tuple(rng.shape)}")
-    p_bits = p.contiguous().view(torch.int32 if p.dtype == torch.float32
-                                 else torch.int16)
-    keys = from_int64(rng, torch.uint32).contiguous()
-    word = word.contiguous()
-    m8, mask_stride, winner, counts = _mask_and_outputs(word, mask,
-                                                        max_rounds)
-    kernels.check_operands(word, keys, p_bits, m8, winner, counts)
-    kernels.launch("ocs_contention.noisy", "ocs_noisy", word.device,
-                   word.data_ptr(), m8.data_ptr(), keys.data_ptr(),
-                   p_bits.data_ptr(), kernels.KIND[p.dtype],
-                   int(p.shape[1] > 1), winner.data_ptr(),
-                   counts[0].data_ptr(), counts[1].data_ptr(), lanes, n, k,
-                   n_slots, max_rounds, int(total_bits), mask_stride)
-    return winner, counts[0], counts[1]
+    p = p.contiguous()
+    h, rng = h.contiguous(), rng.contiguous()
+    m, mask_stride = _kernel_mask(mask, lanes, n, h.device)
+    winner = out if out is not None else torch.empty(
+        (lanes, k), dtype=torch.int32, device=h.device)
+    # one zeroed buffer: the per-round counts and each lane's (rounds,
+    # collisions, contention slots)
+    buf = torch.zeros((2 * max_rounds + 3) * lanes, dtype=torch.int32,
+                      device=h.device)
+    counts = buf[:2 * max_rounds * lanes].view(2, lanes, max_rounds)
+    acct = buf[2 * max_rounds * lanes:].view(3, lanes)
+    kernels.check_operands(h, m, rng, p, winner, buf)
+    kernels.launch("ocs_contention.noisy", "ocs_noisy", h.device,
+                   h.data_ptr(), kernels.KIND[h.dtype], int(bits),
+                   int(id_bits), m.data_ptr(), rng.data_ptr(), p.data_ptr(),
+                   kernels.KIND[p.dtype], int(p.shape[1] > 1),
+                   winner.data_ptr(), counts[0].data_ptr(),
+                   counts[1].data_ptr(), acct.data_ptr(), lanes, n, k,
+                   n_slots, max_rounds, mask_stride)
+    return ref.Contention(winner, counts[0], counts[1], acct[0], acct[1],
+                          acct[2])

@@ -4,17 +4,60 @@
 ``n_slots - 1 - d`` of ``heard[l, r, n, k]`` is sub-slot d's sensing draw)
 as a loop over rounds and sub-slots on boolean ``(L, N, K)`` alive masks,
 and returns the counts reduced over K: the same contract as
-``ops.contend``.  ``noisy_contention`` is ``draw_heard_packed`` followed by
-``contend``: the same contract as ``ops.noisy_contention``, whose kernel
-hashes the sensing bits in place.
+``ops.contend``.  ``noisy_contention`` forms the contention words from the
+float features (``contention_words``: the Eq. 7 code above the id code),
+draws the sensing stream (``draw_heard_packed``), runs ``contend`` over it
+and reduces the counts into each lane's accounting: the same contract as
+``ops.noisy_contention``, whose kernel does all of it in one launch.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 
 from repro_torch import random as jr
-from repro_torch.kernels.ocs_quant.ref import from_int64, to_int64
+from repro_torch.kernels.ocs_quant.ref import encode, from_int64, to_int64
+
+
+class Contention(NamedTuple):
+    """What :func:`noisy_contention` returns, one row per lane."""
+
+    winner: torch.Tensor            # (L, K) int32
+    contending: torch.Tensor        # (L, max_rounds) int32
+    collided: torch.Tensor          # (L, max_rounds) int32
+    rounds: torch.Tensor            # (L,) int32 rounds with contention
+    collisions: torch.Tensor        # (L,) int32 collided (sub-frame, round)
+    contention_slots: torch.Tensor  # (L,) int32 sub-slots billed
+
+
+def id_codes(n_workers: int, id_bits: int, device=None) -> torch.Tensor:
+    """Per-worker tie-break codes ``2^id_bits - 1 - index`` (int64, taken
+    mod 2^32): the lowest index wins the max.  Indices past
+    ``2^id_bits`` wrap and must be masked out (padded workers)."""
+    idx = torch.arange(n_workers, dtype=torch.int64, device=device)
+    return (((1 << int(id_bits)) - 1) - idx) & 0xFFFFFFFF
+
+
+def contention_words(h: torch.Tensor, bits: int,
+                     id_bits: int) -> torch.Tensor:
+    """h (L, N, K) floats -> (L, N, K) ``uint32`` words ``[bits-bit Eq. 7
+    code | id code]`` (``bits + id_bits <= 32``)."""
+    codes = to_int64(encode(h, bits))
+    word = (codes << int(id_bits)) | id_codes(h.shape[1], id_bits,
+                                              h.device)[:, None]
+    return from_int64(word, torch.uint32)
+
+
+def accounting(contending: torch.Tensor, collided: torch.Tensor,
+               total_bits: int):
+    """Per-round counts (L, max_rounds) -> each lane's (rounds,
+    collisions, contention slots), int32."""
+    slots = (total_bits * contending.sum(-1)).to(torch.int32)
+    rounds = (contending > 0).sum(-1).to(torch.int32)
+    collisions = collided.sum(-1).to(torch.int32)
+    return rounds, collisions, slots
 
 
 def lane_mask(mask, lanes: int, n: int, device=None) -> torch.Tensor:
@@ -50,17 +93,25 @@ def draw_heard_packed(rng: torch.Tensor, p_keep: torch.Tensor, n: int,
     return from_int64(packed, torch.uint32)
 
 
-def noisy_contention(word: torch.Tensor, mask: torch.Tensor,
-                     total_bits: int, rng: torch.Tensor,
-                     p_keep: torch.Tensor, *, n_slots: int,
-                     max_rounds: int):
-    """Draw the sensing stream (``draw_heard_packed``) and run the
-    tournament over it (``contend``)."""
-    lanes, n, k = word.shape
+def noisy_contention(h: torch.Tensor, mask: torch.Tensor, bits: int,
+                     id_bits: int, rng: torch.Tensor, p_keep: torch.Tensor,
+                     *, n_slots: int, max_rounds: int,
+                     out: Optional[torch.Tensor] = None) -> Contention:
+    """The words of ``h`` (``contention_words``), the sensing stream
+    (``draw_heard_packed``), the tournament over them (``contend``) and the
+    accounting; the winner is written into ``out`` where given."""
+    lanes, n, k = h.shape
+    total = int(bits) + int(id_bits)
+    word = contention_words(h, bits, id_bits)
     heard = draw_heard_packed(rng, p_keep, n, k, n_slots=n_slots,
                               max_rounds=max_rounds)
-    return contend(word, heard, mask, total_bits, n_slots=n_slots,
-                   max_rounds=max_rounds)
+    winner, contending, collided = contend(word, heard, mask, total,
+                                           n_slots=n_slots,
+                                           max_rounds=max_rounds)
+    if out is not None:
+        winner = out.copy_(winner)
+    return Contention(winner, contending, collided,
+                      *accounting(contending, collided, total))
 
 
 def contend(word: torch.Tensor, heard: torch.Tensor, mask: torch.Tensor,

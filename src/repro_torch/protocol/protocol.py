@@ -5,6 +5,8 @@ the questions its consumers ask:
 
   * ``protocol.aggregate(h, rng) -> (pooled, ProtocolAccounting)`` — the
     aggregation law, with the winner-routed backward (paper Eq. 5-6);
+  * ``protocol.aggregate_with_ideal(h, rng)`` — an OCS lane stack with the
+    ideal reference run as its last lane, pooled in one call;
   * ``protocol.comm_load(n_workers, k)`` — the analytic uplink/latency
     accounting (paper §I / §IV), its payload bits resolved from the
     protocol itself;
@@ -70,17 +72,22 @@ class ProtocolAccounting:
                                     device=device))
 
 
+def _accounting(rounds, collisions, slots, correct) -> ProtocolAccounting:
+    """The noisy laws' accounting outputs as a ``ProtocolAccounting``."""
+    k = correct.shape[-1]
+    frac = correct.sum(-1).to(torch.float32) / k
+    return ProtocolAccounting(
+        rounds=rounds, collisions=collisions, contention_slots=slots,
+        correct_frac=frac)
+
+
 def _ocs_pool(h, rng, p_miss, online, bits, max_rounds, backend):
     """Lane-leading noisy pooling with the core's accounting.  The
     backward routes the cotangent to the winner and gives rng, p_miss and
     online no gradient."""
-    pooled, rounds, collisions, slots, correct = fedocs.noisy_pool(
-        h, rng, p_miss, online, bits, max_rounds, backend)
-    k = correct.shape[-1]
-    frac = correct.sum(-1).to(torch.float32) / k
-    return pooled, ProtocolAccounting(
-        rounds=rounds, collisions=collisions, contention_slots=slots,
-        correct_frac=frac)
+    pooled, *acct = fedocs.noisy_pool(h, rng, p_miss, online, bits,
+                                      max_rounds, backend)
+    return pooled, _accounting(*acct)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -230,6 +237,40 @@ class Protocol:
             if self.kind == "mean":
                 return fedocs.meanpool(h, dim), zeros
             return fedocs.concat(h, dim), zeros
+        p, online = self._channel_state(h, rng)
+        if not lanes:
+            h, rng, p = h[None], rng[None], p[None]
+        pooled, acct = _ocs_pool(h, rng.to(h.device), p, online, self.bits,
+                                 self.max_rounds, self.backend)
+        if lanes:
+            return pooled, acct
+        return pooled[0], ProtocolAccounting(
+            **{f.name: getattr(acct, f.name)[0]
+               for f in dataclasses.fields(acct)})
+
+    def aggregate_with_ideal(self, h: torch.Tensor, rng: torch.Tensor
+                             ) -> Tuple[torch.Tensor, ProtocolAccounting]:
+        """Pool a lane stack ``h (L+1, N, ..., K)`` in one call: lanes
+        ``0..L-1`` as ``self.aggregate(h[:L], rng, lanes=True)`` (``rng (L,
+        2)``, a bound ``(L,)`` or ``(L, N)`` ``p_miss``) and lane ``L`` as
+        ``Protocol.ideal_max(self.bits, tie_break="first").aggregate(h[L:],
+        lanes=True)``, the ideal run that the OCS winner matches at
+        ``p_miss=0``.  Returns ``(pooled (L+1, ..., K)``, the noisy lanes'
+        accounting).  The backward routes every lane's cotangent to its
+        winner in one pass; its gradient equals that of the two calls
+        concatenated but for the sign of zeros (``fedocs.stack_pool``)."""
+        if self.kind != "ocs":
+            raise ValueError(f"aggregate_with_ideal pools OCS lanes, not "
+                             f"{self.kind!r}")
+        p, online = self._channel_state(h, rng)
+        pooled, *acct = fedocs.stack_pool(h, rng.to(h.device), p, online,
+                                          self.bits, self.max_rounds,
+                                          self.backend)
+        return pooled, _accounting(*acct)
+
+    def _channel_state(self, h: torch.Tensor, rng):
+        """The OCS channel's bound state on h's device: ``(p_miss float32,
+        online bool or None)``; raises without rng or a bound p_miss."""
         if rng is None:
             raise ValueError(
                 "Protocol.ocs aggregation needs rng (the sensing PRNG key)")
@@ -241,15 +282,7 @@ class Protocol:
                             device=h.device)
         online = None if self.online is None else torch.as_tensor(
             self.online, dtype=torch.bool, device=h.device)
-        if not lanes:
-            h, rng, p = h[None], rng[None], p[None]
-        pooled, acct = _ocs_pool(h, rng.to(h.device), p, online, self.bits,
-                                 self.max_rounds, self.backend)
-        if lanes:
-            return pooled, acct
-        return pooled[0], ProtocolAccounting(
-            **{f.name: getattr(acct, f.name)[0]
-               for f in dataclasses.fields(acct)})
+        return p, online
 
     # -- derived protocol facts --------------------------------------------
 

@@ -182,21 +182,19 @@ def _make_steps(ccfg: CurveConfig, bits: int):
     (keys (L, 2), p_miss (L,) or (L, N))``); lane ``L`` pools through the
     ideal ``Protocol.ideal_max(bits, tie_break="first")`` — the OCS winner
     is the lowest-indexed max-code holder, so the ideal reference routes
-    gradients the same way.
+    gradients the same way.  ``Protocol.aggregate_with_ideal`` pools both
+    into one stack, with one winner-routed backward launch.
     """
     vcfg = _vertical_config(ccfg, bits)
-    lanes = len(ccfg.p_miss)
     noisy = ccfg.protocol(bits)
-    ideal = Protocol.ideal_max(bits, tie_break="first")
 
     def stack_loss(values, batch, chan):
         views, labels = batch
         keys, p = chan
         h = vertical.embeddings(vcfg, values, views)          # (L+1, N, B, K)
-        v_n, acct = noisy.with_p_miss(p).aggregate(h[:lanes], keys,
-                                                   lanes=True)
-        v_i, _ = ideal.aggregate(h[lanes:], lanes=True)
-        pred = vertical.head(vcfg, values, torch.cat([v_n, v_i]))
+        # the noisy lanes and the ideal lane in one pooled stack
+        v, acct = noisy.with_p_miss(p).aggregate_with_ideal(h, keys)
+        pred = vertical.head(vcfg, values, v)
         loss, metrics = vertical.task_loss(vcfg, pred, labels)
         metrics.update(vertical.channel_metrics(vcfg, noisy, acct,
                                                 views.shape[1]))

@@ -89,9 +89,7 @@ def test_contend_matches_plain(cuda_device, n, n_real, bits, id_pad,
     n_slots = bits + id_bits + id_pad
     gen = torch.Generator().manual_seed(n)
     h = torch.randn((lanes, n, k), generator=gen)
-    codes = QR.to_int64(QR.encode(h, bits))
-    word = QR.from_int64((codes << id_bits)
-                         | ocs._id_codes(n, id_bits)[:, None], torch.uint32)
+    word = CR.contention_words(h, bits, id_bits)
     mask = torch.arange(n) < n_real
     keys = jr.split(jr.PRNGKey(n), lanes)
     p_keep = ocs.sensing_keep_prob(torch.full((lanes,), p_miss), lanes=True)
@@ -122,7 +120,7 @@ _DECODE_CASES = {
 }
 _DECODE_OUTPUTS = [(w, m, a, c) for w in (False, True) for m in (False, True)
                    for a in (False, True) for c in ((False, True) if w
-                                                     else (False,))]
+                                                    else (False,))]
 
 
 def _offset(t: torch.Tensor) -> torch.Tensor:
@@ -134,19 +132,34 @@ def _offset(t: torch.Tensor) -> torch.Tensor:
     return view
 
 
+def _decode_source(lanes, n, e, bits, dtype, gen, src):
+    """The pooling epilogue's input: codes with the lowest code (-inf) on
+    every 11th element, or the float features themselves (with zeros of
+    both signs, infinities and, on every 11th element, a float whose code
+    is the lowest)."""
+    h = (torch.randn((lanes, n, e), generator=gen) * 3).to(dtype)
+    if src == "codes":
+        codes = QR.encode(h, bits)
+        codes.view(-1)[::11] = 0                # the lowest code -> -inf
+        return codes
+    h.view(-1)[::11] = -float("inf")
+    h.view(-1)[1:4] = torch.tensor([0.0, -0.0, float("inf")], dtype=dtype)
+    return h
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("outputs", _DECODE_OUTPUTS, ids=str)
 @pytest.mark.parametrize("case", sorted(_DECODE_CASES))
-def test_maxpool_decode_matches_plain(cuda_device, case, outputs):
+@pytest.mark.parametrize("src", ["codes", "floats"])
+def test_maxpool_decode_matches_plain(cuda_device, case, outputs, src):
     """The fused pooling epilogue against its plain version, bit for bit,
-    per lane mask with dark workers (lane 0 all dark), for every subset of
-    its outputs, with and without a winner."""
+    from codes and from the float features (the codes formed in the
+    kernel), per lane mask with dark workers (lane 0 all dark), for every
+    subset of its outputs, with and without a winner."""
     lanes, n, e, bits, dtype, lay = _DECODE_CASES[case]
     with_winner, max_code, argmax, correct = outputs
     gen = torch.Generator().manual_seed(n + e)
-    h = (torch.randn((lanes, n, e), generator=gen) * 3).to(dtype)
-    codes = QR.encode(h, bits)
-    codes.view(-1)[::11] = 0                    # the lowest code -> -inf
+    codes = _decode_source(lanes, n, e, bits, dtype, gen, src)
     mask = torch.rand((lanes, n), generator=gen) < 0.7
     mask[0] = False
     winner = torch.randint(0, n, (lanes, e), generator=gen,
@@ -176,58 +189,139 @@ def test_maxpool_decode_matches_plain(cuda_device, case, outputs):
             _same(a, b)
 
 
-# the fused kernel's cases: (lanes, workers, real workers, elements, p
-# dtype, bits, id sub-slots past the real ones, p_miss per lane, per worker)
+@pytest.mark.cuda
+def test_maxpool_decode_writes_into_out(cuda_device):
+    """``out=``: the ideal lane's pooled value and winner land in the last
+    row of the stack's buffers, the other rows untouched."""
+    gen = torch.Generator().manual_seed(5)
+    h = torch.randn((1, 4, 4096), generator=gen).to(cuda_device)
+    pooled = torch.full((5, 4096), 7.0, device=cuda_device)
+    winner = torch.full((5, 4096), -1, dtype=torch.int32,
+                        device=cuda_device)
+    got = MPO.maxpool_decode(h, 8, torch.float32, argmax=True,
+                             out=MPR.PoolDecode(pooled[4:], None,
+                                                winner[4:], None))
+    want = MPR.maxpool_decode(h.cpu(), 8, torch.float32, argmax=True)
+    assert got.pooled.data_ptr() == pooled[4:].data_ptr()
+    _same(want.pooled, pooled[4:])
+    _same(want.argmax, winner[4:])
+    assert bool((pooled[:4] == 7.0).all()) and bool((winner[:4] == -1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,n,e,dtype", [
+    (5, 4, 4096, torch.float32),         # the curves' stack: 4 lanes + ideal
+    (5, 4, 32768, torch.float32),        # the evaluation's stack
+    (3, 9, 1001, torch.bfloat16), (2, 16, 700, torch.float16)])
+def test_winner_bwd_stack_matches_plain(cuda_device, lanes, n, e, dtype):
+    """The winner-routed backward over a whole lane stack in one launch:
+    g at each lane's winner, g * 0 (a zero with g's sign) elsewhere."""
+    gen = torch.Generator().manual_seed(lanes * e)
+    winner = torch.randint(0, n, (lanes, e), generator=gen,
+                           dtype=torch.int32)
+    g = torch.randn((lanes, e), generator=gen).to(dtype)
+    g.view(-1)[:2] = torch.tensor([0.0, -0.0], dtype=dtype)
+    want = MPR.maxpool_winner_bwd(winner, g, n, 1)
+    got = MPO.maxpool_winner_bwd(winner.to(cuda_device),
+                                 g.to(cuda_device), n, 1)
+    _same(want, got)
+
+
+# the fused kernel's cases: (lanes, workers, real workers, elements, the
+# features' dtype (and p_keep's), bits, id sub-slots past the real ones,
+# p_miss per lane, per worker, rounds)
 _NOISY_CASES = {
     "curves-bits8": (4, 4, 4, 4096, torch.float32, 8, 0,
-                     (0.0, 0.02, 0.05, 0.1), False),
+                     (0.0, 0.02, 0.05, 0.1), False, 3),
     "curves-bits16": (4, 4, 4, 4096, torch.float32, 16, 0,
-                      (0.0, 0.02, 0.05, 0.1), False),
-    "serve-bf16": (1, 16, 16, 8192, torch.bfloat16, 8, 0, (0.05,), False),
-    "f16": (2, 8, 8, 1000, torch.float16, 8, 0, (0.1, 0.3), False),
+                      (0.0, 0.02, 0.05, 0.1), False, 3),
+    "serve-bf16": (1, 16, 16, 8192, torch.bfloat16, 8, 0, (0.05,), False, 3),
+    "f16": (2, 8, 8, 1000, torch.float16, 8, 0, (0.1, 0.3), False, 3),
     "per-worker": (3, 9, 6, 700, torch.float32, 8, 0, (0.05, 0.2, 0.5),
-                   True),
-    "padded-id": (2, 33, 20, 900, torch.bfloat16, 16, 3, (0.1, 0.4), False),
-    "n64": (2, 64, 64, 777, torch.float32, 8, 0, (0.02, 0.3), False),
+                   True, 3),
+    "padded-id": (2, 33, 20, 900, torch.bfloat16, 16, 3, (0.1, 0.4), False,
+                  3),
+    "n64": (2, 64, 64, 777, torch.float32, 8, 0, (0.02, 0.3), False, 3),
+    "one-round": (3, 4, 4, 4096, torch.float32, 8, 0, (0.1, 0.3, 0.6),
+                  False, 1),
+    "64-rounds": (3, 4, 4, 4096, torch.float32, 8, 0, (0.1, 0.3, 0.6),
+                  False, 64),
+    "64-rounds-bf16": (2, 16, 12, 2048, torch.bfloat16, 8, 1, (0.2, 0.7),
+                       True, 64),
 }
 
 
 def noisy_operands(dev, lanes, n, n_real, k, dtype, bits, id_pad, p_miss,
-                   per_worker, seed=0):
-    """Contention words, mask, lane keys and p_keep of one case."""
+                   per_worker, rounds, seed=0):
+    """Float features, mask, lane keys, p_keep, bits, id bits and the
+    tournament's keywords of one case."""
     id_bits = ocs.host_id_bits(n_real)
     gen = torch.Generator().manual_seed(seed + n)
     h = (torch.randn((lanes, n, k), generator=gen) * 3).to(dtype)
-    codes = QR.to_int64(QR.encode(h, bits))
-    word = QR.from_int64((codes << id_bits)
-                         | ocs._id_codes(n, id_bits)[:, None], torch.uint32)
+    h[:, :, :16] = h[:, :1, :16]        # every worker ties on 16 columns
     mask = torch.arange(n) < n_real
     keys = jr.split(jr.PRNGKey(seed + bits), lanes)
     p = torch.tensor(p_miss)
     if per_worker:      # worker i misses a little more than worker i - 1
         p = p[:, None] + 0.01 * torch.arange(n)[None]
     p_keep = ocs.sensing_keep_prob(p, dtype, lanes=True)
-    kw = dict(n_slots=bits + id_bits + id_pad, max_rounds=3)
-    return [t.to(dev) for t in (word, mask, keys, p_keep)], \
-        bits + id_bits, kw
+    kw = dict(n_slots=bits + id_bits + id_pad, max_rounds=rounds)
+    return [t.to(dev) for t in (h, mask, keys, p_keep)], bits, id_bits, kw
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(_NOISY_CASES))
 def test_noisy_matches_plain(cuda_device, case):
-    """The tournament that hashes its own sensing bits against the packed
-    draw + tournament on the CPU, bit for bit, winners and counts."""
-    ops_in, total, kw = noisy_operands(cuda_device, *_NOISY_CASES[case])
-    got = CO.noisy_contention(*ops_in[:2], total, *ops_in[2:], **kw)
-    want = CR.noisy_contention(*(t.cpu() for t in ops_in[:2]), total,
-                               *(t.cpu() for t in ops_in[2:]), **kw)
+    """The tournament over the float features (words formed and sensing
+    bits hashed in the kernel) against the words, the packed draw, the
+    tournament and the accounting on the CPU, bit for bit: winners,
+    per-round counts and each lane's rounds, collisions and contention
+    slots (the kernel's last-block reduction), at 1, 3 and 64 rounds."""
+    ops_in, bits, id_bits, kw = noisy_operands(cuda_device,
+                                               *_NOISY_CASES[case])
+    h, mask, keys, p_keep = ops_in
+    got = CO.noisy_contention(h, mask, bits, id_bits, keys, p_keep, **kw)
+    want = CR.noisy_contention(h.cpu(), mask.cpu(), bits, id_bits,
+                               keys.cpu(), p_keep.cpu(), **kw)
     for a, b in zip(want, got):
         _same(a, b)
-    # and against the packed-plane kernel on the same draws
-    word, mask, keys, p_keep = ops_in
-    heard = CR.draw_heard_packed(keys, p_keep, word.shape[1], word.shape[2],
-                                 **kw)
-    for a, b in zip(CO.contend(word, heard, mask, total, **kw), got):
+    # and against the packed-plane kernel on the same words and draws
+    heard = CR.draw_heard_packed(keys, p_keep, h.shape[1], h.shape[2], **kw)
+    word = CR.contention_words(h, bits, id_bits)
+    for a, b in zip(CO.contend(word, heard, mask, bits + id_bits, **kw),
+                    got):
+        _same(a, b)
+    # the winner written into a slice of a larger buffer
+    buf = torch.full((h.shape[0] + 1, h.shape[2]), -1, dtype=torch.int32,
+                     device=cuda_device)
+    CO.noisy_contention(h, mask, bits, id_bits, keys, p_keep, out=buf[:-1],
+                        **kw)
+    _same(want.winner, buf[:-1])
+    assert bool((buf[-1] == -1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 16])
+def test_stack_pool_card_matches_cpu(cuda_device, bits):
+    """The curves' lane stack (4 noisy lanes + the ideal lane) on the card
+    against the CPU: pooled values, accounting and the gradient, bitwise,
+    through ``Protocol.aggregate_with_ideal``."""
+    from repro_torch.protocol import Protocol
+
+    gen = torch.Generator().manual_seed(bits)
+    h = torch.randn((5, 4, 64, 64), generator=gen)
+    g = torch.randn((5, 64, 64), generator=gen)
+    proto = Protocol.ocs(bits).with_p_miss(np.array([0.0, 0.02, 0.05, 0.1],
+                                                    np.float32))
+    outs = []
+    for dev in ("cpu", cuda_device):
+        x = h.to(dev).requires_grad_(True)
+        pooled, acct = proto.aggregate_with_ideal(
+            x, jr.split(jr.PRNGKey(bits), 4).to(dev))
+        (grad,) = torch.autograd.grad(pooled, x, g.to(dev))
+        outs.append((pooled.detach(), grad, acct.rounds, acct.collisions,
+                     acct.contention_slots, acct.correct_frac))
+    for a, b in zip(*outs):
         _same(a, b)
 
 

@@ -182,6 +182,62 @@ def test_own_init_runs_and_is_deterministic():
     assert np.all(np.isfinite(a.loss_history))
 
 
+def _raw_bits(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(torch.int32 if x.element_size() == 4
+                               else torch.int16)
+
+
+@pytest.mark.parametrize("width", ["tiny", "deep"])
+def test_stack_pool_trains_as_the_two_law_composition(monkeypatch, width):
+    """A few CPU ``run_curves`` steps with the stack pool (noisy lanes and
+    the ideal lane pooled as one stack, one winner-routed backward) train
+    to parameters bit for bit equal (raw bit views) to a run through the
+    composition it replaced, kept here as the reference: ``aggregate`` of
+    the noisy lanes, ``ideal_max(bits, "first").aggregate`` of the last
+    lane and ``torch.cat``.  The two gradients of h differ only in the
+    sign of the zeros off the winners (the stack keeps the laws' ``g *
+    onehot``, the composition's slice sum makes them +0.0), which moves no
+    parameter."""
+    from repro_torch.core import fedocs
+    from repro_torch.protocol import Protocol
+
+    cfg = dataclasses.replace(_port_config(JTINY), p_miss=(0.0, 0.05, 0.3),
+                              steps=6, log_every=1)
+    if width == "deep":
+        cfg = dataclasses.replace(cfg, bits=(8,), encoder_dims=(16, 8),
+                                  head_dims=(16, 16, 16))
+    calls = []
+    stack_pool = fedocs.stack_pool
+
+    def counted(*args):
+        calls.append(1)
+        return stack_pool(*args)
+
+    monkeypatch.setattr(fedocs, "stack_pool", counted)
+    got = ttc.run_curves(cfg, device="cpu")
+    # a training step and the evaluation per bits value
+    assert len(calls) == (cfg.steps + 1) * len(cfg.bits)
+
+    def two_laws(self, h, rng):
+        lanes = h.shape[0] - 1
+        v_n, acct = self.aggregate(h[:lanes], rng, lanes=True)
+        v_i, _ = Protocol.ideal_max(self.bits, tie_break="first").aggregate(
+            h[lanes:], lanes=True)
+        return torch.cat([v_n, v_i]), acct
+
+    monkeypatch.setattr(Protocol, "aggregate_with_ideal", two_laws)
+    want = ttc.run_curves(cfg, device="cpu")
+    assert len(calls) == (cfg.steps + 1) * len(cfg.bits)
+    for bi in range(len(cfg.bits)):
+        for params in ("noisy_params", "ideal_params"):
+            for a, b in zip(tree.leaves(getattr(got, params)[bi]),
+                            tree.leaves(getattr(want, params)[bi])):
+                assert torch.equal(_raw_bits(a), _raw_bits(b)), params
+    for f in ("loss_history", "ideal_loss_history", "acc", "nll",
+              "acc_ideal", "nll_ideal"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+
+
 def test_default_device_is_the_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -195,9 +195,10 @@ _OUTPUTS = {False: [(m, a, False) for m in (False, True)
                     for a in (False, True)],
             True: [(m, a, c) for m in (False, True) for a in (False, True)
                    for c in (False, True)]}
-_DECODE = [dict(bits=bits, dtype=dtype, winner=w, mask=mask, max_code=m,
-                argmax=a, correct=c)
-           for bits in (8, 16) for dtype in ("float32", "bfloat16", "float16")
+_DECODE = [dict(src=src, bits=bits, dtype=dtype, winner=w, mask=mask,
+                max_code=m, argmax=a, correct=c)
+           for src in ("codes", "floats") for bits in (8, 16)
+           for dtype in ("float32", "bfloat16", "float16")
            for w in (False, True) for mask in ("none", "lanes")
            for m, a, c in _OUTPUTS[w]]
 
@@ -233,6 +234,16 @@ def test_maxpool_decode_matches_jax(case):
     codes, mask, winner = _decode_operands(case)
     bits = case["bits"]
     jdt, tdt = _DT[case["dtype"]]
+    src = torch.from_numpy(codes)
+    if case["src"] == "floats":
+        # the float features in: floats at the bottom of the codes' buckets
+        # (their ties and the lowest code's -inf kept) and, from column 20
+        # on, random floats; the JAX composition quantizes them first
+        hj = jq.dequantize(jnp.asarray(codes), bits, jdt)
+        hj = hj.at[:, :, 20:].set(jnp.asarray(random_floats(
+            bits, codes[:, :, 20:].shape, scale=3.0)).astype(jdt))
+        codes = np.asarray(jq.quantize(hj, bits))
+        src = _pair(np.asarray(hj.astype(jnp.float32)), case["dtype"])[1]
     masked = jnp.where(jnp.asarray(mask)[:, :, None], jnp.asarray(codes), 0)
     want_max = jnp.max(masked, axis=1)
     want = dict(max_code=want_max,
@@ -244,7 +255,7 @@ def test_maxpool_decode_matches_jax(case):
         want["correct"] = picked == want_max
     want["pooled"] = jq.dequantize(picked, bits, jdt)
     got = MPO.maxpool_decode(
-        torch.from_numpy(codes), bits, tdt,
+        src, bits, tdt,
         mask=None if case["mask"] == "none" else torch.from_numpy(mask),
         winner=torch.from_numpy(winner) if case["winner"] else None,
         max_code=case["max_code"], argmax=case["argmax"],
@@ -355,49 +366,91 @@ def test_contend_lanes_and_per_lane_mask():
             _same(a, b[lane])
 
 
-# the fused tournament's contract: the sensing stream of the lane keys,
-# drawn in p_keep's type, scalar or per worker, with padded id sub-slots
+# the fused tournament's contract: the words of the float features (the
+# Eq. 7 code above the id code), the sensing stream of the lane keys drawn
+# in the features' type, p_miss scalar or per worker, padded id sub-slots,
+# padded workers or a per-lane mask of dark workers, bits 8 and 16
 _NOISY = list(grid(dtype=["float32", "bfloat16", "float16"],
-                   per_worker=[False, True], id_pad=[0, 2], seed=[0]))
+                   per_worker=[False, True], id_pad=[0, 2], seed=[0],
+                   bits=[8, 16], mask=["padded", "lanes"]))
 
 
-def _noisy_operands(case, lanes=2, n=6, n_real=5, k=40, bits=8):
-    rng = np.random.default_rng(case["seed"])
+def _noisy_operands(case, lanes=2, n=6, n_real=5, k=40):
+    """Float features (with zeros, huge values and exact code ties),
+    mask, p_miss, JAX keys, live sub-slots and the tournament's keywords
+    of one case."""
+    rng = np.random.default_rng(case["seed"] + case["bits"])
     id_bits = tocs.host_id_bits(n_real)
-    codes = rng.integers(0, 1 << bits, (lanes, n, k), dtype=np.uint32)
-    word = (codes << id_bits) | ((1 << id_bits) - 1
-                                 - np.arange(n, dtype=np.uint32))[:, None]
-    word &= np.uint32((1 << (bits + id_bits)) - 1)
+    h = random_floats(case["seed"], (lanes, n, k), scale=3.0)
+    h[:, :, -8:] = h[:, :1, -8:]         # every worker ties on 8 columns
     mask = np.arange(n) < n_real
+    if case["mask"] == "lanes":
+        mask = rng.random((lanes, n)) < 0.7
+        mask[0, :2] = True
     shape = (lanes, n) if case["per_worker"] else (lanes,)
     p_miss = rng.uniform(0.05, 0.6, shape).astype(np.float32)
     keys = np.stack([np.asarray(jax.random.PRNGKey(case["seed"] * 10 + i))
                      for i in range(lanes)]).astype(np.uint32)
-    kw = dict(n_slots=bits + id_bits + case["id_pad"], max_rounds=3)
-    return word, mask, p_miss, keys, bits + id_bits, kw
+    kw = dict(n_slots=case["bits"] + id_bits + case["id_pad"], max_rounds=3)
+    return h, mask, p_miss, keys, id_bits, kw
 
 
 @pytest.mark.parametrize("case", _NOISY, ids=str)
 def test_noisy_contention_matches_jax(case):
-    """``ops.noisy_contention`` on the CPU against the JAX package's
-    ``noisy_contention`` (the Pallas kernel in interpret mode, which takes
-    one lane at a time), bit for bit: winners and both counts."""
-    word, mask, p_miss, keys, total, kw = _noisy_operands(case)
+    """``ops.noisy_contention`` on the CPU (float features in) against the
+    JAX package's composition at the channel site, bit for bit: the words
+    of ``core/ocs.py`` (``quantize``, the shift, the id codes), its
+    ``noisy_contention`` (the Pallas kernel in interpret mode, one lane at
+    a time) and the core's accounting (slots, rounds, collisions)."""
+    from repro.core import quantize as jq
+
+    h, mask, p_miss, keys, id_bits, kw = _noisy_operands(case)
+    bits = case["bits"]
     jdt, tdt = _DT[case["dtype"]]
+    hj, ht = _pair(h, case["dtype"])
     p_keep = tocs.sensing_keep_prob(torch.from_numpy(p_miss), tdt,
                                     lanes=True)
-    got = CO.noisy_contention(torch.from_numpy(word), torch.from_numpy(mask),
-                              total, torch.from_numpy(keys.astype(np.int64)),
+    got = CO.noisy_contention(ht, torch.from_numpy(mask), bits, id_bits,
+                              torch.from_numpy(keys.astype(np.int64)),
                               p_keep, **kw)
-    for lane in range(word.shape[0]):
+    total = bits + id_bits
+    lane_masks = np.broadcast_to(mask, (h.shape[0], h.shape[1]))
+    for lane in range(h.shape[0]):
+        codes = jq.quantize(hj[lane], bits).astype(jnp.uint32)
+        word = (codes << id_bits) | jocs._id_codes(h.shape[1],
+                                                   id_bits)[:, None]
         p_keep_j = jocs.sensing_keep_prob(jnp.asarray(p_miss[lane]), jdt)
         _same(p_keep_j, p_keep[lane].reshape(p_keep_j.shape), "p_keep")
-        want = JCO.noisy_contention(
-            jnp.asarray(word[lane]), jnp.asarray(mask), jnp.int32(total),
+        winner, contending, collided = JCO.noisy_contention(
+            word, jnp.asarray(lane_masks[lane]), jnp.int32(total),
             jnp.asarray(keys[lane]), p_keep_j, interpret=True, **kw)
-        for a, b, what in zip(want, got, ("winner", "contending",
-                                          "collided")):
-            _same(a, b[lane], what)
+        want = dict(
+            winner=winner, contending=contending, collided=collided,
+            rounds=jnp.sum(contending > 0, dtype=jnp.int32),
+            collisions=jnp.sum(collided, dtype=jnp.int32),
+            contention_slots=jnp.int32(total) * jnp.sum(contending,
+                                                        dtype=jnp.int32))
+        for what, a in want.items():
+            _same(a, getattr(got, what)[lane], what)
+
+
+def test_noisy_contention_writes_the_winner_into_out():
+    """``out=``: the winner lands in the given (lanes, K) slice of a larger
+    buffer, the rest of which stays as it was."""
+    h, mask, p_miss, keys, id_bits, kw = _noisy_operands(
+        dict(seed=3, bits=8, id_pad=0, per_worker=False, mask="padded"))
+    ht = torch.from_numpy(h)
+    args = (ht, torch.from_numpy(mask), 8, id_bits,
+            torch.from_numpy(keys.astype(np.int64)),
+            tocs.sensing_keep_prob(torch.from_numpy(p_miss), lanes=True))
+    buf = torch.full((3, h.shape[2]), -7, dtype=torch.int32)
+    got = CO.noisy_contention(*args, out=buf[:2], **kw)
+    want = CO.noisy_contention(*args, **kw)
+    assert got.winner.data_ptr() == buf.data_ptr()
+    assert torch.equal(buf[:2], want.winner)
+    assert bool((buf[2] == -7).all())
+    with pytest.raises(ValueError, match="out"):
+        CO.noisy_contention(*args, out=buf, **kw)
 
 
 # the uniform of one 32-bit draw in p_keep's type, as the kernel computes
@@ -464,11 +517,21 @@ def test_wrappers_take_plain_version_on_cpu():
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     keys = jr.split(jr.PRNGKey(3), 4)
     p_keep = tocs.sensing_keep_prob(torch.full((4,), 0.2), lanes=True)
-    a = CO.noisy_contention(word, mask, 10, keys, p_keep, n_slots=10,
+    a = CO.noisy_contention(x, mask, 8, 2, keys, p_keep, n_slots=10,
                             max_rounds=3)
-    b = CR.noisy_contention(word, mask, 10, keys, p_keep, n_slots=10,
+    b = CR.noisy_contention(x, mask, 8, 2, keys, p_keep, n_slots=10,
                             max_rounds=3)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+    # the plain fused forms are their compositions
+    assert torch.equal(CR.contention_words(x, 8, 2)[0].view(torch.int32),
+                       ((QR.encode(x, 8).to(torch.int32) << 2)
+                        | (3 - torch.arange(4, dtype=torch.int32))[:, None])
+                       [0])
+    for f_kw in (dict(argmax=True), dict(mask=mask[None].expand(4, 4),
+                                         winner=w, correct=True)):
+        assert all(y is None or torch.equal(x_, y) for x_, y in zip(
+            MPO.maxpool_decode(x, 8, torch.float32, **f_kw),
+            MPR.maxpool_decode(QR.encode(x, 8), 8, torch.float32, **f_kw)))
 
 
 def test_wrappers_never_run_the_plain_version_off_the_cpu():
@@ -494,16 +557,21 @@ def test_wrappers_never_run_the_plain_version_off_the_cpu():
                    max_rounds=3)
     with pytest.raises(ValueError, match="CUDA"):
         CO.noisy_contention(
-            torch.empty((1, 4, 32), dtype=torch.int32, device="meta"),
-            torch.ones(4, dtype=torch.bool, device="meta"), 10,
+            torch.empty((1, 4, 32), device="meta"),
+            torch.ones(4, dtype=torch.bool, device="meta"), 8, 2,
             torch.empty((1, 2), dtype=torch.int64, device="meta"),
             torch.empty((1, 1, 1), device="meta"), n_slots=10, max_rounds=3)
+    with pytest.raises(ValueError, match="CUDA"):
+        MPO.maxpool_decode(x, 8, torch.float32, argmax=True)
 
 
 def test_wide_codes_refused_on_the_card_path():
     x = torch.empty((4, 32), device="meta")
     with pytest.raises(ValueError, match="at most 16 bits"):
         QO.encode(x, 24)
+    # the pooling epilogue forms codes of at most 16 bits from floats too
+    with pytest.raises(ValueError, match="1 to 16 bits"):
+        MPO.maxpool_decode(x[None], 24, torch.float32, argmax=True)
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,7 @@ from repro_torch.core import ocs as tocs
 from repro_torch.core import quantize as tq
 from repro_torch.core import vertical as tvert
 from repro_torch.kernels.ocs_contention import ops as contention_ops
+from repro_torch.kernels.ocs_contention import ref as contention_ref
 from repro_torch.optim import optimizers as topt
 from repro_torch.optim import schedules as tsched
 from repro_torch.protocol import Protocol
@@ -127,22 +128,32 @@ def test_noisy_core_matches_both_jax_backends(case):
 
 @pytest.mark.parametrize("p_miss", [0.0, 0.25])
 def test_packed_kernel_path_equals_plain_scan(p_miss):
-    """The card's path — packed sensing planes + tournament, here through
-    the wrapper's plain version — gives the scan's winners and counts."""
+    """The card's path — the fused contention over the float features,
+    here through the wrapper's plain version (the words, the packed
+    sensing planes, the tournament and the accounting) — gives the scan's
+    winners and counts, and is that composition step by step."""
     rng = np.random.default_rng(2)
     lanes, n, k, bits = 3, 4, 40, 8
     h = torch.from_numpy(rng.standard_normal((lanes, n, k)).astype(
         np.float32))
     keys = jr.split(jr.PRNGKey(9), lanes)
     p = torch.full((lanes,), p_miss)
-    res = tocs.ocs_maxpool_noisy_core(h, torch.ones(n, dtype=torch.bool), 2,
-                                      keys, p, bits=bits, max_id_bits=2)
+    mask = torch.ones(n, dtype=torch.bool)
+    res = tocs.ocs_maxpool_noisy_core(h, mask, 2, keys, p, bits=bits,
+                                      max_id_bits=2)
+    p_keep = tocs.sensing_keep_prob(p, lanes=True)
+    kw = dict(n_slots=bits + 2, max_rounds=3)
+    got = contention_ops.noisy_contention(h, mask, bits, 2, keys, p_keep,
+                                          **kw)
+    assert torch.equal(got.winner, res.winner)
+    assert torch.equal(got.collisions, res.collisions)
+    assert torch.equal(got.rounds, res.rounds)
+    assert torch.equal(got.contention_slots, res.contention_slots)
     codes = tq.quantize(h, bits).to(torch.int64)
-    word = (codes << 2) | tocs._id_codes(n, 2)[:, None]
-    winner, cont, coll = contention_ops.noisy_contention(
-        word.to(torch.int32), torch.ones(n, dtype=torch.bool), bits + 2,
-        keys, tocs.sensing_keep_prob(p, lanes=True), n_slots=bits + 2,
-        max_rounds=3)
+    word = (codes << 2) | contention_ref.id_codes(n, 2)[:, None]
+    heard = contention_ref.draw_heard_packed(keys, p_keep, n, k, **kw)
+    winner, cont, coll = contention_ops.contend(word.to(torch.int32), heard,
+                                                mask, bits + 2, **kw)
     assert torch.equal(winner, res.winner)
     assert torch.equal(coll.sum(-1).to(torch.int32), res.collisions)
     assert torch.equal(((bits + 2) * cont.sum(-1)).to(torch.int32),
@@ -224,6 +235,103 @@ def test_noisy_law_at_zero_miss_is_quantized_first(bits):
                        outs[1][0].view(torch.int32))
     assert torch.equal(outs[0][1].view(torch.int32),
                        outs[1][1].view(torch.int32))
+
+
+# the curves' lane stack: noisy lanes and, last, the ideal "first" lane
+_STACK = list(grid(bits=[8, 16], dtype=["float32", "bfloat16"],
+                   p_miss=["lanes", "per_worker"]))
+
+
+def _stack_inputs(case, lanes=3, n=4, shape=(6, 16)):
+    rng = np.random.default_rng(case["bits"] + len(case["dtype"]))
+    h = rng.standard_normal((lanes + 1, n) + shape).astype(np.float32)
+    h[:, :, 0] = np.round(h[:, :, 0])      # exact ties between workers
+    g = rng.standard_normal((lanes + 1,) + shape).astype(np.float32)
+    p = np.array([0.0, 0.1, 0.4], np.float32)
+    if case["p_miss"] == "per_worker":
+        p = p[:, None] + np.linspace(0.0, 0.3, n, dtype=np.float32)[None]
+    return h, g, p
+
+
+@pytest.mark.parametrize("case", _STACK, ids=str)
+def test_stack_pool_matches_the_two_laws(case):
+    """``Protocol.aggregate_with_ideal`` (one pooled stack, one backward
+    launch) against the two-law composition it replaces in the curves'
+    step — ``aggregate`` of the noisy lanes, ``ideal_max(bits, "first")``
+    of the last lane, ``torch.cat`` — and against the JAX laws lane by
+    lane: the pooled values and the accounting bitwise; the gradient
+    bitwise ``g * onehot`` per lane (each law's own vjp, the JAX laws'
+    too), and the composition's gradient but for the sign of zeros.  The
+    composition's backward sums the two slices' zero-filled gradients, so
+    its zeros off the winner are all +0.0, where ``g * onehot`` keeps
+    g's sign (-0.0 for a negative g)."""
+    bits, dtype = case["bits"], case["dtype"]
+    h_np, g_np, p_np = _stack_inputs(case)
+    lanes = h_np.shape[0] - 1
+    _, h0 = _pair(h_np, dtype)
+    _, g = _pair(g_np, dtype)
+    keys = jr.split(jr.PRNGKey(5), lanes)
+    noisy = Protocol.ocs(bits).with_p_miss(p_np)
+    ideal = Protocol.ideal_max(bits, tie_break="first")
+
+    h = h0.clone().requires_grad_(True)
+    pooled, acct = noisy.aggregate_with_ideal(h, keys)
+    (grad,) = torch.autograd.grad(pooled, h, g)
+    h = h0.clone().requires_grad_(True)
+    v_n, acct_n = noisy.aggregate(h[:lanes], keys, lanes=True)
+    v_i, _ = ideal.aggregate(h[lanes:], lanes=True)
+    want = torch.cat([v_n, v_i])
+    (grad_want,) = torch.autograd.grad(want, h, g)
+
+    tint = _DT[dtype][3]
+    assert torch.equal(pooled.view(tint), want.view(tint))
+    for f in dataclasses.fields(acct):
+        assert torch.equal(getattr(acct, f.name), getattr(acct_n, f.name))
+    # g * onehot per lane: g at each winner, g * 0 elsewhere
+    onehot = grad_want != 0
+    assert torch.equal(onehot.sum(1), torch.ones_like(g, dtype=torch.int64))
+    gx = g.unsqueeze(1).expand_as(grad)
+    assert torch.equal(grad.view(tint),
+                       torch.where(onehot, gx, gx * 0).view(tint))
+    assert bool((torch.signbit(grad) & (grad == 0)).any())
+    assert torch.equal(grad, grad_want)            # equal as numbers
+    assert not bool((torch.signbit(grad_want) & (grad_want == 0)).any())
+    # each lane's gradient is its JAX law's, bitwise
+    jdt = _DT[dtype][0]
+    jkeys = jax.random.split(jax.random.PRNGKey(5), lanes)
+    for lane in range(lanes + 1):
+        if lane < lanes:
+            def law(x, lane=lane):
+                return jfed.maxpool_noisy(x, jkeys[lane],
+                                          jnp.asarray(p_np[lane]), bits)
+        else:
+            def law(x):
+                return jfed.maxpool_quantized(x, bits, "first")
+        out_j, vjp = jax.vjp(law, jnp.asarray(h_np[lane]).astype(jdt))
+        (d_j,) = vjp(jnp.asarray(g_np[lane]).astype(jdt))
+        assert _float_bits_equal(out_j, pooled[lane], dtype), lane
+        assert _float_bits_equal(d_j, grad[lane], dtype), lane
+
+
+def test_stack_pool_under_no_grad_and_bad_calls():
+    """The evaluation's call (no autograd) pools the same stack; the stack
+    takes an OCS protocol with a bound p_miss."""
+    h_np, _, p_np = _stack_inputs(dict(bits=8, dtype="float32",
+                                       p_miss="lanes"))
+    h = torch.from_numpy(h_np)
+    keys = jr.split(jr.PRNGKey(5), 3)
+    proto = Protocol.ocs(8).with_p_miss(p_np)
+    with torch.no_grad():
+        pooled, acct = proto.aggregate_with_ideal(h, keys)
+    v_n, acct_n = proto.aggregate(h[:3], keys, lanes=True)
+    v_i, _ = Protocol.ideal_max(8, tie_break="first").aggregate(
+        h[3:], lanes=True)
+    assert torch.equal(pooled, torch.cat([v_n, v_i]).detach())
+    assert torch.equal(acct.correct_frac, acct_n.correct_frac)
+    with pytest.raises(ValueError, match="p_miss"):
+        Protocol.ocs(8).aggregate_with_ideal(h, keys)
+    with pytest.raises(ValueError, match="OCS"):
+        Protocol.ideal_max(8).aggregate_with_ideal(h, keys)
 
 
 def test_baseline_laws():
