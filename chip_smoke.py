@@ -22,7 +22,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
    its words, hashes its own sensing bits and reduces its accounting
    (``ocs_contention.noisy``) bitwise against the words + packed draw +
    tournament + accounting also with float16, per-worker ``p_keep``,
-   padded id sub-slots, 64 workers and 1 and 64 rounds; flash attention
+   padded id sub-slots, 64 workers and 1 and 64 rounds, and under the
+   fault paths' operands (a per-lane worker mask with a dark lane and a
+   per-lane, per-worker ``p_keep``) at both paths' shapes; the fault
+   pool's forward and backward with an outage lane against the CPU;
+   flash attention
    within the JAX parity test's tolerances at the prefill shapes and the
    JAX test's float32 GQA cases, timed at S 256, 1024 and 4096;
 4. check that at ``p_miss=0`` ``Protocol.ocs(bits).aggregate`` equals
@@ -57,7 +61,24 @@ Phases, in order; any failed check raises and the script exits non-zero:
 11. profile 10 decode ticks at the full width: device launches per tick,
     the port's kernel launches per tick and the idle share (the table goes
     to ``chiprun_out/``);
-12. print one ``{"kernels": [...]}`` line and, last, the device line.
+12. run ``run_scheduled_curves`` at the fedocs-cifar width with
+    ``CollisionAdaptiveBits((8, 16))`` (launch counts, depth switches),
+    with thresholds that make it switch (the 16-bit branch at this
+    width), and with ``FixedBits(8)``, whose lanes must equal phase 5's
+    bits-8 lanes bit for bit; profile 10 steps of the first and the last
+    (wall, idle share: the cost of the per-step read of the depth);
+13. run ``run_fault_curves`` at the same width: ``FaultModel.iid`` lanes
+    at phase 5's p_miss values, bit for bit phase 5's lanes, then
+    ``benchmarks/fault_sweep.py``'s burst grid under ``stale`` and
+    ``zero_fill`` (launch counts, dropped and outage frames, every loss
+    finite); profile 10 steps of iid lanes beside ``run_curves``;
+14. serve phase 8's traffic under bursts and worker outages with
+    ``retry(2)`` and ``stale`` (launch counts, outage ticks, degraded
+    tokens, retry ticks, every logit finite, the billing); profile 10
+    faulty decode ticks;
+15. run a small scheduled grid, a small fault grid and the reduced
+    serving config under faults on the card and on the CPU and compare;
+16. print one ``{"kernels": [...]}`` line and, last, the device line.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -65,7 +86,9 @@ It imports nothing of JAX or of the JAX package ``repro``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -80,8 +103,9 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # the port itself: a copy of this script alone fails here
-from repro_torch import kernels, tree  # noqa: E402
+from repro_torch import faults, kernels, tree  # noqa: E402
 from repro_torch import random as jr  # noqa: E402
+from repro_torch.configs import fedocs_cifar  # noqa: E402
 from repro_torch.configs import get_config, get_reduced  # noqa: E402
 from repro_torch.core import ocs  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
@@ -93,7 +117,8 @@ from repro_torch.kernels.ocs_contention import ref as ct_ref  # noqa: E402
 from repro_torch.kernels.ocs_quant import ops as q_ops  # noqa: E402
 from repro_torch.kernels.ocs_quant import ref as q_ref  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
-from repro_torch.protocol import Protocol  # noqa: E402
+from repro_torch.protocol import (CollisionAdaptiveBits,  # noqa: E402
+                                  FixedBits, Protocol)
 from repro_torch.serve import engine as se  # noqa: E402
 from repro_torch.serve.load import poisson_requests  # noqa: E402
 from repro_torch.sim import results  # noqa: E402
@@ -490,6 +515,7 @@ def check_kernels(dev) -> dict:
                                              dtype="bfloat16"))
     check_decode_outputs(dev)
     check_noisy_cases(dev)
+    check_fault_cases(dev)
     rows[("flash_attention.fwd", "serve")] = check_flash(dev)
     return rows
 
@@ -538,6 +564,98 @@ def check_noisy_cases(dev) -> None:
               f"{bits + id_bits} live, {kw['max_rounds']} rounds: bitwise "
               "equal to the words + packed draw + tournament + accounting",
               flush=True)
+
+
+def _dark_lane_operands(dev, lanes, n, cols, bits, dtype, seed):
+    """The fault paths' contention operands: a per-lane ``online (L, N)``
+    mask whose lane 0 is all dark, and a per-lane, per-worker ``p_keep
+    (L, N, 1)``."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    h = (torch.randn((lanes, n, cols), generator=gen) * 3.0).to(dtype)
+    h[:, :, :16] = h[:, :1, :16]
+    online = torch.rand((lanes, n), generator=gen) < 0.6
+    online[0] = False
+    p = torch.rand((lanes, n), generator=gen) * 0.6
+    p_keep = ocs.sensing_keep_prob(p, dtype, lanes=True)
+    keys = jr.split(jr.PRNGKey(seed + bits), lanes)
+    return [t.to(dev) for t in (h, online, keys, p_keep)]
+
+
+def check_fault_cases(dev) -> None:
+    """Phase 3, the fault paths' operands: ``ocs_contention.noisy`` bitwise
+    against ``ct_ref.noisy_contention`` under a per-lane ``online (L, N)``
+    mask with one lane all dark and a per-lane, per-worker ``p_keep``, at
+    the fault curves' shapes (4 lanes x 4 workers x 4096 and the
+    evaluation's 32768, bits 8 and 16) and the faulty serve tick's (1 and
+    3 lanes x 16 workers x 8192 bf16, bits 8); then the fault pool
+    (``faults.aggregate_with_ideal``: 4 fault lanes, lane 0 in total
+    outage, + the ideal lane) forward and backward on the card against the
+    CPU under each policy, with no NaN and no gradient into h on the
+    outage lane."""
+    cases = [(4, N, B * K, bits, torch.float32) for bits in (8, 16)] + [
+        (4, N, EVAL_ROWS * K, 8, torch.float32),
+        (1, QWEN_WORKERS, SERVE_SLOTS * QWEN_D, 8, torch.bfloat16),
+        (3, QWEN_WORKERS, SERVE_SLOTS * QWEN_D, 8, torch.bfloat16)]
+    for lanes, n, cols, bits, dtype in cases:
+        h, online, keys, p_keep = _dark_lane_operands(
+            dev, lanes, n, cols, bits, dtype, seed=cols + lanes)
+        id_bits = ocs.host_id_bits(n)
+        kw = dict(n_slots=bits + id_bits, max_rounds=ROUNDS)
+        _check_equal(
+            "ocs_contention.noisy",
+            lambda: tuple(ct_ops.noisy_contention(h, online, bits, id_bits,
+                                                  keys, p_keep, **kw)),
+            lambda: tuple(ct_ref.noisy_contention(h, online, bits, id_bits,
+                                                  keys, p_keep, **kw)),
+            dict(shape=[lanes, n, cols], dark_lane=0))
+        print(f"ocs_contention.noisy {(lanes, n, cols)} {dtype} bits {bits},"
+              f" per-lane online with lane 0 dark, p_keep "
+              f"{tuple(p_keep.shape)}: bitwise equal to plain", flush=True)
+
+    lanes = LANES
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    h = torch.randn((lanes + 1, N, B, K), generator=gen) * 2
+    h[:, :, 0, :8] = -float("inf")          # columns that decode to -inf
+    stale = torch.randn((lanes, B, K), generator=gen)
+    g1 = torch.randn((lanes + 1, B, K), generator=gen)
+    g2 = torch.randn((lanes, B, K), generator=gen)
+    for pol in (faults.DegradePolicy.zero_fill(),
+                faults.DegradePolicy.stale(), faults.DegradePolicy.retry(2)):
+        models = [faults.FaultModel.iid(0.0, policy=pol).with_dropout(1.0,
+                                                                      0.0)]
+        models += [faults.FaultModel.burst(
+            burst_len=2.0 + i, gap_len=3.0, p_miss_bad=0.5, p_miss_good=0.05,
+            policy=pol).with_dropout(0.3, 0.4) for i in range(lanes - 1)]
+        outs = []
+        for where in ("cpu", dev):
+            fm = faults.stack_models(models, N, where)
+            st = faults.init_state(N, (B, K), device=where).map(
+                lambda t: t[None].expand((lanes,) + t.shape).clone())
+            st = faults.FaultState(
+                bad=st.bad, offline=st.offline,
+                stale=stale.to(where).requires_grad_(True), age=st.age,
+                consec=st.consec)
+            x = h.to(where).requires_grad_(True)
+            pooled, ns, acct = faults.aggregate_with_ideal(
+                Protocol.ocs(8), fm, st, x,
+                jr.split(jr.PRNGKey(5), lanes).to(where))
+            gh, gs = torch.autograd.grad([pooled, ns.stale], [x, st.stale],
+                                         [g1.to(where), g2.to(where)])
+            outs.append([pooled.detach(), ns.stale.detach(), gh, gs] + [
+                getattr(acct, f.name)
+                for f in faults.FaultAccounting.__dataclass_fields__.values()])
+        for a, b in zip(*outs):
+            if not _bitwise_equal(a.cpu(), b.cpu()):
+                raise AssertionError(f"fault pool {pol.kind}: card != CPU")
+        pooled, gh, outage = outs[1][0], outs[1][2], outs[1][-1]
+        assert int(outage[0]) == 1, "lane 0 is not an outage"
+        assert not bool(torch.isnan(pooled).any()), "NaN in the fault pool"
+        assert not bool(torch.isnan(gh).any()), "NaN in the fault gradient"
+        assert not bool(gh[0].any()), "gradient reached h on an outage lane"
+        print(f"fault pool ({lanes} lanes + ideal, lane 0 in outage, "
+              f"{pol.kind}): forward, accounting and the gradients of h and "
+              "of the stale cache bitwise equal to the CPU; no NaN, no "
+              "gradient into h on the outage lane", flush=True)
 
 
 def _flash_inputs(dev, h, hkv, s, dtype, seed):
@@ -630,11 +748,14 @@ def check_p0_equivalence(dev) -> None:
 
 
 def cifar_config(**overrides):
-    """``configs/fedocs_cifar.cifar10_like`` as a curve grid."""
-
-    kw = dict(grid=2, hw=32, n_classes=10, encoder_dims=(256, 128),
-              embed_dim=64, head_dims=(512, 512, 512), bits=(8, 16),
-              p_miss=(0.0, 0.02, 0.05, 0.1))
+    """``configs/fedocs_cifar.cifar10_like`` as a curve grid: its worker
+    grid, image side, widths and classes."""
+    v = fedocs_cifar.cifar10_like()
+    grid = math.isqrt(v.n_workers)
+    kw = dict(grid=grid, hw=grid * math.isqrt(v.input_dim),
+              n_classes=v.output_dim, encoder_dims=tuple(v.encoder_dims),
+              embed_dim=v.embed_dim, head_dims=tuple(v.head_dims),
+              bits=(8, 16), p_miss=(0.0, 0.02, 0.05, 0.1))
     kw.update(overrides)
     return tc.CurveConfig(**kw)
 
@@ -977,6 +1098,410 @@ def profile_serving(dev, serve) -> None:
         print(f"  {us / 1e3:10.3f} ms  {name[:100]}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the scheduled and fault curve engines, faulty serving
+# ---------------------------------------------------------------------------
+
+# benchmarks/fault_sweep.py's grid: a clean lane and bursts of 2-16 frames
+# with gaps of 4x, bad-state misses 0.5, dropouts 0.4 / recoveries 0.4
+FAULT_BURSTS = (2, 4, 8, 16)
+# the faulty serve: bursts of 4 ticks in gaps of 16, dropouts 0.9 /
+# recoveries 0.1, so all 16 workers are dark on ~0.9^16 = 0.19 of ticks
+SERVE_FAULT = dict(burst_len=4, gap_len=16, p_miss_bad=0.5, p_miss_good=0.01)
+SERVE_DROPOUT = (0.9, 0.1)
+
+
+def _fault_grid(policy):
+    return [faults.FaultModel.iid(0.0, policy=policy)] + [
+        faults.FaultModel.burst(burst_len=b, gap_len=4 * b, p_miss_bad=0.5,
+                                p_miss_good=0.01, policy=policy
+                                ).with_dropout(0.4, 0.4)
+        for b in FAULT_BURSTS]
+
+
+def _assert_curve_counts(counts, ccfg, runs, what):
+    """A curve engine's launches: the fused contention once per step and
+    per evaluation, ``maxpool.decode`` once for the fault/noisy lanes and
+    once for the ideal lane, ``winner_bwd`` once per step over the whole
+    lane stack; encode, the standalone max-pool and decode, the
+    packed-plane contention and flash never."""
+    sites = (ccfg.steps + 1) * runs
+    assert counts["ocs_contention.noisy"] == sites, (what, counts)
+    assert counts["maxpool.decode"] == 2 * sites, (what, counts)
+    assert counts["maxpool.winner_bwd"] == ccfg.steps * runs, (what, counts)
+    for name in ("flash_attention.fwd", "ocs_contention.contend",
+                 "maxpool.fwd", "ocs_quant.decode", "ocs_quant.encode"):
+        assert counts[name] == 0, (what, name, counts)
+
+
+def _counted(fn):
+    """Run ``fn`` with every launch count set to 0 just before and read
+    just after: (result, counts, wall seconds, packed draws on the
+    card)."""
+    torch.cuda.synchronize()
+    with _packed_draws_on_card() as draws:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+    assert draws["calls"] == 0, "the packed sensing draw ran on the card"
+    return out, counts, wall
+
+
+def run_scheduled(dev, curves):
+    """Phase 12: ``run_scheduled_curves`` at the fedocs-cifar width (the
+    p_miss lanes of phase 5, 60 steps, batch 64): with
+    ``CollisionAdaptiveBits((8, 16))``, launch counts and depth switches;
+    with ``FixedBits(8)``, its lanes bit for bit those of phase 5's
+    ``run_curves`` at bits 8 (parameters, loss history, accuracy)."""
+    ccfg = cifar_config()
+    adaptive = CollisionAdaptiveBits((8, 16))
+    res, counts, wall = _counted(
+        lambda: tc.run_scheduled_curves(ccfg, adaptive, device=dev))
+    _assert_curve_counts(counts, ccfg, 1, "scheduled")
+    switches = int(np.count_nonzero(np.diff(res.bits_per_step)))
+    assert np.all(np.isfinite(res.loss_history)), "non-finite loss"
+    assert set(np.unique(res.bits_per_step)) <= {8, 16}
+    print(f"run_scheduled_curves fedocs-cifar width, CollisionAdaptiveBits"
+          f"((8, 16)): {ccfg.steps} steps x {len(ccfg.p_miss)} lanes + "
+          f"ideal in {wall:.3f} s wall; depth switches {switches}, steps at "
+          f"16 bits {int((res.bits_per_step == 16).sum())}; launches "
+          f"{counts}; acc {res.acc.tolist()}; collision_frac at the logged "
+          f"steps {res.collision_frac.tolist()}", flush=True)
+    # thresholds around this grid's collision fractions at 8 bits
+    # (0.0038-0.0048 in the run above): the depth moves, and the 16-bit
+    # branch trains at this width too
+    trigger = CollisionAdaptiveBits((8, 16), escalate=0.0042,
+                                    deescalate=0.004, decay=0.0)
+    hair, hcounts, hwall = _counted(
+        lambda: tc.run_scheduled_curves(ccfg, trigger, device=dev))
+    _assert_curve_counts(hcounts, ccfg, 1, "scheduled hair-trigger")
+    hswitches = int(np.count_nonzero(np.diff(hair.bits_per_step)))
+    assert hswitches > 0, "the hair-trigger schedule never switched"
+    assert np.all(np.isfinite(hair.loss_history)), "non-finite loss"
+    print(f"run_scheduled_curves hair-trigger {trigger}: {hwall:.3f} s wall;"
+          f" depth switches {hswitches}, steps at 16 bits "
+          f"{int((hair.bits_per_step == 16).sum())}; acc "
+          f"{hair.acc.tolist()}", flush=True)
+    fixed, fcounts, fwall = _counted(
+        lambda: tc.run_scheduled_curves(ccfg, FixedBits(8), device=dev))
+    _assert_curve_counts(fcounts, ccfg, 1, "scheduled FixedBits")
+    assert np.array_equal(fixed.loss_history, curves.loss_history[0])
+    assert np.array_equal(fixed.acc, curves.acc[0])
+    assert np.array_equal(fixed.nll, curves.nll[0])
+    for x, y in zip(tree.leaves(fixed.params),
+                    tree.leaves(curves.noisy_params[0])):
+        assert _bitwise_equal(x, y), "FixedBits(8) lane != run_curves lane"
+    print(f"run_scheduled_curves FixedBits(8): {fwall:.3f} s wall; lanes bit "
+          "for bit run_curves(bits=(8,))'s noisy lanes (params, loss "
+          "history, acc, nll)", flush=True)
+    return dict(counts=counts, wall=wall, switches=switches,
+                fixed_wall=fwall, trigger_switches=hswitches)
+
+
+def profile_scheduled(dev) -> dict:
+    """Phase 12, profile: 10 steps + eval at the fedocs-cifar width with
+    ``CollisionAdaptiveBits((8, 16))`` (one 4-byte read of the next depth
+    a step) and with ``FixedBits(8)`` (no read), each timed unprofiled
+    twice in turns, then profiled: wall, device busy and idle share."""
+    ccfg = cifar_config(steps=10)
+    scheds = {"adaptive": CollisionAdaptiveBits((8, 16)),
+              "fixed": FixedBits(8)}
+    for sch in scheds.values():
+        tc.run_scheduled_curves(ccfg, sch, device=dev)
+    walls = {k: [] for k in scheds}
+    for name in ("adaptive", "fixed", "fixed", "adaptive"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tc.run_scheduled_curves(ccfg, scheds[name], device=dev)
+        torch.cuda.synchronize()
+        walls[name].append(time.perf_counter() - t0)
+    out = {}
+    for name, sch in scheds.items():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            tc.run_scheduled_curves(ccfg, sch, device=dev)
+            torch.cuda.synchronize()
+        device_s = sum(e.device_time_total for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       ) / 1e6
+        wall = float(np.mean(walls[name]))
+        out[name] = dict(walls=walls[name], device_s=device_s,
+                         idle=1 - device_s / wall)
+        print(f"profile scheduled {name}, 10 steps + eval: wall "
+              f"{walls[name]} s unprofiled, device busy {device_s:.4f} s, "
+              f"idle share {1 - device_s / wall:.3f}", flush=True)
+    return out
+
+
+def _busy(fn):
+    """(device busy seconds, device kernels and copies) of ``fn`` under
+    torch.profiler."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.device_time_total for e in dev_ev) / 1e6, len(dev_ev)
+
+
+def profile_fault_curves(dev) -> dict:
+    """Phase 13, profile: 10 steps + eval at the fedocs-cifar width, bits
+    8: ``run_curves`` and ``run_fault_curves`` of ``FaultModel.iid`` lanes
+    at the same p_miss values (the same training, plus the chains, the
+    outage gating and the fault accounting), timed unprofiled in turns
+    (plain, fault, fault, plain), then profiled: wall, device busy,
+    kernels per step and idle share."""
+    ccfg = cifar_config(steps=10, bits=(8,))
+    iid = [faults.FaultModel.iid(p) for p in ccfg.p_miss]
+    runs = {"run_curves": lambda: tc.run_curves(ccfg, device=dev),
+            "run_fault_curves": lambda: tc.run_fault_curves(ccfg, iid,
+                                                            device=dev)}
+    for fn in runs.values():
+        fn()
+    walls = {k: [] for k in runs}
+    for name in ("run_curves", "run_fault_curves", "run_fault_curves",
+                 "run_curves"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[name]()
+        torch.cuda.synchronize()
+        walls[name].append(time.perf_counter() - t0)
+    out = {}
+    for name, fn in runs.items():
+        busy, launches = _busy(fn)
+        wall = float(np.mean(walls[name]))
+        out[name] = dict(walls=walls[name], device_s=busy,
+                         per_step=launches / 11, idle=1 - busy / wall)
+        print(f"profile {name}, 10 steps + eval at bits=8: wall "
+              f"{walls[name]} s unprofiled, device busy {busy:.4f} s, idle "
+              f"share {1 - busy / wall:.3f}; {launches} device kernels and "
+              f"copies ({launches / 11:.0f} per step or evaluation)",
+              flush=True)
+    return out
+
+
+def run_fault_curves_phase(dev, curves):
+    """Phase 13: ``run_fault_curves`` at the fedocs-cifar width, bits (8,
+    16), 60 steps: a grid of ``FaultModel.iid`` lanes at phase 5's p_miss
+    values, bit for bit phase 5's noisy lanes; then
+    ``benchmarks/fault_sweep.py``'s grid (iid(0) and bursts of 2, 4, 8, 16
+    frames, gaps 4x, bad-state misses 0.5, dropout 0.4 / recovery 0.4)
+    under ``stale`` and ``zero_fill``, launch counts, dropped and outage
+    frames; every loss finite."""
+    ccfg = cifar_config()
+    iid = [faults.FaultModel.iid(p) for p in ccfg.p_miss]
+    res, counts, wall = _counted(
+        lambda: tc.run_fault_curves(ccfg, iid, device=dev))
+    _assert_curve_counts(counts, ccfg, len(ccfg.bits), "fault iid")
+    for f in ("loss_history", "acc", "nll"):
+        assert np.array_equal(getattr(res, f), getattr(curves, f)), f
+    for bi in range(len(ccfg.bits)):
+        for x, y in zip(tree.leaves(res.params[bi]),
+                        tree.leaves(curves.noisy_params[bi])):
+            assert _bitwise_equal(x, y), "iid fault lane != run_curves lane"
+    assert not res.outage_frames.any() and not res.dropped_frames.any()
+    print(f"run_fault_curves iid lanes {list(ccfg.p_miss)}: {wall:.3f} s "
+          "wall; bit for bit run_curves' noisy lanes at bits 8 and 16 "
+          "(params, loss history, acc, nll)", flush=True)
+    out = {"iid": dict(counts=counts, wall=wall)}
+    for pol in (faults.DegradePolicy.stale(),
+                faults.DegradePolicy.zero_fill()):
+        grid = _fault_grid(pol)
+        fc, counts, wall = _counted(
+            lambda: tc.run_fault_curves(ccfg, grid, device=dev))
+        _assert_curve_counts(counts, ccfg, len(ccfg.bits), pol.kind)
+        assert np.all(np.isfinite(fc.loss_history)), "non-finite loss"
+        assert np.all(np.isfinite(fc.nll)), "non-finite eval loss"
+        assert fc.outage_frames.sum() > 0, "the burst grid saw no outage"
+        print(f"run_fault_curves {pol.kind}, {len(grid)} lanes (iid(0), "
+              f"bursts {FAULT_BURSTS}), bits {ccfg.bits}: {wall:.3f} s wall;"
+              f" launches {counts}; dropped frames {fc.dropped_frames.tolist()}"
+              f", outage frames {fc.outage_frames.tolist()}, max staleness "
+              f"{fc.stale_age.max(axis=1).tolist()}", flush=True)
+        for line in results.fault_curve_rows(
+                results.summarize_fault_curves(fc)):
+            print(line)
+        out[pol.kind] = dict(counts=counts, wall=wall,
+                             outages=fc.outage_frames.tolist())
+    return out
+
+
+def run_faulty_serving(dev, serve):
+    """Phase 14: phase 8's traffic (qwen1.5-0.5b full width, 16 Poisson
+    requests of 256-token prompts, 32 tokens each, 8 slots, OCS bits 8 at
+    p_miss 0.05) under ``FaultModel.burst(4, 16, p_miss_bad=0.5,
+    p_miss_good=0.01).with_dropout(0.9, 0.1)``, with ``retry(2)`` and with
+    ``stale``: launch counts (contention and ``maxpool.decode`` once per
+    layer per tick, flash once per layer per request), outage ticks,
+    degraded tokens and retry ticks; every logit finite and the billing
+    adding up."""
+    m, values, reqs, proto = (serve["m"], serve["values"], serve["reqs"],
+                              serve["proto"])
+    finite = _watch_logits(m, dev)
+    sites = m.channel_sites()
+    per_tok = proto.comm_load(QWEN_WORKERS, QWEN_D).uplink_bits * sites
+    out = {}
+    for pol in (faults.DegradePolicy.retry(2), faults.DegradePolicy.stale()):
+        fm = faults.FaultModel.burst(policy=pol, **SERVE_FAULT).with_dropout(
+            *SERVE_DROPOUT)
+        eng = se.ServeEngine(m, values, se.ServeConfig(
+            batch_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, eos_id=-1,
+            protocol=proto, fault=fm), device=dev)
+        flags = []
+        tick = eng._tick
+
+        def watched(*args, **kw):
+            res = tick(*args, **kw)
+            flags.append(res[3])
+            return res
+
+        eng._tick = watched
+        se.reset_dispatch_counts()
+        outs, counts, wall = _counted(lambda: eng.run(reqs))
+        ticks = se.dispatch_counts()["tick"]
+        outage = sum(1 for ok, _ in flags if not ok)
+        retrying = sum(1 for _, r in flags if r)
+        degraded = sum(c.degraded_tokens for c in outs.values())
+        retry_ticks = sum(c.retry_ticks for c in outs.values())
+        n_tokens = sum(len(c.tokens) for c in outs.values())
+        print(f"faulty serve {QWEN} full width, {pol.kind}: {len(outs)} "
+              f"requests, {n_tokens} tokens, {ticks} ticks in {wall:.3f} s "
+              f"wall; outage ticks {outage}, held (retry) ticks {retrying}, "
+              f"degraded tokens {degraded}, retry ticks billed to requests "
+              f"{retry_ticks}; launches {counts}", flush=True)
+        assert len(flags) == ticks
+        assert counts["flash_attention.fwd"] == QWEN_LAYERS * SERVE_REQUESTS
+        assert counts["ocs_contention.noisy"] == sites * ticks, counts
+        assert counts["maxpool.decode"] == sites * ticks, counts
+        for name in ("ocs_contention.contend", "maxpool.fwd",
+                     "ocs_quant.decode", "ocs_quant.encode",
+                     "maxpool.winner_bwd"):
+            assert counts[name] == 0, (name, counts)
+        assert outage > 0, "no outage tick: the fault path was not driven"
+        assert bool(finite["ok"]), "a logit is not finite"
+        assert sorted(outs) == list(range(SERVE_REQUESTS))
+        for c in outs.values():
+            assert len(c.tokens) == SERVE_NEW, (c.rid, len(c.tokens))
+            assert c.channel_slots > 0, c.rid
+            assert c.uplink_bits == (len(c.tokens) - 1) * per_tok, c.rid
+        if pol.kind == "retry":
+            assert retrying > 0 and retry_ticks > 0
+            assert retrying <= outage
+        else:
+            assert retrying == 0 and retry_ticks == 0
+            assert degraded > 0
+        out[pol.kind] = dict(counts=counts, wall=wall, ticks=ticks,
+                             outage=outage, held=retrying, degraded=degraded,
+                             retry_ticks=retry_ticks)
+    return out
+
+
+def profile_faulty_serving(dev, serve) -> dict:
+    """Phase 14, profile: 10 decode ticks at the full width with the 8
+    slots filled, under phase 14's fault model with ``stale`` (the chains
+    stepped and the policy applied every tick), timed unprofiled, then 10
+    more profiled: wall, device busy, launches per tick and idle share,
+    beside phase 11's channel tick."""
+    fm = faults.FaultModel.burst(policy=faults.DegradePolicy.stale(),
+                                 **SERVE_FAULT).with_dropout(*SERVE_DROPOUT)
+    fm = fm.to(dev)
+    eng, proto = serve["eng"], serve["proto"]
+    eng._reset()
+    eng.fstate = faults.init_state(QWEN_WORKERS, device=dev)
+    for slot, req in enumerate(serve["reqs"][:SERVE_SLOTS]):
+        eng._insert(slot, req)
+    eng._tick(proto, 0, fm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flags = [eng._tick(proto, t, fm)[3] for t in range(1, 11)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy, launches = _busy(lambda: [eng._tick(proto, t, fm)
+                                    for t in range(11, 21)])
+    print(f"profile, 10 faulty decode ticks at the full width (stale, "
+          f"{sum(not ok for ok, _ in flags)} outage ticks of the 10 timed): "
+          f"wall {wall:.4f} s unprofiled ({100 * wall:.2f} ms per tick), "
+          f"device busy {busy:.4f} s, idle share {1 - busy / wall:.3f}; "
+          f"{launches} device kernels and copies ({launches / 10:.0f} per "
+          f"tick)", flush=True)
+    return dict(wall=wall, device_s=busy, per_tick=launches / 10,
+                idle=1 - busy / wall)
+
+
+def check_new_paths_against_cpu(dev) -> None:
+    """Phase 15: a small scheduled grid, a small fault grid and the
+    reduced serving config under a fault model, on the card and on the
+    CPU (plain versions), compared as phases 6 and 10 compare: losses
+    within 1e-3 and accuracies within 2 samples (float order can move an
+    embedding across a D-bit bucket edge); depths, fault telemetry and
+    tokens reported."""
+    ccfg = tc.CurveConfig(bits=(8, 16), p_miss=(0.1, (0.0, 0.1, 0.1, 0.3),
+                                                0.4),
+                          steps=8, batch=16, n_train=128, n_val=64, hw=8,
+                          encoder_dims=(8,), embed_dim=8, head_dims=(8,),
+                          log_every=4)
+    sch = CollisionAdaptiveBits((8, 16), escalate=0.02, deescalate=0.015,
+                                decay=0.5)
+    gpu = tc.run_scheduled_curves(ccfg, sch, device=dev)
+    cpu = tc.run_scheduled_curves(ccfg, sch, device="cpu")
+    loss_err = float(np.max(np.abs(gpu.loss_history - cpu.loss_history)))
+    acc_err = float(np.max(np.abs(gpu.acc - cpu.acc))) * ccfg.n_val
+    same = bool(np.array_equal(gpu.bits_per_step, cpu.bits_per_step))
+    print(f"small scheduled grid card vs CPU: max loss diff {loss_err:.3g}, "
+          f"max accuracy diff {acc_err:.0f} of {ccfg.n_val} samples; depths "
+          f"equal {same} ({gpu.bits_per_step.tolist()})", flush=True)
+    assert loss_err < 1e-3 and acc_err <= 2, (loss_err, acc_err)
+
+    grid = [faults.FaultModel.iid(0.0, policy=faults.DegradePolicy.stale())]
+    grid += [faults.FaultModel.burst(
+        burst_len=b, gap_len=2 * b, p_miss_bad=0.5, p_miss_good=0.01,
+        policy=faults.DegradePolicy.stale()).with_dropout(0.6, 0.3)
+        for b in (2, 4)]
+    fcfg = dataclasses.replace(ccfg, p_miss=(0.0,))
+    gpu = tc.run_fault_curves(fcfg, grid, device=dev)
+    cpu = tc.run_fault_curves(fcfg, grid, device="cpu")
+    loss_err = float(np.max(np.abs(gpu.loss_history - cpu.loss_history)))
+    acc_err = float(np.max(np.abs(gpu.acc - cpu.acc))) * fcfg.n_val
+    same = all(np.array_equal(getattr(gpu, f), getattr(cpu, f)) for f in (
+        "dropped_frames", "outage_frames", "stale_age", "retry_slots"))
+    print(f"small fault grid card vs CPU: max loss diff {loss_err:.3g}, max "
+          f"accuracy diff {acc_err:.0f} of {fcfg.n_val} samples; fault "
+          f"telemetry equal {same} (outages {gpu.outage_frames.tolist()})",
+          flush=True)
+    assert loss_err < 1e-3 and acc_err <= 2, (loss_err, acc_err)
+
+    cfg = get_reduced(QWEN, use_flash=True)
+    m = M.build(cfg)
+    cpu_values = m.init(torch.Generator().manual_seed(0))
+    gpu_values = tree.map(lambda t: t.to(dev), cpu_values)
+    reqs = poisson_requests(6, SERVE_RATE, cfg.vocab_size, prompt_len=64,
+                            max_new_tokens=12, seed=2)
+    p = np.full((cfg.n_workers,), SERVE_P_MISS, np.float32)
+    for pol in (faults.DegradePolicy.stale(), faults.DegradePolicy.retry(2)):
+        fm = faults.FaultModel.burst(policy=pol, **SERVE_FAULT).with_dropout(
+            0.6, 0.3)
+        config = se.ServeConfig(batch_slots=2, max_seq=96, eos_id=-1,
+                                protocol=Protocol.ocs(bits=8, p_miss=p),
+                                fault=fm)
+        want = se.ServeEngine(m, cpu_values, config, device="cpu").run(reqs)
+        got = se.ServeEngine(m, gpu_values, config, device=dev).run(reqs)
+        same_tok = sum(a == b for rid in want for a, b in
+                       zip(got[rid].tokens, want[rid].tokens))
+        total = sum(len(c.tokens) for c in want.values())
+        bill = [(c.degraded_tokens, c.retry_ticks) for c in want.values()]
+        same_bill = sum((got[r].degraded_tokens, got[r].retry_ticks)
+                        == (want[r].degraded_tokens, want[r].retry_ticks)
+                        for r in want)
+        print(f"serve reduced under faults ({pol.kind}), card vs CPU: "
+              f"{same_tok} of {total} tokens equal, degraded tokens and "
+              f"retry ticks equal for {same_bill} of {len(want)} requests "
+              f"(CPU {bill})", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1004,13 +1529,20 @@ def main() -> int:
 
     rows = check_kernels(dev)
     check_p0_equivalence(dev)
-    curve_counts, wall, _ = run_main_path(dev)
+    curve_counts, wall, curves = run_main_path(dev)
     check_against_cpu(dev)
     profile_main_path(dev)
     serve = run_serving(dev)
     check_serving_p0(dev, serve)
     check_serving_against_cpu(dev)
     profile_serving(dev, serve)
+    sched = run_scheduled(dev, curves)
+    sched_profile = profile_scheduled(dev)
+    fault = run_fault_curves_phase(dev, curves)
+    fault_profile = profile_fault_curves(dev)
+    faulty = run_faulty_serving(dev, serve)
+    faulty_profile = profile_faulty_serving(dev, serve)
+    check_new_paths_against_cpu(dev)
 
     line = []
     keep = ("shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
@@ -1034,12 +1566,29 @@ def main() -> int:
             if forms:
                 rec["forms"] = forms
         by_path = {"run_curves": curve_counts[name],
-                   "serve": serve["counts"][name]}
+                   "serve": serve["counts"][name],
+                   "scheduled_curves": sched["counts"][name],
+                   "fault_curves": sum(fault[k]["counts"][name]
+                                       for k in ("stale", "zero_fill")),
+                   "faulty_serve": sum(faulty[k]["counts"][name]
+                                       for k in ("retry", "stale"))}
         line.append(dict(rec, launches=sum(by_path.values()),
                          launches_by_path=by_path))
     print(f"run_curves wall seconds: {wall}", flush=True)
     print(f"serve wall seconds: {serve['wall']} ({serve['ticks']} ticks, "
           f"{serve['tokens']} tokens); {smi}", flush=True)
+    print(f"scheduled curves wall seconds: {sched['wall']} adaptive "
+          f"({sched['switches']} depth switches), {sched['fixed_wall']} "
+          f"FixedBits(8); 10-step profile {sched_profile}", flush=True)
+    print("fault curves wall seconds: " + ", ".join(
+        f"{k} {v['wall']}" for k, v in fault.items())
+        + f"; 10-step profile {fault_profile}", flush=True)
+    print(f"faulty decode tick profile {faulty_profile}", flush=True)
+    print("faulty serve: " + "; ".join(
+        f"{k} {v['wall']} s, {v['ticks']} ticks, {v['outage']} outage, "
+        f"{v['held']} held, {v['degraded']} degraded tokens, "
+        f"{v['retry_ticks']} retry ticks" for k, v in faulty.items()),
+        flush=True)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

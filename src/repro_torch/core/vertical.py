@@ -17,6 +17,7 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch.core import channel
 from repro_torch.protocol import Protocol
 
 
@@ -99,17 +100,24 @@ def embeddings(cfg: VerticalConfig, params: dict,
     return _mlp_apply(params["encoders"], views)
 
 
-def _fuse_forward(cfg, params, views, rng, protocol, lanes):
-    """(prediction, accounting-or-None, protocol-or-None)."""
+def _fuse_forward(cfg, params, views, rng, protocol, lanes, fault=None,
+                  fault_state=None):
+    """(prediction, accounting-or-None, protocol-or-None,
+    new-fault-state-or-None)."""
     h = embeddings(cfg, params, views)
     if cfg.prediction_level:
         preds = _mlp_apply(params["head"], h)              # (.., N, B, out)
         if cfg.task == "classification":
             preds = torch.softmax(preds, dim=-1)
-        return preds.mean(dim=-3), None, None               # Avg. Workers Preds
+        return preds.mean(dim=-3), None, None, None        # Avg. Workers Preds
     proto = protocol if protocol is not None else cfg.resolve_protocol()
+    if fault is not None:
+        from repro_torch import faults           # faults -> core.fedocs
+        v, new_state, acct = faults.aggregate(proto, fault, fault_state, h,
+                                              rng, lanes=lanes)
+        return head(cfg, params, v), acct, proto, new_state
     v, acct = proto.aggregate(h, rng, lanes=lanes)
-    return head(cfg, params, v), acct, proto
+    return head(cfg, params, v), acct, proto, None
 
 
 def forward(cfg: VerticalConfig, params: dict, views: torch.Tensor, *,
@@ -119,8 +127,17 @@ def forward(cfg: VerticalConfig, params: dict, views: torch.Tensor, *,
     """views (N, B, d) -> prediction (B, output_dim), or (L, B, out) with
     ``lanes``.  The embeddings are fused by ``protocol`` (default: the
     config's); an OCS protocol also needs ``rng``."""
-    pred, _, _ = _fuse_forward(cfg, params, views, rng, protocol, lanes)
+    pred, _, _, _ = _fuse_forward(cfg, params, views, rng, protocol, lanes)
     return pred
+
+
+def per_worker_predictions(cfg: VerticalConfig, params: dict,
+                           views: torch.Tensor) -> torch.Tensor:
+    """(N, B, out): each worker's head on its own embedding, the "Best
+    Worker Pred" baseline (``prediction_level`` configs only)."""
+    if not cfg.prediction_level:
+        raise ValueError("per_worker_predictions needs prediction_level")
+    return _mlp_apply(params["head"], embeddings(cfg, params, views))
 
 
 def head(cfg: VerticalConfig, params: dict, v: torch.Tensor) -> torch.Tensor:
@@ -155,23 +172,58 @@ def channel_metrics(cfg: VerticalConfig, proto: Protocol, acct,
     ``chan_collision_frac`` (collided re-contention opportunities over the
     ``K * max_rounds`` available) and ``chan_correct_frac``."""
     k_total = batch * cfg.embed_dim                   # batch * K elements
+    # times the reciprocal, as XLA computes the JAX package's division by
+    # this constant
     return {
         "chan_rounds": acct.rounds.to(torch.float32),
         "chan_collision_frac": (acct.collisions.to(torch.float32)
-                                / (k_total * proto.max_rounds)),
+                                * (1.0 / (k_total * proto.max_rounds))),
         "chan_correct_frac": acct.correct_frac,
     }
 
 
+def fault_metrics(acct) -> dict:
+    """The degradation telemetry of one fault-aware aggregate call."""
+    return {"fault_dropped_frames": acct.dropped_frames,
+            "fault_stale_age": acct.stale_age,
+            "fault_offline": acct.offline_workers,
+            "fault_retry_slots": acct.retry_slots,
+            "fault_outage": acct.outage}
+
+
 def loss_fn(cfg: VerticalConfig, params: dict, views: torch.Tensor,
             target: torch.Tensor, *, rng: Optional[torch.Tensor] = None,
-            protocol: Optional[Protocol] = None, lanes: bool = False
-            ) -> Tuple[torch.Tensor, dict]:
+            protocol: Optional[Protocol] = None, lanes: bool = False,
+            fault=None, fault_state=None) -> Tuple[torch.Tensor, dict]:
     """Task loss + metrics (one per lane with ``lanes``); an OCS protocol
-    adds the :func:`channel_metrics` of this step's aggregate call."""
-    pred, acct, proto = _fuse_forward(cfg, params, views, rng, protocol,
-                                      lanes)
+    adds the :func:`channel_metrics` of this step's aggregate call.
+
+    ``fault``/``fault_state`` (a ``repro_torch.faults.FaultModel`` and the
+    carried ``FaultState``, lane-stacked with ``lanes``) switch the
+    aggregation to the fault-aware path: the metrics then also carry the
+    evolved state under ``metrics["fault_state"]`` (not a tensor: pop it
+    before logging) and the :func:`fault_metrics`."""
+    pred, acct, proto, new_state = _fuse_forward(
+        cfg, params, views, rng, protocol, lanes, fault, fault_state)
     loss, metrics = task_loss(cfg, pred, target)
     if acct is not None and proto.kind == "ocs":
         metrics.update(channel_metrics(cfg, proto, acct, views.shape[1]))
+    if new_state is not None:
+        metrics["fault_state"] = new_state
+        metrics.update(fault_metrics(acct))
     return loss, metrics
+
+
+def comm_load(cfg: VerticalConfig, bits: int = 16) -> channel.CommLoad:
+    """Per-sample uplink/downlink accounting for the configured protocol.
+
+    Delegates to ``Protocol.comm_load`` (D-bit code payloads for the
+    quantized kinds, floats otherwise); ``bits`` only sets the contention
+    depth of the plain-``max`` protocol, whose payload stays a full
+    float."""
+    if cfg.prediction_level:
+        return channel.avg_pred_load(cfg.n_workers, cfg.output_dim)
+    proto = cfg.resolve_protocol()
+    if proto.kind == "max" and proto.bits != bits:
+        proto = dataclasses.replace(proto, bits=bits)
+    return proto.comm_load(cfg.n_workers, cfg.embed_dim)

@@ -72,10 +72,15 @@ class ProtocolAccounting:
                                     device=device))
 
 
+def mean_f32(x: torch.Tensor) -> torch.Tensor:
+    """The mean over the last axis as XLA computes ``jnp.mean`` of float32:
+    the sum times ``1/n``, which is not always the sum divided by n."""
+    return x.sum(-1) * (1.0 / x.shape[-1])
+
+
 def _accounting(rounds, collisions, slots, correct) -> ProtocolAccounting:
     """The noisy laws' accounting outputs as a ``ProtocolAccounting``."""
-    k = correct.shape[-1]
-    frac = correct.sum(-1).to(torch.float32) / k
+    frac = mean_f32(correct.to(torch.float32))
     return ProtocolAccounting(
         rounds=rounds, collisions=collisions, contention_slots=slots,
         correct_frac=frac)

@@ -17,10 +17,20 @@ tick consumed (``ProtocolAccounting`` summed over the stack's
 wall time, so every :class:`Completion` carries its latency decomposed
 into compute ticks and channel slots.
 
+Fault injection (``ServeConfig.fault``, a ``repro_torch.faults
+.FaultModel``): each tick steps the Gilbert–Elliott and dropout chains,
+rebinds the protocol's ``p_miss`` and ``online`` mask, and on an outage
+tick (every worker offline) lets the model's policy decide what the slots
+emit: ``stale`` repeats the last token, ``zero_fill`` emits 0, ``retry``
+holds the tick (token, position) within its budget.  A held tick leaves
+the KV cache as the decode wrote it: the decode writes each layer's row at
+``positions`` before that layer's attention reads it, and the next tick
+writes the same rows again, so no copy of the cache is needed to undo it.
+
 ``dispatch_counts()["tick"]`` counts decode ticks.  The JAX package's
-``trace_counts`` has no counterpart: nothing here compiles.  Fault
-injection and sampling are not ported yet (ROADMAP queue 1): a
-``ServeConfig`` asking for either raises ``NotImplementedError``.
+``trace_counts`` has no counterpart: nothing here compiles.  Sampling is
+not ported yet (ROADMAP queue 1): ``greedy=False`` raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import faults
 from repro_torch import random as jr
 from repro_torch import tree
 from repro_torch.protocol import Protocol
@@ -71,15 +82,17 @@ class ServeConfig:
 
     ``protocol=None`` serves channel-free.  An OCS protocol must carry a
     bound ``p_miss``; ``ServeEngine.run(requests, protocol=...)``
-    overrides it per run.  ``fault`` and ``greedy=False`` exist for the
-    JAX package's surface and raise until their slices land."""
+    overrides it per run.  ``fault`` (a ``repro_torch.faults.FaultModel``)
+    runs the channel under bursts and worker outages; ``greedy=False``
+    exists for the JAX package's surface and raises until its slice
+    lands."""
 
     batch_slots: int = 4
     max_seq: int = 128
     eos_id: int = 1
     greedy: bool = True
     protocol: Optional[Protocol] = None
-    fault: object = None
+    fault: Optional[faults.FaultModel] = None
     clock: ChannelClock = dataclasses.field(default_factory=ChannelClock)
     seed: int = 0
 
@@ -96,10 +109,6 @@ class ServeConfig:
             raise ValueError(
                 "fault injection needs a channel protocol (fault models "
                 "perturb the sensing channel)")
-        if self.fault is not None:
-            raise NotImplementedError(
-                "fault injection in the serve tick is not ported yet "
-                "(ROADMAP queue 1, item 13: faults)")
         if not self.greedy:
             raise NotImplementedError(
                 "sampling (jax.random.categorical) is not ported yet "
@@ -123,8 +132,9 @@ class Completion:
     shared channel consumed over that span; ``uplink_bits`` the analytic
     uplink (``Protocol.comm_load`` per aggregate call x channel sites x
     channel-decoded tokens).  All three channel fields are 0 when serving
-    channel-free.  ``degraded_tokens`` and ``retry_ticks`` belong to fault
-    injection and stay 0 here."""
+    channel-free.  Under fault injection ``degraded_tokens`` counts the
+    tokens emitted on outage ticks (the policy's filler) and
+    ``retry_ticks`` the ticks the batch was held re-contending."""
 
     rid: int
     tokens: List[int]
@@ -216,28 +226,78 @@ class ServeEngine:
         self.slot_req[slot] = None
 
     @torch.no_grad()
-    def _tick(self, protocol: Optional[Protocol], tick: int):
+    def _tick(self, protocol: Optional[Protocol], tick: int, fault=None):
         """One decode tick over all B slots; returns (next tokens,
-        positions, channel slots of the tick) read back in one copy."""
+        positions, channel slots of the tick, flags) read back in one
+        copy.  ``flags`` is None without ``fault``, else ``(ok,
+        retrying)``: whether some worker was online, and whether the tick
+        was held for a retry."""
         if protocol is None:
             logits, self.cache = self.m.decode_step(
                 self.values, self.cur_token, self.positions, self.cache)
             chan_slots = None
         else:
             rng = jr.fold_in(self._base_key, tick)
+            if fault is not None:
+                # one Markov step of the burst and dropout chains a tick,
+                # bound into the protocol's p_miss and worker mask
+                new_bad, new_offline = faults.step_chains(
+                    fault, self.fstate, rng)
+                online = ~new_offline
+                protocol = protocol.with_p_miss(faults.effective_p_miss(
+                    fault, new_bad)).with_online(online)
             logits, self.cache, chan = self.m.decode_step_channel(
                 self.values, self.cur_token, self.positions, self.cache,
                 protocol, rng)
             chan_slots = chan["contention_slots"].reshape(1)
         nxt = torch.argmax(logits, -1).to(torch.int32)
-        self.positions = self.positions + 1
+        new_positions = self.positions + 1
+        flags = None
+        if fault is not None:
+            nxt, new_positions, flags = self._degrade(
+                fault, nxt, new_positions, online, new_bad, new_offline)
+        self.positions = new_positions
         self.cur_token = nxt[:, None]
-        parts = [nxt, self.positions]
+        parts = [nxt, new_positions]
         if chan_slots is not None:
             parts.append(chan_slots.to(torch.int32))
+        if flags is not None:
+            parts.append(flags)
         host = torch.cat(parts).cpu().numpy().astype(np.int64)
         slots = int(host[2 * self.B]) if chan_slots is not None else 0
-        return host[:self.B], host[self.B:2 * self.B], slots
+        flags = None if fault is None else (bool(host[2 * self.B + 1]),
+                                            bool(host[2 * self.B + 2]))
+        return host[:self.B], host[self.B:2 * self.B], slots, flags
+
+    def _degrade(self, fault, nxt, new_positions, online, new_bad,
+                 new_offline):
+        """The policy on an outage tick (every worker offline: the pooled
+        fusions resolved nothing and the decode's tokens are no value):
+        what the slots emit, whether the tick commits, and the carried
+        chain state.  Returns (tokens, positions, flags int32 (2,))."""
+        st = self.fstate
+        ok = online.any()
+        zero = torch.zeros((), dtype=torch.int32, device=self.device)
+        consec = torch.where(ok, zero, st.consec + 1)
+        age = torch.where(ok, zero, st.age + 1)
+        kind = fault.policy.kind
+        cur = self.cur_token[:, 0]
+        if kind == "retry":
+            retrying = ~ok & (consec <= fault.policy.retry_budget)
+        else:
+            retrying = torch.zeros((), dtype=torch.bool, device=self.device)
+        # stale repeats the last token; zero_fill and a spent retry emit 0
+        degraded = cur if kind == "stale" else torch.zeros_like(nxt)
+        nxt = torch.where(ok, nxt, degraded)
+        # a retry tick makes no progress: token and position hold
+        commit = ok | ~retrying
+        nxt = torch.where(commit, nxt, cur)
+        positions = torch.where(commit, new_positions, self.positions)
+        self.fstate = faults.FaultState(bad=new_bad, offline=new_offline,
+                                        stale=st.stale, age=age,
+                                        consec=consec)
+        flags = torch.stack([ok, retrying]).to(torch.int32)
+        return nxt, positions, flags
 
     # -- main loop ----------------------------------------------------------
 
@@ -248,12 +308,17 @@ class ServeEngine:
         Requests are admitted FIFO by ``arrival_tick`` (ties keep
         submission order); with no slot busy and no arrival due, the tick
         counter jumps to the next arrival.  ``protocol`` overrides the
-        config's (``None`` for an explicitly channel-free run)."""
+        config's (``None`` for an explicitly channel-free run), and
+        ``fault`` the config's fault model: outage ticks then degrade
+        completions by its policy instead of wedging the queue."""
         proto = self.config.protocol if protocol is _UNSET else protocol
-        if fault is not _UNSET and fault is not None:
-            raise NotImplementedError(
-                "fault injection in the serve tick is not ported yet "
-                "(ROADMAP queue 1, item 13: faults)")
+        fm = self.config.fault if fault is _UNSET else fault
+        if fm is not None and proto is None:
+            raise ValueError("fault injection needs a channel protocol")
+        if fm is not None:
+            fm = fm.to(self.device)
+            self.fstate = faults.init_state(self._n_workers,
+                                            device=self.device)
         bits_per_tok = self._uplink_bits_per_tick(proto)
         self._reset()
         pending = sorted(requests, key=lambda r: r.arrival_tick)
@@ -275,9 +340,18 @@ class ServeEngine:
                 if not self.active[slot] and admissible:
                     self._insert(slot, admissible.pop(0))
             _DISPATCH_COUNTS["tick"] += 1
-            nxt, pos, slots = self._tick(proto, tick)
+            nxt, pos, slots, flags = self._tick(proto, tick, fm)
             tick += 1
             total_slots += slots
+            if flags is not None and flags[1]:
+                # a retry tick: the batch held position re-contending; the
+                # stall is billed to every request in flight
+                for slot in range(self.B):
+                    if self.active[slot]:
+                        self.outputs[self.slot_req[slot].rid].retry_ticks \
+                            += 1
+                continue
+            degraded = flags is not None and not flags[0]
             for slot in range(self.B):
                 if not self.active[slot]:
                     continue
@@ -285,6 +359,8 @@ class ServeEngine:
                 out = self.outputs[req.rid]
                 out.tokens.append(int(nxt[slot]))
                 out.uplink_bits += bits_per_tok
+                if degraded:
+                    out.degraded_tokens += 1
                 self.budget[slot] -= 1
                 done = (int(nxt[slot]) == self.eos
                         or self.budget[slot] <= 0

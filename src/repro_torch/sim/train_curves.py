@@ -21,6 +21,17 @@ bits as ``repro.sim.train_curves.run_curves``.
 
 No result is read back to the host inside the step loop: logged losses
 collect in a device buffer that is read once per ``bits`` value.
+
+Two variants run the same lane stack.  :func:`run_scheduled_curves`
+picks each step's depth with a ``BitsSchedule`` from the previous step's
+channel telemetry; the kernels take ``bits`` as a host ``int``, so the
+chosen index is read back once per step (4 bytes).
+:func:`run_fault_curves` trains one ``repro_torch.faults.FaultModel`` per
+lane, the Markov chains and the stale caches carried across steps on the
+device.  Both keep the ideal lane riding along in the stack (at the
+step's depth) and drop it from the result, so that ``FixedBits(b)`` and a
+grid of ``FaultModel.iid(p)`` lanes train the noisy lanes of
+``run_curves(bits=(b,))`` bit for bit.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import faults
 from repro_torch import random as jr
 from repro_torch import tree
 from repro_torch.core import vertical
@@ -38,7 +50,8 @@ from repro_torch.core.vertical import VerticalConfig
 from repro_torch.data.vertical_data import (PatchTaskConfig,
                                             patch_classification)
 from repro_torch.optim import optimizers, schedules
-from repro_torch.protocol import Protocol
+from repro_torch.protocol import BitsSchedule, Protocol
+from repro_torch.protocol.protocol import mean_f32
 from repro_torch.train.train_step import make_train_step
 
 
@@ -136,15 +149,69 @@ class CurveResult:
     device: str = "cpu"                 # where the run ran
 
 
+@dataclasses.dataclass
+class ScheduledCurveResult:
+    """Outcome of one ``BitsSchedule``-driven curve run.
+
+    ``bits_per_step`` is the depth every step trained with
+    (``bits_per_step[0]`` is ``schedule.candidates[schedule.init_index]``);
+    ``collision_frac`` the noisy lanes' mean collision fraction at the
+    logged steps, the telemetry the policy consumed.  The evaluation runs
+    at the depth of the last step."""
+
+    config: CurveConfig
+    schedule: BitsSchedule
+    p_miss: np.ndarray                  # (L,) or (L, N)
+    acc: np.ndarray                     # (L,) channel-in-the-loop eval
+    nll: np.ndarray                     # (L,)
+    loss_history: np.ndarray            # (n_logged, L)
+    collision_frac: np.ndarray          # (n_logged,)
+    bits_per_step: np.ndarray           # (steps,) chosen depth per step
+    logged_steps: np.ndarray            # (n_logged,)
+    params: dict                        # lane-stacked trained params (CPU)
+    device: str = "cpu"
+
+
+@dataclasses.dataclass
+class FaultCurveResult:
+    """Outcome of one fault-injection curve grid (``run_fault_curves``).
+
+    The lane axis L indexes ``fault_lanes``, one ``FaultModel`` per lane,
+    all with one ``DegradePolicy``.  ``stale_age`` is the staleness (frames
+    since the last resolved frame) at the logged steps; the
+    ``*_frames``/``retry_slots`` arrays are whole-run totals."""
+
+    config: CurveConfig
+    fault_lanes: Sequence               # the FaultModel lanes, as given
+    acc: np.ndarray                     # (n_bits, L) channel-in-the-loop
+    nll: np.ndarray                     # (n_bits, L)
+    loss_history: np.ndarray            # (n_bits, n_logged, L)
+    stale_age: np.ndarray               # (n_bits, n_logged, L) int64
+    dropped_frames: np.ndarray          # (n_bits, L) int64 run totals
+    outage_frames: np.ndarray           # (n_bits, L) int64 run totals
+    retry_slots: np.ndarray             # (n_bits, L) int64 run totals
+    logged_steps: np.ndarray            # (n_logged,)
+    params: List                        # per-bits lane-stacked params (CPU)
+    device: str = "cpu"
+
+
 # ---------------------------------------------------------------------------
 # key and data streams (the JAX package's formulas)
 # ---------------------------------------------------------------------------
 
 def _stream_keys(ccfg: CurveConfig, bits: int, device=None):
     """Root keys of the batch stream and of the lanes' sensing streams."""
+    return _fault_stream_keys(ccfg, bits, len(ccfg.p_miss), device)
+
+
+def _fault_stream_keys(ccfg: CurveConfig, bits: int, lanes: int,
+                       device=None):
+    """:func:`_stream_keys` with the lane count given: with ``lanes ==
+    len(ccfg.p_miss)`` the streams are the same, which is what makes a
+    ``FaultModel.iid(p)`` lane train the ``run_curves`` lane of ``p``."""
     base = jr.PRNGKey(ccfg.seed + 7919 * bits, device=device)
     k_data, k_noise = jr.split(base)
-    return k_data, jr.split(k_noise, len(ccfg.p_miss))
+    return k_data, jr.split(k_noise, lanes)
 
 
 def _batch_indices(k_data, step: int, batch: int, n_train: int):
@@ -200,12 +267,51 @@ def _make_steps(ccfg: CurveConfig, bits: int):
                                                 views.shape[1]))
         return loss, metrics
 
+    opt = _optimizer(ccfg)
+    return vcfg, stack_loss, opt, make_train_step(stack_loss, opt,
+                                                  with_rng=True)
+
+
+def _optimizer(ccfg: CurveConfig):
     warmup = max(1, ccfg.steps // 10)
-    opt = optimizers.adamw(
+    return optimizers.adamw(
         schedules.linear_warmup_cosine(ccfg.lr, warmup, ccfg.steps),
         weight_decay=0.01, lane_dims=1)
-    step = make_train_step(stack_loss, opt, with_rng=True)
-    return vcfg, stack_loss, opt, step
+
+
+def _make_fault_steps(ccfg: CurveConfig, bits: int):
+    """:func:`_make_steps` with the fault-aware pool: channel state ``chan
+    = (keys (L, 2), lane-stacked FaultModel, lane-stacked FaultState)``;
+    the evolved state comes back as ``metrics["fault_state"]``."""
+    vcfg = _vertical_config(ccfg, bits)
+    noisy = ccfg.protocol(bits)
+
+    def fault_loss(values, batch, chan):
+        views, labels = batch
+        keys, fm, fs = chan
+        h = vertical.embeddings(vcfg, values, views)          # (L+1, N, B, K)
+        v, new_fs, acct = faults.aggregate_with_ideal(noisy, fm, fs, h, keys)
+        pred = vertical.head(vcfg, values, v)
+        loss, metrics = vertical.task_loss(vcfg, pred, labels)
+        metrics.update(vertical.channel_metrics(vcfg, noisy, acct,
+                                                views.shape[1]))
+        metrics.update(vertical.fault_metrics(acct))
+        metrics["fault_state"] = new_fs
+        return loss, metrics
+
+    opt = _optimizer(ccfg)
+    return vcfg, fault_loss, opt, make_train_step(fault_loss, opt,
+                                                  with_rng=True)
+
+
+def _init_stack(ccfg: CurveConfig, vcfg, opt, init_params, lanes: int, dev):
+    """Lane-stacked parameters (``lanes`` noisy lanes + the ideal lane)
+    from one initial point, and their optimizer state."""
+    params0 = (vertical.init(vcfg, ccfg.seed, dev) if init_params is None
+               else tree.map(lambda x: x.to(dev), init_params))
+    vals = tree.map(lambda x: x[None].expand(
+        (lanes + 1,) + x.shape).clone(), params0)
+    return vals, opt.init(vals)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -213,8 +319,9 @@ def resolve_device(device=None) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "run_curves runs on the GPU and no CUDA device is available; "
-            "pass device='cpu' to run the plain PyTorch path on the CPU")
+            "the curve engines run on the GPU and no CUDA device is "
+            "available; pass device='cpu' to run the plain PyTorch path on "
+            "the CPU")
     return dev
 
 
@@ -255,11 +362,7 @@ def run_curves(ccfg: Optional[CurveConfig] = None, *, device=None,
     for bi, bits in enumerate(ccfg.bits):
         vcfg, stack_loss, opt, step_fn = _make_steps(ccfg, bits)
         k_data, lane_keys = _stream_keys(ccfg, bits, dev)
-        params0 = (vertical.init(vcfg, ccfg.seed, dev) if init_params is None
-                   else tree.map(lambda x: x.to(dev), init_params))
-        vals = tree.map(lambda x: x[None].expand(
-            (lanes + 1,) + x.shape).clone(), params0)
-        opts = opt.init(vals)
+        vals, opts = _init_stack(ccfg, vcfg, opt, init_params, lanes, dev)
         buf = torch.zeros((lanes + 1, len(logged)), dtype=torch.float32,
                           device=dev)
         for s in range(ccfg.steps):
@@ -287,3 +390,170 @@ def run_curves(ccfg: Optional[CurveConfig] = None, *, device=None,
         nll_ideal=nll_ideal, loss_history=hist, ideal_loss_history=hist_ideal,
         logged_steps=np.asarray(logged), noisy_params=noisy_params,
         ideal_params=ideal_params, device=str(dev))
+
+
+# ---------------------------------------------------------------------------
+# the scheduled engine: a BitsSchedule picks each step's depth
+# ---------------------------------------------------------------------------
+
+def run_scheduled_curves(ccfg: CurveConfig, schedule: BitsSchedule, *,
+                         device=None, init_params: Optional[dict] = None
+                         ) -> ScheduledCurveResult:
+    """Train the ``p_miss`` lanes with a channel-aware ``BitsSchedule``.
+
+    Every step runs at the depth ``schedule.candidates[idx]``; after it,
+    ``schedule.update`` consumes the step's telemetry (the noisy lanes'
+    mean collision fraction, rounds and correctness) on the device and
+    emits the next index, which is read back to the host: the kernels take
+    ``bits`` as an ``int``.  The ideal lane rides along in the stack at the
+    step's depth and is dropped from the result.
+
+    The streams derive from ``_stream_keys(ccfg, candidates[init_index])``
+    and the model does not depend on the depth, so a schedule that never
+    leaves its initial depth ``b`` (``FixedBits(b)``) trains bit for bit the
+    noisy lanes of ``run_curves(bits=(b,))``.  ``device`` and
+    ``init_params`` as in :func:`run_curves`; ``ccfg.bits`` is not used."""
+    dev = resolve_device(device)
+    lanes = len(ccfg.p_miss)
+    p_lanes = ccfg.lane_p_miss()
+    p_dev = torch.from_numpy(p_lanes).to(dev)
+    views, labels, vviews, vlabels = _make_data(ccfg, dev)
+    logged = ccfg.logged_steps()
+    slot = {s: i for i, s in enumerate(logged)}
+
+    per_cand = [_make_steps(ccfg, b) for b in schedule.candidates]
+    k_data, lane_keys = _stream_keys(
+        ccfg, schedule.candidates[schedule.init_index], dev)
+    # the model is depth-independent: one train state serves every depth
+    vals, opts = _init_stack(ccfg, per_cand[0][0], per_cand[0][2],
+                             init_params, lanes, dev)
+    buf = torch.zeros((lanes + 1, len(logged)), dtype=torch.float32,
+                      device=dev)
+    coll_buf = torch.zeros((len(logged),), dtype=torch.float32, device=dev)
+    state = schedule.init_state(dev)
+    idx, idx_seq = schedule.init_index, []
+    for s in range(ccfg.steps):
+        idx_seq.append(idx)
+        b_idx = _batch_indices(k_data, s, ccfg.batch, ccfg.n_train).long()
+        batch = (views[:, b_idx], labels[b_idx])
+        chan = (_fold_lanes(lane_keys, s), p_dev)
+        vals, opts, met = per_cand[idx][3](vals, opts, batch, chan)
+        # the noisy lanes' means, as the JAX package's jnp.mean
+        telemetry = {k: mean_f32(met["chan_" + k])
+                     for k in ("collision_frac", "rounds", "correct_frac")}
+        state, nxt = schedule.update(state, telemetry)
+        if s in slot:
+            buf[:, slot[s]] = met["loss_mean"]
+            coll_buf[slot[s]] = telemetry["collision_frac"]
+        if len(schedule.candidates) > 1 and s + 1 < ccfg.steps:
+            # the one host read of a step: the next depth's index (4 bytes)
+            idx = int(nxt)
+    # evaluate at the depth the last step trained with
+    stack_loss = per_cand[idx_seq[-1]][1]
+    with torch.no_grad():
+        _, met = stack_loss(vals, (vviews, vlabels),
+                            (_fold_lanes(lane_keys, ccfg.steps), p_dev))
+    a, n, b, c = (met["acc"].cpu().numpy(), met["nll"].cpu().numpy(),
+                  buf.cpu().numpy(), coll_buf.cpu().numpy())
+    return ScheduledCurveResult(
+        config=ccfg, schedule=schedule, p_miss=p_lanes,
+        acc=a[:lanes].astype(np.float64), nll=n[:lanes].astype(np.float64),
+        loss_history=b[:lanes].T.astype(np.float64),
+        collision_frac=c.astype(np.float64),
+        bits_per_step=np.asarray(schedule.candidates, np.int64)[idx_seq],
+        logged_steps=np.asarray(logged),
+        params=tree.map(lambda x: x[:lanes].cpu(), vals), device=str(dev))
+
+
+# ---------------------------------------------------------------------------
+# the fault engine: one FaultModel per lane, chains carried across steps
+# ---------------------------------------------------------------------------
+
+def run_fault_curves(ccfg: CurveConfig, fault_lanes: Sequence, *,
+                     device=None, init_params: Optional[dict] = None
+                     ) -> FaultCurveResult:
+    """Train a grid of channel-fault lanes, one ``FaultModel`` per lane.
+
+    The lanes share one ``DegradePolicy`` (mixed policies are refused: run
+    one grid per policy).  For every ``bits`` value the lanes train as one
+    stack with the ideal lane riding along (dropped from the result); the
+    Markov chains and the per-lane stale caches carry across steps on the
+    device, the degradation telemetry accumulates there, and it is read
+    back once per ``bits`` value.  The evaluation runs under the final
+    chain state with a fresh evaluation-shaped cache.
+
+    The streams are :func:`run_curves`'s: with ``len(fault_lanes) ==
+    len(ccfg.p_miss)`` a ``FaultModel.iid(p)`` lane trains bit for bit the
+    ``run_curves`` noisy lane of the same ``p``.  ``device`` and
+    ``init_params`` as in :func:`run_curves`; ``ccfg.p_miss`` is not
+    used."""
+    lanes = len(fault_lanes)
+    if lanes == 0:
+        raise ValueError("fault_lanes needs at least one FaultModel")
+    dev = resolve_device(device)
+    # refuses lanes of mixed policies: run one grid per policy
+    fm = faults.stack_models(fault_lanes, ccfg.n_workers, dev)
+    views, labels, vviews, vlabels = _make_data(ccfg, dev)
+    logged = ccfg.logged_steps()
+    slot = {s: i for i, s in enumerate(logged)}
+
+    n_bits = len(ccfg.bits)
+    acc = np.zeros((n_bits, lanes), np.float64)
+    nll = np.zeros_like(acc)
+    hist = np.zeros((n_bits, len(logged), lanes), np.float64)
+    stale = np.zeros((n_bits, len(logged), lanes), np.int64)
+    dropped = np.zeros((n_bits, lanes), np.int64)
+    outages = np.zeros_like(dropped)
+    retries = np.zeros_like(dropped)
+    params_out = []
+
+    def lane_state(pooled_shape):
+        return faults.init_state(ccfg.n_workers, pooled_shape,
+                                 device=dev).map(
+            lambda t: t[None].expand((lanes,) + t.shape).clone())
+
+    for bi, bits in enumerate(ccfg.bits):
+        vcfg, fault_loss, opt, step_fn = _make_fault_steps(ccfg, bits)
+        k_data, lane_keys = _fault_stream_keys(ccfg, bits, lanes, dev)
+        vals, opts = _init_stack(ccfg, vcfg, opt, init_params, lanes, dev)
+        fs = lane_state((ccfg.batch, ccfg.embed_dim))
+        buf = torch.zeros((lanes + 1, len(logged)), dtype=torch.float32,
+                          device=dev)
+        stale_buf = torch.zeros((lanes, len(logged)), dtype=torch.int32,
+                                device=dev)
+        # whole-run totals: dropped frames, outages, retry slots
+        totals = torch.zeros((3, lanes), dtype=torch.int32, device=dev)
+        for s in range(ccfg.steps):
+            idx = _batch_indices(k_data, s, ccfg.batch, ccfg.n_train).long()
+            batch = (views[:, idx], labels[idx])
+            chan = (_fold_lanes(lane_keys, s), fm, fs)
+            vals, opts, met = step_fn(vals, opts, batch, chan)
+            fs = met["fault_state"]
+            totals += torch.stack([met["fault_dropped_frames"],
+                                   met["fault_outage"],
+                                   met["fault_retry_slots"]])
+            if s in slot:
+                buf[:, slot[s]] = met["loss_mean"]
+                stale_buf[:, slot[s]] = met["fault_stale_age"]
+        # the final chain state, a fresh evaluation-shaped cache
+        ev = lane_state((ccfg.n_val, ccfg.embed_dim))
+        eval_fs = faults.FaultState(bad=fs.bad, offline=fs.offline,
+                                    stale=ev.stale, age=ev.age,
+                                    consec=ev.consec)
+        with torch.no_grad():
+            _, met = fault_loss(vals, (vviews, vlabels),
+                                (_fold_lanes(lane_keys, ccfg.steps), fm,
+                                 eval_fs))
+        # the one host read of this bits value
+        a, n, b, st, tot = (t.cpu().numpy() for t in (
+            met["acc"], met["nll"], buf, stale_buf, totals))
+        acc[bi], nll[bi] = a[:lanes], n[:lanes]
+        hist[bi], stale[bi] = b[:lanes].T, st.T
+        dropped[bi], outages[bi], retries[bi] = tot
+        params_out.append(tree.map(lambda x: x[:lanes].cpu(), vals))
+
+    return FaultCurveResult(
+        config=ccfg, fault_lanes=tuple(fault_lanes), acc=acc, nll=nll,
+        loss_history=hist, stale_age=stale, dropped_frames=dropped,
+        outage_frames=outages, retry_slots=retries,
+        logged_steps=np.asarray(logged), params=params_out, device=str(dev))

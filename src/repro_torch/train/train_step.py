@@ -51,7 +51,10 @@ def make_train_step(loss_fn: Callable, optimizer, microbatches: int = 1,
                                         allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
                  for x, g in zip(leaves, grads)]
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        # a carried state (the fault path's FaultState) passes through
+        metrics = {k: v.detach() if isinstance(v, torch.Tensor)
+                   else v.map(torch.Tensor.detach)
+                   for k, v in metrics.items()}
         return loss.detach(), metrics, tree.unflatten(values, grads)
 
     def compute_grads(values, batch, rng):

@@ -376,3 +376,163 @@ def test_reduced_serving_card_matches_cpu(cuda_device):
     got = ServeEngine(m, values, config, device=cuda_device).run(reqs)
     for rid in want:
         assert got[rid].tokens == want[rid].tokens
+
+
+# ---------------------------------------------------------------------------
+# the fault paths' operands: a dark lane, per-lane per-worker p_keep
+# ---------------------------------------------------------------------------
+
+def dark_lane_operands(dev, lanes, n, k, dtype, bits, seed=0):
+    """Float features, a per-lane ``online (L, N)`` mask whose lane 0 is
+    all dark (lane 1 keeps one worker), lane keys and a per-lane,
+    per-worker ``p_keep (L, N, 1)``: the fault engine's operands."""
+    gen = torch.Generator().manual_seed(seed + n + bits)
+    h = (torch.randn((lanes, n, k), generator=gen) * 3).to(dtype)
+    h[:, :, :16] = h[:, :1, :16]
+    online = torch.rand((lanes, n), generator=gen) < 0.6
+    online[0] = False
+    if lanes > 1:
+        online[1] = False
+        online[1, n - 1] = True
+    p = torch.rand((lanes, n), generator=gen) * 0.6
+    p_keep = ocs.sensing_keep_prob(p, dtype, lanes=True)
+    keys = jr.split(jr.PRNGKey(seed + bits), lanes)
+    return [t.to(dev) for t in (h, online, keys, p_keep)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,n,k,dtype,bits", [
+    (4, 4, 4096, torch.float32, 8), (4, 4, 4096, torch.float32, 16),
+    (4, 4, 32768, torch.float32, 8), (1, 16, 8192, torch.bfloat16, 8),
+    (3, 16, 8192, torch.bfloat16, 8)])
+def test_noisy_dark_lane_matches_plain(cuda_device, lanes, n, k, dtype,
+                                       bits):
+    """``ocs_contention.noisy`` under a per-lane mask with a dark lane and
+    a per-lane, per-worker ``p_keep``, at the fault curves' and the faulty
+    serve tick's shapes: winners, per-round counts and accounting bit for
+    bit against the plain version."""
+    h, online, keys, p_keep = dark_lane_operands(cuda_device, lanes, n, k,
+                                                 dtype, bits)
+    id_bits = ocs.host_id_bits(n)
+    kw = dict(n_slots=bits + id_bits, max_rounds=3)
+    got = CO.noisy_contention(h, online, bits, id_bits, keys, p_keep, **kw)
+    want = CR.noisy_contention(h.cpu(), online.cpu(), bits, id_bits,
+                               keys.cpu(), p_keep.cpu(), **kw)
+    for a, b in zip(want, got):
+        _same(a, b)
+    # a dark lane has no contender: winner 0 and nothing collides
+    assert not bool(got.winner[0].any())
+    assert int(got.collisions[0]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["zero_fill", "stale", "retry"])
+def test_fault_pool_outage_lane_card_matches_cpu(cuda_device, policy):
+    """The fault curves' pool (4 fault lanes, lane 0 in total outage, +
+    the ideal lane) on the card against the CPU: pooled value, new state,
+    accounting and the gradients of h and of the stale cache, bit for bit;
+    nothing NaN, and no gradient reaches h on the outage lane."""
+    from repro_torch import faults
+    from repro_torch.protocol import Protocol
+
+    lanes, n, b, k = 4, 4, 64, 64
+    gen = torch.Generator().manual_seed(3)
+    h = torch.randn((lanes + 1, n, b, k), generator=gen) * 2
+    h[:, :, 0, :8] = -float("inf")          # columns that decode to -inf
+    stale = torch.randn((lanes, b, k), generator=gen)
+    g1 = torch.randn((lanes + 1, b, k), generator=gen)
+    g2 = torch.randn((lanes, b, k), generator=gen)
+    pol = {"zero_fill": faults.DegradePolicy.zero_fill(),
+           "stale": faults.DegradePolicy.stale(),
+           "retry": faults.DegradePolicy.retry(2)}[policy]
+    models = [faults.FaultModel.iid(0.0, policy=pol).with_dropout(1.0, 0.0)]
+    models += [faults.FaultModel.burst(burst_len=2.0 + i, gap_len=3.0,
+                                       p_miss_bad=0.5, p_miss_good=0.05,
+                                       policy=pol).with_dropout(0.3, 0.4)
+               for i in range(lanes - 1)]
+    outs = []
+    for dev in ("cpu", cuda_device):
+        fm = faults.stack_models(models, n, dev)
+        st = faults.init_state(n, (b, k), device=dev).map(
+            lambda t: t[None].expand((lanes,) + t.shape).clone())
+        st = faults.FaultState(bad=st.bad, offline=st.offline,
+                               stale=stale.to(dev).requires_grad_(True),
+                               age=st.age, consec=st.consec)
+        x = h.to(dev).requires_grad_(True)
+        pooled, ns, acct = faults.aggregate_with_ideal(
+            Protocol.ocs(8), fm, st, x, jr.split(jr.PRNGKey(5), lanes).to(
+                dev))
+        gh, gs = torch.autograd.grad([pooled, ns.stale], [x, st.stale],
+                                     [g1.to(dev), g2.to(dev)])
+        outs.append([pooled.detach(), ns.stale.detach(), ns.bad, ns.offline,
+                     ns.age, ns.consec, gh, gs] + [
+            getattr(acct, f) for f in ("rounds", "collisions",
+                                       "contention_slots", "correct_frac",
+                                       "dropped_frames", "outage",
+                                       "retry_slots")])
+    for a, b_ in zip(*outs):
+        _same(a, b_)
+    pooled, gh = outs[1][0], outs[1][6]
+    assert int(outs[1][-2][0]) == 1                  # lane 0 is an outage
+    assert not bool(torch.isnan(pooled[:lanes]).any())
+    assert not bool(torch.isnan(gh).any())
+    assert not bool(gh[0].any())
+
+
+@pytest.mark.cuda
+def test_scheduled_and_fault_lanes_train_run_curves_lanes_on_card(
+        cuda_device):
+    """On the card, as on the CPU: FixedBits(8) and a grid of iid fault
+    lanes train the noisy lanes of run_curves(bits=(8,)) bit for bit."""
+    from repro_torch.faults import FaultModel
+    from repro_torch.protocol import FixedBits
+    from repro_torch.sim import train_curves as tc
+
+    cfg = tc.CurveConfig(bits=(8,), p_miss=(0.0, 0.3), steps=8, batch=16,
+                         n_train=128, n_val=64, hw=8, encoder_dims=(8,),
+                         embed_dim=8, head_dims=(8,), log_every=4)
+    plain = tc.run_curves(cfg, device=cuda_device)
+    sched = tc.run_scheduled_curves(cfg, FixedBits(8), device=cuda_device)
+    fault = tc.run_fault_curves(cfg, [FaultModel.iid(p) for p in cfg.p_miss],
+                                device=cuda_device)
+    assert np.array_equal(sched.loss_history, plain.loss_history[0])
+    assert np.array_equal(sched.acc, plain.acc[0])
+    assert np.array_equal(fault.loss_history, plain.loss_history)
+    assert np.array_equal(fault.acc, plain.acc)
+    for params in (sched.params, fault.params[0]):
+        for a, b in zip(tree.leaves(params),
+                        tree.leaves(plain.noisy_params[0])):
+            _same(a, b)
+
+
+@pytest.mark.cuda
+def test_faulty_serving_on_card(cuda_device):
+    """The reduced qwen config served on the card under bursts and
+    outages: every request finishes, outage ticks degrade tokens (stale)
+    or hold the batch (retry), and the billing adds up."""
+    from repro_torch.faults import DegradePolicy, FaultModel
+    from repro_torch.protocol import Protocol
+
+    cfg = get_reduced("qwen1.5-0.5b")
+    m = TM.build(cfg)
+    values = m.init(torch.Generator().manual_seed(0))
+    reqs = [Request(rid=i, prompt=np.random.default_rng(i).integers(
+        0, cfg.vocab_size, 32).astype(np.int32), max_new_tokens=8,
+        arrival_tick=i) for i in range(4)]
+    proto = Protocol.ocs(bits=8, p_miss=np.full((cfg.n_workers,), 0.05,
+                                                np.float32))
+    seen = {}
+    for pol in (DegradePolicy.stale(), DegradePolicy.retry(2)):
+        fm = FaultModel.burst(burst_len=4, gap_len=16, p_miss_bad=0.5,
+                              p_miss_good=0.01, policy=pol).with_dropout(
+                                  0.9, 0.1)
+        eng = ServeEngine(m, values, ServeConfig(
+            batch_slots=2, max_seq=64, eos_id=-1, protocol=proto, fault=fm),
+            device=cuda_device)
+        outs = eng.run(reqs)
+        assert sorted(outs) == list(range(4))
+        for c in outs.values():
+            assert len(c.tokens) == 8 and c.channel_slots > 0
+        seen[pol.kind] = (sum(c.degraded_tokens for c in outs.values()),
+                          sum(c.retry_ticks for c in outs.values()))
+    assert seen["stale"][0] > 0 and seen["retry"][1] > 0, seen

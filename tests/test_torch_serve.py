@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro import faults as jf
 from repro.configs import get_config as j_get_config
 from repro.configs import get_reduced as j_get_reduced
 from repro.models import model as JM
@@ -27,6 +28,8 @@ from repro.serve import engine as jse
 from repro.serve import load as jload
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.convert import params_from_jax
+from repro_torch import faults as tfaults
+from repro_torch.faults import FaultModel
 from repro_torch.models import model as TM
 from repro_torch.protocol import Protocol as TP
 from repro_torch.serve import engine as se
@@ -113,6 +116,71 @@ def test_engine_matches_jax_engine(models, channel):
         assert _fields(got[rid]) == _fields(want[rid]), rid
     if pj is not None:
         assert all(c.channel_slots > 0 for c in got.values())
+
+
+def _fault(m, policy, p_drop=0.5):
+    """Bursty sensing and worker dropouts strong enough that the fixture's
+    two workers go dark together on some ticks."""
+    pol = getattr(m.DegradePolicy, policy[0])(*policy[1:])
+    return m.FaultModel.burst(burst_len=4, gap_len=16, p_miss_bad=0.5,
+                              p_miss_good=0.01, policy=pol).with_dropout(
+                                  p_drop, 0.3)
+
+
+def _fault_fields(c):
+    return _fields(c) + (c.degraded_tokens, c.retry_ticks)
+
+
+@pytest.mark.parametrize("policy", [("stale",), ("zero_fill",), ("retry", 2)],
+                         ids=lambda p: p[0])
+def test_faulty_engine_matches_jax_engine(models, policy):
+    """Under bursts and outages both engines serve the same tokens and
+    bill the same ticks, slots, degraded tokens and retry ticks.  The JAX
+    engine undoes a retry tick's cache writes; the port leaves them, and
+    the next tick rewrites those rows before any attention reads them:
+    equal tokens under ``retry`` show that no copy is needed."""
+    jm, jv, tm, tv = models
+    kw = dict(batch_slots=2, max_seq=24, eos_id=-1, seed=5)
+    reqs = _mixed_requests()
+    want = jse.ServeEngine(jm, jv, jse.ServeConfig(
+        protocol=_ocs(0.05, JP), fault=_fault(jf, policy), **kw)).run(
+        [jse.Request(**dataclasses.asdict(r)) for r in reqs])
+    got = ServeEngine(tm, tv, ServeConfig(
+        protocol=_ocs(0.05), fault=_fault(
+            tfaults, policy), **kw),
+        device="cpu").run(reqs)
+    assert sorted(got) == sorted(want)
+    for rid in want:
+        assert _fault_fields(got[rid]) == _fault_fields(want[rid]), rid
+    if policy[0] == "retry":
+        assert sum(c.retry_ticks for c in got.values()) > 0
+    else:
+        assert sum(c.degraded_tokens for c in got.values()) > 0
+    if policy[0] == "zero_fill":
+        assert any(0 in c.tokens[1:] for c in got.values())
+
+
+def test_fault_run_override_and_validation(models):
+    """``run(fault=...)`` overrides the config's model (None serves the
+    plain channel) and refuses to run without a channel protocol."""
+    eng = _engine(models, batch_slots=2, max_seq=24, eos_id=-1,
+                  protocol=_ocs(0.05),
+                  fault=_fault(__import__("repro_torch.faults",
+                                          fromlist=["x"]), ("stale",)))
+    reqs = _mixed_requests()
+    faulty = eng.run(reqs)
+    plain = eng.run(reqs, fault=None)
+    again = eng.run(reqs)
+    assert sum(c.degraded_tokens for c in faulty.values()) > 0
+    assert all(c.degraded_tokens == 0 for c in plain.values())
+    for rid in faulty:
+        assert _fault_fields(faulty[rid]) == _fault_fields(again[rid])
+    with pytest.raises(ValueError, match="channel protocol"):
+        eng.run(reqs, protocol=None)
+    # an iid model without dropout serves the plain channel's tokens
+    iid = eng.run(reqs, fault=FaultModel.iid(0.05))
+    for rid in plain:
+        assert _fields(iid[rid]) == _fields(plain[rid])
 
 
 def test_full_layer_width_matches_jax():
@@ -321,8 +389,12 @@ def test_serve_config_validation():
     with pytest.raises(dataclasses.FrozenInstanceError):
         cfg = ServeConfig()
         cfg.batch_slots = 8
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeConfig(protocol=_ocs(0.1), fault=object())
+    # a fault model needs a channel to fault; with one it serves
+    # (test_faulty_engine_matches_jax_engine)
+    with pytest.raises(ValueError, match="channel protocol"):
+        ServeConfig(fault=FaultModel.iid(0.1))
+    assert ServeConfig(protocol=_ocs(0.1),
+                       fault=FaultModel.iid(0.1)).fault is not None
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServeConfig(greedy=False)
 
