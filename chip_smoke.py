@@ -25,7 +25,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
    padded id sub-slots, 64 workers and 1 and 64 rounds, and under the
    fault paths' operands (a per-lane worker mask with a dark lane and a
    per-lane, per-worker ``p_keep``) at both paths' shapes; the fault
-   pool's forward and backward with an outage lane against the CPU;
+   pool's forward and backward with an outage lane against the CPU; the
+   sweep's kernels timed at its largest groups (``ocs_quant.encode`` over
+   the clean bits-16 group, 272 lanes x 64 workers x 64; the contention
+   and the pooling epilogue over the noisy bits-16, 64-worker sub-group,
+   80 lanes, per-worker ``p_keep``);
    flash attention
    within the JAX parity test's tolerances at the prefill shapes and the
    JAX test's float32 GQA cases, timed at S 256, 1024 and 4096;
@@ -78,7 +82,22 @@ Phases, in order; any failed check raises and the script exits non-zero:
     faulty decode ticks;
 15. run a small scheduled grid, a small fault grid and the reduced
     serving config under faults on the card and on the CPU and compare;
-16. print one ``{"kernels": [...]}`` line and, last, the device line.
+16. run ``run_sweep`` over ``benchmarks/bench_sweep.py``'s full grid (the
+    14 registry scenarios and N 4/16/64 x bits 8/16 x p_miss 0/.01/.05/.1
+    x channels 1/4, K = 64, 8 rounds) and ``benchmarks/bench_comm.py``'s
+    two sweeps with launch counts (``ocs_contention.noisy`` and
+    ``maxpool.decode`` once per (bits, id_bits) sub-group, the standalone
+    ``ocs_quant.encode`` once per clean bits group, ``winner_bwd`` and
+    flash never), every field of both engines and both latencies bitwise
+    against the same sweeps on the CPU (plain versions), and the rows;
+17. run ``run_curves_dp`` at the fedocs-cifar width with 2 DP ranks and
+    ``CompressedAllReduce.topk(1/8)`` (``benchmarks/bench_curves.py``'s
+    DP settings) with launch counts (the fused contention and
+    ``maxpool.decode`` once per step and evaluation over the whole (lane,
+    rank) stack, ``winner_bwd`` once per step), the measured DP payload
+    equal to the analytic bill at every logged step and over the run,
+    a reduced grid on the card against the CPU, and a 10-step profile;
+18. print one ``{"kernels": [...]}`` line and, last, the device line.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -117,11 +136,14 @@ from repro_torch.kernels.ocs_contention import ref as ct_ref  # noqa: E402
 from repro_torch.kernels.ocs_quant import ops as q_ops  # noqa: E402
 from repro_torch.kernels.ocs_quant import ref as q_ref  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.optim.compressed_allreduce import (  # noqa: E402
+    CompressedAllReduce)
 from repro_torch.protocol import (CollisionAdaptiveBits,  # noqa: E402
                                   FixedBits, Protocol)
 from repro_torch.serve import engine as se  # noqa: E402
 from repro_torch.serve.load import poisson_requests  # noqa: E402
 from repro_torch.sim import results  # noqa: E402
+from repro_torch.sim import scenarios, sweep  # noqa: E402
 from repro_torch.sim import train_curves as tc  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate
@@ -141,6 +163,10 @@ QWEN = "qwen1.5-0.5b"
 QWEN_LAYERS, QWEN_D, QWEN_HEADS, QWEN_WORKERS = 24, 1024, 16, 16
 SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_PROMPT, SERVE_NEW = 8, 512, 256, 32
 SERVE_REQUESTS, SERVE_RATE, SERVE_P_MISS = 16, 0.5, 0.05
+# the sweep: benchmarks/bench_sweep.py's full grid, K 64, 8 rounds
+SWEEP_K, SWEEP_ROUNDS = 64, 8
+# the DP curves: benchmarks/bench_curves.py's _DP_SHARDS and _DP_K_FRAC
+DP_SHARDS, DP_K_FRAC = 2, 1 / 8
 SOURCES = {"ocs_quant.encode": "ocs_quant.cu",
            "ocs_quant.decode": "ocs_quant.cu", "maxpool.fwd": "maxpool.cu",
            "maxpool.decode": "maxpool.cu", "maxpool.winner_bwd": "maxpool.cu",
@@ -305,16 +331,18 @@ def _needed_hashes(word, heard, mask, total, n_slots, max_rounds) -> int:
 
 def _kernel_cases(dev, lanes: int, cols: int, bits: int, seed: int,
                   n: int = N, dtype=torch.float32,
-                  p_miss=(0.0, 0.02, 0.05, 0.1), bounds: bool = False):
+                  p_miss=(0.0, 0.02, 0.05, 0.1), bounds: bool = False,
+                  per_worker: bool = False):
     """(name, launch, plain, nbytes, ops, library call or None, shape) of
     each kernel at ``lanes`` x ``n`` workers x ``cols`` pooled elements of
     ``dtype``: the features flattened the way the pooling laws hand them
     over.  A name with a ``[form]`` suffix is another form of that
     kernel, not on the main paths.  ``ops`` of the fused contention is the
     hashes these inputs need x ``OPS_PER_HASH`` (counted only with
-    ``bounds``)."""
+    ``bounds``).  ``per_worker`` gives each worker its own ``p_keep``."""
     h, mask, keys, p_keep, id_bits, kw = _contention_operands(
-        dev, lanes, n, cols, bits, seed, dtype, p_miss)
+        dev, lanes, n, cols, bits, seed, dtype, p_miss,
+        per_worker=per_worker)
     total = bits + id_bits
     gen = torch.Generator(device="cpu").manual_seed(seed + 1)
     # the winner bwd's operands: the curves' lane stack, the noisy lanes
@@ -513,11 +541,51 @@ def check_kernels(dev) -> dict:
             rows[(name, "serve")] = row(name, launch, plain, nbytes, ops, lib,
                                         dict(bits=8, shape=shape,
                                              dtype="bfloat16"))
+    rows.update(check_sweep_kernels(dev, row))
     check_decode_outputs(dev)
     check_noisy_cases(dev)
     check_fault_cases(dev)
     rows[("flash_attention.fwd", "serve")] = check_flash(dev)
     return rows
+
+
+def sweep_grid():
+    """``benchmarks/bench_sweep.py``'s full grid: the 14 registry
+    scenarios and N (4, 16, 64) x bits (8, 16) x p_miss (0, .01, .05, .1)
+    x channels (1, 4)."""
+    return [scenarios.get(n) for n in scenarios.names()] + \
+        scenarios.scenario_grid(n_workers=(4, 16, 64), bits=(8, 16),
+                                p_miss=(0.0, 0.01, 0.05, 0.1),
+                                n_channels=(1, 4))
+
+
+def check_sweep_kernels(dev, row) -> dict:
+    """Phase 3, the sweep's kernels at its largest groups, bitwise and
+    timed: ``ocs_quant.encode`` over the clean bits-16 group (its
+    scenarios x 8 rounds lanes of the grid's 64 padded workers x K 64),
+    ``ocs_contention.noisy`` and ``maxpool.decode`` over the noisy bits-16
+    sub-group of 64 workers (id_bits 6; per-worker ``p_keep``)."""
+    cells = sweep_grid()
+    n_max = max(s.n_workers for s in cells)
+    clean_lanes = SWEEP_ROUNDS * sum(s.bits == 16 for s in cells)
+    noisy_lanes = SWEEP_ROUNDS * sum(s.bits == 16 and s.n_workers == n_max
+                                     for s in cells)
+    out = {}
+    gen = torch.Generator(device="cpu").manual_seed(17)
+    h = torch.randn((clean_lanes, n_max, SWEEP_K), generator=gen).to(dev)
+    shape = list(h.shape)
+    out[("ocs_quant.encode", "sweep")] = row(
+        "ocs_quant.encode", lambda: q_ops.encode(h, 16),
+        lambda: q_ref.encode(h, 16), h.numel() * (4 + 2), 4 * h.numel(),
+        None, dict(bits=16, shape=shape))
+    p_miss = tuple(np.linspace(0.0, 0.1, noisy_lanes))
+    for name, launch, plain, nbytes, ops, lib, shape in _kernel_cases(
+            dev, noisy_lanes, SWEEP_K, 16, seed=18, n=n_max, p_miss=p_miss,
+            bounds=True, per_worker=True):
+        if name in ("ocs_contention.noisy", "maxpool.decode"):
+            out[(name, "sweep")] = row(name, launch, plain, nbytes, ops, lib,
+                                       dict(bits=16, shape=shape))
+    return out
 
 
 def check_noisy_cases(dev) -> None:
@@ -1502,6 +1570,211 @@ def check_new_paths_against_cpu(dev) -> None:
               f"(CPU {bill})", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the scenario sweep and the compressed-comms DP curves
+# ---------------------------------------------------------------------------
+
+def _same_sweep(a, b, what) -> None:
+    """Every field of both engines and both latencies of two sweeps,
+    bitwise (float values in their raw bits)."""
+    for eng in ("clean", "noisy"):
+        ra, rb = getattr(a, eng), getattr(b, eng)
+        assert (ra is None) == (rb is None), (what, eng)
+        if ra is None:
+            continue
+        pairs = [(f.name, getattr(ra, f.name), getattr(rb, f.name))
+                 for f in dataclasses.fields(ra)]
+        pairs.append(("latency_slots", getattr(a, eng + "_latency_slots"),
+                      getattr(b, eng + "_latency_slots")))
+        for name, x, y in pairs:
+            assert x.dtype == y.dtype and x.shape == y.shape, (what, name)
+            if x.dtype == np.float32:
+                x, y = x.view(np.int32), y.view(np.int32)
+            assert np.array_equal(x, y), f"{what}: {eng}.{name} card != CPU"
+
+
+def _bench_comm_sweeps(dev):
+    """``benchmarks/bench_comm.py``'s two sweeps on ``dev``: the clean
+    O(K)-vs-O(N*K) rows (N 4/16/64, one (N, 64) draw each from
+    ``default_rng(0)``) and the noisy degradation rows (N 16, bits 16,
+    p_miss 0/.01/.02/.05/.1, 4 rounds, seed 1)."""
+    workers = (4, 16, 64)
+    rng = np.random.default_rng(0)
+    h_by = [rng.standard_normal((n, 64)).astype(np.float32)[None]
+            for n in workers]
+    t0 = time.perf_counter()
+    clean = sweep.run_sweep(
+        [scenarios.Scenario(f"bench/N{n}", n_workers=n) for n in workers],
+        k_elems=64, rounds=1, h_by_scenario=h_by, include_noisy=False,
+        device=dev)
+    us = (time.perf_counter() - t0) * 1e6 / len(workers)
+    grid = scenarios.scenario_grid(n_workers=(16,), bits=(16,),
+                                   p_miss=(0.0, 0.01, 0.02, 0.05, 0.1),
+                                   name_prefix="bench")
+    noisy = sweep.run_sweep(grid, k_elems=64, rounds=4, seed=1,
+                            include_clean=False, device=dev)
+    rows = []
+    for i, n in enumerate(workers):
+        c = clean.clean_cell(i)
+        rows.append(f"comm/ocs_sim/N{n},{us:.0f},payload_tx="
+                    f"{int(c.payload_tx)};blocking_tx={int(c.blocking_tx)};"
+                    f"slots={int(c.contention_slots)};"
+                    f"concat_tx={int(c.concat_payload_tx)}")
+    for i, sc in enumerate(grid):
+        rows.append(f"comm/ocs_noisy/N{sc.n_workers}_p{sc.p_miss:g},0,"
+                    f"frac_correct={noisy.noisy.correct[i].mean():.3f};"
+                    f"collisions={noisy.noisy.collisions[i].mean():.1f}")
+    return clean, noisy, rows
+
+
+def _assert_sweep_counts(counts, cells, clean: bool, noisy: bool, what):
+    """A sweep's launches: the fused contention and the pooling epilogue
+    once per (bits, id_bits) sub-group of the noisy engine, the standalone
+    encode once per bits group of the clean engine; nothing else."""
+    groups = {(s.bits, ocs.host_id_bits(s.n_workers)) for s in cells}
+    n_bits = len({s.bits for s in cells})
+    want = {k: 0 for k in kernels.KERNELS}
+    want["ocs_quant.encode"] = n_bits if clean else 0
+    want["ocs_contention.noisy"] = len(groups) if noisy else 0
+    want["maxpool.decode"] = len(groups) if noisy else 0
+    assert counts == want, (what, counts, want)
+
+
+def run_sweep_phase(dev) -> dict:
+    """Phase 16: ``run_sweep`` over ``bench_sweep.py``'s full grid and
+    ``bench_comm.py``'s two sweeps on the card, counted, and held bitwise
+    against the same sweeps on the CPU."""
+    cells = sweep_grid()
+    res, counts, wall = _counted(lambda: sweep.run_sweep(
+        cells, k_elems=SWEEP_K, rounds=SWEEP_ROUNDS, device=dev))
+    _assert_sweep_counts(counts, cells, True, True, "grid")
+    t0 = time.perf_counter()
+    cpu = sweep.run_sweep(cells, k_elems=SWEEP_K, rounds=SWEEP_ROUNDS,
+                          device="cpu")
+    cpu_wall = time.perf_counter() - t0
+    _same_sweep(res, cpu, "grid")
+    rows = results.to_rows(results.summarize(res))
+    assert rows == results.to_rows(results.summarize(cpu))
+    assert 0 < res.noisy.correct.mean() < 1, "the grid saw no noise"
+    print(f"run_sweep {len(cells)} cells x {SWEEP_ROUNDS} rounds, K "
+          f"{SWEEP_K}, N up to {res.n_max}: {wall:.3f} s wall on the card "
+          f"({cpu_wall:.3f} s on the CPU, plain versions); launches "
+          f"{counts}; every field of both engines and both latencies "
+          "bitwise the CPU's", flush=True)
+    for line in rows:
+        print(line)
+    (bclean, bnoisy, brows), bcounts, bwall = _counted(
+        lambda: _bench_comm_sweeps(dev))
+    want = {k: 0 for k in kernels.KERNELS}
+    want.update({"ocs_quant.encode": 1, "ocs_contention.noisy": 1,
+                 "maxpool.decode": 1})
+    assert bcounts == want, bcounts
+    cclean, cnoisy, crows = _bench_comm_sweeps("cpu")
+    _same_sweep(bclean, cclean, "bench_comm clean")
+    _same_sweep(bnoisy, cnoisy, "bench_comm noisy")
+    assert [r.split(",", 2)[::2] for r in brows] == \
+        [r.split(",", 2)[::2] for r in crows]
+    print(f"bench_comm sweeps: {bwall:.3f} s wall on the card; launches "
+          f"{bcounts}; bitwise the CPU's", flush=True)
+    for line in brows:
+        print(line)
+    return dict(counts=counts, wall=wall, cpu_wall=cpu_wall,
+                bench_wall=bwall)
+
+
+def _dp_config(**overrides):
+    return cifar_config(dp_shards=DP_SHARDS, **overrides)
+
+
+def run_dp_phase(dev) -> dict:
+    """Phase 17: ``run_curves_dp`` at the fedocs-cifar width, 2 ranks,
+    top-k 1/8, counted: the measured payload equal to the analytic bill
+    at every logged step and over the run; then a reduced grid on the
+    card against the CPU: the accounting bitwise, losses within phase 6's
+    1e-3 and accuracies within 2 samples (float order can move an
+    embedding across a D-bit bucket edge)."""
+    ccfg = _dp_config()
+    car = CompressedAllReduce.topk(DP_K_FRAC)
+    res, counts, wall = _counted(
+        lambda: tc.run_curves_dp(ccfg, car, device=dev))
+    sites = (ccfg.steps + 1) * len(ccfg.bits)
+    want = {k: 0 for k in kernels.KERNELS}
+    want.update({"ocs_contention.noisy": sites, "maxpool.decode": sites,
+                 "maxpool.winner_bwd": ccfg.steps * len(ccfg.bits)})
+    assert counts == want, (counts, want)
+    one_rank = tree.map(lambda x: x[0], res.params[0])
+    assert res.dp_payload_bits_step == car.payload_bits(one_rank) * DP_SHARDS
+    assert res.dp_dense_bits_step == car.dense_bits(one_rank) * DP_SHARDS
+    assert np.all(res.dp_payload_bits == res.dp_payload_bits_step), \
+        "measured DP payload != the exact-k bill"
+    assert np.all(res.dp_payload_bits_total
+                  == res.dp_payload_bits_step * ccfg.steps)
+    for arr in (res.loss_history, res.nll):
+        assert np.all(np.isfinite(arr)), "non-finite loss"
+    assert np.all(np.isfinite(res.acc)) and np.all(
+        (0 <= res.acc) & (res.acc <= 1))
+    print(f"run_curves_dp fedocs-cifar width: {ccfg.steps} steps x "
+          f"{len(ccfg.bits)} bits x {len(ccfg.p_miss)} lanes x {DP_SHARDS} "
+          f"ranks, top-k {DP_K_FRAC:g}: {wall:.3f} s wall; launches "
+          f"{counts}; measured DP payload {res.dp_payload_bits_step} bits a "
+          f"step (dense {res.dp_dense_bits_step}) at every logged step, "
+          f"{res.dp_payload_bits_total.tolist()} over the run; acc "
+          f"{res.acc.tolist()}", flush=True)
+    for line in results.dp_curve_rows(results.summarize_dp_curves(res)):
+        print(line)
+
+    small = tc.CurveConfig(bits=(8, 16), p_miss=(0.0, 0.3), steps=8,
+                           batch=16, n_train=128, n_val=64, hw=8,
+                           encoder_dims=(8,), embed_dim=8, head_dims=(8,),
+                           log_every=4, dp_shards=2)
+    gpu = tc.run_curves_dp(small, car, device=dev)
+    cpu = tc.run_curves_dp(small, car, device="cpu")
+    for f in ("dp_payload_bits", "dp_payload_bits_total",
+              "dp_payload_bits_step", "dp_dense_bits_step"):
+        assert np.array_equal(getattr(gpu, f), getattr(cpu, f)), f
+    loss_err = float(np.max(np.abs(gpu.loss_history - cpu.loss_history)))
+    acc_err = float(np.max(np.abs(gpu.acc - cpu.acc))) * small.n_val
+    print(f"small DP grid card vs CPU: accounting equal; max loss diff "
+          f"{loss_err:.3g}, max accuracy diff {acc_err:.0f} of "
+          f"{small.n_val} samples", flush=True)
+    assert loss_err < 1e-3 and acc_err <= 2, (loss_err, acc_err)
+    return dict(counts=counts, wall=wall)
+
+
+def profile_dp(dev) -> dict:
+    """Phase 17, profile: 10 steps + eval of ``run_curves_dp`` at the
+    fedocs-cifar width, bits 8, 2 ranks, beside ``run_curves`` at the same
+    width, timed unprofiled in turns (plain, dp, dp, plain), then
+    profiled: wall, device busy, kernels per step and idle share."""
+    car = CompressedAllReduce.topk(DP_K_FRAC)
+    runs = {"run_curves": lambda: tc.run_curves(
+                cifar_config(steps=10, bits=(8,)), device=dev),
+            "run_curves_dp": lambda: tc.run_curves_dp(
+                _dp_config(steps=10, bits=(8,)), car, device=dev)}
+    for fn in runs.values():
+        fn()
+    walls = {k: [] for k in runs}
+    for name in ("run_curves", "run_curves_dp", "run_curves_dp",
+                 "run_curves"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[name]()
+        torch.cuda.synchronize()
+        walls[name].append(time.perf_counter() - t0)
+    out = {}
+    for name, fn in runs.items():
+        busy, launches = _busy(fn)
+        wall = float(np.mean(walls[name]))
+        out[name] = dict(walls=walls[name], device_s=busy,
+                         per_step=launches / 11, idle=1 - busy / wall)
+        print(f"profile {name}, 10 steps + eval at bits=8: wall "
+              f"{walls[name]} s unprofiled, device busy {busy:.4f} s, idle "
+              f"share {1 - busy / wall:.3f}; {launches} device kernels and "
+              f"copies ({launches / 11:.0f} per step or evaluation)",
+              flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1543,6 +1816,9 @@ def main() -> int:
     faulty = run_faulty_serving(dev, serve)
     faulty_profile = profile_faulty_serving(dev, serve)
     check_new_paths_against_cpu(dev)
+    swept = run_sweep_phase(dev)
+    dp = run_dp_phase(dev)
+    dp_profile = profile_dp(dev)
 
     line = []
     keep = ("shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
@@ -1558,6 +1834,9 @@ def main() -> int:
             srv = rows.get((name, "serve"))
             if srv is not None:
                 rec["serve"] = {k: srv[k] for k in keep + ("dtype",)}
+            swp = rows.get((name, "sweep"))
+            if swp is not None:
+                rec["sweep"] = {k: swp[k] for k in keep + ("bits",)}
             forms = {case[len(name) + 1:-1]: {
                 "curves": {k: r[k] for k in keep},
                 "serve": {k: rows[(case, "serve")][k] for k in keep}}
@@ -1571,7 +1850,9 @@ def main() -> int:
                    "fault_curves": sum(fault[k]["counts"][name]
                                        for k in ("stale", "zero_fill")),
                    "faulty_serve": sum(faulty[k]["counts"][name]
-                                       for k in ("retry", "stale"))}
+                                       for k in ("retry", "stale")),
+                   "sweep": swept["counts"][name],
+                   "dp_curves": dp["counts"][name]}
         line.append(dict(rec, launches=sum(by_path.values()),
                          launches_by_path=by_path))
     print(f"run_curves wall seconds: {wall}", flush=True)
@@ -1584,6 +1865,10 @@ def main() -> int:
         f"{k} {v['wall']}" for k, v in fault.items())
         + f"; 10-step profile {fault_profile}", flush=True)
     print(f"faulty decode tick profile {faulty_profile}", flush=True)
+    print(f"sweep wall seconds: {swept['wall']} full grid on the card "
+          f"({swept['cpu_wall']} on the CPU), {swept['bench_wall']} "
+          f"bench_comm sweeps; dp curves wall seconds: {dp['wall']}; "
+          f"10-step profile {dp_profile}; {smi}", flush=True)
     print("faulty serve: " + "; ".join(
         f"{k} {v['wall']} s, {v['ticks']} ticks, {v['outage']} outage, "
         f"{v['held']} held, {v['degraded']} degraded tokens, "

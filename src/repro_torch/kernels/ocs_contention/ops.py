@@ -21,12 +21,14 @@ from repro_torch.kernels.ocs_contention import ref
 from repro_torch.kernels.ocs_quant.ref import width
 
 MAX_ROUNDS = 64      # csrc/ocs_contention.cu: kMaxRounds
+MAX_WORKERS = 64     # two workers per lane of a warp
 _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def _check_kernel_operands(n: int, max_rounds: int) -> None:
-    if not 1 <= n <= 64:
-        raise ValueError(f"the contention kernel takes 1..64 workers, got {n}")
+    if not 1 <= n <= MAX_WORKERS:
+        raise ValueError(f"the contention kernel takes 1..{MAX_WORKERS} "
+                         f"workers, got {n}")
     if not 1 <= max_rounds <= MAX_ROUNDS:
         raise ValueError(f"the contention kernel takes 1..{MAX_ROUNDS} "
                          f"rounds, got {max_rounds}")

@@ -11,21 +11,13 @@ per-worker ``p_miss`` of one OCS :class:`~repro_torch.protocol.Protocol`.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional
 
 import numpy as np
 
 from repro_torch.protocol import Protocol
 from repro_torch.serve.engine import Request
-
-
-def near_far_p_miss(n_workers: int, p_near: float = 0.0,
-                    p_far: float = 0.1) -> Tuple[float, ...]:
-    """Two-tier per-worker miss profile: the first half of the workers are
-    cell-center users at ``p_near``, the second half cell-edge users at
-    ``p_far`` (a copy of ``repro.sim.scenarios.near_far_p_miss``)."""
-    far = n_workers // 2
-    return (p_near,) * (n_workers - far) + (p_far,) * far
+from repro_torch.sim.scenarios import near_far_p_miss  # noqa: F401
 
 
 def poisson_requests(n_requests: int, rate_per_tick: float,

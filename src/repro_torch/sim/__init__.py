@@ -1,1 +1,2 @@
-"""Channel-in-the-loop training curves and their result tables."""
+"""Channel-in-the-loop training curves, the scenario sweep, and their
+result tables."""

@@ -32,6 +32,12 @@ device.  Both keep the ideal lane riding along in the stack (at the
 step's depth) and drop it from the result, so that ``FixedBits(b)`` and a
 grid of ``FaultModel.iid(p)`` lanes train the noisy lanes of
 ``run_curves(bits=(b,))`` bit for bit.
+
+:func:`run_curves_dp` adds data-parallel ranks: the (lane, rank) pairs run
+as one noisy stack, each rank's gradients are top-k sparsified with error
+feedback and summed over the ranks by
+``repro_torch.optim.compressed_allreduce.CompressedAllReduce``, and the DP
+payload bits are measured from the kept counts every step.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from repro_torch.core.vertical import VerticalConfig
 from repro_torch.data.vertical_data import (PatchTaskConfig,
                                             patch_classification)
 from repro_torch.optim import optimizers, schedules
+from repro_torch.optim.compressed_allreduce import CompressedAllReduce
 from repro_torch.protocol import BitsSchedule, Protocol
 from repro_torch.protocol.protocol import mean_f32
 from repro_torch.train.train_step import make_train_step
@@ -83,8 +90,17 @@ class CurveConfig:
     seed: int = 0
     log_every: int = 10
     backend: str = "scan"                # noisy-contention engine name
+    dp_shards: int = 1                   # data-parallel batch shards
+    #   (run_curves_dp: each rank trains batch/dp_shards samples and the
+    #   compressed gradients are summed over the ranks every step)
 
     def __post_init__(self):
+        if self.dp_shards < 1:
+            raise ValueError(f"dp_shards must be >= 1, got {self.dp_shards}")
+        if self.batch % self.dp_shards:
+            raise ValueError(
+                f"batch={self.batch} must divide evenly into "
+                f"dp_shards={self.dp_shards} ranks")
         for b in self.bits:
             if b not in (8, 16):
                 raise ValueError(
@@ -190,6 +206,32 @@ class FaultCurveResult:
     dropped_frames: np.ndarray          # (n_bits, L) int64 run totals
     outage_frames: np.ndarray           # (n_bits, L) int64 run totals
     retry_slots: np.ndarray             # (n_bits, L) int64 run totals
+    logged_steps: np.ndarray            # (n_logged,)
+    params: List                        # per-bits lane-stacked params (CPU)
+    device: str = "cpu"
+
+
+@dataclasses.dataclass
+class DPCurveResult:
+    """Outcome of one (p_miss lanes x DP ranks) compressed-comms run
+    (``run_curves_dp``).
+
+    ``dp_payload_bits`` is measured every step from the kept-element
+    counts of every rank's exact-k masks (``CompressedAllReduce.reduce``'s
+    ``DPAccounting``, totalled over ranks); ``dp_payload_bits_step`` /
+    ``dp_dense_bits_step`` are the analytic per-step totals over ranks
+    that the measurement must equal."""
+
+    config: CurveConfig
+    compress: CompressedAllReduce
+    p_miss: np.ndarray                  # (L,) or (L, N) per-worker lanes
+    acc: np.ndarray                     # (n_bits, L) channel-in-the-loop
+    nll: np.ndarray                     # (n_bits, L)
+    loss_history: np.ndarray            # (n_bits, n_logged, L) rank mean
+    dp_payload_bits: np.ndarray         # (n_bits, n_logged, L) measured
+    dp_payload_bits_total: np.ndarray   # (n_bits, L) int64, whole run
+    dp_payload_bits_step: int           # analytic bits a step, all ranks
+    dp_dense_bits_step: int             # uncompressed bits a step, all ranks
     logged_steps: np.ndarray            # (n_logged,)
     params: List                        # per-bits lane-stacked params (CPU)
     device: str = "cpu"
@@ -304,13 +346,14 @@ def _make_fault_steps(ccfg: CurveConfig, bits: int):
                                                   with_rng=True)
 
 
-def _init_stack(ccfg: CurveConfig, vcfg, opt, init_params, lanes: int, dev):
-    """Lane-stacked parameters (``lanes`` noisy lanes + the ideal lane)
-    from one initial point, and their optimizer state."""
+def _init_stack(ccfg: CurveConfig, vcfg, opt, init_params, stack: int, dev):
+    """``stack`` lane-stacked copies of one initial point (the noisy lanes
+    and, where the engine has one, the ideal lane) and their optimizer
+    state."""
     params0 = (vertical.init(vcfg, ccfg.seed, dev) if init_params is None
                else tree.map(lambda x: x.to(dev), init_params))
     vals = tree.map(lambda x: x[None].expand(
-        (lanes + 1,) + x.shape).clone(), params0)
+        (stack,) + x.shape).clone(), params0)
     return vals, opt.init(vals)
 
 
@@ -319,9 +362,9 @@ def resolve_device(device=None) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "the curve engines run on the GPU and no CUDA device is "
-            "available; pass device='cpu' to run the plain PyTorch path on "
-            "the CPU")
+            "the curve and sweep engines run on the GPU and no CUDA device "
+            "is available; pass device='cpu' to run the plain PyTorch path "
+            "on the CPU")
     return dev
 
 
@@ -362,7 +405,8 @@ def run_curves(ccfg: Optional[CurveConfig] = None, *, device=None,
     for bi, bits in enumerate(ccfg.bits):
         vcfg, stack_loss, opt, step_fn = _make_steps(ccfg, bits)
         k_data, lane_keys = _stream_keys(ccfg, bits, dev)
-        vals, opts = _init_stack(ccfg, vcfg, opt, init_params, lanes, dev)
+        vals, opts = _init_stack(ccfg, vcfg, opt, init_params, lanes + 1,
+                                 dev)
         buf = torch.zeros((lanes + 1, len(logged)), dtype=torch.float32,
                           device=dev)
         for s in range(ccfg.steps):
@@ -426,7 +470,7 @@ def run_scheduled_curves(ccfg: CurveConfig, schedule: BitsSchedule, *,
         ccfg, schedule.candidates[schedule.init_index], dev)
     # the model is depth-independent: one train state serves every depth
     vals, opts = _init_stack(ccfg, per_cand[0][0], per_cand[0][2],
-                             init_params, lanes, dev)
+                             init_params, lanes + 1, dev)
     buf = torch.zeros((lanes + 1, len(logged)), dtype=torch.float32,
                       device=dev)
     coll_buf = torch.zeros((len(logged),), dtype=torch.float32, device=dev)
@@ -515,7 +559,8 @@ def run_fault_curves(ccfg: CurveConfig, fault_lanes: Sequence, *,
     for bi, bits in enumerate(ccfg.bits):
         vcfg, fault_loss, opt, step_fn = _make_fault_steps(ccfg, bits)
         k_data, lane_keys = _fault_stream_keys(ccfg, bits, lanes, dev)
-        vals, opts = _init_stack(ccfg, vcfg, opt, init_params, lanes, dev)
+        vals, opts = _init_stack(ccfg, vcfg, opt, init_params, lanes + 1,
+                                 dev)
         fs = lane_state((ccfg.batch, ccfg.embed_dim))
         buf = torch.zeros((lanes + 1, len(logged)), dtype=torch.float32,
                           device=dev)
@@ -557,3 +602,142 @@ def run_fault_curves(ccfg: CurveConfig, fault_lanes: Sequence, *,
         loss_history=hist, stale_age=stale, dropped_frames=dropped,
         outage_frames=outages, retry_slots=retries,
         logged_steps=np.asarray(logged), params=params_out, device=str(dev))
+
+
+# ---------------------------------------------------------------------------
+# the compressed-comms engine: p_miss lanes x data-parallel ranks
+# ---------------------------------------------------------------------------
+
+def _make_dp_loss(ccfg: CurveConfig, bits: int):
+    """The (lane, rank) stack's loss: ``values`` leaves ``(S, ...)``,
+    ``views (S, N, b, d)``, ``labels (S, b)``, keys ``(S, 2)``, ``p``
+    ``(S,)`` or ``(S, N)`` -> one loss per stack row, all pooled through
+    the noisy channel in one call."""
+    vcfg = _vertical_config(ccfg, bits)
+    noisy = ccfg.protocol(bits)
+
+    def dp_loss(values, views, labels, keys, p):
+        h = vertical.embeddings(vcfg, values, views)          # (S, N, b, K)
+        v, _ = noisy.with_p_miss(p).aggregate(h, keys, lanes=True)
+        return vertical.task_loss(vcfg, vertical.head(vcfg, values, v),
+                                  labels)
+
+    return vcfg, noisy, dp_loss
+
+
+def run_curves_dp(ccfg: CurveConfig, compress: CompressedAllReduce, *,
+                  device=None, init_params: Optional[dict] = None,
+                  n_devices: Optional[int] = None) -> DPCurveResult:
+    """Train the (p_miss lanes x ``ccfg.dp_shards`` DP ranks) grid with
+    compressed data-parallel gradients.
+
+    Each step, rank ``d`` of lane ``l`` trains on its slice
+    ``idx[d*B/D : (d+1)*B/D]`` of the shared batch stream with sensing key
+    ``fold_in(fold_in(lane_keys[l], step), d)``; the L*D (lane, rank) pairs
+    run as one noisy lane stack (one contention, one pooling epilogue and
+    one winner-routed backward a step).  Every rank sparsifies its
+    gradients (top-k with its own error-feedback memory),
+    ``compress.reduce`` sums them over the ranks, and AdamW applies the
+    sum divided by D: the parameters stay the same on every rank, so they
+    are held once per lane, and only the error memory differs.  The logged
+    loss is the rank mean; the measured payload bits stay on the device
+    and are read back once per ``bits`` value.  Evaluation runs the lanes'
+    parameters with keys ``fold_in(lane_keys, steps)``.
+
+    The streams are :func:`run_curves`'s.  ``device`` and ``init_params``
+    as in :func:`run_curves`; ``n_devices`` takes ``None`` or ``1``.
+    Feed the result to ``repro_torch.sim.results.summarize_dp_curves``.
+    """
+    if n_devices not in (None, 1):
+        raise NotImplementedError(
+            "DP ranks across devices are not ported yet (ROADMAP queue 1, "
+            "item 19: launchers and parallelism); the ranks run as a tensor "
+            "axis on one device: pass n_devices=None or 1")
+    dev = resolve_device(device)
+    lanes, ranks = len(ccfg.p_miss), ccfg.dp_shards
+    shard_b = ccfg.batch // ranks
+    stack = lanes * ranks                       # row l * ranks + d
+    p_lanes = ccfg.lane_p_miss()
+    p_dev = torch.from_numpy(p_lanes).to(dev)
+    p_stack = p_dev.repeat_interleave(ranks, dim=0)
+    views, labels, vviews, vlabels = _make_data(ccfg, dev)
+    rank_ids = torch.arange(ranks, device=dev)
+    logged = ccfg.logged_steps()
+    slot = {s: i for i, s in enumerate(logged)}
+
+    n_bits = len(ccfg.bits)
+    acc = np.zeros((n_bits, lanes), np.float64)
+    nll = np.zeros_like(acc)
+    hist = np.zeros((n_bits, len(logged), lanes), np.float64)
+    pay = np.zeros((n_bits, len(logged), lanes), np.int64)
+    pay_total = np.zeros((n_bits, lanes), np.int64)
+    params_out = []
+    pay_step = dense_step = 0
+
+    def per_rank(x):
+        """A lane-stacked leaf repeated for each rank: (L * D, ...)."""
+        return x[:, None].expand((lanes, ranks) + x.shape[1:]).reshape(
+            (stack,) + x.shape[1:])
+
+    for bi, bits in enumerate(ccfg.bits):
+        vcfg, noisy, dp_loss = _make_dp_loss(ccfg, bits)
+        opt = _optimizer(ccfg)
+        k_data, lane_keys = _stream_keys(ccfg, bits, dev)
+        vals, opts = _init_stack(ccfg, vcfg, opt, init_params, lanes, dev)
+        one = tree.map(lambda x: x[0], vals)
+        # the analytic per-step bill every measured step must equal
+        pay_step = compress.payload_bits(one) * ranks
+        dense_step = compress.dense_bits(one) * ranks
+        # per-(lane, rank) error-feedback memory
+        errs = tree.map(lambda x: torch.zeros(
+            (lanes, ranks) + x.shape[1:], dtype=torch.float32, device=dev),
+            vals)
+        buf = torch.zeros((lanes, len(logged)), dtype=torch.float32,
+                          device=dev)
+        pay_buf = torch.zeros((lanes, len(logged)), dtype=torch.int64,
+                              device=dev)
+        pay_run = torch.zeros((lanes,), dtype=torch.int64, device=dev)
+        for s in range(ccfg.steps):
+            idx = _batch_indices(k_data, s, ccfg.batch, ccfg.n_train).long()
+            idx = idx.reshape(ranks, shard_b)            # rank d's slice
+            bviews = views[:, idx].transpose(0, 1)       # (D, N, b, d)
+            bviews = bviews[None].expand((lanes,) + bviews.shape).reshape(
+                (stack,) + bviews.shape[1:])
+            blabels = labels[idx][None].expand(lanes, ranks, shard_b
+                                               ).reshape(stack, shard_b)
+            keys = jr.fold_in(_fold_lanes(lane_keys, s)[:, None],
+                              rank_ids).reshape(stack, 2)
+            leaves = [per_rank(x).detach().requires_grad_(True)
+                      for x in tree.leaves(vals)]
+            with torch.enable_grad():
+                loss, _ = dp_loss(tree.unflatten(vals, leaves), bviews,
+                                  blabels, keys, p_stack)
+                grads = torch.autograd.grad(loss.sum(), leaves)
+            grads = tree.unflatten(vals, [
+                g.reshape((lanes, ranks) + g.shape[1:]) for g in grads])
+            reduced, errs, acct = compress.reduce(grads, errs, rank_dim=1)
+            reduced = tree.map(lambda g: g / ranks, reduced)
+            vals, opts, _ = opt.update(reduced, opts, vals)
+            pay_run += acct.payload_bits
+            if s in slot:
+                buf[:, slot[s]] = mean_f32(loss.detach().reshape(lanes,
+                                                                 ranks))
+                pay_buf[:, slot[s]] = acct.payload_bits
+        with torch.no_grad():
+            _, met = vertical.loss_fn(
+                vcfg, vals, vviews, vlabels,
+                rng=_fold_lanes(lane_keys, ccfg.steps),
+                protocol=noisy.with_p_miss(p_dev), lanes=True)
+        # the one host read of this bits value
+        a, n, b, pb, pt = (t.cpu().numpy() for t in (
+            met["acc"], met["nll"], buf, pay_buf, pay_run))
+        acc[bi], nll[bi], hist[bi] = a, n, b.T
+        pay[bi], pay_total[bi] = pb.T, pt
+        params_out.append(tree.map(lambda x: x.cpu(), vals))
+
+    return DPCurveResult(
+        config=ccfg, compress=compress, p_miss=p_lanes, acc=acc, nll=nll,
+        loss_history=hist, dp_payload_bits=pay,
+        dp_payload_bits_total=pay_total, dp_payload_bits_step=int(pay_step),
+        dp_dense_bits_step=int(dense_step), logged_steps=np.asarray(logged),
+        params=params_out, device=str(dev))

@@ -536,3 +536,141 @@ def test_faulty_serving_on_card(cuda_device):
         seen[pol.kind] = (sum(c.degraded_tokens for c in outs.values()),
                           sum(c.retry_ticks for c in outs.values()))
     assert seen["stale"][0] > 0 and seen["retry"][1] > 0, seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,bits", [(33, 16), (48, 8), (64, 16), (64, 8)])
+def test_noisy_wide_padded_lanes_match_plain(cuda_device, n, bits):
+    """``ocs_contention.noisy`` at the sweep's operands, 33-64 workers
+    (two per lane of a warp): a per-lane mask whose real worker counts
+    differ from lane to lane, padded rows past them, one lane all real,
+    per-worker ``p_keep`` and the scan of the widest lane's id bits, bit
+    for bit against the plain version."""
+    lanes, k = 6, 777
+    gen = torch.Generator().manual_seed(n + bits)
+    h = torch.randn((lanes, n, k), generator=gen) * 3
+    h[:, :, :16] = h[:, :1, :16]
+    reals = torch.tensor([1, 2, 5, 17, n - 1, n])
+    mask = torch.arange(n)[None] < reals[:, None]
+    h[~mask] = 1e9                        # padded rows would win anything
+    p = torch.rand((lanes, n), generator=gen) * 0.3
+    p_keep = ocs.sensing_keep_prob(p, torch.float32, lanes=True)
+    keys = jr.split(jr.PRNGKey(n), lanes)
+    id_bits = ocs.host_id_bits(17)        # one sub-group's id bits
+    kw = dict(n_slots=bits + ocs.host_id_bits(n), max_rounds=3)
+    got = CO.noisy_contention(*(t.to(cuda_device) for t in (h, mask)), bits,
+                              id_bits, keys.to(cuda_device),
+                              p_keep.to(cuda_device), **kw)
+    want = CR.noisy_contention(h, mask, bits, id_bits, keys, p_keep, **kw)
+    for a, b in zip(want, got):
+        _same(a, b)
+    assert bool((got.winner.cpu() < reals[:, None]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_frac", [1 / 64, 1 / 8, 1.0])
+def test_batched_topk_card_matches_cpu(cuda_device, k_frac):
+    """The DP curves' top-k over a (lane, rank) stack on the card: the
+    masks (ties to the lowest flat index), the sparse values, the error
+    memory and the kept counts equal the CPU's, bit for bit; and the
+    compressed reduce over the rank axis as well."""
+    from repro_torch.optim import compressed_allreduce as CA
+    from repro_torch.optim import grad_compression as GC
+
+    gen = torch.Generator().manual_seed(int(1 / k_frac))
+    g = torch.randint(-3, 4, (3, 2, 4099), generator=gen).float()
+    g[0, 0] = 0.0                                   # one tensor all tied
+    err = torch.randn((3, 2, 4099), generator=gen) * 0.01
+    err[:, :, ::2] = 0.0
+    want = GC.compress_counted(g, err, k_frac, batch_dims=2)
+    got = GC.compress_counted(g.to(cuda_device), err.to(cuda_device),
+                              k_frac, batch_dims=2)
+    for a, b in zip(want, got):
+        _same(a, b)
+    _same(GC.topk_mask(g, k_frac, 2),
+          GC.topk_mask(g.to(cuda_device), k_frac, 2))
+    car = CA.CompressedAllReduce.topk(k_frac)
+    tree_ = {"w": g.reshape(3, 2, 4099), "b": g[..., :7]}
+    errs = {"w": err, "b": err[..., :7]}
+    outs = [car.reduce(tree.map(lambda t: t.to(dev), tree_),
+                       tree.map(lambda t: t.to(dev), errs), rank_dim=1)
+            for dev in ("cpu", cuda_device)]
+    for a, b in zip(tree.leaves(outs[0][:2]), tree.leaves(outs[1][:2])):
+        _same(a, b)
+    for f in ("payload_bits", "kept_elems", "dense_bits"):
+        _same(getattr(outs[0][2], f), getattr(outs[1][2], f))
+
+
+@pytest.mark.cuda
+def test_sweep_subgroups_on_card_match_plain_per_lane(cuda_device):
+    """The sweep's noisy engine on the card launches once per (bits,
+    id_bits) sub-group; lanes are independent, so every (scenario, round)
+    lane equals one plain call of the noisy core on that lane alone (its
+    id bits, the bits group's scan bound, the grid's padded N), and the
+    whole sweep, clean engine included, equals the CPU's."""
+    from repro_torch import kernels
+    from repro_torch.sim import scenarios as SC
+    from repro_torch.sim import sweep as SW
+
+    cells = [SC.Scenario("t/a", n_workers=3, bits=8, p_miss=0.2),
+             SC.Scenario("t/b", n_workers=40, bits=8,
+                         p_miss=SC.near_far_p_miss(40, 0.0, 0.3)),
+             SC.Scenario("t/c", n_workers=9, bits=8, p_miss=0.05,
+                         n_channels=4),
+             SC.Scenario("t/d", n_workers=64, bits=16, p_miss=0.1)]
+    kw = dict(k_elems=48, rounds=2, seed=4, rng_seed=6)
+    kernels.reset_launch_counts()
+    got = SW.run_sweep(cells, device=cuda_device, **kw)
+    counts = kernels.launch_counts()
+    # id_bits 2, 6 and 4 at bits 8, 6 at bits 16; one encode per bits
+    assert counts["ocs_contention.noisy"] == 4, counts
+    assert counts["maxpool.decode"] == 4, counts
+    assert counts["ocs_quant.encode"] == 2, counts
+    want = SW.run_sweep(cells, device="cpu", **kw)
+    for eng in ("clean", "noisy"):
+        for f in getattr(want, eng).__dataclass_fields__:
+            a, b = getattr(getattr(want, eng), f), getattr(getattr(got, eng),
+                                                          f)
+            assert a.dtype == b.dtype and np.array_equal(a, b), (eng, f)
+        assert np.array_equal(getattr(want, eng + "_latency_slots"),
+                              getattr(got, eng + "_latency_slots"))
+    keys = jr.split(jr.PRNGKey(kw["rng_seed"]), len(cells) * 2).reshape(
+        len(cells), 2, 2)
+    for i, s in enumerate(cells):
+        max_id = max(ocs.host_id_bits(c.n_workers) for c in cells
+                     if c.bits == s.bits)
+        p = torch.zeros((1, got.n_max))
+        p[0, :s.n_workers] = torch.tensor(s.p_miss_per_worker())
+        for r in range(2):
+            one = ocs.ocs_maxpool_noisy_core(
+                torch.from_numpy(got.h[i, r])[None],
+                torch.from_numpy(got.mask[i])[None],
+                ocs.host_id_bits(s.n_workers), keys[i, r][None], p,
+                bits=s.bits, max_id_bits=max_id)
+            cell = got.noisy_cell(i, r)
+            for f in one.__dataclass_fields__:
+                assert np.array_equal(getattr(one, f)[0].numpy(),
+                                      getattr(cell, f)), (s.name, r, f)
+
+
+@pytest.mark.cuda
+def test_dp_curves_card_accounting_matches_cpu(cuda_device):
+    """``run_curves_dp`` on the card: the measured payload equals the
+    analytic bill and the CPU's, every step; losses within phase 6's
+    1e-3 of the CPU's (float order can move an embedding across a D-bit
+    bucket edge)."""
+    from repro_torch.optim.compressed_allreduce import CompressedAllReduce
+    from repro_torch.sim import train_curves as tc
+
+    cfg = tc.CurveConfig(bits=(8, 16), p_miss=(0.0, (0.0, 0.1, 0.1, 0.3)),
+                         steps=6, batch=16, n_train=128, n_val=64, hw=8,
+                         encoder_dims=(8,), embed_dim=8, head_dims=(8,),
+                         log_every=3, dp_shards=4)
+    car = CompressedAllReduce.topk(1 / 8)
+    got = tc.run_curves_dp(cfg, car, device=cuda_device)
+    want = tc.run_curves_dp(cfg, car, device="cpu")
+    assert np.all(got.dp_payload_bits == got.dp_payload_bits_step)
+    for f in ("dp_payload_bits", "dp_payload_bits_total",
+              "dp_payload_bits_step", "dp_dense_bits_step"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+    assert np.max(np.abs(got.loss_history - want.loss_history)) < 1e-3
