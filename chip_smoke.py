@@ -97,7 +97,28 @@ Phases, in order; any failed check raises and the script exits non-zero:
     rank) stack, ``winner_bwd`` once per step), the measured DP payload
     equal to the analytic bill at every logged step and over the run,
     a reduced grid on the card against the CPU, and a 10-step profile;
-18. print one ``{"kernels": [...]}`` line and, last, the device line.
+18. run ``launch/train`` at the full qwen1.5-0.5b width (bf16, random
+    weights from seed 0, ``--fusion max``, flash), batch 8 x 256 tokens,
+    ``adamw(for_arch(...))``, 6 steps with a checkpoint every 3, counted
+    (flash 24 and ``maxpool.fwd`` 48 a step, nothing else), every loss
+    finite; a second uninterrupted run bitwise the first; the job
+    preempted after its step-3 checkpoint and relaunched, bitwise the
+    uninterrupted run; ``launch/serve --ckpt-dir --sample`` serving phase
+    8's traffic from the final checkpoint, its values bitwise the
+    trainer's, counted; then profile 5 train steps (wall, device busy,
+    idle share, kernels a step, time by kernel class; the flash
+    backward's plain recompute, the xent and the AdamW update alone);
+    phase 3 also times ``maxpool.fwd`` at the train step's site shape
+    beside ``torch.max(dim=0)``;
+19. run ``trainer.train`` over ``vertical.loss_fn`` at the fedocs-cifar
+    width through ``Protocol.ocs(bits=8, p_miss=0.05)`` under bursts and
+    dropouts with a ``FaultState`` carry, per-step channel keys and top-k
+    0.5 compression, counted (``noisy``, ``maxpool.decode`` and
+    ``winner_bwd`` once a step); relaunched after its step-4 checkpoint,
+    bitwise the uninterrupted run; a small configuration card vs CPU;
+20. sample (``ServeConfig(greedy=False)``) on the reduced qwen config on
+    the card and on the CPU: the same tokens;
+21. print one ``{"kernels": [...]}`` line and, last, the device line.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -108,9 +129,12 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import pathlib
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -126,7 +150,8 @@ from repro_torch import faults, kernels, tree  # noqa: E402
 from repro_torch import random as jr  # noqa: E402
 from repro_torch.configs import fedocs_cifar  # noqa: E402
 from repro_torch.configs import get_config, get_reduced  # noqa: E402
-from repro_torch.core import ocs  # noqa: E402
+from repro_torch.core import ocs, vertical  # noqa: E402
+from repro_torch.data import vertical_data  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.maxpool import ops as mp_ops  # noqa: E402
@@ -135,7 +160,10 @@ from repro_torch.kernels.ocs_contention import ops as ct_ops  # noqa: E402
 from repro_torch.kernels.ocs_contention import ref as ct_ref  # noqa: E402
 from repro_torch.kernels.ocs_quant import ops as q_ops  # noqa: E402
 from repro_torch.kernels.ocs_quant import ref as q_ref  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.optim import optimizers, schedules  # noqa: E402
 from repro_torch.optim.compressed_allreduce import (  # noqa: E402
     CompressedAllReduce)
 from repro_torch.protocol import (CollisionAdaptiveBits,  # noqa: E402
@@ -145,6 +173,8 @@ from repro_torch.serve.load import poisson_requests  # noqa: E402
 from repro_torch.sim import results  # noqa: E402
 from repro_torch.sim import scenarios, sweep  # noqa: E402
 from repro_torch.sim import train_curves as tc  # noqa: E402
+from repro_torch.train import trainer  # noqa: E402
+from repro_torch.train.train_step import make_train_step  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate
 NONTENSOR_OPS_PER_S = 67e12    # H100 SXM float32 rate outside tensor cores
@@ -163,6 +193,12 @@ QWEN = "qwen1.5-0.5b"
 QWEN_LAYERS, QWEN_D, QWEN_HEADS, QWEN_WORKERS = 24, 1024, 16, 16
 SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_PROMPT, SERVE_NEW = 8, 512, 256, 32
 SERVE_REQUESTS, SERVE_RATE, SERVE_P_MISS = 16, 0.5, 0.05
+# the LM trainer: launch/train at the full width, batch 8 x 256 tokens (the
+# serving prompt length), 6 steps, a checkpoint every 3
+QWEN_PARAMS = 463_987_712
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_EVERY = 8, 256, 6, 3
+# the channel trainer hook at the fedocs-cifar width
+HOOK_STEPS, HOOK_BATCH = 8, 64
 # the sweep: benchmarks/bench_sweep.py's full grid, K 64, 8 rounds
 SWEEP_K, SWEEP_ROUNDS = 64, 8
 # the DP curves: benchmarks/bench_curves.py's _DP_SHARDS and _DP_K_FRAC
@@ -542,6 +578,7 @@ def check_kernels(dev) -> dict:
                                         dict(bits=8, shape=shape,
                                              dtype="bfloat16"))
     rows.update(check_sweep_kernels(dev, row))
+    rows[("maxpool.fwd", "train")] = check_train_maxpool(dev, row)
     check_decode_outputs(dev)
     check_noisy_cases(dev)
     check_fault_cases(dev)
@@ -1775,6 +1812,431 @@ def profile_dp(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the LM trainer with checkpoints, serving from its checkpoint, and the
+# channel trainer hook
+# ---------------------------------------------------------------------------
+
+def check_train_maxpool(dev, row) -> dict:
+    """Phase 3, the LM train step's fusion site: ``maxpool.fwd`` over the
+    (16 workers, 8 x 256 tokens x 1024) bfloat16 partials of one site,
+    bitwise against its plain version, timed beside ``torch.max(dim=0)``.
+    Bytes: the partials read, the max and the int32 argmax written."""
+    gen = torch.Generator(device="cpu").manual_seed(18)
+    h = torch.randn((QWEN_WORKERS, TRAIN_BATCH, TRAIN_SEQ, QWEN_D),
+                    generator=gen).to(torch.bfloat16).to(dev)
+    cols = h[0].numel()
+    return row("maxpool.fwd", lambda: mp_ops.maxpool_fused(h, 0),
+               lambda: mp_ref.maxpool_fused(h, 0),
+               h.numel() * 2 + cols * (2 + 4), cols * (QWEN_WORKERS - 1),
+               lambda: torch.max(h, dim=0),
+               dict(shape=list(h.shape), dtype="bfloat16", path="train"))
+
+
+def _same_tree(a, b) -> bool:
+    """Bitwise equality of two trees (dataclass carries field by field)."""
+    if a is None or b is None:
+        return a is b
+    if dataclasses.is_dataclass(a):
+        return all(_same_tree(getattr(a, f.name), getattr(b, f.name))
+                   for f in dataclasses.fields(a))
+    la, lb = tree.leaves(a), tree.leaves(b)
+    return len(la) == len(lb) and all(
+        _bitwise_equal(x, y) for x, y in zip(la, lb))
+
+
+def _rows(history, first_step=0) -> list:
+    """History rows from ``first_step`` on, without the host-clock time."""
+    return [{k: v for k, v in r.items() if k != "step_time_s"}
+            for r in history if r["step"] >= first_step]
+
+
+def _assert_same_run(a, b, what, first_step=0) -> None:
+    assert _same_tree(a.values, b.values), f"{what}: values differ"
+    assert _same_tree(a.opt_state, b.opt_state), f"{what}: opt state differs"
+    assert _same_tree(a.aux_state, b.aux_state), f"{what}: aux differs"
+    assert _rows(a.history, first_step) == _rows(b.history, first_step), \
+        f"{what}: history differs"
+
+
+def _preempt(ckpt_dir: str, step: int) -> None:
+    """Leave ``ckpt_dir`` as a job preempted after its step-``step``
+    checkpoint left it: later step directories and the pointer gone."""
+    for name in os.listdir(ckpt_dir):
+        if name.startswith("step_") and int(name[5:]) > step:
+            shutil.rmtree(os.path.join(ckpt_dir, name))
+    pathlib.Path(ckpt_dir, "latest").write_text(str(step))
+
+
+def _train_run(ckpt_dir, steps=TRAIN_STEPS):
+    """``launch/train``'s run at the full qwen1.5-0.5b width (fusion
+    ``max``, flash), every step logged, a checkpoint every 3 steps."""
+    argv = ["--arch", QWEN, "--steps", str(steps), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--seed", "0"]
+    if ckpt_dir is not None:
+        argv += ["--ckpt-dir", ckpt_dir]
+    run = launch_train.setup(launch_train.parse_args(argv))
+    run.tcfg = dataclasses.replace(run.tcfg, ckpt_every=TRAIN_CKPT_EVERY,
+                                   log_every=1)
+    return run
+
+
+def _assert_train_counts(counts, steps, what) -> None:
+    """Per step: flash once per layer (the forward; the backward recomputes
+    through the plain version), ``maxpool.fwd`` at both fusion sites of
+    every layer, nothing else."""
+    want = {k: 0 for k in kernels.KERNELS}
+    want.update({"flash_attention.fwd": QWEN_LAYERS * steps,
+                 "maxpool.fwd": 2 * QWEN_LAYERS * steps})
+    assert counts == want, (what, counts, want)
+
+
+def run_train_phase(dev) -> dict:
+    """Phase 18: ``launch/train`` at the full qwen1.5-0.5b width (bf16,
+    random weights from seed 0, ``--fusion max``, flash), batch 8 x 256
+    tokens, ``adamw(for_arch(...))``, 6 steps with a checkpoint every 3,
+    counted; a second uninterrupted run bitwise the first (deterministic
+    backward passes); the job preempted after its step-3 checkpoint and
+    relaunched, bitwise the uninterrupted run from step 3 on (values,
+    optimizer state, history); then ``launch/serve --ckpt-dir`` on the
+    final checkpoint serves phase 8's traffic with ``--sample``, its
+    values bitwise the trainer's.  The checkpoints live in a directory
+    under ``build/`` that the phase removes."""
+    work = ROOT / "build" / "train_ckpt"
+    work.mkdir(parents=True, exist_ok=True)
+    ckpt = tempfile.mkdtemp(dir=work)
+    try:
+        usage = shutil.disk_usage(ckpt)
+        print(f"train: checkpoints under {work}: {usage.free / 2**30:.1f} "
+              f"GiB free of {usage.total / 2**30:.1f} GiB", flush=True)
+        run = _train_run(ckpt)
+        n_params = sum(t.numel() for t in tree.leaves(run.values))
+        assert n_params == QWEN_PARAMS, n_params
+        torch.cuda.reset_peak_memory_stats()
+        full, counts, wall = _counted(lambda: launch_train.launch(run))
+        peak = torch.cuda.max_memory_allocated()
+        _assert_train_counts(counts, TRAIN_STEPS, "uninterrupted")
+        losses = [r["loss"] for r in full.history]
+        assert len(losses) == TRAIN_STEPS and all(
+            math.isfinite(x) for x in losses), losses
+        saved = sorted(n for n in os.listdir(ckpt) if n.startswith("step_"))
+        size = sum(f.stat().st_size for f in
+                   pathlib.Path(ckpt, saved[-1]).iterdir())
+        print(f"train {QWEN} full width ({n_params} parameters, bf16, "
+              f"fusion max, flash): {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ} tokens in {wall:.3f} s wall (checkpoints "
+              f"{saved}, {size / 2**30:.2f} GiB each, included); losses "
+              f"{losses}; step host times "
+              f"{[round(r['step_time_s'], 4) for r in full.history]}; peak "
+              f"device memory {peak / 2**30:.2f} GiB; launches {counts}",
+              flush=True)
+
+        again, counts2, wall2 = _counted(
+            lambda: launch_train.launch(_train_run(None)))
+        _assert_train_counts(counts2, TRAIN_STEPS, "second run")
+        _assert_same_run(full, again, "two uninterrupted runs")
+        del again
+        print(f"train: a second uninterrupted run ({wall2:.3f} s, no "
+              f"checkpoints) bitwise the first: values, optimizer state, "
+              f"history", flush=True)
+
+        _preempt(ckpt, TRAIN_CKPT_EVERY)
+        resumed, counts3, wall3 = _counted(
+            lambda: launch_train.launch(_train_run(ckpt)))
+        rest = TRAIN_STEPS - TRAIN_CKPT_EVERY
+        _assert_train_counts(counts3, rest, "resumed")
+        assert resumed.history[0]["step"] == TRAIN_CKPT_EVERY, \
+            resumed.history[0]
+        _assert_same_run(full, resumed, "resume", TRAIN_CKPT_EVERY)
+        del resumed
+        print(f"train: relaunched after preemption at step "
+              f"{TRAIN_CKPT_EVERY}, {rest} steps in {wall3:.3f} s (restore "
+              f"and checkpoints included), bitwise the uninterrupted run",
+              flush=True)
+
+        srv = launch_serve.setup(launch_serve.parse_args([
+            "--arch", QWEN, "--ckpt-dir", ckpt, "--sample", "--seed", "0",
+            "--batch-slots", str(SERVE_SLOTS), "--max-seq",
+            str(SERVE_MAX_SEQ), "--eos-id", "-1", "--p-miss",
+            str(SERVE_P_MISS), "--bits", "8", "--requests",
+            str(SERVE_REQUESTS), "--rate", str(SERVE_RATE), "--prompt-len",
+            str(SERVE_PROMPT), "--max-new", str(SERVE_NEW)]))
+        eng = srv.engine
+        assert srv.step == TRAIN_STEPS, srv.step
+        assert _same_tree(eng.values, full.values), \
+            "restored values != the trainer's"
+        del full
+        finite = _watch_logits(eng.m, dev)
+        se.reset_dispatch_counts()
+        outs, counts4, wall4 = _counted(lambda: eng.run(srv.requests))
+        ticks = se.dispatch_counts()["tick"]
+        sites = eng.m.channel_sites()
+        want = {k: 0 for k in kernels.KERNELS}
+        want.update({"flash_attention.fwd": QWEN_LAYERS * SERVE_REQUESTS,
+                     "ocs_contention.noisy": sites * ticks,
+                     "maxpool.decode": sites * ticks})
+        assert counts4 == want, (counts4, want)
+        assert bool(finite["ok"]), "a logit is not finite"
+        assert sorted(outs) == list(range(SERVE_REQUESTS))
+        assert all(len(c.tokens) == SERVE_NEW for c in outs.values())
+        n_tok = sum(len(c.tokens) for c in outs.values())
+        print(f"serve from the step-{srv.step} checkpoint, sampling: "
+              f"{len(outs)} requests, {n_tok} tokens, {ticks} ticks in "
+              f"{wall4:.3f} s wall; restored values bitwise the trainer's; "
+              f"launches {counts4}; request 0 tokens {outs[0].tokens}",
+              flush=True)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return dict(counts=counts, wall=wall, resumed_wall=wall3, peak=peak,
+                serve_counts=counts4, serve_wall=wall4)
+
+
+def _categorize(name: str) -> str:
+    if "flash_" in name:
+        return "flash_attention.fwd"
+    if "maxpool_fwd_kernel" in name:
+        return "maxpool.fwd"
+    if any(s in name.lower() for s in ("gemm", "xmma", "nvjet", "cutlass")):
+        return "GEMM (cuBLAS)"
+    if "memcpy" in name.lower() or "memset" in name.lower():
+        return "copies and fills"
+    return "other (elementwise, reductions)"
+
+
+def profile_train(dev) -> dict:
+    """Phase 18, profile: 5 full-width train steps (the trainer's step
+    function, batches from the pipeline) timed unprofiled after a warm-up
+    step, then 5 more under torch.profiler: device busy time, idle share,
+    device kernels per step, time by kernel class (the table goes to
+    chiprun_out/profile_train.txt).  Then, alone at the step's shapes, the
+    device time (profiler) of the flash backward's recompute through the
+    plain version (24 layers x (forward + backward - forward)), of the
+    xent's forward and backward, and of the AdamW update with its
+    clipping."""
+    run = _train_run(None, steps=11)
+    step_fn = make_train_step(run.m.loss, run.opt)
+    values, opt = run.values, run.opt.init(run.values)
+    values, opt, _ = step_fn(values, opt, run.data(0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(1, 6):
+        values, opt, _ = step_fn(values, opt, run.data(s))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for s in range(6, 11):
+            values, opt, _ = step_fn(values, opt, run.data(s))
+        torch.cuda.synchronize()
+    by_class, by_name, launches = {}, {}, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            c = _categorize(e.name)
+            by_class[c] = by_class.get(c, 0.0) + e.device_time_total / 5e3
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.device_time_total / 5e3
+            launches += 1
+    step_ms = sum(by_class.values())
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "profile_train.txt").write_text(prof.key_averages().table(
+        sort_by="self_device_time_total", row_limit=60))
+
+    grads = tree.map(lambda v: torch.full_like(v, 1e-3), values)
+    adamw_ms = _device_ms(lambda: run.opt.update(grads, opt, values),
+                          iters=5)[0]
+    del grads, values, opt
+    cfg = run.cfg
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    shape = (TRAIN_BATCH, QWEN_HEADS, TRAIN_SEQ, cfg.head_dim_)
+    q, k, v = (torch.randn(shape, generator=gen).to(torch.bfloat16).to(dev)
+               .requires_grad_(True) for _ in range(3))
+    g = torch.randn(shape, generator=gen).to(torch.bfloat16).to(dev)
+    fwd_ms = _device_ms(lambda: fa_ops.flash_attention(q, k, v, True))[0]
+    both_ms = _device_ms(lambda: torch.autograd.grad(
+        fa_ops.flash_attention(q, k, v, True), (q, k, v), g))[0]
+    x = torch.randn((TRAIN_BATCH, TRAIN_SEQ, QWEN_D), generator=gen).to(
+        torch.bfloat16).to(dev).requires_grad_(True)
+    table = (torch.randn((cfg.vocab_size, QWEN_D), generator=gen) * 0.02).to(
+        torch.bfloat16).to(dev).requires_grad_(True)
+    tgt = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                        generator=gen, dtype=torch.int32).to(dev)
+    xent_ms = _device_ms(lambda: torch.autograd.grad(M._xent(
+        cfg, {"embed": {"tokens": table}}, x, tgt), (x, table)), iters=10)[0]
+    res = dict(wall_ms=1e3 * wall / 5, device_ms=step_ms,
+               idle=1 - step_ms * 5 / (1e3 * wall), kernels=launches / 5,
+               by_class=by_class, flash_bwd_ms=QWEN_LAYERS * (both_ms
+                                                              - fwd_ms),
+               xent_ms=xent_ms, adamw_ms=adamw_ms)
+    print(f"profile, 5 full-width train steps ({TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens): wall {res['wall_ms']:.3f} ms a step unprofiled, device "
+          f"busy {step_ms:.3f} ms a step, idle share {res['idle']:.3f}; "
+          f"{res['kernels']:.0f} device kernels and copies a step; by class "
+          f"(ms a step) {by_class}; alone, device ms: the flash backward's "
+          f"plain recompute {res['flash_bwd_ms']:.3f} a step ({QWEN_LAYERS} "
+          f"layers x ({both_ms:.4f} - {fwd_ms:.4f})), the xent forward + "
+          f"backward {xent_ms:.3f}, the AdamW update {adamw_ms:.3f}",
+          flush=True)
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"  {ms:10.3f} ms a step  {name[:100]}", flush=True)
+    return res
+
+
+def _hook(vcfg, batch, dev, steps, ckpt_every=0):
+    """The channel trainer hook: ``vertical.loss_fn`` through
+    ``Protocol.ocs(bits=8, p_miss=0.05)`` under a burst-and-dropout fault
+    model with a ``FaultState`` carry, per-step sensing keys from
+    ``channel_rng_seed`` and top-k 0.5 compression; batches of the
+    patch task drawn from the step.  Returns (loss, init, optimizer, data,
+    config) for ``trainer.train``."""
+    fm = faults.FaultModel.burst(
+        burst_len=3.0, gap_len=3.0, p_miss_bad=0.6, p_miss_good=SERVE_P_MISS,
+        policy=faults.DegradePolicy.stale()).with_dropout(0.3, 0.5).to(dev)
+
+    def loss(values, data, rng_aux):
+        key, fs = rng_aux
+        views, labels = data
+        out, metrics = vertical.loss_fn(vcfg, values, views, labels,
+                                        rng=key, fault=fm, fault_state=fs)
+        metrics = dict(metrics)
+        metrics["aux_state"] = metrics.pop("fault_state")
+        return out, metrics
+
+    grid = math.isqrt(vcfg.n_workers)
+    task = vertical_data.PatchTaskConfig(
+        grid=grid, hw=grid * math.isqrt(vcfg.input_dim),
+        n_classes=vcfg.output_dim)
+
+    def data(step):
+        views, labels = vertical_data.patch_classification(task, batch,
+                                                           seed=step)
+        return (torch.from_numpy(views).to(dev),
+                torch.from_numpy(labels).to(dev))
+
+    init = vertical.init(vcfg, seed=0, device=dev)
+    opt = optimizers.adamw(schedules.linear_warmup_cosine(1e-2, 2, steps))
+    tcfg = trainer.TrainerConfig(
+        steps=steps, log_every=1, ckpt_every=ckpt_every,
+        channel_rng_seed=7, compress_k=0.5,
+        aux_state=faults.init_state(vcfg.n_workers, (batch, vcfg.embed_dim),
+                                    device=dev))
+    return loss, init, opt, data, tcfg
+
+
+def _hook_config(**overrides):
+    return fedocs_cifar.cifar10_like(
+        aggregation=Protocol.ocs(bits=8, p_miss=SERVE_P_MISS), **overrides)
+
+
+def run_hook_phase(dev) -> dict:
+    """Phase 19: ``trainer.train`` over ``vertical.loss_fn`` at the
+    fedocs-cifar width (4 workers, encoders (256, 128), K 64, head (512,
+    512, 512)), batch 64, 8 steps, counted (the fused contention, the
+    pooling epilogue and the winner-routed backward once a step); the run
+    preempted after its step-4 checkpoint and relaunched, bitwise the
+    uninterrupted run (the fault carry included); a small configuration
+    on the card against the CPU: the fault carry's chains bitwise, losses
+    within phase 6's 1e-3."""
+    vcfg = _hook_config()
+    loss, init, opt, data, tcfg = _hook(vcfg, HOOK_BATCH, dev, HOOK_STEPS)
+    full, counts, wall = _counted(
+        lambda: trainer.train(loss, init, opt, data, tcfg))
+    want = {k: 0 for k in kernels.KERNELS}
+    want.update({"ocs_contention.noisy": HOOK_STEPS,
+                 "maxpool.decode": HOOK_STEPS,
+                 "maxpool.winner_bwd": HOOK_STEPS})
+    assert counts == want, (counts, want)
+    losses = [r["loss_mean"] for r in full.history]
+    assert all(math.isfinite(x) for x in losses), losses
+    work = ROOT / "build" / "train_ckpt"
+    work.mkdir(parents=True, exist_ok=True)
+    ckpt = tempfile.mkdtemp(dir=work)
+    try:
+        half = HOOK_STEPS // 2
+        tc_ckpt = dataclasses.replace(tcfg, ckpt_dir=ckpt, ckpt_every=half)
+        trainer.train(loss, init, opt, data, tc_ckpt)
+        _preempt(ckpt, half)
+        resumed = trainer.train(loss, init, opt, data, tc_ckpt)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    assert resumed.history[0]["step"] == half
+    _assert_same_run(full, resumed, "channel hook resume", half)
+    print(f"channel trainer hook, fedocs-cifar width, {HOOK_STEPS} steps x "
+          f"batch {HOOK_BATCH}: {wall:.3f} s wall; launches {counts}; "
+          f"losses {losses}; payload bits a step "
+          f"{full.history[0]['dp_payload_bits']:.0f}; the run relaunched "
+          f"after its step-{half} checkpoint bitwise the uninterrupted run "
+          f"(values, optimizer state, fault carry, history); fault carry age {int(full.aux_state.age)} consec "
+          f"{int(full.aux_state.consec)} offline "
+          f"{full.aux_state.offline.tolist()}", flush=True)
+
+    small = fedocs_cifar.reduced(
+        aggregation=Protocol.ocs(bits=8, p_miss=SERVE_P_MISS))
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        loss, init, opt, data, tcfg = _hook(small, 16, where, 6)
+        runs[where.type] = trainer.train(loss, init, opt, data, tcfg)
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    for f in ("bad", "offline", "age", "consec"):
+        assert torch.equal(getattr(gpu.aux_state, f).cpu(),
+                           getattr(cpu.aux_state, f)), f
+    loss_err = max(abs(a["loss_mean"] - b["loss_mean"])
+                   for a, b in zip(gpu.history, cpu.history))
+    print(f"channel hook, small config card vs CPU: fault chains equal, "
+          f"max loss diff {loss_err:.3g}", flush=True)
+    assert loss_err < 1e-3, loss_err
+
+    # profile: 5 steps at the full width, the per-step key derivation
+    # (int64 threefry as torch ops) counted apart
+    loss, init, opt, data, tcfg = _hook(vcfg, HOOK_BATCH, dev, 5)
+    _, _, prof_wall = _counted(
+        lambda: trainer.train(loss, init, opt, data, tcfg))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train(loss, init, opt, data, tcfg)
+        torch.cuda.synchronize()
+    dev_ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in dev_ev) / 1e6
+    int64 = [e for e in dev_ev if "<long" in e.name]
+    res = dict(wall_ms=prof_wall * 200, device_ms=busy * 200,
+               idle=1 - busy / prof_wall, kernels=len(dev_ev) / 5,
+               int64_kernels=len(int64) / 5)
+    print(f"profile, channel hook, 5 steps (init included): "
+          f"{res['wall_ms']:.3f} ms a step wall unprofiled, device busy "
+          f"{res['device_ms']:.3f} ms, idle share {res['idle']:.3f}; "
+          f"{res['kernels']:.0f} device kernels a step, "
+          f"{res['int64_kernels']:.0f} of them int64 (the key derivation "
+          f"and the fault chains' draws)", flush=True)
+    return dict(counts=counts, wall=wall, profile=res)
+
+
+def check_sampling_against_cpu(dev) -> None:
+    """Phase 20: ``ServeConfig(greedy=False)`` on the reduced qwen config,
+    the same weights on the card and the CPU, channel-free: the sampled
+    tokens equal (the Gumbel draws agree within two float32 ulps of
+    their logs and the logits within float order; a flip on a near-tie
+    would show here)."""
+    cfg = get_reduced(QWEN, use_flash=True)
+    m = M.build(cfg)
+    cpu_values = m.init(torch.Generator().manual_seed(0))
+    gpu_values = tree.map(lambda t: t.to(dev), cpu_values)
+    reqs = poisson_requests(6, SERVE_RATE, cfg.vocab_size, prompt_len=64,
+                            max_new_tokens=12, seed=2)
+    config = se.ServeConfig(batch_slots=2, max_seq=96, eos_id=-1,
+                            greedy=False, seed=3)
+    want = se.ServeEngine(m, cpu_values, config, device="cpu").run(reqs)
+    got = se.ServeEngine(m, gpu_values, config, device=dev).run(reqs)
+    total = sum(len(c.tokens) for c in want.values())
+    diff = [rid for rid in want if got[rid].tokens != want[rid].tokens]
+    for rid in diff:
+        print(f"  request {rid}: card {got[rid].tokens} CPU "
+              f"{want[rid].tokens}", flush=True)
+    print(f"sampling, reduced config card vs CPU: {total} tokens, "
+          f"{len(diff)} requests differ", flush=True)
+    assert not diff, "sampled tokens differ between the card and the CPU"
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1819,6 +2281,10 @@ def main() -> int:
     swept = run_sweep_phase(dev)
     dp = run_dp_phase(dev)
     dp_profile = profile_dp(dev)
+    train = run_train_phase(dev)
+    train_profile = profile_train(dev)
+    hook = run_hook_phase(dev)
+    check_sampling_against_cpu(dev)
 
     line = []
     keep = ("shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
@@ -1837,6 +2303,9 @@ def main() -> int:
             swp = rows.get((name, "sweep"))
             if swp is not None:
                 rec["sweep"] = {k: swp[k] for k in keep + ("bits",)}
+            trn = rows.get((name, "train"))
+            if trn is not None:
+                rec["train"] = {k: trn[k] for k in keep + ("dtype",)}
             forms = {case[len(name) + 1:-1]: {
                 "curves": {k: r[k] for k in keep},
                 "serve": {k: rows[(case, "serve")][k] for k in keep}}
@@ -1852,7 +2321,10 @@ def main() -> int:
                    "faulty_serve": sum(faulty[k]["counts"][name]
                                        for k in ("retry", "stale")),
                    "sweep": swept["counts"][name],
-                   "dp_curves": dp["counts"][name]}
+                   "dp_curves": dp["counts"][name],
+                   "train": train["counts"][name],
+                   "serve_restored": train["serve_counts"][name],
+                   "train_channel": hook["counts"][name]}
         line.append(dict(rec, launches=sum(by_path.values()),
                          launches_by_path=by_path))
     print(f"run_curves wall seconds: {wall}", flush=True)
@@ -1874,6 +2346,13 @@ def main() -> int:
         f"{v['held']} held, {v['degraded']} degraded tokens, "
         f"{v['retry_ticks']} retry ticks" for k, v in faulty.items()),
         flush=True)
+    print(f"train wall seconds: {train['wall']} ({TRAIN_STEPS} steps, "
+          f"checkpoints included), {train['resumed_wall']} relaunched; peak "
+          f"device memory {train['peak']} bytes; 5-step profile "
+          f"{train_profile}; serving from the checkpoint "
+          f"{train['serve_wall']} s; channel hook {hook['wall']} s, "
+          f"profile {hook['profile']}; {smi}",
+          flush=True)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

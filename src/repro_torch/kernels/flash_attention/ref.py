@@ -19,7 +19,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if causal:
         mask = (torch.arange(sq, device=q.device)[:, None]
                 >= torch.arange(sk, device=q.device)[None, :])
-        s = torch.where(mask, s, torch.tensor(NEG_INF, device=q.device))
+        s = s.masked_fill(~mask, NEG_INF)  # no scalar copied to the card
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqt,bktd->bkgqd", p, v.float())
     return o.reshape(b, h, sq, d).to(q.dtype)

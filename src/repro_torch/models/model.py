@@ -7,12 +7,12 @@ the JAX package's tree leaf for leaf); ``build(cfg)`` binds them into a
 
 Batch conventions (token frontend)
 ----------------------------------
+train    {"tokens": (B,S) int, "targets": (B,S) int} -> (loss, metrics)
 prefill  {"tokens": (B,S) int} -> (last_logits (B,V), cache)
 decode   (token (B,1) int, positions (B,) int, cache)
 
 The decode functions update the KV cache in place and return it.
-``loss_fn`` comes with the training slice and ``input_specs`` with the
-dry-run (ROADMAP queue 1, items 16 and 19).
+``input_specs`` comes with the dry-run (ROADMAP queue 1, item 19).
 """
 
 from __future__ import annotations
@@ -25,6 +25,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, check_ported
 from repro_torch.models import layers, transformer
+
+WHISPER_DECODER_LEN = 448   # whisper's real positional cap for train targets
 
 
 def init(cfg: ModelConfig, gen: torch.Generator) -> dict:
@@ -65,6 +67,54 @@ def forward(cfg, v, batch) -> Tuple[torch.Tensor, torch.Tensor]:
 def logits_fn(cfg, v, batch) -> torch.Tensor:
     x, _ = forward(cfg, v, batch)
     return layers.unembed_apply(cfg, _head(v), v["embed"], x)
+
+
+class _Gold(torch.autograd.Function):
+    """``logits[..., targets]`` (targets ``(..., 1)``) whose backward
+    writes each row's one cotangent with ``scatter_``: no accumulation, so
+    it is deterministic by construction, where ``gather``'s own backward
+    is a ``scatter_add_`` (atomics on CUDA)."""
+
+    @staticmethod
+    def forward(ctx, logits, targets):
+        ctx.save_for_backward(targets)
+        ctx.shape = logits.shape
+        return logits.gather(-1, targets)
+
+    @staticmethod
+    def backward(ctx, g):
+        (targets,) = ctx.saved_tensors
+        grad = torch.zeros(ctx.shape, dtype=g.dtype, device=g.device)
+        return grad.scatter_(-1, targets, g), None
+
+
+def _xent(cfg, v, x: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Cross-entropy over the unembedding, chunked over the sequence.
+
+    Chunks of ``cfg.loss_chunk`` positions (the whole sequence where that
+    does not divide it) bound the live float32 logits to (B, chunk, V);
+    each chunk adds ``sum(logsumexp - gold)`` in float32, in order, as the
+    JAX package's scan does, and the total is divided by ``B * S``."""
+    b, s, _ = x.shape
+    chunk = cfg.loss_chunk
+    if s % chunk != 0:
+        chunk = s
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, s, chunk):
+        logits = layers.unembed_apply(cfg, _head(v), v["embed"],
+                                      x[:, lo:lo + chunk])
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = _Gold.apply(logits, targets[:, lo:lo + chunk, None].long())
+        total = total + torch.sum(logz - gold[..., 0])
+    return total / (b * s)
+
+
+def loss_fn(cfg, v, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Training loss ``nll + router_aux_weight * aux`` and its metrics."""
+    x, aux = forward(cfg, v, batch)
+    nll = _xent(cfg, v, x, batch["targets"])
+    loss = nll + cfg.router_aux_weight * aux
+    return loss, {"nll": nll, "aux": aux, "loss": loss}
 
 
 def prefill(cfg, v, batch, max_seq: Optional[int] = None
@@ -126,6 +176,7 @@ def build(cfg: ModelConfig) -> types.SimpleNamespace:
     return types.SimpleNamespace(
         cfg=cfg,
         init=functools.partial(init, cfg),
+        loss=functools.partial(loss_fn, cfg),
         logits=functools.partial(logits_fn, cfg),
         forward=functools.partial(forward, cfg),
         prefill=functools.partial(prefill, cfg),

@@ -116,6 +116,16 @@ def _n_periods(values) -> int:
     return tree.leaves(values)[0].shape[0]
 
 
+def _periods(stacked) -> list:
+    """Every period of a stacked tree, as views from one ``unbind`` per
+    leaf: its backward stacks the periods' gradients once, where an index
+    per period (:func:`_period`) writes a zero gradient of the whole stack
+    for every period and autograd adds them up."""
+    per_leaf = [v.unbind(0) for v in tree.leaves(stacked)]
+    return [tree.unflatten(stacked, [views[i] for views in per_leaf])
+            for i in range(_n_periods(stacked))]
+
+
 def stack_init(cfg, gen: torch.Generator, plan, n_periods: int) -> dict:
     periods = [{f"pos{i}": block_init(cfg, gen, mixer, ffn)
                 for i, (mixer, ffn) in enumerate(plan)}
@@ -127,8 +137,7 @@ def stack_full(cfg, values: dict, x: torch.Tensor, positions: torch.Tensor,
                plan):
     """values: the stacked tree; x: (B,S,d). Returns (x, aux)."""
     aux = _zero(x)
-    for n in range(_n_periods(values)):
-        pp = _period(values, n)
+    for pp in _periods(values):
         for i, (mixer, ffn) in enumerate(plan):
             x, a = block_full(cfg, pp[f"pos{i}"], x, positions, mixer, ffn)
             aux = aux + a

@@ -43,3 +43,13 @@ def wsd(lr: float, warmup: int, stable: int, decay: int,
                                        torch.tensor(lr, dtype=torch.float32),
                                        dec))
     return f
+
+
+def for_arch(arch_id: str, lr: float, total_steps: int):
+    """The schedule an architecture trains with: WSD for minicpm-2b,
+    warmup-cosine for the rest."""
+    if arch_id == "minicpm-2b":
+        warm = max(total_steps // 100, 10)
+        decay = max(total_steps // 10, 10)
+        return wsd(lr, warm, total_steps - warm - decay, decay)
+    return linear_warmup_cosine(lr, max(total_steps // 100, 10), total_steps)

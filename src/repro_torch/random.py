@@ -10,7 +10,9 @@ with the key, and 32-bit draws are ``bits1 ^ bits2``.
 
 All arithmetic runs on ``int64`` masked to 32 bits: PyTorch has no ``>>``
 on ``uint32`` on every device, and an ``int64`` holds a uint32 word
-exactly.  ``normal`` is deliberately absent: initial parameters come across
+exactly.  ``gumbel`` and ``categorical`` (serving's sampling) take two
+``log``s of the draw, which torch and XLA may round an ulp apart.
+``normal`` is deliberately absent: initial parameters come across
 from JAX (``repro_torch.convert``) or from a ``torch.Generator``.
 """
 
@@ -112,19 +114,52 @@ _FLOAT_DRAWS = {torch.float32: (32, 23, 0x3F800000, torch.int32),
 
 
 def uniform(key: torch.Tensor, shape: Sequence[int],
-            dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, dtype)`` in [0, 1), for float32,
-    bfloat16 and float16.
+            dtype: torch.dtype = torch.float32, minval: float = 0.,
+            maxval: float = 1.) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, dtype, minval, maxval)``, for
+    float32, bfloat16 and float16.
 
     A draw of fewer bits (16 for float16, 8 for bfloat16) is the low bits
     of ``bits1 ^ bits2``; the mantissa is its top ``nmant`` bits under the
-    exponent of 1.0, and 1.0 is subtracted in ``dtype`` (exactly)."""
+    exponent of 1.0, and 1.0 is subtracted in ``dtype`` (exactly).  Another
+    range than [0, 1) is JAX's ``max(minval, u * (maxval - minval) +
+    minval)`` with XLA's rounding: each bfloat16 operation rounded, and for
+    float32 and float16 the product and the sum contracted into one fused
+    multiply-add, rounded once."""
     if dtype not in _FLOAT_DRAWS:
         raise ValueError(f"uniform draws {tuple(_FLOAT_DRAWS)}, got {dtype}")
     rng_bits, nmant, one, view = _FLOAT_DRAWS[dtype]
     bits = random_bits(key, shape) & ((1 << rng_bits) - 1)
     floats = ((bits >> (rng_bits - nmant)) | one).to(view).view(dtype)
-    return floats - torch.ones((), dtype=dtype, device=floats.device)
+    u = floats - torch.ones((), dtype=dtype, device=floats.device)
+    if (minval, maxval) == (0., 1.):
+        return u                        # JAX's scale and clamp change nothing
+    lo = torch.as_tensor(minval, dtype=dtype, device=u.device)
+    hi = torch.as_tensor(maxval, dtype=dtype, device=u.device)
+    if dtype == torch.bfloat16:
+        out = u * (hi - lo) + lo
+    else:
+        # the float64 product of two such floats is exact, so one rounding
+        # of the float64 sum is the fused multiply-add's
+        out = (u.double() * (hi - lo).double() + lo.double()).to(dtype)
+    return torch.maximum(lo, out)
+
+
+def gumbel(key: torch.Tensor, shape: Sequence[int],
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, dtype)`` in JAX's default
+    ``mode="low"``: ``-log(-log(u))`` of a uniform in [tiny, 1)."""
+    u = uniform(key, shape, dtype, minval=torch.finfo(dtype).tiny,
+                maxval=1.)
+    return -torch.log(-torch.log(u))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor,
+                axis: int = -1) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis)``: the Gumbel-max draw,
+    ``argmax(gumbel + logits)`` (the first maximum, int64)."""
+    g = gumbel(key, logits.shape, logits.dtype)
+    return torch.argmax(g + logits, dim=axis)
 
 
 def bernoulli(key: torch.Tensor, p: torch.Tensor,

@@ -27,10 +27,13 @@ the KV cache as the decode wrote it: the decode writes each layer's row at
 ``positions`` before that layer's attention reads it, and the next tick
 writes the same rows again, so no copy of the cache is needed to undo it.
 
+``ServeConfig(greedy=False)`` samples each tick's tokens with
+``random.categorical`` under ``fold_in(fold_in(PRNGKey(seed), 0x5A),
+tick)``, the JAX package's key (the prefill's first token stays the
+argmax, as there).
+
 ``dispatch_counts()["tick"]`` counts decode ticks.  The JAX package's
-``trace_counts`` has no counterpart: nothing here compiles.  Sampling is
-not ported yet (ROADMAP queue 1): ``greedy=False`` raises
-``NotImplementedError``.
+``trace_counts`` has no counterpart: nothing here compiles.
 """
 
 from __future__ import annotations
@@ -84,8 +87,7 @@ class ServeConfig:
     bound ``p_miss``; ``ServeEngine.run(requests, protocol=...)``
     overrides it per run.  ``fault`` (a ``repro_torch.faults.FaultModel``)
     runs the channel under bursts and worker outages; ``greedy=False``
-    exists for the JAX package's surface and raises until its slice
-    lands."""
+    samples the decoded tokens instead of taking the argmax."""
 
     batch_slots: int = 4
     max_seq: int = 128
@@ -109,10 +111,6 @@ class ServeConfig:
             raise ValueError(
                 "fault injection needs a channel protocol (fault models "
                 "perturb the sensing channel)")
-        if not self.greedy:
-            raise NotImplementedError(
-                "sampling (jax.random.categorical) is not ported yet "
-                "(ROADMAP queue 1, item 18: serving's remainder)")
 
 
 @dataclasses.dataclass
@@ -175,6 +173,7 @@ class ServeEngine:
         self._n_workers = model.cfg.n_workers
         self.cache = model.cache_init(self.B, self.max_seq, dev)
         self._base_key = jr.PRNGKey(config.seed, dev)
+        self._sample_key = jr.fold_in(self._base_key, 0x5A)
         self._reset()
 
     # -- analytic uplink accounting ----------------------------------------
@@ -250,7 +249,11 @@ class ServeEngine:
                 self.values, self.cur_token, self.positions, self.cache,
                 protocol, rng)
             chan_slots = chan["contention_slots"].reshape(1)
-        nxt = torch.argmax(logits, -1).to(torch.int32)
+        if self.config.greedy:
+            nxt = torch.argmax(logits, -1).to(torch.int32)
+        else:
+            nxt = jr.categorical(jr.fold_in(self._sample_key, tick),
+                                 logits).to(torch.int32)
         new_positions = self.positions + 1
         flags = None
         if fault is not None:

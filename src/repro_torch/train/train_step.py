@@ -10,12 +10,13 @@ lane its own gradient, and reports ``metrics["loss_mean"]`` per lane.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional, Union
 
 import torch
 
 from repro_torch import random as jr
 from repro_torch import tree
+from repro_torch.optim.compressed_allreduce import CompressedAllReduce
 
 
 def _fold_keys(rng, i: int):
@@ -31,9 +32,12 @@ def _fold_keys(rng, i: int):
 
 
 def make_train_step(loss_fn: Callable, optimizer, microbatches: int = 1,
+                    compress_k: Optional[Union[float,
+                                               CompressedAllReduce]] = None,
                     with_rng: bool = False) -> Callable:
     """Returns ``train_step(values, opt_state, batch[, rng]) -> (values,
-    opt_state, metrics)``.
+    opt_state, metrics)``, or with ``compress_k`` ``train_step(values,
+    opt_state, batch[, rng], err) -> (values, opt_state, err, metrics)``.
 
     With ``microbatches > 1`` the leading axis of every batch leaf is split
     into that many microbatches whose gradients are averaged; each
@@ -82,12 +86,35 @@ def make_train_step(loss_fn: Callable, optimizer, microbatches: int = 1,
         grads = tree.map(lambda g: g / microbatches, acc)
         return grads, loss_sum / microbatches, metrics
 
-    def train_step(values, opt_state, batch, rng=None):
-        grads, loss, metrics = compute_grads(values, batch, rng)
+    def apply_update(values, opt_state, grads, loss, metrics):
         values, opt_state, stats = optimizer.update(grads, opt_state, values)
         metrics = dict(metrics)
         metrics.update(stats)
         metrics["loss_mean"] = loss
         return values, opt_state, metrics
 
-    return train_step
+    if compress_k is None:
+        def train_step(values, opt_state, batch, rng=None):
+            grads, loss, metrics = compute_grads(values, batch, rng)
+            return apply_update(values, opt_state, grads, loss, metrics)
+        return train_step
+
+    compress = (compress_k if isinstance(compress_k, CompressedAllReduce)
+                else CompressedAllReduce.topk(float(compress_k)))
+
+    def compressed_step(values, opt_state, batch, rng, err):
+        grads, loss, metrics = compute_grads(values, batch, rng)
+        grads, err, acct = compress.reduce(grads, err)
+        metrics = dict(metrics)
+        metrics["dp_payload_bits"] = acct.payload_bits
+        metrics["dp_kept_elems"] = acct.kept_elems
+        values, opt_state, metrics = apply_update(values, opt_state, grads,
+                                                  loss, metrics)
+        return values, opt_state, err, metrics
+
+    if with_rng:
+        return compressed_step
+
+    def train_step_err(values, opt_state, batch, err):
+        return compressed_step(values, opt_state, batch, None, err)
+    return train_step_err

@@ -1,0 +1,205 @@
+"""Training loop with checkpoint/restart, straggler mitigation and logging
+(the JAX package's ``train/trainer.py``).
+
+Fault-tolerance model:
+  * auto-resume: on start, the newest COMMITted checkpoint (if any) is
+    restored, so a preempted job relaunches with the same command line and
+    continues bit for bit as an uninterrupted run would have;
+  * index-derived data: batches are pure functions of (seed, step), so a
+    resume replays the exact stream with no data-loader state;
+  * straggler mitigation: a per-step data deadline (a host that misses it
+    substitutes the previous step's batch, logged in
+    ``substituted_steps``), and a step-time watchdog on the injectable
+    ``clock`` that flags slow steps and, with ``ckpt_on_stall``, saves the
+    full carry at once.
+
+The JAX package's target shardings (elastic re-meshing) are ROADMAP queue
+1 item 19: a restore lands on the devices the initial values are on.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, List, Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch import random as jr
+from repro_torch import tree
+from repro_torch.checkpoint import checkpointer
+from repro_torch.optim import grad_compression
+from repro_torch.optim.compressed_allreduce import CompressedAllReduce
+from repro_torch.train.train_step import make_train_step
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    steps: int = 100
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 50
+    log_every: int = 10
+    microbatches: int = 1
+    # kept-fraction float (sugar for CompressedAllReduce.topk) or a full
+    # CompressedAllReduce policy; compressed steps log dp_payload_bits
+    compress_k: Optional[Union[float, CompressedAllReduce]] = None
+    data_deadline_s: Optional[float] = None     # straggler: batch deadline
+    watchdog_factor: float = 3.0                # step-time anomaly threshold
+    resume: bool = True
+    # stochastic forward (the channel in the loop): loss_fn takes a third
+    # rng argument and step s gets fold_in(PRNGKey(seed), s), so a resume
+    # replays the exact noise stream
+    channel_rng_seed: Optional[int] = None
+    # auxiliary carried state (a repro_torch.faults.FaultState, say): the
+    # rng argument becomes ``(key, aux)`` and loss_fn's metrics return the
+    # evolved carry under ``metrics["aux_state"]``; it is checkpointed with
+    # the parameters.  Needs channel_rng_seed and microbatches == 1.
+    aux_state: Optional[Any] = None
+    # save the full carry as soon as the watchdog flags a stall
+    ckpt_on_stall: bool = False
+    # the watchdog's clock, injectable so a test drives it (the loop reads
+    # the time through it only)
+    clock: Callable[[], float] = time.monotonic
+
+
+@dataclasses.dataclass
+class TrainResult:
+    values: Any
+    opt_state: Any
+    history: List[Dict[str, float]]
+    substituted_steps: List[int]
+    straggler_flags: List[int]
+    final_step: int
+    aux_state: Any = None        # evolved TrainerConfig.aux_state carry
+
+
+def _copy(t):
+    """A copy of every tensor of ``t`` (dicts, lists, tuples, dataclasses),
+    so the run never aliases the caller's tensors."""
+    if isinstance(t, dict):
+        return {k: _copy(v) for k, v in t.items()}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_copy(x) for x in t)
+    if dataclasses.is_dataclass(t) and not isinstance(t, type):
+        return dataclasses.replace(t, **{
+            f.name: _copy(getattr(t, f.name)) for f in dataclasses.fields(t)})
+    return t.clone() if isinstance(t, torch.Tensor) else t
+
+
+def _history_row(metrics: Dict[str, Any]) -> Dict[str, float]:
+    """The 0-d metrics as floats, read from the device in one copy (as
+    float64, which holds every int32 and float32 exactly)."""
+    scalars = {k: v for k, v in metrics.items()
+               if isinstance(v, torch.Tensor) and v.ndim == 0}
+    row = {k: float(v) for k, v in metrics.items()
+           if not isinstance(v, torch.Tensor) and np.ndim(v) == 0}
+    if scalars:
+        dev = next(iter(scalars.values())).device
+        vals = torch.stack([v.detach().to(dev, torch.float64)
+                            for v in scalars.values()]).cpu().tolist()
+        row.update(zip(scalars, vals))
+    return row
+
+
+def train(loss_fn: Callable, init_values, optimizer, data_fn: Callable,
+          tcfg: TrainerConfig,
+          delay_injector: Optional[Callable[[int], float]] = None
+          ) -> TrainResult:
+    """``data_fn(step)`` -> the batch; ``delay_injector(step)`` -> the
+    simulated data latency of a slow host, in seconds."""
+    values = _copy(init_values)
+    opt_state = optimizer.init(values)
+    err = grad_compression.init_error(values)
+    aux = _copy(tcfg.aux_state) if tcfg.aux_state is not None else None
+    if aux is not None:
+        if tcfg.channel_rng_seed is None:
+            raise ValueError("aux_state rides the per-step rng argument; "
+                             "set channel_rng_seed")
+        if tcfg.microbatches != 1:
+            raise ValueError(
+                "aux_state requires microbatches == 1: the microbatch "
+                "rng-folding treats integer leaves as PRNG keys and would "
+                "corrupt the carry's int32/bool leaves")
+    start_step = 0
+
+    def carry_state():
+        """The full training carry: parameters, optimizer state, the
+        error-feedback memory (compressed steps) and the auxiliary
+        carry."""
+        state = {"values": values, "opt": opt_state}
+        if tcfg.compress_k is not None:
+            state["err"] = err
+        if aux is not None:
+            state["aux"] = aux
+        return state
+
+    if tcfg.ckpt_dir and tcfg.resume:
+        step = checkpointer.latest_step(tcfg.ckpt_dir)
+        if step is not None:
+            restored, step, _ = checkpointer.restore(
+                tcfg.ckpt_dir, step, template=carry_state())
+            values, opt_state = restored["values"], restored["opt"]
+            err = restored.get("err", err)
+            aux = restored.get("aux", aux)
+            start_step = step
+
+    with_rng = tcfg.channel_rng_seed is not None
+    step_fn = make_train_step(
+        loss_fn, optimizer, microbatches=tcfg.microbatches,
+        compress_k=tcfg.compress_k, with_rng=with_rng)
+    base_rng = (jr.PRNGKey(tcfg.channel_rng_seed,
+                           tree.leaves(values)[0].device)
+                if with_rng else None)
+
+    history: List[Dict[str, float]] = []
+    substituted: List[int] = []
+    flagged: List[int] = []
+    durations: List[float] = []
+
+    for step in range(start_step, tcfg.steps):
+        t0 = tcfg.clock()
+        if delay_injector is not None and tcfg.data_deadline_s is not None:
+            delay = delay_injector(step)
+            if delay > tcfg.data_deadline_s:
+                # deadline missed: substitute the previous step's batch
+                batch = data_fn(max(step - 1, 0))
+                substituted.append(step)
+            else:
+                batch = data_fn(step)
+        else:
+            batch = data_fn(step)
+        args = (values, opt_state, batch)
+        if with_rng:
+            key = jr.fold_in(base_rng, step)
+            args += ((key, aux) if aux is not None else key,)
+        if tcfg.compress_k is not None:
+            values, opt_state, err, metrics = step_fn(*args, err)
+        else:
+            values, opt_state, metrics = step_fn(*args)
+        if aux is not None:
+            metrics = dict(metrics)
+            aux = metrics.pop("aux_state")
+        dt = tcfg.clock() - t0
+        if durations and dt > tcfg.watchdog_factor * float(
+                np.median(durations)):
+            flagged.append(step)
+            if tcfg.ckpt_on_stall and tcfg.ckpt_dir:
+                # persist the full carry now, so a relaunch resumes from
+                # right before the stall
+                checkpointer.save(tcfg.ckpt_dir, step + 1, carry_state())
+        durations.append(dt)
+        if step % tcfg.log_every == 0 or step == tcfg.steps - 1:
+            row = _history_row(metrics)
+            row["step"] = step
+            row["step_time_s"] = dt
+            history.append(row)
+        if (tcfg.ckpt_dir and tcfg.ckpt_every
+                and (step + 1) % tcfg.ckpt_every == 0):
+            checkpointer.save(tcfg.ckpt_dir, step + 1, carry_state())
+
+    if tcfg.ckpt_dir:
+        checkpointer.save(tcfg.ckpt_dir, tcfg.steps, carry_state())
+    return TrainResult(values=values, opt_state=opt_state, history=history,
+                       substituted_steps=substituted, straggler_flags=flagged,
+                       final_step=tcfg.steps, aux_state=aux)

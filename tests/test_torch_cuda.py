@@ -674,3 +674,118 @@ def test_dp_curves_card_accounting_matches_cpu(cuda_device):
               "dp_payload_bits_step", "dp_dense_bits_step"):
         assert np.array_equal(getattr(got, f), getattr(want, f)), f
     assert np.max(np.abs(got.loss_history - want.loss_history)) < 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the trainer, checkpoints and sampling
+# ---------------------------------------------------------------------------
+
+def _train_setup(dev, ckpt_dir=None, steps=6, ckpt_every=3):
+    """The reduced qwen config in bf16 with the flash kernel and the max
+    fusion (``maxpool.fwd``), through ``launch/train``'s code path."""
+    from repro_torch.launch import train as launch_train
+
+    argv = ["--arch", "qwen1.5-0.5b", "--smoke", "--device", str(dev),
+            "--steps", str(steps), "--batch", "4", "--seq", "32"]
+    if ckpt_dir is not None:
+        argv += ["--ckpt-dir", ckpt_dir]
+    run = launch_train.setup(launch_train.parse_args(argv))
+    run.m = TM.build(run.cfg.with_(dtype=torch.bfloat16,
+                                   param_dtype=torch.bfloat16))
+    run.values = tree.map(lambda t: t.to(torch.bfloat16), run.values)
+    run.tcfg.ckpt_every, run.tcfg.log_every = ckpt_every, 1
+    return run, launch_train
+
+
+def _same_tree(a, b):
+    la, lb = tree.leaves(a), tree.leaves(b)
+    assert len(la) == len(lb)
+    for x, y in zip(la, lb):
+        _same(x, y)
+
+
+@pytest.mark.cuda
+def test_trainer_resume_bitwise_on_card(cuda_device, tmp_path):
+    """Two uninterrupted runs on the card agree bit for bit (deterministic
+    backward passes), and a run preempted after its step-3 checkpoint and
+    relaunched equals them from step 3 on."""
+    from repro_torch import kernels
+
+    runs = []
+    for _ in range(2):
+        run, lt = _train_setup(cuda_device)
+        kernels.reset_launch_counts()
+        runs.append(lt.launch(run))
+        counts = kernels.launch_counts()
+        assert counts["maxpool.fwd"] == 2 * 2 * 6, counts
+        assert counts["flash_attention.fwd"] == 2 * 6, counts
+    _same_tree(runs[0].values, runs[1].values)
+    _same_tree(runs[0].opt_state, runs[1].opt_state)
+    d = str(tmp_path)
+    run, lt = _train_setup(cuda_device, d, steps=3)
+    lt.launch(run)
+    run, lt = _train_setup(cuda_device, d)
+    resumed = lt.launch(run)
+    assert resumed.history[0]["step"] == 3
+    _same_tree(resumed.values, runs[0].values)
+    _same_tree(resumed.opt_state, runs[0].opt_state)
+    strip = [{k: v for k, v in r.items() if k != "step_time_s"}
+             for r in runs[0].history[3:]]
+    assert [{k: v for k, v in r.items() if k != "step_time_s"}
+            for r in resumed.history] == strip
+
+
+@pytest.mark.cuda
+def test_checkpoint_roundtrip_cuda_tensors(cuda_device, tmp_path):
+    """CUDA leaves of every stored type (bf16 as raw words, a FaultState)
+    come back bitwise, on the template's device or on ``device``."""
+    from repro_torch import faults
+    from repro_torch.checkpoint import checkpointer as ck
+
+    gen = torch.Generator().manual_seed(4)
+    t = {"w": torch.randn((5, 7), generator=gen).to(torch.bfloat16),
+         "m": [torch.randn((3,), generator=gen),
+               torch.tensor(3, dtype=torch.int32)],
+         "aux": faults.init_state(4, (2, 3))}
+    t["aux"] = t["aux"].map(lambda x: x.to(cuda_device))
+    t = {"w": t["w"].to(cuda_device),
+         "m": [x.to(cuda_device) for x in t["m"]], "aux": t["aux"]}
+    ck.save(str(tmp_path), 1, t)
+    got, _, _ = ck.restore(str(tmp_path), template=t)
+    assert got["w"].device.type == cuda_device.type
+    _same(got["w"], t["w"])
+    for x, y in zip(got["m"], t["m"]):
+        _same(x, y)
+    for f in ("bad", "offline", "stale", "age", "consec"):
+        _same(getattr(got["aux"], f), getattr(t["aux"], f))
+    on_cpu, _, _ = ck.restore(str(tmp_path), template=t, device="cpu")
+    assert on_cpu["w"].device.type == "cpu"
+    _same(on_cpu["w"], t["w"])
+
+
+@pytest.mark.cuda
+def test_sampling_card_matches_cpu(cuda_device):
+    """``random.categorical`` and a channel-free ``greedy=False`` serving
+    run of the reduced config on the card: the same samples as the CPU
+    (the Gumbel draws within two ulps of their logs, the logits within
+    float order; a flip on a near-tie would show here)."""
+    from repro_torch import random as jr
+
+    logits = torch.randn((16, 300), generator=torch.Generator().manual_seed(1))
+    for seed in range(5):
+        want = jr.categorical(jr.PRNGKey(seed), logits)
+        got = jr.categorical(jr.PRNGKey(seed, cuda_device),
+                             logits.to(cuda_device))
+        assert torch.equal(got.cpu(), want)
+    cfg = get_reduced("qwen1.5-0.5b", use_flash=True)
+    m = TM.build(cfg)
+    values = m.init(torch.Generator().manual_seed(0))
+    reqs = [Request(rid=i, prompt=np.random.default_rng(i).integers(
+        0, cfg.vocab_size, 64).astype(np.int32), max_new_tokens=6,
+        arrival_tick=i) for i in range(4)]
+    config = ServeConfig(batch_slots=2, max_seq=96, eos_id=-1, greedy=False,
+                         seed=3)
+    want = ServeEngine(m, values, config, device="cpu").run(reqs)
+    got = ServeEngine(m, values, config, device=cuda_device).run(reqs)
+    for rid in want:
+        assert got[rid].tokens == want[rid].tokens

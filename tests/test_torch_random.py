@@ -179,3 +179,43 @@ def test_ocs_aggregate_bf16_matches_jax(p_miss):
     for f in ("rounds", "collisions", "contention_slots", "correct_frac"):
         assert np.array_equal(np.asarray(getattr(acct_j, f)),
                               getattr(acct_t, f).numpy()), f
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (-2.0, 3.0), ("tiny", 1.0)])
+def test_uniform_range_bitwise(seed, dtype, lo, hi):
+    """JAX's scale and clamp, ``max(lo, u * (hi - lo) + lo)``, with XLA's
+    rounding (bf16 per operation; float32 and float16 one fused
+    multiply-add), bit for bit."""
+    tdt = getattr(torch, dtype)
+    if lo == "tiny":
+        lo = float(torch.finfo(tdt).tiny)
+    want = np.asarray(jax.random.uniform(_jkey(seed), (5, 33),
+                                         getattr(jnp, dtype), lo, hi))
+    got = jr.uniform(jr.PRNGKey(seed), (5, 33), tdt, minval=lo, maxval=hi)
+    assert np.array_equal(got.float().numpy(), want.astype(np.float32))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_gumbel_within_two_ulps_of_its_logs(seed):
+    """The draw under the two logs is JAX's bit for bit; torch's and XLA's
+    ``log`` round up to an ulp apart each, and the outer log of a draw
+    near 1/e (inner value ~1) turns the inner one's ulp into an absolute
+    error of ~eps: within ``2 * eps * max(1, |g|)`` (1.88 the most seen
+    over 50 seeds)."""
+    want = np.asarray(jax.random.gumbel(_jkey(seed), (64, 500)))
+    got = jr.gumbel(jr.PRNGKey(seed), (64, 500)).numpy()
+    eps = np.finfo(np.float32).eps
+    assert np.all(np.abs(got - want) <= 2 * eps * np.maximum(1, np.abs(want)))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_categorical_matches_jax(seed):
+    """The Gumbel-max draw: on these seeds and logits no near-tie falls
+    within the draws' rounding, so every sample is JAX's."""
+    logits = np.random.default_rng(seed % 2**32).standard_normal(
+        (16, 300)).astype(np.float32)
+    want = np.asarray(jax.random.categorical(_jkey(seed), jnp.asarray(logits)))
+    got = jr.categorical(jr.PRNGKey(seed), torch.from_numpy(logits))
+    assert np.array_equal(got.numpy(), want)

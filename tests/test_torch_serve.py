@@ -118,6 +118,34 @@ def test_engine_matches_jax_engine(models, channel):
         assert all(c.channel_slots > 0 for c in got.values())
 
 
+@pytest.mark.parametrize("channel", ["free", "ocs0.05"])
+def test_sampling_engine_matches_jax_engine(models, channel):
+    """``greedy=False``: both engines draw each tick's tokens with
+    ``categorical`` under ``fold_in(fold_in(PRNGKey(seed), 0x5A), tick)``.
+    The Gumbel draws agree within two float32 ulps of their logs
+    (tests/test_torch_random.py) and the logits within float order, so
+    on these seeds every sampled token is the JAX engine's.  The tied
+    embedding is scaled down so that the logits are flat enough for the
+    draw to leave the argmax."""
+    jm, jv, tm, _ = models
+    jv = dict(jv, embed={"tokens": jv["embed"]["tokens"] * 0.02})
+    tv = params_from_jax(jax.tree.map(np.asarray, jv))
+    pj, pt = {"free": (None, None),
+              "ocs0.05": (_ocs(0.05, JP), _ocs(0.05))}[channel]
+    kw = dict(batch_slots=2, max_seq=16, eos_id=-1, seed=3, greedy=False)
+    reqs = _mixed_requests()
+    want = jse.ServeEngine(jm, jv, jse.ServeConfig(protocol=pj, **kw)).run(
+        [jse.Request(**dataclasses.asdict(r)) for r in reqs])
+    got = ServeEngine(tm, tv, ServeConfig(protocol=pt, **kw),
+                      device="cpu").run(reqs)
+    assert sorted(got) == sorted(want)
+    for rid in want:
+        assert _fields(got[rid]) == _fields(want[rid]), rid
+    greedy = ServeEngine(tm, tv, ServeConfig(
+        protocol=pt, **dict(kw, greedy=True)), device="cpu").run(reqs)
+    assert any(got[r].tokens != greedy[r].tokens for r in got)
+
+
 def _fault(m, policy, p_drop=0.5):
     """Bursty sensing and worker dropouts strong enough that the fixture's
     two workers go dark together on some ticks."""
@@ -395,8 +423,8 @@ def test_serve_config_validation():
         ServeConfig(fault=FaultModel.iid(0.1))
     assert ServeConfig(protocol=_ocs(0.1),
                        fault=FaultModel.iid(0.1)).fault is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeConfig(greedy=False)
+    # sampling serves (test_sampling_engine_matches_jax_engine)
+    assert ServeConfig(greedy=False).greedy is False
 
 
 def test_engine_device_defaults_to_cuda(models):
