@@ -21,7 +21,12 @@ and prints the device time per call of each channel kernel alone
 float32) and serving's (1 x 16 x 8192, bits 8, bfloat16), as its side's
 ``chip_smoke._kernel_cases`` forms the calls (another checkout's own
 cases: its kernels may take other operands), and the ideal lane's
-``maxpool.decode``.
+``maxpool.decode``; then, at one max-fusion site of the LM train step
+((16, 8 x 256 x 1024) bf16 partials), the device time of the side's
+``fedocs.maxpool(h, "all")`` forward and backward (every kernel of the
+call), of ``maxpool.fwd`` alone in the law's form (the tie mask where
+the side has it, else the winner) and in the winner form, of the side's
+tie-routed backward alone where it has one, and of ``torch.max(dim=0)``.
 
 ``--paths``: each turn a fresh process that runs the checkout's own
 ``chip_smoke.py`` phases 5, 7, 8 and 11 (``run_curves`` at the
@@ -93,6 +98,36 @@ def kernel_turn(other: pathlib.Path) -> None:
             symbol = C.SYMBOLS[name.split("[")[0].split(" ")[0]]
             ms = C._device_ms(launch, symbol=symbol)[2]
             print(f"kernel-ab {name} {what}: {ms:.6f} ms", flush=True)
+    train_site_turn(C, dev)
+
+
+def train_site_turn(C, dev) -> None:
+    """--kernels at the LM train step's max-fusion site, in this turn's
+    checkout."""
+    import torch
+    from repro_torch.core import fedocs
+
+    gen = torch.Generator(device="cpu").manual_seed(18)
+    h = torch.randn((C.QWEN_WORKERS, C.TRAIN_BATCH, C.TRAIN_SEQ, C.QWEN_D),
+                    generator=gen).to(torch.bfloat16).to(dev)
+    g = torch.randn(h.shape[1:], generator=gen).to(torch.bfloat16).to(dev)
+    hg = h.clone().requires_grad_(True)
+    ops = C.mp_ops
+    law = getattr(ops, "maxpool_ties", ops.maxpool_fused)
+    cases = [("site all-law fwd+bwd", lambda: torch.autograd.grad(
+                  fedocs.maxpool(hg, "all"), hg, g), None),
+             ("maxpool.fwd law form", lambda: law(h, 0), "maxpool_fwd_"),
+             ("maxpool.fwd winner form", lambda: ops.maxpool_fused(h, 0),
+              "maxpool_fwd_"),
+             ("torch.max(dim=0)", lambda: torch.max(h, dim=0), None)]
+    if hasattr(ops, "maxpool_ties_bwd"):
+        mask = ops.maxpool_ties(h, 0)[1]
+        cases.append(("maxpool.ties_bwd", lambda: ops.maxpool_ties_bwd(
+            mask, g, C.QWEN_WORKERS, 0), "ties_bwd_kernel"))
+    for name, fn, symbol in cases:
+        ms, _, own = C._device_ms(fn, symbol=symbol)
+        print(f"kernel-ab {name} train: "
+              f"{own if symbol else ms:.6f} ms", flush=True)
 
 
 # aten ops that allocate or view and launch nothing on a card

@@ -100,16 +100,20 @@ Phases, in order; any failed check raises and the script exits non-zero:
 18. run ``launch/train`` at the full qwen1.5-0.5b width (bf16, random
     weights from seed 0, ``--fusion max``, flash), batch 8 x 256 tokens,
     ``adamw(for_arch(...))``, 6 steps with a checkpoint every 3, counted
-    (flash 24 and ``maxpool.fwd`` 48 a step, nothing else), every loss
-    finite; a second uninterrupted run bitwise the first; the job
+    (flash 24, ``maxpool.fwd`` 48 and ``maxpool.ties_bwd`` 48 a step,
+    nothing else), every loss finite, the peak device memory; a second
+    uninterrupted run bitwise the first; the job
     preempted after its step-3 checkpoint and relaunched, bitwise the
     uninterrupted run; ``launch/serve --ckpt-dir --sample`` serving phase
     8's traffic from the final checkpoint, its values bitwise the
     trainer's, counted; then profile 5 train steps (wall, device busy,
     idle share, kernels a step, time by kernel class; the flash
     backward's plain recompute, the xent and the AdamW update alone);
-    phase 3 also times ``maxpool.fwd`` at the train step's site shape
-    beside ``torch.max(dim=0)``;
+    phase 3 also holds ``maxpool.fwd`` (every subset of its outputs; forced
+    ties, +-0, a NaN row, a ragged and a misaligned width) and
+    ``maxpool.ties_bwd`` (against its plain version and ``g * (h ==
+    max)``) at the train step's site shape, and times them beside
+    ``torch.max(dim=0)`` and that composition;
 19. run ``trainer.train`` over ``vertical.loss_fn`` at the fedocs-cifar
     width through ``Protocol.ocs(bits=8, p_miss=0.05)`` under bursts and
     dropouts with a ``FaultState`` carry, per-step channel keys and top-k
@@ -206,14 +210,16 @@ DP_SHARDS, DP_K_FRAC = 2, 1 / 8
 SOURCES = {"ocs_quant.encode": "ocs_quant.cu",
            "ocs_quant.decode": "ocs_quant.cu", "maxpool.fwd": "maxpool.cu",
            "maxpool.decode": "maxpool.cu", "maxpool.winner_bwd": "maxpool.cu",
+           "maxpool.ties_bwd": "maxpool.cu",
            "ocs_contention.contend": "ocs_contention.cu",
            "ocs_contention.noisy": "ocs_contention.cu",
            "flash_attention.fwd": "flash_attention.cu"}
 # a substring of each kernel's device function name, for its own time
 SYMBOLS = {"ocs_quant.encode": "Encode", "ocs_quant.decode": "Decode",
-           "maxpool.fwd": "maxpool_fwd_kernel",
+           "maxpool.fwd": "maxpool_fwd_",
            "maxpool.decode": "maxpool_decode_kernel",
            "maxpool.winner_bwd": "winner_bwd_kernel",
+           "maxpool.ties_bwd": "ties_bwd_kernel",
            "ocs_contention.contend": "contend_kernel",
            "ocs_contention.noisy": "noisy_kernel",
            "flash_attention.fwd": "flash_"}
@@ -224,6 +230,8 @@ REPLACES = {
     "maxpool.decode": "src/repro/kernels/maxpool/maxpool.py:31 + "
                       "src/repro/kernels/ocs_quant/ocs_quant.py:37",
     "maxpool.winner_bwd": "src/repro/kernels/maxpool/maxpool.py:72",
+    "maxpool.ties_bwd": "src/repro/kernels/maxpool/maxpool.py:72 + "
+                        "src/repro/core/fedocs.py:68-79,96-98",
     "ocs_contention.contend":
         "src/repro/kernels/ocs_contention/ocs_contention.py:48",
     "ocs_contention.noisy":
@@ -578,7 +586,7 @@ def check_kernels(dev) -> dict:
                                         dict(bits=8, shape=shape,
                                              dtype="bfloat16"))
     rows.update(check_sweep_kernels(dev, row))
-    rows[("maxpool.fwd", "train")] = check_train_maxpool(dev, row)
+    rows.update(check_train_maxpool(dev, row))
     check_decode_outputs(dev)
     check_noisy_cases(dev)
     check_fault_cases(dev)
@@ -903,9 +911,11 @@ def run_main_path(dev):
     # packed-plane contention is the TPU kernel's interface, the encode is
     # formed inside the contention and the pooling epilogue, and the
     # standalone max-pool and decode have given their work to
-    # maxpool.decode (phase 3 holds all four)
+    # maxpool.decode, and the tie-routed backward is the LM step's (phase
+    # 3 holds all five)
     off_path = ("flash_attention.fwd", "ocs_contention.contend",
-                "maxpool.fwd", "ocs_quant.decode", "ocs_quant.encode")
+                "maxpool.fwd", "ocs_quant.decode", "ocs_quant.encode",
+                "maxpool.ties_bwd")
     missing = [k for k, v in counts.items() if v == 0 and k not in off_path]
     assert not missing, f"kernels not launched on the main path: {missing}"
     # one fused tournament per training step and per evaluation, each bits;
@@ -1072,7 +1082,8 @@ def run_serving(dev):
     assert counts["ocs_contention.noisy"] == sites * ticks, (counts, ticks)
     assert counts["maxpool.decode"] == sites * ticks, (counts, ticks)
     for name in ("ocs_contention.contend", "maxpool.fwd", "ocs_quant.decode",
-                 "ocs_quant.encode", "maxpool.winner_bwd"):
+                 "ocs_quant.encode", "maxpool.winner_bwd",
+                 "maxpool.ties_bwd"):
         assert counts[name] == 0, (name, counts)
     assert draws["calls"] == 0, "the packed sensing draw ran on the card"
     assert bool(finite["ok"]), "a logit is not finite"
@@ -1235,7 +1246,8 @@ def _assert_curve_counts(counts, ccfg, runs, what):
     assert counts["maxpool.decode"] == 2 * sites, (what, counts)
     assert counts["maxpool.winner_bwd"] == ccfg.steps * runs, (what, counts)
     for name in ("flash_attention.fwd", "ocs_contention.contend",
-                 "maxpool.fwd", "ocs_quant.decode", "ocs_quant.encode"):
+                 "maxpool.fwd", "ocs_quant.decode", "ocs_quant.encode",
+                 "maxpool.ties_bwd"):
         assert counts[name] == 0, (what, name, counts)
 
 
@@ -1484,7 +1496,7 @@ def run_faulty_serving(dev, serve):
         assert counts["maxpool.decode"] == sites * ticks, counts
         for name in ("ocs_contention.contend", "maxpool.fwd",
                      "ocs_quant.decode", "ocs_quant.encode",
-                     "maxpool.winner_bwd"):
+                     "maxpool.winner_bwd", "maxpool.ties_bwd"):
             assert counts[name] == 0, (name, counts)
         assert outage > 0, "no outage tick: the fault path was not driven"
         assert bool(finite["ok"]), "a logit is not finite"
@@ -1817,20 +1829,126 @@ def profile_dp(dev) -> dict:
 # channel trainer hook
 # ---------------------------------------------------------------------------
 
+def _train_site_input(dev, e, seed, ties=False, offset=0):
+    """(16 workers, ``e`` columns) bf16 partials: randn, or with ``ties``
+    values on a coarse grid (many workers tie at the max), -0.0 beside
+    +0.0 at a zero max, +-inf, and NaNs in a few columns: positive ones in
+    column 4 of every 64, a negative one (sign bit set) alone in column 41
+    of every 64.  ``offset`` elements before the first make the base
+    pointer misaligned."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    if not ties:
+        h = torch.randn((QWEN_WORKERS, e), generator=gen)
+    else:
+        h = torch.randint(-4, 3, (QWEN_WORKERS, e), generator=gen) / 2.0
+        h[:, 1::7] = -1.0
+        h[3, 1::7], h[9, 1::7] = -0.0, 0.0       # a -0.0/+0.0 tie at 0
+        h[5, 2::11] = float("inf")
+        h[:, 3::13] = -float("inf")
+        h[6, 4::64] = float("nan")
+    h = h.to(torch.bfloat16)
+    if ties:
+        h.view(torch.int16)[12, 41::64] = -0x003F        # 0xFFC1
+    buf = torch.empty(h.numel() + offset, dtype=torch.bfloat16, device=dev)
+    out = buf[offset:].view(h.shape)
+    out.copy_(h)
+    return out
+
+
+def _site_cotangent(dev, shape, seed, special=False):
+    """bf16 cotangents; with ``special`` +-0 and +-inf in some columns."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    g = torch.randn(shape, generator=gen)
+    if special:
+        flat = g.view(-1)
+        flat[0::5], flat[1::5] = 0.0, -0.0
+        flat[2::37], flat[3::41] = float("inf"), -float("inf")
+    return g.to(torch.bfloat16).to(dev)
+
+
+def _same_nan_as_nan(a, b, what) -> None:
+    """Bitwise equal where not NaN, NaN at the same places (a NaN's
+    payload is the device's)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    assert torch.equal(na, nb), f"{what}: NaN at other places"
+    z = torch.zeros_like(a)
+    assert _bitwise_equal(torch.where(na, z, a), torch.where(nb, z, b)), \
+        f"{what}: differs"
+
+
 def check_train_maxpool(dev, row) -> dict:
-    """Phase 3, the LM train step's fusion site: ``maxpool.fwd`` over the
-    (16 workers, 8 x 256 tokens x 1024) bfloat16 partials of one site,
-    bitwise against its plain version, timed beside ``torch.max(dim=0)``.
-    Bytes: the partials read, the max and the int32 argmax written."""
-    gen = torch.Generator(device="cpu").manual_seed(18)
-    h = torch.randn((QWEN_WORKERS, TRAIN_BATCH, TRAIN_SEQ, QWEN_D),
-                    generator=gen).to(torch.bfloat16).to(dev)
-    cols = h[0].numel()
-    return row("maxpool.fwd", lambda: mp_ops.maxpool_fused(h, 0),
-               lambda: mp_ref.maxpool_fused(h, 0),
-               h.numel() * 2 + cols * (2 + 4), cols * (QWEN_WORKERS - 1),
-               lambda: torch.max(h, dim=0),
-               dict(shape=list(h.shape), dtype="bfloat16", path="train"))
+    """Phase 3, the LM train step's fusion site, (16 workers, 8 x 256
+    tokens x 1024) bfloat16 partials (the ``tie_break="all"`` law):
+    ``maxpool.fwd`` bitwise against its plain version for each subset of
+    its optional outputs (winner, tie mask) on randn partials and on
+    partials with forced ties, +-0, +-inf and NaNs, also at a ragged
+    e (1003) and a misaligned base (e 1000); ``maxpool.ties_bwd`` bitwise
+    against its plain version and against the torch composition it
+    replaces, ``g * (h == max)``, for finite cotangents and, NaN as NaN,
+    for cotangents with +-0 and +-inf.  Timed: the law's forward (the
+    pooled max and the tie mask, no winner) beside ``torch.max(dim=0)``
+    and the winner form, the backward beside that composition.  Bytes:
+    the partials read, the max and the mask (or winner) written; the mask
+    and the cotangent read, the gradient written."""
+    shape = (QWEN_WORKERS, TRAIN_BATCH, TRAIN_SEQ, QWEN_D)
+    cols = math.prod(shape[1:])
+    cases = {"randn": _train_site_input(dev, cols, 18).view(shape),
+             "ties": _train_site_input(dev, cols, 19, ties=True).view(shape),
+             "ragged e 1003": _train_site_input(dev, 1003, 20, ties=True),
+             "misaligned e 1000": _train_site_input(dev, 1000, 21, ties=True,
+                                                    offset=1)}
+    for what, h in cases.items():
+        for winner in (False, True):
+            for ties in (False, True):
+                _check_equal(
+                    "maxpool.fwd",
+                    lambda: _present(mp_ops.maxpool_fwd(h, 0, winner=winner,
+                                                        ties=ties)),
+                    lambda: _present(mp_ref.maxpool_fwd(h, 0, winner=winner,
+                                                        ties=ties)),
+                    dict(input=what, winner=winner, ties=ties))
+        pooled, mask = mp_ops.maxpool_ties(h, 0)
+        for special in (False, True):
+            g = _site_cotangent(dev, h.shape[1:], 22, special)
+            got = mp_ops.maxpool_ties_bwd(mask, g, QWEN_WORKERS, 0)
+            composed = g.unsqueeze(0) * (h == pooled.unsqueeze(0)).to(h.dtype)
+            for want, by in ((mp_ref.ties_bwd(mask, g, QWEN_WORKERS, 0),
+                              "plain"), (composed, "g * (h == max)")):
+                if special:
+                    _same_nan_as_nan(got, want, f"ties_bwd {what} vs {by}")
+                else:
+                    assert _bitwise_equal(got, want), \
+                        f"ties_bwd {what} vs {by}: differs"
+    print(f"maxpool.fwd at the train site: bitwise equal to plain for 4 "
+          f"output subsets x {len(cases)} inputs ({list(cases)}); "
+          f"maxpool.ties_bwd bitwise equal to plain and to g * (h == max) "
+          f"(NaN as NaN where g holds +-inf)", flush=True)
+
+    h = cases["randn"]
+    nbytes_fwd = h.numel() * 2 + cols * (2 + 2)
+    out = {("maxpool.fwd", "train"): row(
+        "maxpool.fwd", lambda: mp_ops.maxpool_ties(h, 0),
+        lambda: mp_ref.maxpool_ties(h, 0), nbytes_fwd, 2 * h.numel(),
+        lambda: torch.max(h, dim=0),
+        dict(shape=list(h.shape), dtype="bfloat16", path="train",
+             outputs="pooled, ties"))}
+    out[("maxpool.fwd[winner]", "train")] = row(
+        "maxpool.fwd[winner]", lambda: mp_ops.maxpool_fused(h, 0),
+        lambda: mp_ref.maxpool_fused(h, 0), h.numel() * 2 + cols * (2 + 4),
+        h.numel(), lambda: torch.max(h, dim=0),
+        dict(shape=list(h.shape), dtype="bfloat16", path="train",
+             outputs="pooled, winner"))
+    pooled, mask = mp_ops.maxpool_ties(h, 0)
+    g = _site_cotangent(dev, h.shape[1:], 23)
+    out[("maxpool.ties_bwd", "train")] = row(
+        "maxpool.ties_bwd",
+        lambda: mp_ops.maxpool_ties_bwd(mask, g, QWEN_WORKERS, 0),
+        lambda: mp_ref.ties_bwd(mask, g, QWEN_WORKERS, 0),
+        cols * (2 + 2) + h.numel() * 2, h.numel(),
+        lambda: g.unsqueeze(0) * (h == pooled.unsqueeze(0)).to(h.dtype),
+        dict(shape=list(h.shape), dtype="bfloat16", path="train",
+             library="g * (h == max) (3 launches)"))
+    return out
 
 
 def _same_tree(a, b) -> bool:
@@ -1883,11 +2001,13 @@ def _train_run(ckpt_dir, steps=TRAIN_STEPS):
 
 def _assert_train_counts(counts, steps, what) -> None:
     """Per step: flash once per layer (the forward; the backward recomputes
-    through the plain version), ``maxpool.fwd`` at both fusion sites of
-    every layer, nothing else."""
+    through the plain version), ``maxpool.fwd`` (the pooled max and the tie
+    mask) and ``maxpool.ties_bwd`` at both fusion sites of every layer,
+    nothing else."""
     want = {k: 0 for k in kernels.KERNELS}
     want.update({"flash_attention.fwd": QWEN_LAYERS * steps,
-                 "maxpool.fwd": 2 * QWEN_LAYERS * steps})
+                 "maxpool.fwd": 2 * QWEN_LAYERS * steps,
+                 "maxpool.ties_bwd": 2 * QWEN_LAYERS * steps})
     assert counts == want, (what, counts, want)
 
 
@@ -1928,7 +2048,9 @@ def run_train_phase(dev) -> dict:
               f"{saved}, {size / 2**30:.2f} GiB each, included); losses "
               f"{losses}; step host times "
               f"{[round(r['step_time_s'], 4) for r in full.history]}; peak "
-              f"device memory {peak / 2**30:.2f} GiB; launches {counts}",
+              f"device memory {peak / 2**30:.2f} GiB ({peak} bytes; 21.67 "
+              f"GiB while the max law kept each site's partials for its "
+              f"backward); launches {counts}",
               flush=True)
 
         again, counts2, wall2 = _counted(
@@ -1994,8 +2116,10 @@ def run_train_phase(dev) -> dict:
 def _categorize(name: str) -> str:
     if "flash_" in name:
         return "flash_attention.fwd"
-    if "maxpool_fwd_kernel" in name:
+    if "maxpool_fwd_" in name:
         return "maxpool.fwd"
+    if "ties_bwd_kernel" in name:
+        return "maxpool.ties_bwd"
     if any(s in name.lower() for s in ("gemm", "xmma", "nvjet", "cutlass")):
         return "GEMM (cuBLAS)"
     if "memcpy" in name.lower() or "memset" in name.lower():
@@ -2292,9 +2416,12 @@ def main() -> int:
     for name in kernels.KERNELS:
         # the curves' kernels timed at the main path's first depth (bits=8),
         # with their serving-shape timing beside; flash at the prefill shape;
-        # a kernel's other forms (off the main paths) under "forms"
+        # the tie-routed backward at the LM train site, its only path; a
+        # kernel's other forms (off the main paths) under "forms"
         if name == "flash_attention.fwd":
             rec = dict(rows[(name, "serve")])
+        elif name == "maxpool.ties_bwd":
+            rec = dict(rows[(name, "train")])
         else:
             rec = dict(rows[(name, 8)])
             srv = rows.get((name, "serve"))
@@ -2305,7 +2432,10 @@ def main() -> int:
                 rec["sweep"] = {k: swp[k] for k in keep + ("bits",)}
             trn = rows.get((name, "train"))
             if trn is not None:
-                rec["train"] = {k: trn[k] for k in keep + ("dtype",)}
+                rec["train"] = {k: trn[k] for k in keep + ("dtype",
+                                                           "outputs")}
+                win = rows[(name + "[winner]", "train")]
+                rec["train"]["winner_form"] = {k: win[k] for k in keep}
             forms = {case[len(name) + 1:-1]: {
                 "curves": {k: r[k] for k in keep},
                 "serve": {k: rows[(case, "serve")][k] for k in keep}}

@@ -13,10 +13,12 @@ every worker tied at the max the full cotangent; ``"first"`` gives it to
 the lowest tied index, which is what the OCS protocol transmits.
 
 The laws are ``torch.autograd.Function``s.  On a CUDA tensor their
-forwards run the max-pool kernel (``max``) or the fused pooling epilogue
+forwards run the max-pool kernel (``max``: with the tie mask for
+``"all"``, the winner for ``"first"``) or the fused pooling epilogue
 ``maxpool.decode`` over the float features (the quantized laws, after
 the contention kernel for the noisy one; both form the Eq. 7 codes in
-registers), and their backwards the winner-routed scatter kernel.  The
+registers), and their backwards the winner-routed scatter kernel or,
+for ``max`` with ``"all"``, the tie-routed one.  The
 noisy law is lane-leading (``h: (L, N, ..., K)``, one key and one
 ``p_miss`` per lane) so that every p_miss lane of a step pools in one
 call (:func:`noisy_pool`); :func:`maxpool_noisy` takes a single run.
@@ -37,21 +39,6 @@ VALID_MODES = ("sum", "max", "max_q16", "max_q8", "max_noisy", "mean",
                "concat")
 
 
-def _winner_mask(h: torch.Tensor, pooled: torch.Tensor, tie_break: str,
-                 dim: int = 0) -> torch.Tensor:
-    """Mask (h's dtype) of the workers receiving gradient."""
-    mask = (h == pooled.unsqueeze(dim)).to(h.dtype)
-    if tie_break == "all":
-        return mask
-    if tie_break == "first":
-        n = h.shape[dim]
-        idx = torch.arange(n, device=h.device).reshape(
-            (n,) + (1,) * (h.ndim - dim - 1))
-        first = torch.where(mask > 0, idx, n).amin(dim=dim, keepdim=True)
-        return (idx == first).to(h.dtype) * mask
-    raise ValueError(f"unknown tie_break {tie_break!r}")
-
-
 def _check_tie_break(tie_break: str) -> None:
     if tie_break not in ("all", "first"):
         raise ValueError(f"unknown tie_break {tie_break!r}")
@@ -60,21 +47,22 @@ def _check_tie_break(tie_break: str) -> None:
 class _MaxPool(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, tie_break, dim):
-        pooled, winner = maxpool_ops.maxpool_fused(h, dim)
         ctx.tie_break, ctx.dim, ctx.n = tie_break, dim, h.shape[dim]
-        ctx.save_for_backward(winner if tie_break == "first" else h,
-                              pooled)
+        if tie_break == "all":
+            # the tie mask is all the backward reads: h is not kept
+            pooled, ties = maxpool_ops.maxpool_ties(h, dim)
+            ctx.save_for_backward(ties)
+        else:
+            pooled, winner = maxpool_ops.maxpool_fused(h, dim)
+            ctx.save_for_backward(winner)
         return pooled
 
     @staticmethod
     def backward(ctx, g):
-        saved, pooled = ctx.saved_tensors
-        if ctx.tie_break == "first":
-            grad = maxpool_ops.maxpool_winner_bwd(saved, g, ctx.n, ctx.dim)
-        else:
-            grad = g.unsqueeze(ctx.dim) * _winner_mask(saved, pooled, "all",
-                                                       ctx.dim)
-        return grad, None, None
+        (saved,) = ctx.saved_tensors
+        bwd = (maxpool_ops.maxpool_ties_bwd if ctx.tie_break == "all"
+               else maxpool_ops.maxpool_winner_bwd)
+        return bwd(saved, g, ctx.n, ctx.dim), None, None
 
 
 def maxpool(h: torch.Tensor, tie_break: str = "all",

@@ -40,8 +40,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 KERNELS = ("ocs_quant.encode", "ocs_quant.decode", "maxpool.fwd",
-           "maxpool.decode", "maxpool.winner_bwd", "ocs_contention.contend",
-           "ocs_contention.noisy", "flash_attention.fwd")
+           "maxpool.decode", "maxpool.winner_bwd", "maxpool.ties_bwd",
+           "ocs_contention.contend", "ocs_contention.noisy",
+           "flash_attention.fwd")
 _LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
@@ -51,14 +52,16 @@ _ARGTYPES = {
     "ocs_encode": (_P, _P, _I64, _I, _I, _I, _P),
     # (codes, out, n, code_bytes, out_kind, bits, stream)
     "ocs_decode": (_P, _P, _I64, _I, _I, _I, _P),
-    # (h, v, winner, batch, n, e, kind, stream)
-    "maxpool_fwd": (_P, _P, _P, _I64, _I, _I64, _I, _P),
+    # (h, v, winner, ties, batch, n, e, kind, stream)
+    "maxpool_fwd": (_P, _P, _P, _P, _I64, _I, _I64, _I, _P),
     # (src, mask, mask_stride, winner, pooled, max_code, argmax, correct,
     #  batch, n, e, src_kind, out_kind, bits, stream)
     "maxpool_decode": (_P, _P, _I64, _P, _P, _P, _P, _P, _I64, _I, _I64, _I,
                        _I, _I, _P),
     # (winner, g, out, batch, n, e, kind, stream)
     "maxpool_winner_bwd": (_P, _P, _P, _I64, _I, _I64, _I, _P),
+    # (ties, g, out, batch, n, e, kind, stream)
+    "maxpool_ties_bwd": (_P, _P, _P, _I64, _I, _I64, _I, _P),
     # (word, heard, mask, winner, contending, collided, lanes, n, k,
     #  n_slots, max_rounds, total_bits, mask_lane_stride, stream)
     "ocs_contend": (_P, _P, _P, _P, _P, _P, _I, _I, _I64, _I, _I, _I, _I,

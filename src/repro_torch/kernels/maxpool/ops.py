@@ -25,23 +25,44 @@ _FWD_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.uint8,
 _BWD_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
-def maxpool_fused(h: torch.Tensor, dim: int = 0):
-    """h -> (pooled max over ``dim``, first argmax int32)."""
+def maxpool_fwd(h: torch.Tensor, dim: int = 0, *, winner: bool = True,
+                ties: bool = False) -> ref.PoolFwd:
+    """h -> the pooled max over ``dim`` and, where asked, the first argmax
+    (int32) and the tie mask (``ceil(n / 16)`` uint16 words in place of
+    ``dim``; see ``ref.maxpool_ties``), in one launch that writes only
+    those."""
     if h.device.type == "cpu":
-        return ref.maxpool_fused(h, dim)
+        return ref.maxpool_fwd(h, dim, winner=winner, ties=ties)
     if h.dtype not in _FWD_DTYPES:
         raise ValueError(f"maxpool kernel takes {_FWD_DTYPES}, got {h.dtype}")
     dim = dim % h.ndim
     h = h.contiguous()
+    n = h.shape[dim]
     out_shape = h.shape[:dim] + h.shape[dim + 1:]
-    v = torch.empty(out_shape, dtype=h.dtype, device=h.device)
-    w = torch.empty(out_shape, dtype=torch.int32, device=h.device)
-    kernels.check_operands(h, v, w)
-    kernels.launch("maxpool.fwd", "maxpool_fwd", h.device,
-                   h.data_ptr(), v.data_ptr(), w.data_ptr(),
-                   math.prod(h.shape[:dim]), h.shape[dim],
-                   math.prod(h.shape[dim + 1:]), kernels.KIND[h.dtype])
-    return v, w
+    res = ref.PoolFwd(
+        torch.empty(out_shape, dtype=h.dtype, device=h.device),
+        torch.empty(out_shape, dtype=torch.int32, device=h.device)
+        if winner else None,
+        torch.empty(h.shape[:dim] + (ref.tie_words(n),) + h.shape[dim + 1:],
+                    dtype=torch.uint16, device=h.device) if ties else None)
+    kernels.check_operands(h, *(t for t in res if t is not None))
+    kernels.launch("maxpool.fwd", "maxpool_fwd", h.device, h.data_ptr(),
+                   *(None if t is None else t.data_ptr() for t in res),
+                   math.prod(h.shape[:dim]), n, math.prod(h.shape[dim + 1:]),
+                   kernels.KIND[h.dtype])
+    return res
+
+
+def maxpool_fused(h: torch.Tensor, dim: int = 0):
+    """h -> (pooled max over ``dim``, first argmax int32)."""
+    return tuple(maxpool_fwd(h, dim)[:2])
+
+
+def maxpool_ties(h: torch.Tensor, dim: int = 0):
+    """h -> (pooled max over ``dim``, tie mask): the ``tie_break="all"``
+    law's forward, one launch that writes no winner."""
+    out = maxpool_fwd(h, dim, winner=False, ties=True)
+    return out.pooled, out.ties
 
 
 def maxpool_decode(codes: torch.Tensor, bits: int, dtype: torch.dtype, *,
@@ -143,6 +164,30 @@ def maxpool_winner_bwd(winner: torch.Tensor, g: torch.Tensor, n: int,
     kernels.check_operands(winner, g, out)
     kernels.launch("maxpool.winner_bwd", "maxpool_winner_bwd", g.device,
                    winner.data_ptr(), g.data_ptr(), out.data_ptr(),
+                   math.prod(g.shape[:dim]), n, math.prod(g.shape[dim:]),
+                   kernels.KIND[g.dtype])
+    return out
+
+
+def maxpool_ties_bwd(ties: torch.Tensor, g: torch.Tensor, n: int,
+                     dim: int = 0) -> torch.Tensor:
+    """(tie mask, g) -> gradient with a new worker axis ``dim`` of size
+    ``n``: g in the tied rows, ``g * 0`` elsewhere (see ``ref.ties_bwd``)."""
+    if g.device.type == "cpu":
+        return ref.ties_bwd(ties, g, n, dim)
+    if g.dtype not in _BWD_DTYPES:
+        raise ValueError(f"ties bwd takes {_BWD_DTYPES}, got {g.dtype}")
+    dim = dim % (g.ndim + 1)
+    words = g.shape[:dim] + (ref.tie_words(n),) + g.shape[dim:]
+    if ties.dtype != torch.uint16 or ties.shape != words:
+        raise ValueError(f"ties must be uint16 of shape {tuple(words)}, got "
+                         f"{ties.dtype} {tuple(ties.shape)}")
+    g, ties = g.contiguous(), ties.contiguous()
+    out = torch.empty(g.shape[:dim] + (n,) + g.shape[dim:], dtype=g.dtype,
+                      device=g.device)
+    kernels.check_operands(ties, g, out)
+    kernels.launch("maxpool.ties_bwd", "maxpool_ties_bwd", g.device,
+                   ties.data_ptr(), g.data_ptr(), out.data_ptr(),
                    math.prod(g.shape[:dim]), n, math.prod(g.shape[dim:]),
                    kernels.KIND[g.dtype])
     return out

@@ -6,6 +6,12 @@ winner's own element, except that a tie of -0.0 and +0.0 pools to +0.0,
 as ``jnp.max`` does.  Unsigned codes are compared as int64, since PyTorch
 has no reductions on ``uint16``/``uint32``.
 
+``maxpool_ties`` is the pooled max with the tie mask of the
+``tie_break="all"`` law, ``h == max`` packed 16 workers to a ``uint16``
+word, and ``ties_bwd`` that law's backward from the mask,
+``g * (h == max)``.  ``maxpool_fwd`` is the forward kernel's contract:
+the pooled max with the winner, the mask, both or neither.
+
 ``maxpool_decode`` is ``maxpool_fused`` over D-bit codes composed with the
 Eq. 7 ``decode`` (``ocs_quant.ref``), optionally with a worker mask and the
 code of a given winner: the fused pooling epilogue of a channel site.
@@ -46,12 +52,82 @@ def maxpool_fused(h: torch.Tensor, dim: int = 0):
     if h.dtype in _UNSIGNED:
         value = from_int64(key.gather(dim, winner), h.dtype)
     else:
-        # a tie of -0.0 and +0.0 pools to +0.0 (IEEE maximum, as jnp.max)
-        value = h.gather(dim, winner)
+        # the winner's own bits (a float gather may rewrite a NaN's); a
+        # tie of -0.0 and +0.0 pools to +0.0 (IEEE maximum, as jnp.max)
+        words = torch.int16 if h.element_size() == 2 else torch.int32
+        value = h.view(words).gather(dim, winner).view(h.dtype)
         pos_zero = ((h == 0) & ~torch.signbit(h)).any(dim=dim, keepdim=True)
         value = torch.where((value == 0) & pos_zero, torch.zeros_like(value),
                             value)
     return value.squeeze(dim), winner.squeeze(dim).to(torch.int32)
+
+
+TIE_BITS = 16
+"""Workers per tie-mask word: the mask of ``n`` workers pooled over axis
+``dim`` has ``ceil(n / 16)`` ``uint16`` words in place of that axis, bit
+``r`` of word ``w`` for worker ``16 w + r``."""
+
+
+def tie_words(n: int) -> int:
+    return -(-n // TIE_BITS)
+
+
+def maxpool_ties(h: torch.Tensor, dim: int = 0):
+    """h -> (pooled max over ``dim``, tie mask): bit k set where ``h[k] ==
+    max``, compared as ``h``'s values (-0.0 and +0.0 tie; a NaN max ties
+    no worker) or, for unsigned codes, as integers."""
+    pooled = maxpool_fused(h, dim)[0]
+    return pooled, _tie_mask(h, pooled, dim % h.ndim)
+
+
+def _tie_mask(h: torch.Tensor, pooled: torch.Tensor,
+              dim: int) -> torch.Tensor:
+    n = h.shape[dim]
+    if h.dtype in _UNSIGNED:
+        tied = to_int64(h) == to_int64(pooled).unsqueeze(dim)
+    else:
+        tied = h == pooled.unsqueeze(dim)
+    # pad the worker axis to whole words, then weigh each bit
+    pad = tie_words(n) * TIE_BITS - n
+    tied = torch.cat([tied, tied.new_zeros(tied.shape[:dim] + (pad,)
+                                           + tied.shape[dim + 1:])], dim)
+    words = tied.reshape(tied.shape[:dim] + (-1, TIE_BITS)
+                         + tied.shape[dim + 1:]).to(torch.int64)
+    weight = (1 << torch.arange(TIE_BITS, device=h.device)).reshape(
+        (TIE_BITS,) + (1,) * (h.ndim - dim - 1))
+    return from_int64((words * weight).sum(dim + 1), torch.uint16)
+
+
+def ties_bwd(ties: torch.Tensor, g: torch.Tensor, n: int,
+             dim: int = 0) -> torch.Tensor:
+    """The ``"all"`` law's backward from the tie mask: a new axis ``dim``
+    of size ``n``, ``g`` in the rows whose bit is set and ``g * 0`` (a
+    zero with g's sign, NaN for a non-finite g) elsewhere, as ``g * (h ==
+    max)`` computes it."""
+    dim = dim % (g.ndim + 1)
+    k = torch.arange(n, device=g.device)
+    words = to_int64(ties).index_select(dim, k // TIE_BITS)
+    shift = (k % TIE_BITS).reshape((n,) + (1,) * (g.ndim - dim))
+    hit = ((words >> shift) & 1) == 1
+    gx = g.unsqueeze(dim)
+    return torch.where(hit, gx, gx * 0)
+
+
+class PoolFwd(NamedTuple):
+    """What :func:`maxpool_fwd` writes; an output not asked for is None."""
+
+    pooled: torch.Tensor                # h's dtype
+    winner: Optional[torch.Tensor]      # int32, the first argmax
+    ties: Optional[torch.Tensor]        # uint16 tie-mask words
+
+
+def maxpool_fwd(h: torch.Tensor, dim: int = 0, *, winner: bool = True,
+                ties: bool = False) -> PoolFwd:
+    """The pooled max over ``dim`` with the first argmax and the tie mask
+    where asked."""
+    pooled, arg = maxpool_fused(h, dim)
+    return PoolFwd(pooled, arg if winner else None,
+                   _tie_mask(h, pooled, dim % h.ndim) if ties else None)
 
 
 class PoolDecode(NamedTuple):

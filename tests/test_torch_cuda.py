@@ -227,6 +227,76 @@ def test_winner_bwd_stack_matches_plain(cuda_device, lanes, n, e, dtype):
     _same(want, got)
 
 
+def _on_card(x: torch.Tensor, dev, offset: int) -> torch.Tensor:
+    """``x`` on the card, ``offset`` elements past an allocation's start
+    (1: a misaligned base, the kernels' scalar path)."""
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=dev)
+    out = buf[offset:].view(x.shape)
+    out.copy_(x.to(dev))
+    return out
+
+
+def _same_nan_as_nan(a: torch.Tensor, b: torch.Tensor) -> None:
+    """Bitwise where not NaN, NaN at the same places: the CPU and the card
+    give ``inf * 0`` NaNs of other payloads."""
+    a, b = a.cpu(), b.cpu()
+    na, nb = torch.isnan(a), torch.isnan(b)
+    assert torch.equal(na, nb)
+    _same(torch.where(na, torch.zeros_like(a), a),
+          torch.where(nb, torch.zeros_like(b), b))
+
+
+# maxpool.fwd's optional outputs and maxpool.ties_bwd: (workers, columns,
+# dtype, offset) -- 16-worker bf16 as at the LM site, a ragged width, a
+# misaligned base, more than 16 workers (two and three mask words), codes
+_TIES_CASES = [(16, 2048, "bfloat16", 0), (16, 1003, "bfloat16", 0),
+               (16, 1000, "bfloat16", 1), (17, 512, "float32", 0),
+               (33, 96, "float16", 1), (3, 64, "float32", 0),
+               (16, 256, "uint8", 0), (5, 130, "uint16", 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,e,dtype,offset", _TIES_CASES)
+def test_maxpool_fwd_outputs_and_ties_bwd_match_plain(cuda_device, n, e,
+                                                      dtype, offset):
+    """``maxpool.fwd`` bitwise against its plain version for every subset
+    of its optional outputs (winner, tie mask) on partials with forced
+    ties, -0.0 beside +0.0 at a zero max, +-inf and a NaN row; then
+    ``maxpool.ties_bwd`` from the kernel's mask against its plain version
+    for a cotangent with +-0 and +-inf (NaN as NaN)."""
+    gen = torch.Generator().manual_seed(n * e)
+    h = torch.randint(-4, 3, (2, n, e), generator=gen) / 2.0
+    h[:, :, 1::7] = -1.0
+    h[:, n // 2, 1::7], h[:, n - 1, 1::7] = -0.0, 0.0
+    h[:, 0, 2::11] = float("inf")
+    h[1, n // 3, 4::64] = float("nan")
+    if dtype in ("uint8", "uint16"):
+        h = QR.encode(h, 8 if dtype == "uint8" else 12)
+    else:
+        h = h.to(_DT[dtype][0])
+        # a negative NaN (sign bit set) alone in its 8-column group
+        _as_ints(h)[0, n - 1, 41::64] = -1
+    hc = _on_card(h, cuda_device, offset)
+    for winner in (False, True):
+        for ties in (False, True):
+            got = MPO.maxpool_fwd(hc, 1, winner=winner, ties=ties)
+            want = MPR.maxpool_fwd(h, 1, winner=winner, ties=ties)
+            for a, b in zip(got, want):
+                assert (a is None) == (b is None)
+                if a is not None:
+                    _same(b, a)
+    if dtype in ("uint8", "uint16"):
+        return
+    mask = MPO.maxpool_ties(hc, 1)[1]
+    g = torch.randn((2, e), generator=gen).to(h.dtype)
+    g.view(-1)[:6] = torch.tensor([0.0, -0.0, float("inf"), -float("inf"),
+                                   1.0, -1.0])
+    gc = _on_card(g, cuda_device, offset)
+    got = MPO.maxpool_ties_bwd(mask, gc, n, 1)
+    _same_nan_as_nan(MPR.ties_bwd(mask.cpu(), g, n, 1), got)
+    _same_nan_as_nan(MPR.ties_bwd(mask, gc, n, 1), got)
+
+
 # the fused kernel's cases: (lanes, workers, real workers, elements, the
 # features' dtype (and p_keep's), bits, id sub-slots past the real ones,
 # p_miss per lane, per worker, rounds)
@@ -682,7 +752,8 @@ def test_dp_curves_card_accounting_matches_cpu(cuda_device):
 
 def _train_setup(dev, ckpt_dir=None, steps=6, ckpt_every=3):
     """The reduced qwen config in bf16 with the flash kernel and the max
-    fusion (``maxpool.fwd``), through ``launch/train``'s code path."""
+    fusion (``maxpool.fwd`` and ``maxpool.ties_bwd``), through
+    ``launch/train``'s code path."""
     from repro_torch.launch import train as launch_train
 
     argv = ["--arch", "qwen1.5-0.5b", "--smoke", "--device", str(dev),
@@ -718,6 +789,7 @@ def test_trainer_resume_bitwise_on_card(cuda_device, tmp_path):
         runs.append(lt.launch(run))
         counts = kernels.launch_counts()
         assert counts["maxpool.fwd"] == 2 * 2 * 6, counts
+        assert counts["maxpool.ties_bwd"] == 2 * 2 * 6, counts
         assert counts["flash_attention.fwd"] == 2 * 6, counts
     _same_tree(runs[0].values, runs[1].values)
     _same_tree(runs[0].opt_state, runs[1].opt_state)

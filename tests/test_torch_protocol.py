@@ -32,8 +32,10 @@ from repro_torch.core import fedocs as tfed
 from repro_torch.core import ocs as tocs
 from repro_torch.core import quantize as tq
 from repro_torch.core import vertical as tvert
+from repro_torch.kernels.maxpool import ops as maxpool_ops
 from repro_torch.kernels.ocs_contention import ops as contention_ops
 from repro_torch.kernels.ocs_contention import ref as contention_ref
+from repro_torch.kernels.ocs_quant.ref import to_int64
 from repro_torch.optim import optimizers as topt
 from repro_torch.optim import schedules as tsched
 from repro_torch.protocol import Protocol
@@ -346,13 +348,20 @@ def test_baseline_laws():
 
 
 def test_winner_mask_modes():
+    """The routing masks of the max law's backwards against the JAX
+    package's ``_winner_mask``: ``"all"`` is the tie mask ``maxpool.fwd``
+    writes, ``"first"`` the one-hot of its first argmax."""
     h, _ = _law_inputs(7, ties=True)
     hj, ht = _pair(h)
-    pooled_j, pooled_t = jnp.max(hj, 0), ht.amax(0)
+    pooled_j = jnp.max(hj, 0)
+    fwd = maxpool_ops.maxpool_fwd(ht, 0, winner=True, ties=True)
+    k = torch.arange(ht.shape[0]).reshape(-1, 1, 1)
+    got = {"all": ((to_int64(fwd.ties) >> k) & 1) == 1,
+           "first": k == fwd.winner}
     for mode in ("all", "first"):
         assert np.array_equal(np.asarray(jfed._winner_mask(hj, pooled_j,
                                                            mode)),
-                              tfed._winner_mask(ht, pooled_t, mode).numpy())
+                              got[mode].to(torch.float32).numpy())
 
 
 # ---------------------------------------------------------------------------
