@@ -122,7 +122,28 @@ Phases, in order; any failed check raises and the script exits non-zero:
     bitwise the uninterrupted run; a small configuration card vs CPU;
 20. sample (``ServeConfig(greedy=False)``) on the reduced qwen config on
     the card and on the CPU: the same tokens;
-21. print one ``{"kernels": [...]}`` line and, last, the device line.
+21. run ``launch/train`` at the full qwen3-moe-30b-a3b width (d_model
+    2048, 32 heads of 128 over 4 KV heads, 128 experts of 768, top 8),
+    the depth cut to 4 of 48 layers, bf16, random weights from seed 0,
+    ``--fusion max``, flash, 8 x 256 tokens, 3 steps, counted (flash,
+    ``maxpool.fwd`` and ``maxpool.ties_bwd`` 4 each a step, nothing
+    else), every loss finite, the peak device memory; a second run
+    bitwise the first; then profile 3 steps; phase 3 also holds flash at
+    (1 and 8, 32, 256, 128) with 4 KV heads (GQA 8:1) beside
+    ``scaled_dot_product_attention``, and the max site's pair at (16, 8
+    x 256 x 2048);
+22. serve phase 8's traffic with that model (``tp_fusion="max"``, OCS p
+    0.05): 0 channel slots and 0 uplink bits billed (an all-MoE plan has
+    no channel site), counted (flash once per layer per request,
+    ``maxpool.fwd`` once per layer per prefill and per tick), every logit
+    finite; profile 10 decode ticks;
+23. build one layer of llama4-scout-17b-a16e, glm4-9b, minicpm-2b and
+    qwen2.5-32b at full width, each serving 2 requests of 64-token
+    prompts for 4 tokens under OCS p 0.05, counted, every logit finite;
+24. run the reduced qwen3-moe and llama4 configs, both ``moe_impl``
+    forms, on the card and on the CPU: 3 trainer steps' losses within
+    1e-3, and the same served tokens;
+25. print one ``{"kernels": [...]}`` line and, last, the device line.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -131,6 +152,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -155,7 +177,7 @@ from repro_torch import random as jr  # noqa: E402
 from repro_torch.configs import fedocs_cifar  # noqa: E402
 from repro_torch.configs import get_config, get_reduced  # noqa: E402
 from repro_torch.core import ocs, vertical  # noqa: E402
-from repro_torch.data import vertical_data  # noqa: E402
+from repro_torch.data import pipeline, vertical_data  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.maxpool import ops as mp_ops  # noqa: E402
@@ -166,6 +188,7 @@ from repro_torch.kernels.ocs_quant import ops as q_ops  # noqa: E402
 from repro_torch.kernels.ocs_quant import ref as q_ref  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.models import attention  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.optim import optimizers, schedules  # noqa: E402
 from repro_torch.optim.compressed_allreduce import (  # noqa: E402
@@ -201,6 +224,17 @@ SERVE_REQUESTS, SERVE_RATE, SERVE_P_MISS = 16, 0.5, 0.05
 # serving prompt length), 6 steps, a checkpoint every 3
 QWEN_PARAMS = 463_987_712
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_EVERY = 8, 256, 6, 3
+# the MoE slice: qwen3-moe-30b-a3b at its full width (d_model 2048, 32
+# heads of 128 over 4 KV heads, 128 experts of 768, top 8, 16 workers), the
+# depth cut to 4 of 48 layers (the optimizer's float32 master weights and
+# moments of 48 layers do not fit the card); 3 train steps of 8 x 256
+# tokens; serving on phase 8's traffic
+QWEN3 = "qwen3-moe-30b-a3b"
+LLAMA4 = "llama4-scout-17b-a16e"
+MOE_LAYERS, MOE_STEPS, MOE_D = 4, 3, 2048
+# one period (one layer) of each other new config at its full width
+WIDE_ARCHS = (LLAMA4, "glm4-9b", "minicpm-2b", "qwen2.5-32b")
+WIDE_REQUESTS, WIDE_PROMPT, WIDE_NEW = 2, 64, 4
 # the channel trainer hook at the fedocs-cifar width
 HOOK_STEPS, HOOK_BATCH = 8, 64
 # the sweep: benchmarks/bench_sweep.py's full grid, K 64, 8 rounds
@@ -587,10 +621,12 @@ def check_kernels(dev) -> dict:
                                              dtype="bfloat16"))
     rows.update(check_sweep_kernels(dev, row))
     rows.update(check_train_maxpool(dev, row))
+    rows.update(check_moe_site(dev, row))
     check_decode_outputs(dev)
     check_noisy_cases(dev)
     check_fault_cases(dev)
     rows[("flash_attention.fwd", "serve")] = check_flash(dev)
+    rows[("flash_attention.fwd", "moe")] = check_flash_gqa128(dev)
     return rows
 
 
@@ -835,6 +871,55 @@ def check_flash(dev) -> dict:
             "library_ms", "max_abs_err", "ms_source")
     return dict(recs[0], long_prompts=[{k: r[k] for k in keep}
                                        for r in recs[1:]])
+
+
+def check_flash_gqa128(dev) -> dict:
+    """Phase 3, flash at the MoE slice's attention: head_dim 128, 32 query
+    heads over 4 KV heads (GQA 8:1), bf16 causal, S 256 — one prefill
+    (1, 32, 256, 128) and the train step (8, 32, 256, 128) — within 0.05
+    of the plain version, timed beside ``scaled_dot_product_attention``
+    (``enable_gqa``).  Untimed, within 0.05 at phase 23's prefills (S 64
+    and each wide config's heads: GQA 5:1 and 16:1 at head_dim 128,
+    minicpm's 36-head MHA at 64)."""
+    recs = []
+    for b in (1, TRAIN_BATCH):
+        gen = torch.Generator(device="cpu").manual_seed(b)
+        q, k, v = (torch.randn(shape, generator=gen).to(torch.bfloat16)
+                   .to(dev) for shape in ((b, 32, TRAIN_SEQ, 128),
+                                          (b, 4, TRAIN_SEQ, 128),
+                                          (b, 4, TRAIN_SEQ, 128)))
+        err = float((fa_ops.flash_attention(q, k, v).float()
+                     - fa_ref.flash_attention(q, k, v).float()).abs().max())
+        print(f"flash {tuple(q.shape)} Hkv 4 bf16 causal: max abs err "
+              f"{err:.3g} (tolerance 0.05)", flush=True)
+        if not err <= 0.05:
+            raise AssertionError(f"flash kernel != plain: {err} > 0.05")
+        nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
+        ops = 4 * b * 32 * 128 * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+        recs.append(_record(
+            "flash_attention.fwd",
+            lambda q=q, k=k, v=v: fa_ops.flash_attention(q, k, v),
+            lambda q=q, k=k, v=v: fa_ref.flash_attention(q, k, v), nbytes,
+            ops, lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True),
+            dict(shape=list(q.shape), kv_heads=4, dtype="bfloat16",
+                 causal=True, path="moe"), err, BF16_TENSOR_OPS_PER_S))
+    wide = sorted({(c.n_heads, c.n_kv_heads, c.head_dim_)
+                   for c in map(get_config, WIDE_ARCHS)})
+    for h, hkv, d in wide:
+        gen = torch.Generator(device="cpu").manual_seed(h * hkv + d)
+        q, k, v = (torch.randn(shape, generator=gen).to(torch.bfloat16)
+                   .to(dev) for shape in ((1, h, WIDE_PROMPT, d),
+                                          (1, hkv, WIDE_PROMPT, d),
+                                          (1, hkv, WIDE_PROMPT, d)))
+        err = float((fa_ops.flash_attention(q, k, v).float()
+                     - fa_ref.flash_attention(q, k, v).float()).abs().max())
+        print(f"flash {tuple(q.shape)} Hkv {hkv} (GQA {h // hkv}:1) bf16 "
+              f"causal: max abs err {err:.3g} (tolerance 0.05)", flush=True)
+        if not err <= 0.05:
+            raise AssertionError(f"flash kernel != plain at {tuple(q.shape)} "
+                                 f"Hkv {hkv}: {err} > 0.05")
+    return {"prefill": recs[0], "train": recs[1]}
 
 
 def check_p0_equivalence(dev) -> None:
@@ -1168,11 +1253,11 @@ def check_serving_against_cpu(dev) -> None:
             assert same_tok == total, "channel-free tokens differ"
 
 
-def profile_serving(dev, serve) -> None:
+def profile_serving(dev, serve, table="profile_serve.txt") -> dict:
     """Phase 11: where a decode tick's time goes at the full width: the 8
     slots filled (prefills not profiled), 10 ticks timed unprofiled, then
     10 more under torch.profiler (device busy time, idle share, time by
-    kernel; the table goes to chiprun_out/profile_serve.txt)."""
+    kernel; the table goes to ``<table>`` in the output directory)."""
     eng, proto = serve["eng"], serve["proto"]
     eng._reset()
     for slot, req in enumerate(serve["reqs"][:SERVE_SLOTS]):
@@ -1201,9 +1286,10 @@ def profile_serving(dev, serve) -> None:
                   if "<long" in name or "Functor<long" in name) / 1e6
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "profile_serve.txt").write_text(prof.key_averages().table(
+    (out / table).write_text(prof.key_averages().table(
         sort_by="self_device_time_total", row_limit=60))
-    print(f"profile, 10 decode ticks at the full width ({SERVE_SLOTS} slots, "
+    print(f"profile, 10 decode ticks of {serve['m'].cfg.name} at the full "
+          f"width ({serve['m'].cfg.n_layers} layers, {SERVE_SLOTS} slots, "
           f"OCS p {SERVE_P_MISS}): wall {wall:.4f} s unprofiled "
           f"({100 * wall:.2f} ms per tick), device busy {device_s:.4f} s, "
           f"idle share {1 - device_s / wall:.3f}; {launches} device kernels "
@@ -1212,6 +1298,8 @@ def profile_serving(dev, serve) -> None:
           f"port's kernel launches per tick {per_tick}", flush=True)
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  {us / 1e3:10.3f} ms  {name[:100]}", flush=True)
+    return dict(wall_ms=100 * wall, device_ms=100 * device_s,
+                idle=1 - device_s / wall, launches=launches / 10)
 
 
 # ---------------------------------------------------------------------------
@@ -1951,6 +2039,85 @@ def check_train_maxpool(dev, row) -> dict:
     return out
 
 
+def _check_fwd_subsets(cases, shape, path) -> None:
+    """``maxpool.fwd`` bitwise against its plain version for each subset
+    of its optional outputs, on each of ``cases``' (16, cols) inputs
+    viewed as ``shape``."""
+    for what, h in cases.items():
+        h = h.view(shape)
+        for winner in (False, True):
+            for ties in (False, True):
+                _check_equal(
+                    "maxpool.fwd",
+                    lambda: _present(mp_ops.maxpool_fwd(h, 0, winner=winner,
+                                                        ties=ties)),
+                    lambda: _present(mp_ref.maxpool_fwd(h, 0, winner=winner,
+                                                        ties=ties)),
+                    dict(input=what, winner=winner, ties=ties, path=path))
+    print(f"maxpool.fwd at {path} {shape}: bitwise equal to plain for 4 "
+          f"output subsets x {len(cases)} inputs", flush=True)
+
+
+def check_moe_site(dev, row) -> dict:
+    """Phase 3, the MoE slice's max-fusion site (the attention
+    out-projection of qwen3-moe-30b-a3b), (16 workers, 8 x 256 tokens x
+    2048) bfloat16 in the train step and phase 22's serve widths (a
+    256-token prefill, a tick of 8 slots): ``maxpool.fwd`` bitwise against
+    its plain version for each subset of its optional outputs on randn
+    partials and on partials with forced ties, +-0, +-inf and NaNs; at the
+    train step's width ``maxpool.ties_bwd``
+    bitwise against its plain version and ``g * (h == max)``.  Timed: the
+    law's form beside ``torch.max(dim=0)``, the backward beside that
+    composition."""
+    # the serve path's widths: one 256-token prefill, one tick of 8 slots
+    for site, serve_shape in (
+            ("prefill", (QWEN_WORKERS, 1, SERVE_PROMPT, MOE_D)),
+            ("tick", (QWEN_WORKERS, SERVE_SLOTS, 1, MOE_D))):
+        n_cols = math.prod(serve_shape[1:])
+        _check_fwd_subsets(
+            {"randn": _train_site_input(dev, n_cols, 34),
+             "ties": _train_site_input(dev, n_cols, 35, ties=True)},
+            serve_shape, f"moe serve {site}")
+    shape = (QWEN_WORKERS, TRAIN_BATCH, TRAIN_SEQ, MOE_D)
+    cols = math.prod(shape[1:])
+    cases = {"randn": _train_site_input(dev, cols, 30).view(shape),
+             "ties": _train_site_input(dev, cols, 31, ties=True).view(shape)}
+    _check_fwd_subsets(cases, shape, "moe")
+    for what, h in cases.items():
+        pooled, mask = mp_ops.maxpool_ties(h, 0)
+        for special in (False, True):
+            g = _site_cotangent(dev, h.shape[1:], 32, special)
+            got = mp_ops.maxpool_ties_bwd(mask, g, QWEN_WORKERS, 0)
+            composed = g.unsqueeze(0) * (h == pooled.unsqueeze(0)).to(h.dtype)
+            for want, by in ((mp_ref.ties_bwd(mask, g, QWEN_WORKERS, 0),
+                              "plain"), (composed, "g * (h == max)")):
+                if special:
+                    _same_nan_as_nan(got, want, f"ties_bwd {what} vs {by}")
+                else:
+                    assert _bitwise_equal(got, want), \
+                        f"ties_bwd {what} vs {by}: differs"
+    print(f"maxpool.ties_bwd at the MoE site {shape}: bitwise equal to "
+          f"plain and to g * (h == max) on {len(cases)} inputs", flush=True)
+    h = cases["randn"]
+    out = {("maxpool.fwd", "moe"): row(
+        "maxpool.fwd", lambda: mp_ops.maxpool_ties(h, 0),
+        lambda: mp_ref.maxpool_ties(h, 0), h.numel() * 2 + cols * (2 + 2),
+        2 * h.numel(), lambda: torch.max(h, dim=0),
+        dict(shape=list(h.shape), dtype="bfloat16", path="moe",
+             outputs="pooled, ties"))}
+    pooled, mask = mp_ops.maxpool_ties(h, 0)
+    g = _site_cotangent(dev, h.shape[1:], 33)
+    out[("maxpool.ties_bwd", "moe")] = row(
+        "maxpool.ties_bwd",
+        lambda: mp_ops.maxpool_ties_bwd(mask, g, QWEN_WORKERS, 0),
+        lambda: mp_ref.ties_bwd(mask, g, QWEN_WORKERS, 0),
+        cols * (2 + 2) + h.numel() * 2, h.numel(),
+        lambda: g.unsqueeze(0) * (h == pooled.unsqueeze(0)).to(h.dtype),
+        dict(shape=list(h.shape), dtype="bfloat16", path="moe",
+             library="g * (h == max) (3 launches)"))
+    return out
+
+
 def _same_tree(a, b) -> bool:
     """Bitwise equality of two trees (dataclass carries field by field)."""
     if a is None or b is None:
@@ -2127,6 +2294,43 @@ def _categorize(name: str) -> str:
     return "other (elementwise, reductions)"
 
 
+def _profile_steps(run, n: int, table: str):
+    """``n`` train steps of ``run`` (the trainer's step function, its
+    carries donated, batches from the pipeline; ``run.values`` is updated
+    in place) timed unprofiled after a warm-up step, then ``n``
+    more under torch.profiler: (values, opt state, wall seconds of the
+    unprofiled steps, device ms a step by kernel class, by kernel, device
+    launches).  The profiler table goes to ``<table>`` in the output
+    directory."""
+    step_fn = make_train_step(run.m.loss, run.opt)
+    values, opt = run.values, run.opt.init(run.values)
+    values, opt, _ = step_fn(values, opt, run.data(0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(1, n + 1):
+        values, opt, _ = step_fn(values, opt, run.data(s))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for s in range(n + 1, 2 * n + 1):
+            values, opt, _ = step_fn(values, opt, run.data(s))
+        torch.cuda.synchronize()
+    by_class, by_name, launches = {}, {}, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            c = _categorize(e.name)
+            ms = e.device_time_total / (n * 1e3)
+            by_class[c] = by_class.get(c, 0.0) + ms
+            by_name[e.name] = by_name.get(e.name, 0.0) + ms
+            launches += 1
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / table).write_text(prof.key_averages().table(
+        sort_by="self_device_time_total", row_limit=60))
+    return values, opt, wall, by_class, by_name, launches
+
+
 def profile_train(dev) -> dict:
     """Phase 18, profile: 5 full-width train steps (the trainer's step
     function, batches from the pipeline) timed unprofiled after a warm-up
@@ -2135,39 +2339,16 @@ def profile_train(dev) -> dict:
     chiprun_out/profile_train.txt).  Then, alone at the step's shapes, the
     device time (profiler) of the flash backward's recompute through the
     plain version (24 layers x (forward + backward - forward)), of the
-    xent's forward and backward, and of the AdamW update with its
-    clipping."""
+    xent's forward and backward, and of the step's in-place AdamW update
+    with its clipping."""
     run = _train_run(None, steps=11)
-    step_fn = make_train_step(run.m.loss, run.opt)
-    values, opt = run.values, run.opt.init(run.values)
-    values, opt, _ = step_fn(values, opt, run.data(0))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for s in range(1, 6):
-        values, opt, _ = step_fn(values, opt, run.data(s))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for s in range(6, 11):
-            values, opt, _ = step_fn(values, opt, run.data(s))
-        torch.cuda.synchronize()
-    by_class, by_name, launches = {}, {}, 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            c = _categorize(e.name)
-            by_class[c] = by_class.get(c, 0.0) + e.device_time_total / 5e3
-            by_name[e.name] = by_name.get(e.name, 0.0) + \
-                e.device_time_total / 5e3
-            launches += 1
+    values, opt, wall, by_class, by_name, launches = _profile_steps(
+        run, 5, "profile_train.txt")
     step_ms = sum(by_class.values())
-    out = ROOT / "chiprun_out"
-    out.mkdir(exist_ok=True)
-    (out / "profile_train.txt").write_text(prof.key_averages().table(
-        sort_by="self_device_time_total", row_limit=60))
 
     grads = tree.map(lambda v: torch.full_like(v, 1e-3), values)
-    adamw_ms = _device_ms(lambda: run.opt.update(grads, opt, values),
+    # the step's in-place AdamW update alone (its clipping included)
+    adamw_ms = _device_ms(lambda: run.opt.update_inplace(grads, opt, values),
                           iters=5)[0]
     del grads, values, opt
     cfg = run.cfg
@@ -2361,6 +2542,306 @@ def check_sampling_against_cpu(dev) -> None:
     assert not diff, "sampled tokens differ between the card and the CPU"
 
 
+# ---------------------------------------------------------------------------
+# the MoE FFN and the new configs
+# ---------------------------------------------------------------------------
+
+def _cpu_tree(t):
+    """A copy of a tree's tensors on the CPU (other leaves as they are)."""
+    if dataclasses.is_dataclass(t) or t is None:
+        return t
+    return tree.map(lambda x: x.cpu() if isinstance(x, torch.Tensor)
+                    else x, t)
+
+
+def _assert_same_run_cpu(a, b, what) -> None:
+    """``a`` (values, opt state, history rows) held on the CPU against the
+    run ``b``, bitwise, one leaf at a time (each held leaf copied back to
+    ``b``'s device)."""
+    for name, x, y in (("values", a[0], b.values),
+                       ("opt state", a[1], b.opt_state)):
+        lx, ly = tree.leaves(x), tree.leaves(y)
+        assert len(lx) == len(ly), (what, name)
+        for u, v in zip(lx, ly):
+            assert (_bitwise_equal(u.to(v.device), v)
+                    if isinstance(u, torch.Tensor) else u == v), \
+                f"{what}: {name} differ"
+    assert a[2] == _rows(b.history), f"{what}: history differs"
+
+
+def _release(what: str) -> None:
+    """Collect garbage and return the allocator's cached blocks to the
+    card before a phase that fills it; print what is still allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"device memory allocated at {what}: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+
+def _moe_train_run(steps=MOE_STEPS):
+    """``launch/train``'s run at the full qwen3-moe-30b-a3b width, the
+    depth cut to ``MOE_LAYERS`` (``--layers``), fusion ``max``, flash,
+    every step logged."""
+    run = launch_train.setup(launch_train.parse_args([
+        "--arch", QWEN3, "--layers", str(MOE_LAYERS), "--steps", str(steps),
+        "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--seed",
+        "0"]))
+    cfg = run.cfg
+    assert (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_,
+            cfg.n_experts, cfg.experts_per_token, cfg.n_workers,
+            cfg.tp_fusion, cfg.use_flash, cfg.dtype) == (
+        MOE_D, 32, 4, 128, 128, 8, QWEN_WORKERS, "max", True,
+        torch.bfloat16), cfg
+    run.tcfg = dataclasses.replace(run.tcfg, log_every=1)
+    return run
+
+
+def _moe_train_counts(counts, steps, what) -> None:
+    """Per step: flash once per layer (the forward) and ``maxpool.fwd`` and
+    ``maxpool.ties_bwd`` once per layer (the attention out-projection's
+    max site: 32 heads over 16 workers); the experts have no fusion
+    site."""
+    want = {k: 0 for k in kernels.KERNELS}
+    want.update({"flash_attention.fwd": MOE_LAYERS * steps,
+                 "maxpool.fwd": MOE_LAYERS * steps,
+                 "maxpool.ties_bwd": MOE_LAYERS * steps})
+    assert counts == want, (what, counts, want)
+
+
+def run_moe_train_phase(dev) -> dict:
+    """Phase 21: ``launch/train`` at the full qwen3-moe-30b-a3b width (the
+    depth cut to 4 layers; bf16, random weights from seed 0, ``--fusion
+    max``, flash), batch 8 x 256 tokens, ``adamw(for_arch(...))``, 3
+    steps, counted, every loss finite, the peak device memory; a second
+    run bitwise the first (values, optimizer state, history: the first
+    run's are held on the CPU, two runs' state does not fit the card
+    together); then 3 steps profiled."""
+    print(f"train {QWEN3}: the depth cut to {MOE_LAYERS} of 48 layers",
+          flush=True)
+    _release("train phase start")
+    run = _moe_train_run()
+    n_params = sum(t.numel() for t in tree.leaves(run.values))
+    # the tree holds the final norm beside what param_count counts
+    assert n_params == run.cfg.param_count() + run.cfg.d_model, n_params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first, counts, wall = _counted(lambda: launch_train.launch(run))
+    peak = torch.cuda.max_memory_allocated()
+    del run
+    _moe_train_counts(counts, MOE_STEPS, "first run")
+    losses = [r["loss"] for r in first.history]
+    assert len(losses) == MOE_STEPS and all(
+        math.isfinite(x) for x in losses), losses
+    aux = [r["aux"] for r in first.history]
+    print(f"train {QWEN3} full width, {MOE_LAYERS} layers ({n_params} "
+          f"parameters, bf16, fusion max, flash): {MOE_STEPS} steps of "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens in {wall:.3f} s wall; losses "
+          f"{losses}; router aux {aux}; step host times "
+          f"{[round(r['step_time_s'], 4) for r in first.history]}; peak "
+          f"device memory {peak / 2**30:.2f} GiB ({peak} bytes); launches "
+          f"{counts}", flush=True)
+    held = (_cpu_tree(first.values), _cpu_tree(first.opt_state),
+            _rows(first.history))
+    del first
+    _release("first run held on the CPU")
+    again, counts2, wall2 = _counted(
+        lambda: launch_train.launch(_moe_train_run()))
+    _moe_train_counts(counts2, MOE_STEPS, "second run")
+    _assert_same_run_cpu(held, again, "two MoE runs")
+    del again, held
+    _release("second run compared")
+    print(f"train {QWEN3}: a second run ({wall2:.3f} s) bitwise the first: "
+          f"values, optimizer state, history", flush=True)
+
+    run = _moe_train_run(steps=2 * MOE_STEPS + 1)
+    values, opt, pwall, by_class, by_name, launches = _profile_steps(
+        run, MOE_STEPS, "profile_train_moe.txt")
+    # the step's in-place AdamW update alone (its clipping included)
+    grads = tree.map(lambda v: torch.full_like(v, 1e-3), values)
+    adamw_ms = _device_ms(lambda: run.opt.update_inplace(grads, opt, values),
+                          iters=3)[0]
+    del run, values, opt, grads
+    torch.cuda.empty_cache()
+    step_ms = sum(by_class.values())
+    res = dict(wall=wall, peak=peak, counts=counts,
+               wall_ms=1e3 * pwall / MOE_STEPS, device_ms=step_ms,
+               idle=1 - step_ms * MOE_STEPS / (1e3 * pwall),
+               kernels=launches / MOE_STEPS, by_class=by_class,
+               adamw_ms=adamw_ms)
+    print(f"profile, {MOE_STEPS} {QWEN3} train steps ({MOE_LAYERS} layers, "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens): wall {res['wall_ms']:.3f} "
+          f"ms a step unprofiled, device busy {step_ms:.3f} ms a step, idle "
+          f"share {res['idle']:.3f}; {res['kernels']:.0f} device kernels and "
+          f"copies a step; by class (ms a step) {by_class}; alone, the "
+          f"AdamW update {adamw_ms:.3f} device ms", flush=True)
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"  {ms:10.3f} ms a step  {name[:100]}", flush=True)
+    return res
+
+
+def run_moe_serving(dev) -> dict:
+    """Phase 22: serve phase 8's traffic (16 Poisson requests of 256-token
+    prompts for 32 tokens over 8 slots) with qwen3-moe-30b-a3b at its full
+    width, 4 layers, ``tp_fusion="max"``, flash prefill, under
+    ``Protocol.ocs(bits=8, p_miss=0.05)``: an all-MoE plan has no channel
+    site, so the engine bills 0 channel slots and 0 uplink bits.  Counted:
+    flash once per layer per request, ``maxpool.fwd`` once per layer per
+    prefill and per tick (the attention's max site), nothing else; every
+    logit finite.  Then 10 decode ticks profiled."""
+    cfg = get_config(QWEN3, n_layers=MOE_LAYERS, tp_fusion="max",
+                     use_flash=True)
+    m = M.build(cfg)
+    values = m.init(torch.Generator(device=dev).manual_seed(0))
+    finite = _watch_logits(m, dev)
+    proto = _ocs(SERVE_P_MISS)
+    eng = se.ServeEngine(m, values, se.ServeConfig(
+        batch_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, eos_id=-1,
+        protocol=proto), device=dev)
+    reqs = poisson_requests(SERVE_REQUESTS, SERVE_RATE, cfg.vocab_size,
+                            prompt_len=SERVE_PROMPT,
+                            max_new_tokens=SERVE_NEW, seed=0)
+    eng.run([se.Request(rid=0, prompt=reqs[0].prompt, max_new_tokens=2)])
+    se.reset_dispatch_counts()
+    outs, counts, wall = _counted(lambda: eng.run(reqs))
+    ticks = se.dispatch_counts()["tick"]
+    assert m.channel_sites() == 0
+    want = {k: 0 for k in kernels.KERNELS}
+    want.update({"flash_attention.fwd": MOE_LAYERS * SERVE_REQUESTS,
+                 "maxpool.fwd": MOE_LAYERS * (SERVE_REQUESTS + ticks)})
+    assert counts == want, (counts, want)
+    assert bool(finite["ok"]), "a logit is not finite"
+    assert sorted(outs) == list(range(SERVE_REQUESTS))
+    for c in outs.values():
+        assert len(c.tokens) == SERVE_NEW, (c.rid, len(c.tokens))
+        assert c.channel_slots == 0 and c.uplink_bits == 0, c.rid
+    n_tok = sum(len(c.tokens) for c in outs.values())
+    print(f"serve {QWEN3} full width, {MOE_LAYERS} layers, OCS p "
+          f"{SERVE_P_MISS}: {len(outs)} requests, {n_tok} tokens, {ticks} "
+          f"ticks in {wall:.3f} s wall; {1e3 * wall / ticks:.2f} ms per tick "
+          f"(prefills included); 0 channel slots and 0 uplink bits billed "
+          f"(no channel site); launches {counts}", flush=True)
+    prof = profile_serving(dev, dict(eng=eng, proto=proto, reqs=reqs, m=m),
+                           "profile_serve_moe.txt")
+    del eng, values, m
+    torch.cuda.empty_cache()
+    return dict(counts=counts, wall=wall, ticks=ticks, tokens=n_tok,
+                profile=prof)
+
+
+def run_wide_configs(dev) -> dict:
+    """Phase 23: one period (one layer) of llama4-scout-17b-a16e, glm4-9b,
+    minicpm-2b and qwen2.5-32b at their full widths (bf16, random weights
+    from seed 0, ``tp_fusion="max"``, flash prefill), each serving 2
+    requests of 64-token prompts for 4 tokens under OCS p 0.05, counted:
+    flash once per layer per request; ``maxpool.fwd`` at each layer's
+    attention site (worker layout only) and FFN site in a prefill, and at
+    the attention site and llama4's shared expert in a tick; the channel
+    kernels once per mlp layer per tick; every logit finite.  Each model
+    is freed before the next."""
+    total = {k: 0 for k in kernels.KERNELS}
+    walls = {}
+    for arch in WIDE_ARCHS:
+        base = get_config(arch)
+        cfg = base.with_(n_layers=base.period, tp_fusion="max",
+                         use_flash=True)
+        m = M.build(cfg)
+        values = m.init(torch.Generator(device=dev).manual_seed(0))
+        n_params = sum(t.numel() for t in tree.leaves(values))
+        finite = _watch_logits(m, dev)
+        eng = se.ServeEngine(m, values, se.ServeConfig(
+            batch_slots=WIDE_REQUESTS, max_seq=2 * WIDE_PROMPT, eos_id=-1,
+            protocol=_ocs(SERVE_P_MISS)), device=dev)
+        reqs = poisson_requests(WIDE_REQUESTS, 1.0, cfg.vocab_size,
+                                prompt_len=WIDE_PROMPT,
+                                max_new_tokens=WIDE_NEW, seed=0)
+        se.reset_dispatch_counts()
+        outs, counts, wall = _counted(lambda: eng.run(reqs))
+        ticks = se.dispatch_counts()["tick"]
+        attn = 1 if attention.attn_layout(cfg) == "worker" else 0
+        shared = 1 if cfg.moe_shared_expert else 0
+        sites = m.channel_sites()
+        want = {k: 0 for k in kernels.KERNELS}
+        want.update({
+            "flash_attention.fwd": cfg.n_layers * WIDE_REQUESTS,
+            "maxpool.fwd": cfg.n_layers * (WIDE_REQUESTS * (attn + 1)
+                                           + ticks * (attn + shared)),
+            "ocs_contention.noisy": sites * ticks,
+            "maxpool.decode": sites * ticks})
+        assert counts == want, (arch, counts, want)
+        assert bool(finite["ok"]), f"{arch}: a logit is not finite"
+        assert all(len(c.tokens) == WIDE_NEW for c in outs.values())
+        for k, v in counts.items():
+            total[k] += v
+        walls[arch] = wall
+        print(f"serve {arch}, one layer at the full width ({n_params} "
+              f"parameters, bf16, d_model {cfg.d_model}, {cfg.n_heads} heads "
+              f"of {cfg.head_dim_} over {cfg.n_kv_heads} KV heads, "
+              f"{attention.attn_layout(cfg)} attention layout): "
+              f"{WIDE_REQUESTS} requests, {ticks} ticks in {wall:.3f} s; "
+              f"every logit finite; launches {counts}", flush=True)
+        del eng, values, m, outs
+        torch.cuda.empty_cache()
+    return dict(counts=total, walls=walls)
+
+
+def check_moe_against_cpu(dev) -> None:
+    """Phase 24: the reduced qwen3-moe-30b-a3b and llama4-scout-17b-a16e
+    configs in float32 (``tp_fusion="max"``; flash for qwen3-moe, whose
+    reduced head_dim 16 the kernel takes — llama4's reduced 12 it does
+    not), both ``moe_impl`` forms, the same weights on the card and the
+    CPU: 3 trainer steps with losses within phase 6's 1e-3, and 6 requests
+    served with equal tokens, channel-free and under OCS p 0.05 (0
+    channel slots)."""
+    for arch in (QWEN3, LLAMA4):
+        for impl in ("sort_scatter", "gather"):
+            cfg = get_reduced(arch, moe_impl=impl, tp_fusion="max",
+                              use_flash=arch == QWEN3)
+            m = M.build(cfg)
+            cpu_values = m.init(torch.Generator().manual_seed(0))
+            gpu_values = tree.map(lambda t: t.to(dev), cpu_values)
+            pcfg = pipeline.for_model(cfg, batch=4, seq_len=32, seed=0)
+            losses = []
+            for d, v in (("cpu", cpu_values), (dev, gpu_values)):
+                opt = optimizers.adamw(schedules.for_arch(arch, 3e-3, 3),
+                                       weight_decay=0.01)
+                res = trainer.train(
+                    m.loss, v, opt,
+                    lambda s, d=d: pipeline.batch_for_step(pcfg, s,
+                                                           device=d),
+                    trainer.TrainerConfig(steps=3, log_every=1))
+                losses.append([r["loss"] for r in res.history])
+            diff = max(abs(a - b) for a, b in zip(*losses))
+            assert diff < 1e-3, (arch, impl, losses)
+            reqs = poisson_requests(6, SERVE_RATE, cfg.vocab_size,
+                                    prompt_len=64, max_new_tokens=12, seed=2)
+            p = np.full((cfg.n_workers,), SERVE_P_MISS, np.float32)
+            for proto in (None, Protocol.ocs(bits=8, p_miss=p)):
+                config = se.ServeConfig(batch_slots=2, max_seq=96,
+                                        eos_id=-1, protocol=proto)
+                want = se.ServeEngine(m, cpu_values, config,
+                                      device="cpu").run(reqs)
+                got = se.ServeEngine(m, gpu_values, config,
+                                     device=dev).run(reqs)
+                for rid in want:
+                    assert got[rid].tokens == want[rid].tokens, (
+                        arch, impl, rid, got[rid].tokens, want[rid].tokens)
+                    assert got[rid].channel_slots == 0
+            print(f"{arch} reduced, {impl}, card vs CPU: 3 train losses "
+                  f"within {diff:.3g}; tokens equal channel-free and under "
+                  f"OCS p {SERVE_P_MISS}", flush=True)
+
+
+_PHASE_SECONDS = {}
+
+
+def _timed(fn, *args):
+    """Call one phase; keep its wall seconds for the closing summary."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    _PHASE_SECONDS[fn.__name__] = round(time.perf_counter() - t0, 3)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2386,29 +2867,33 @@ def main() -> int:
     print(f"kernels built and loaded in {kernels.build_seconds:.2f} s",
           flush=True)
 
-    rows = check_kernels(dev)
-    check_p0_equivalence(dev)
-    curve_counts, wall, curves = run_main_path(dev)
-    check_against_cpu(dev)
-    profile_main_path(dev)
-    serve = run_serving(dev)
-    check_serving_p0(dev, serve)
-    check_serving_against_cpu(dev)
-    profile_serving(dev, serve)
-    sched = run_scheduled(dev, curves)
-    sched_profile = profile_scheduled(dev)
-    fault = run_fault_curves_phase(dev, curves)
-    fault_profile = profile_fault_curves(dev)
-    faulty = run_faulty_serving(dev, serve)
-    faulty_profile = profile_faulty_serving(dev, serve)
-    check_new_paths_against_cpu(dev)
-    swept = run_sweep_phase(dev)
-    dp = run_dp_phase(dev)
-    dp_profile = profile_dp(dev)
-    train = run_train_phase(dev)
-    train_profile = profile_train(dev)
-    hook = run_hook_phase(dev)
-    check_sampling_against_cpu(dev)
+    rows = _timed(check_kernels, dev)
+    _timed(check_p0_equivalence, dev)
+    curve_counts, wall, curves = _timed(run_main_path, dev)
+    _timed(check_against_cpu, dev)
+    _timed(profile_main_path, dev)
+    serve = _timed(run_serving, dev)
+    _timed(check_serving_p0, dev, serve)
+    _timed(check_serving_against_cpu, dev)
+    _timed(profile_serving, dev, serve)
+    sched = _timed(run_scheduled, dev, curves)
+    sched_profile = _timed(profile_scheduled, dev)
+    fault = _timed(run_fault_curves_phase, dev, curves)
+    fault_profile = _timed(profile_fault_curves, dev)
+    faulty = _timed(run_faulty_serving, dev, serve)
+    faulty_profile = _timed(profile_faulty_serving, dev, serve)
+    _timed(check_new_paths_against_cpu, dev)
+    swept = _timed(run_sweep_phase, dev)
+    dp = _timed(run_dp_phase, dev)
+    dp_profile = _timed(profile_dp, dev)
+    train = _timed(run_train_phase, dev)
+    train_profile = _timed(profile_train, dev)
+    hook = _timed(run_hook_phase, dev)
+    _timed(check_sampling_against_cpu, dev)
+    moe_train = _timed(run_moe_train_phase, dev)
+    moe_serve = _timed(run_moe_serving, dev)
+    wide = _timed(run_wide_configs, dev)
+    _timed(check_moe_against_cpu, dev)
 
     line = []
     keep = ("shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
@@ -2420,8 +2905,11 @@ def main() -> int:
         # kernel's other forms (off the main paths) under "forms"
         if name == "flash_attention.fwd":
             rec = dict(rows[(name, "serve")])
+            rec["moe"] = {at: {k: r[k] for k in keep + ("kv_heads",)}
+                          for at, r in rows[(name, "moe")].items()}
         elif name == "maxpool.ties_bwd":
             rec = dict(rows[(name, "train")])
+            rec["moe"] = {k: rows[(name, "moe")][k] for k in keep}
         else:
             rec = dict(rows[(name, 8)])
             srv = rows.get((name, "serve"))
@@ -2436,6 +2924,9 @@ def main() -> int:
                                                            "outputs")}
                 win = rows[(name + "[winner]", "train")]
                 rec["train"]["winner_form"] = {k: win[k] for k in keep}
+            moe = rows.get((name, "moe"))
+            if moe is not None:
+                rec["moe"] = {k: moe[k] for k in keep + ("dtype", "outputs")}
             forms = {case[len(name) + 1:-1]: {
                 "curves": {k: r[k] for k in keep},
                 "serve": {k: rows[(case, "serve")][k] for k in keep}}
@@ -2454,7 +2945,10 @@ def main() -> int:
                    "dp_curves": dp["counts"][name],
                    "train": train["counts"][name],
                    "serve_restored": train["serve_counts"][name],
-                   "train_channel": hook["counts"][name]}
+                   "train_channel": hook["counts"][name],
+                   "moe_train": moe_train["counts"][name],
+                   "moe_serve": moe_serve["counts"][name],
+                   "wide_configs": wide["counts"][name]}
         line.append(dict(rec, launches=sum(by_path.values()),
                          launches_by_path=by_path))
     print(f"run_curves wall seconds: {wall}", flush=True)
@@ -2483,6 +2977,16 @@ def main() -> int:
           f"{train['serve_wall']} s; channel hook {hook['wall']} s, "
           f"profile {hook['profile']}; {smi}",
           flush=True)
+    moe_prof = {k: moe_train[k] for k in ("wall_ms", "device_ms", "idle",
+                                          "kernels", "adamw_ms")}
+    print(f"MoE ({QWEN3}, full width, {MOE_LAYERS} layers): train "
+          f"{moe_train['wall']} s for {MOE_STEPS} steps, profile "
+          f"{moe_prof}, peak device memory {moe_train['peak']} bytes; serve "
+          f"{moe_serve['wall']} s ({moe_serve['ticks']} ticks, "
+          f"{moe_serve['tokens']} tokens), decode tick profile "
+          f"{moe_serve['profile']}; one-layer configs serve walls "
+          f"{wide['walls']}; {smi}", flush=True)
+    print(f"phase wall seconds: {_PHASE_SECONDS}", flush=True)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
 """Architecture config registry: ``--arch <id>`` resolution.
 
 It holds the architectures the port builds; the others come with the
-slices that port their modules (ROADMAP queue 1, item 17)."""
+slices that port their modules (ROADMAP queue 1, items 17b and 17c)."""
 
 from __future__ import annotations
 
@@ -10,7 +10,12 @@ import importlib
 from repro_torch.configs.base import ModelConfig, check_ported
 
 _MODULES = {
+    "glm4-9b": "glm4_9b",
+    "qwen2.5-32b": "qwen2_5_32b",
     "qwen1.5-0.5b": "qwen1_5_0_5b",
+    "minicpm-2b": "minicpm_2b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -7,9 +7,10 @@ fields, their defaults and the checks of ``__post_init__`` are the JAX
 package's, so a config built here equals its JAX counterpart field by
 field (``dtype``, ``param_dtype`` and ``logit_dtype`` as torch types).
 
-The port builds only plans of self-attention (``attn``,
-``attn_nocausal``) and ``mlp`` blocks: :func:`check_ported` says which
-ROADMAP item brings the rest.
+The port builds plans of self-attention (``attn``, ``attn_nocausal``)
+mixers and ``mlp`` or ``moe`` FFNs: :func:`check_ported` says which
+ROADMAP item brings the rest.  ``param_count`` is the JAX package's
+arithmetic on the fields.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ MIXERS = ("attn", "attn_nocausal", "mamba", "mlstm", "slstm")
 FFNS = ("mlp", "moe", "none")
 TP_FUSIONS = ("sum", "max", "max_q16", "max_q8", "concat")
 PORTED_MIXERS = ("attn", "attn_nocausal")
-PORTED_FFNS = ("mlp",)
+PORTED_FFNS = ("mlp", "moe")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,8 +105,7 @@ class ModelConfig:
     # ---- derived ----
     @property
     def period(self) -> int:
-        a, b = len(self.block_pattern), len(self.ffn_pattern)
-        return a * b // math.gcd(a, b)
+        return _lcm(len(self.block_pattern), len(self.ffn_pattern))
 
     @property
     def n_periods(self) -> int:
@@ -118,30 +118,137 @@ class ModelConfig:
              self.ffn_pattern[i % len(self.ffn_pattern)])
             for i in range(self.period))
 
+    def encoder_layer_plan(self) -> Tuple[Tuple[str, str], ...]:
+        return tuple(
+            (self.encoder_block_pattern[i % len(self.encoder_block_pattern)],
+             "mlp") for i in range(len(self.encoder_block_pattern)))
+
     @property
     def head_dim_(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    @property
+    def dt_rank_(self) -> int:
+        return self.dt_rank or max(1, math.ceil(self.d_model / 16))
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    # ---- parameter counting ----
+    def param_count(self, active_only: bool = False) -> int:
+        """Parameters of the model; with ``active_only`` the experts a
+        token runs through (``experts_per_token``) in place of all."""
+        return _param_count(self, active_only)
+
+
+def _lcm(a: int, b: int) -> int:
+    return a * b // math.gcd(a, b)
+
+
+def _attn_params(c: ModelConfig) -> int:
+    hd = c.head_dim_
+    p = c.d_model * (c.n_heads * hd) + 2 * c.d_model * (c.n_kv_heads * hd) \
+        + (c.n_heads * hd) * c.d_model
+    if c.qkv_bias:
+        p += (c.n_heads + 2 * c.n_kv_heads) * hd
+    return p
+
+
+def _mlp_params(c: ModelConfig, d_ff: int) -> int:
+    gates = 2 if c.act == "silu" else 1          # SwiGLU has gate+up
+    return c.d_model * d_ff * gates + d_ff * c.d_model
+
+
+def _mamba_params(c: ModelConfig) -> int:
+    di, st, dr = c.d_inner, c.ssm_state_dim, c.dt_rank_
+    return (c.d_model * 2 * di          # in_proj (x, z)
+            + di * c.conv_width         # depthwise conv
+            + di * (dr + 2 * st)        # x -> (dt, B, C)
+            + dr * di                   # dt up-proj
+            + di * st                   # A (log) matrix
+            + di                        # D skip
+            + di * c.d_model)           # out_proj
+
+
+def _xlstm_params(c: ModelConfig, kind: str) -> int:
+    di = c.d_inner
+    if kind == "mlstm":
+        # up-proj (x,z), qkv over inner dim, igate/fgate/ogate, down-proj
+        return (c.d_model * 2 * di + 3 * di * di + 3 * di + di * c.d_model)
+    # slstm: 4 gates over d_model + small FFN folded in
+    return 4 * c.d_model * c.d_model + 4 * c.d_model
+
+
+def _layer_params(c: ModelConfig, mixer: str, ffn: str) -> Tuple[int, int]:
+    """(dense_params, per_expert_extra) for one layer."""
+    if mixer in ("attn", "attn_nocausal"):
+        p = _attn_params(c)
+    elif mixer == "mamba":
+        p = _mamba_params(c)
+    else:
+        p = _xlstm_params(c, mixer)
+    p += 2 * c.d_model                   # norms
+    moe_extra = 0
+    if ffn == "mlp":
+        p += _mlp_params(c, c.d_ff)
+    elif ffn == "moe":
+        p += c.d_model * c.n_experts     # router
+        moe_extra = _mlp_params(c, c.moe_d_ff or c.d_ff)
+        if c.moe_shared_expert:
+            p += _mlp_params(c, c.moe_d_ff or c.d_ff)
+    return p, moe_extra
+
+
+def _param_count(c: ModelConfig, active_only: bool) -> int:
+    total = c.vocab_size * c.d_model     # embedding
+    if not c.tie_embeddings:
+        total += c.vocab_size * c.d_model
+    if c.frontend != "token":
+        total += (c.frontend_dim or c.d_model) * c.d_model
+    plan = c.layer_plan()
+    for i in range(c.n_layers):
+        mixer, ffn = plan[i % c.period]
+        dense, per_expert = _layer_params(c, mixer, ffn)
+        total += dense
+        if per_expert:
+            n_e = c.experts_per_token if active_only else c.n_experts
+            total += per_expert * n_e
+    if c.encoder_decoder:
+        for i in range(c.n_encoder_layers):
+            dense, _ = _layer_params(c, "attn_nocausal", "mlp")
+            total += dense
+        # decoder cross-attention (one per decoder layer)
+        total += c.n_layers * _attn_params(c)
+    return total
+
+
+SSM_TODO = ("not ported yet (ROADMAP queue 1, item 17b: the mamba, mLSTM "
+            "and sLSTM mixers and the xLSTM plans' FFN-less blocks)")
+ENC_TODO = ("not ported yet (ROADMAP queue 1, item 17c: cross-attention, "
+            "the encoder-decoder, the patch/audio frontends and sinusoidal "
+            "positions)")
 
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not build yet:
-    mixers other than self-attention, FFNs other than ``mlp``, the
-    encoder-decoder and the patch/audio frontends (ROADMAP queue 1, item
-    17: the model stack's MoE, SSM/mamba/xLSTM, cross-attention and
-    frontend modules)."""
-    todo = ("not ported yet (ROADMAP queue 1, item 17: MoE, SSM/mamba/"
-            "xLSTM, cross-attention and the frontends)")
+    the mamba, mLSTM and sLSTM mixers and the ``none`` FFN (ROADMAP
+    queue 1, item 17b); the encoder-decoder, the patch/audio frontends
+    and sinusoidal positions (item 17c)."""
     for mixer, ffn in cfg.layer_plan():
         if mixer not in PORTED_MIXERS:
-            raise NotImplementedError(f"{cfg.name}: mixer {mixer!r} is {todo}")
+            raise NotImplementedError(
+                f"{cfg.name}: mixer {mixer!r} is {SSM_TODO}")
         if ffn not in PORTED_FFNS:
-            raise NotImplementedError(f"{cfg.name}: ffn {ffn!r} is {todo}")
+            raise NotImplementedError(
+                f"{cfg.name}: ffn {ffn!r} is {SSM_TODO}")
     if cfg.encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: the encoder-decoder is {todo}")
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder is {ENC_TODO}")
     if cfg.frontend != "token" or cfg.use_abs_pos:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend!r} frontend and sinusoidal "
-            f"positions are {todo}")
+            f"positions are {ENC_TODO}")

@@ -3,8 +3,9 @@ command line, the JAX package's ``launch/train.py``.
 
 The flags are the JAX launcher's (``--steps``/``--batch``/``--seq``/
 ``--lr``/``--fusion``/``--microbatches``/``--compress``/``--ckpt-dir``/
-``--seed``), plus ``--device`` (default ``cuda``) and ``--use-flash`` (on
-by default: attention runs the flash-attention kernel's forward).  The
+``--seed``), plus ``--device`` (default ``cuda``), ``--use-flash`` (on
+by default: attention runs the flash-attention kernel's forward) and
+``--layers`` (a cut of the depth, 0 keeping the config's).  The
 parameters are random, drawn from a ``torch.Generator`` seeded with
 ``--seed``.  With ``--ckpt-dir`` the run checkpoints four times and at the
 end, and resumes from the newest checkpoint there when relaunched.
@@ -13,6 +14,8 @@ end, and resumes from the newest checkpoint there when relaunched.
       --steps 6 --batch 8 --seq 256 --ckpt-dir ckpt   # full width, card
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
       --smoke --device cpu --steps 20 --seq 16        # reduced, on the CPU
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --arch qwen3-moe-30b-a3b --layers 4 --steps 3 --batch 8 --seq 256
 """
 
 from __future__ import annotations
@@ -39,6 +42,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--use-flash", action=argparse.BooleanOptionalAction,
                     default=True, help="attention through the flash kernel")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0: the "
+                         "config's)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
@@ -55,7 +61,9 @@ def setup(args: argparse.Namespace) -> types.SimpleNamespace:
     """The run the flags describe: model, initial values, optimizer, data
     and trainer config (``launch`` runs it)."""
     get = get_reduced if args.smoke else get_config
-    cfg = get(args.arch, tp_fusion=args.fusion, use_flash=args.use_flash)
+    depth = {"n_layers": args.layers} if args.layers else {}
+    cfg = get(args.arch, tp_fusion=args.fusion, use_flash=args.use_flash,
+              **depth)
     m = M.build(cfg)
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():

@@ -15,7 +15,7 @@ is plain PyTorch, as the JAX package computes it outside any kernel.
 ``attn_step`` writes the new key and value rows into the cache in place
 (the JAX package returns an updated copy): the port keeps one cache
 buffer for the whole run.  Cross-attention waits for the encoder-decoder
-slice (ROADMAP queue 1, item 17).
+slice (ROADMAP queue 1, item 17c).
 """
 
 from __future__ import annotations
@@ -143,7 +143,7 @@ def attn_full(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     """Full-sequence self-attention (train / prefill). x: (B, S, d)."""
     if kv_x is not None:
         raise NotImplementedError(
-            "cross-attention is not ported yet (ROADMAP queue 1, item 17: "
+            "cross-attention is not ported yet (ROADMAP queue 1, item 17c: "
             "the encoder-decoder)")
     q, k, v = _qkv(cfg, p, x)
     if cfg.use_rope:

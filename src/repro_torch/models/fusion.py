@@ -79,3 +79,10 @@ def chan_from_acct(acct) -> dict:
 def chan_merge(a: dict, b: dict) -> dict:
     """Elementwise sum of two accumulators (same keys, same dtypes)."""
     return {k: a[k] + b[k] for k in a}
+
+
+def worker_partial(x_grouped: torch.Tensor, w: torch.Tensor,
+                   spec: str = "nbsf,nfk->nbsk") -> torch.Tensor:
+    """Per-worker private projection: an einsum batched over the worker
+    axis."""
+    return torch.einsum(spec, x_grouped, w)

@@ -5,7 +5,7 @@ A config's layer plan is a cyclic pattern of ``(mixer, ffn)`` pairs
 position of the period, each leaf with a leading period axis, exactly the
 JAX package's tree.  Where the JAX package scans over that axis
 (``lax.scan``), the port loops over it in Python.  The port builds
-``attn``/``attn_nocausal`` mixers and ``mlp`` FFNs
+``attn``/``attn_nocausal`` mixers and ``mlp`` or ``moe`` FFNs
 (``repro_torch.configs.check_ported``).
 """
 
@@ -17,14 +17,14 @@ import torch
 
 from repro_torch import random as jr
 from repro_torch import tree
-from repro_torch.models import attention, fusion, layers, mlp
+from repro_torch.models import attention, fusion, layers, mlp, moe
 
 
 def _check_block(mixer: str, ffn: str) -> None:
-    if mixer not in ("attn", "attn_nocausal") or ffn != "mlp":
+    if mixer not in ("attn", "attn_nocausal") or ffn not in ("mlp", "moe"):
         raise NotImplementedError(
             f"block ({mixer!r}, {ffn!r}) is not ported yet (ROADMAP queue "
-            "1, item 17: MoE, SSM/mamba/xLSTM, cross-attention)")
+            "1, item 17b: SSM/mamba/xLSTM)")
 
 
 def _zero(x: torch.Tensor) -> torch.Tensor:
@@ -40,7 +40,17 @@ def block_init(cfg, gen: torch.Generator, mixer: str, ffn: str) -> dict:
     return {"norm1": layers.norm_init(cfg, gen),
             "mixer": attention.attn_init(cfg, gen),
             "norm2": layers.norm_init(cfg, gen),
-            "ffn": mlp.mlp_init(cfg, gen)}
+            "ffn": (mlp.mlp_init if ffn == "mlp" else moe.moe_init)(cfg,
+                                                                    gen)}
+
+
+def _ffn(cfg, p: dict, x: torch.Tensor, ffn: str):
+    """The block's FFN on the residual stream: (x, aux)."""
+    h = layers.norm_apply(cfg, p["norm2"], x)
+    if ffn == "moe":
+        y, aux = moe.moe_apply(cfg, p["ffn"], h)
+        return x + y, aux
+    return x + mlp.mlp_apply(cfg, p["ffn"], h), _zero(x)
 
 
 def block_full(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -50,9 +60,7 @@ def block_full(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     h = layers.norm_apply(cfg, p["norm1"], x)
     x = x + attention.attn_full(cfg, p["mixer"], h, positions,
                                 causal=(mixer == "attn"))
-    h = layers.norm_apply(cfg, p["norm2"], x)
-    x = x + mlp.mlp_apply(cfg, p["ffn"], h)
-    return x, _zero(x)
+    return _ffn(cfg, p, x, ffn)
 
 
 def block_cache_init(cfg, mixer: str, batch: int, max_seq: int, dtype,
@@ -65,20 +73,24 @@ def block_step(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
                cache: dict, mixer: str, ffn: str, protocol=None, rng=None):
     """Decode step. x: (B,1,d). Returns (x, cache, aux).
 
-    With a ``protocol`` the FFN's worker-partial fusion routes through the
-    simulated channel (``mlp_apply(protocol=, rng=)``) and the return grows
-    a fourth element, the channel-accounting dict of this block's fusion
-    site; the mixer's fusion stays on the ideal ``tp_fusion``.  The KV
-    cache is updated in place (``attention.attn_step``)."""
+    With a ``protocol`` an mlp FFN's worker-partial fusion routes through
+    the simulated channel (``mlp_apply(protocol=, rng=)``) and the return
+    grows a fourth element, the channel-accounting dict of this block's
+    fusion site (``fusion.chan_zeros()`` for a moe FFN, whose fusions stay
+    on ``tp_fusion`` as the mixer's do).  The KV cache is updated in place
+    (``attention.attn_step``)."""
     _check_block(mixer, ffn)
     h = layers.norm_apply(cfg, p["norm1"], x)
     out, new_self = attention.attn_step(cfg, p["mixer"], h, positions,
                                         cache["self"])
     new_cache = dict(cache, self=new_self)
     x = x + out
+    if protocol is None or ffn == "moe":
+        x, aux = _ffn(cfg, p, x, ffn)
+        if protocol is None:
+            return x, new_cache, aux
+        return x, new_cache, aux, fusion.chan_zeros(x.device)
     h = layers.norm_apply(cfg, p["norm2"], x)
-    if protocol is None:
-        return x + mlp.mlp_apply(cfg, p["ffn"], h), new_cache, _zero(x)
     y, acct = mlp.mlp_apply(cfg, p["ffn"], h, protocol=protocol, rng=rng)
     return x + y, new_cache, _zero(x), fusion.chan_from_acct(acct)
 
@@ -97,10 +109,8 @@ def block_prefill(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
         for name in ("k", "v"):
             buf[name][:, :kv[name].shape[1]] = kv[name]
         kv = buf
-    x = x + out
-    h = layers.norm_apply(cfg, p["norm2"], x)
-    x = x + mlp.mlp_apply(cfg, p["ffn"], h)
-    return x, {"self": kv}, _zero(x)
+    x, aux = _ffn(cfg, p, x + out, ffn)
+    return x, {"self": kv}, aux
 
 
 # ---------------------------------------------------------------------------
@@ -149,7 +159,7 @@ def stack_step(cfg, values: dict, x: torch.Tensor, positions: torch.Tensor,
     """Decode step through the whole stack; the stacked cache is updated in
     place and returned.  Returns (x, cache, aux).
 
-    With a ``protocol`` (and ``rng``, the tick's sensing key) every mlp
+    With a ``protocol`` (and ``rng``, the tick's sensing key) every mlp-FFN
     fusion site aggregates through the simulated channel under the key
     ``fold_in(split(rng, n_periods)[period], position)``, the JAX
     package's keys, and the return grows a fourth element: the summed
@@ -164,9 +174,12 @@ def stack_step(cfg, values: dict, x: torch.Tensor, positions: torch.Tensor,
         for i, (mixer, ffn) in enumerate(plan):
             key = f"pos{i}"
             if chan_mode:
+                # only an mlp site draws sensing bits: a moe block's key
+                # would be ~170 int64 launches of unused threefry
                 x, _, a, ch = block_step(
                     cfg, pp[key], x, positions, pc[key], mixer, ffn,
-                    protocol=protocol, rng=jr.fold_in(keys[period], i))
+                    protocol=protocol, rng=(jr.fold_in(keys[period], i)
+                                            if ffn == "mlp" else None))
                 chan = fusion.chan_merge(chan, ch)
             else:
                 x, _, a = block_step(cfg, pp[key], x, positions, pc[key],

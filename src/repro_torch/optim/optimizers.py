@@ -1,10 +1,15 @@
 """Optimizers on parameter trees (nested dicts/lists of tensors).
 
-``opt.init(params) -> state``; ``opt.update(grads, state, params) ->
-(new_params, new_state, stats)``, functional: nothing is updated in
-place.  Master weights and moments are float32 whatever the parameters'
-dtype.  ``lane_dims`` leading axes of every leaf are independent runs (the
-p_miss lanes): the global norm, and so the clipping, is taken per lane.
+``opt.init(params) -> state``; ``opt.update_inplace(grads, state,
+params) -> (params, state, stats)`` writes the new values into
+``params`` and ``state`` (the JAX package's donated train-state buffers;
+``grads`` are read, not written), one leaf at a time, so a step holds
+one copy of the state and a leaf's temporaries, not two copies of the
+state.  ``opt.update`` is the functional form: the same update applied
+to copies, nothing passed in is written.  Master weights and moments
+are float32 whatever the parameters' dtype.  ``lane_dims`` leading axes
+of every leaf are independent runs (the p_miss lanes): the global norm,
+and so the clipping, is taken per lane.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ def global_norm(grads, lane_dims: int = 0) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float, lane_dims: int = 0):
+def _clip_scale(grads, max_norm: float, lane_dims: int):
     gn = global_norm(grads, lane_dims)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
 
@@ -40,13 +45,22 @@ def clip_by_global_norm(grads, max_norm: float, lane_dims: int = 0):
         s = scale.reshape(scale.shape + (1,) * (x.ndim - lane_dims))
         return (x.float() * s).to(x.dtype)
 
+    return clip, gn
+
+
+def clip_by_global_norm(grads, max_norm: float, lane_dims: int = 0):
+    clip, gn = _clip_scale(grads, max_norm, lane_dims)
     return tree.map(clip, grads), gn
 
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable
-    update: Callable
+    update_inplace: Callable
+
+    def update(self, grads, state, params):
+        return self.update_inplace(grads, tree.map(torch.Tensor.clone, state),
+                                   tree.map(torch.Tensor.clone, params))
 
 
 def adamw(lr_fn: Callable, b1: float = 0.9, b2: float = 0.95,
@@ -66,44 +80,44 @@ def adamw(lr_fn: Callable, b1: float = 0.9, b2: float = 0.95,
                                                 device=p.device), params),
         }
 
-    def update(grads, state, params):
-        step = state["step"] + 1
+    def update_inplace(grads, state, params):
         stats = {}
+        clip = None
         if max_grad_norm is not None:
-            grads, gn = clip_by_global_norm(grads, max_grad_norm, lane_dims)
-            stats["grad_norm"] = gn
+            clip, stats["grad_norm"] = _clip_scale(grads, max_grad_norm,
+                                                   lane_dims)
+        state["step"] = state["step"] + 1
         dev = tree.leaves(params)[0].device
-        stepf = step.to(torch.float32)
+        stepf = state["step"].to(torch.float32)
         lr = lr_fn(stepf).to(dev)
         b1t = (1 - torch.pow(torch.tensor(b1, dtype=torch.float32),
                              stepf)).to(dev)
         b2t = (1 - torch.pow(torch.tensor(b2, dtype=torch.float32),
                              stepf)).to(dev)
-
-        def upd(g, m, v, master):
-            g = g.float()
-            m_new = b1 * m.float() + (1 - b1) * g
-            v_new = b2 * v.float() + (1 - b2) * g * g
-            mh = m_new / b1t
-            vh = v_new / b2t
-            new_master = master - lr * (mh / (torch.sqrt(vh) + eps)
-                                        + weight_decay * master)
-            return (new_master, m_new.to(moment_dtype),
-                    v_new.to(moment_dtype))
-
-        out = tree.map(upd, grads, state["m"], state["v"], state["master"])
-        outs = tree.leaves(out)      # tuples are flattened: (master, m, v)
-        masters, ms, vs = outs[0::3], outs[1::3], outs[2::3]
-        new_master = tree.unflatten(params, masters)
-        new_params = tree.map(lambda mw, p: mw.to(p.dtype), new_master,
-                              params)
-        new_state = {"step": step, "master": new_master,
-                     "m": tree.unflatten(params, ms),
-                     "v": tree.unflatten(params, vs)}
+        for g, m, v, master, p in zip(
+                tree.leaves(grads), tree.leaves(state["m"]),
+                tree.leaves(state["v"]), tree.leaves(state["master"]),
+                tree.leaves(params)):
+            g = (clip(g) if clip is not None else g).float()
+            if m.dtype == torch.float32:
+                m_new = m.mul_(b1).add_(g * (1 - b1))
+                v_new = v.mul_(b2).add_((1 - b2) * g * g)
+            else:
+                m_new = b1 * m.float() + (1 - b1) * g
+                v_new = b2 * v.float() + (1 - b2) * g * g
+            del g
+            step_ = (m_new / b1t).div_((v_new / b2t).sqrt_().add_(eps))
+            step_.add_(weight_decay * master)
+            master.sub_(step_.mul_(lr))
+            del step_
+            if m_new is not m:
+                m.copy_(m_new)
+                v.copy_(v_new)
+            p.copy_(master)
         stats["lr"] = lr
-        return new_params, new_state, stats
+        return params, state, stats
 
-    return Optimizer(init=init, update=update)
+    return Optimizer(init=init, update_inplace=update_inplace)
 
 
 def sgd(lr_fn: Callable, momentum: float = 0.9,
@@ -114,18 +128,21 @@ def sgd(lr_fn: Callable, momentum: float = 0.9,
                 "mom": tree.map(lambda p: torch.zeros(
                     p.shape, dtype=torch.float32, device=p.device), params)}
 
-    def update(grads, state, params):
-        step = state["step"] + 1
+    def update_inplace(grads, state, params):
         stats = {}
+        clip = None
         if max_grad_norm is not None:
-            grads, gn = clip_by_global_norm(grads, max_grad_norm, lane_dims)
-            stats["grad_norm"] = gn
-        lr = lr_fn(step.to(torch.float32)).to(tree.leaves(params)[0].device)
-        new_mom = tree.map(lambda g, mo: momentum * mo + g.float(), grads,
-                           state["mom"])
-        new_params = tree.map(
-            lambda p, mo: (p.float() - lr * mo).to(p.dtype), params, new_mom)
+            clip, stats["grad_norm"] = _clip_scale(grads, max_grad_norm,
+                                                   lane_dims)
+        state["step"] = state["step"] + 1
+        lr = lr_fn(state["step"].to(torch.float32)).to(
+            tree.leaves(params)[0].device)
+        for g, mo, p in zip(tree.leaves(grads), tree.leaves(state["mom"]),
+                            tree.leaves(params)):
+            g = clip(g) if clip is not None else g
+            mo.mul_(momentum).add_(g.float())
+            p.copy_(p.float() - lr * mo)
         stats["lr"] = lr
-        return new_params, {"step": step, "mom": new_mom}, stats
+        return params, state, stats
 
-    return Optimizer(init=init, update=update)
+    return Optimizer(init=init, update_inplace=update_inplace)

@@ -42,6 +42,13 @@ def make_train_step(loss_fn: Callable, optimizer, microbatches: int = 1,
     With ``microbatches > 1`` the leading axis of every batch leaf is split
     into that many microbatches whose gradients are averaged; each
     microbatch's ``rng`` has the microbatch index folded into its keys.
+
+    The carries are donated, as the JAX trainer donates them to its
+    jitted step: the step writes the new parameters and optimizer state
+    into the ``values`` and ``opt_state`` passed in
+    (``optimizer.update_inplace``) and returns them, without a second copy
+    of the state.  The caller rebinds them from the outputs and copies
+    what must survive the call.
     """
 
     def grad_fn(values, batch, rng):
@@ -87,7 +94,8 @@ def make_train_step(loss_fn: Callable, optimizer, microbatches: int = 1,
         return grads, loss_sum / microbatches, metrics
 
     def apply_update(values, opt_state, grads, loss, metrics):
-        values, opt_state, stats = optimizer.update(grads, opt_state, values)
+        values, opt_state, stats = optimizer.update_inplace(grads, opt_state,
+                                                           values)
         metrics = dict(metrics)
         metrics.update(stats)
         metrics["loss_mean"] = loss

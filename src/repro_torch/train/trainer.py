@@ -110,7 +110,10 @@ def train(loss_fn: Callable, init_values, optimizer, data_fn: Callable,
     simulated data latency of a slow host, in seconds."""
     values = _copy(init_values)
     opt_state = optimizer.init(values)
-    err = grad_compression.init_error(values)
+    # the error-feedback memory only where a compressed step carries it
+    # (float32, twice a bf16 model's parameters)
+    err = (grad_compression.init_error(values)
+           if tcfg.compress_k is not None else None)
     aux = _copy(tcfg.aux_state) if tcfg.aux_state is not None else None
     if aux is not None:
         if tcfg.channel_rng_seed is None:
@@ -145,6 +148,8 @@ def train(loss_fn: Callable, init_values, optimizer, data_fn: Callable,
             start_step = step
 
     with_rng = tcfg.channel_rng_seed is not None
+    # the step updates its carries in place: ``values`` is already a copy
+    # of the caller's init
     step_fn = make_train_step(
         loss_fn, optimizer, microbatches=tcfg.microbatches,
         compress_k=tcfg.compress_k, with_rng=with_rng)

@@ -30,14 +30,16 @@ def map(fn: Callable, tree, *rest):  # noqa: A001 (mirrors jax.tree.map)
 
 def unflatten(tree, new_leaves: List[Any]):
     """Rebuild ``tree``'s structure around ``new_leaves`` (in leaf order)."""
-    it = iter(new_leaves)
+    return _build(tree, iter(new_leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            built = {k: build(t[k]) for k in sorted(t)}
-            return {k: built[k] for k in t}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(x) for x in t)
-        return next(it)
 
-    return build(tree)
+def _build(t, it):
+    # module level, not a closure over itself: a self-referencing closure
+    # is a reference cycle that kept the iterator, and so every leaf of
+    # ``new_leaves``, alive until the cyclic garbage collector ran
+    if isinstance(t, dict):
+        built = {k: _build(t[k], it) for k in sorted(t)}
+        return {k: built[k] for k in t}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(x, it) for x in t)
+    return next(it)

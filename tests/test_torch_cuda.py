@@ -861,3 +861,79 @@ def test_sampling_card_matches_cpu(cuda_device):
     got = ServeEngine(m, values, config, device=cuda_device).run(reqs)
     for rid in want:
         assert got[rid].tokens == want[rid].tokens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["sort_scatter", "gather"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b",
+                                  "llama4-scout-17b-a16e"])
+def test_moe_card_matches_cpu_and_repeats(cuda_device, arch, impl):
+    """The MoE FFN (capacity drops; llama4's shared expert through the
+    max law's kernels) on the card: the output, aux and every gradient of
+    ``sum(y**2) + 0.01 * aux`` within 1e-4 of the CPU's (float order),
+    and two card runs bit for bit (no atomics in the dispatch, the
+    combine or their backward passes)."""
+    from repro_torch.models import moe
+
+    cfg = get_reduced(arch, moe_impl=impl, capacity_factor=0.5,
+                      tp_fusion="max")
+    params = moe.moe_init(cfg, torch.Generator().manual_seed(0))
+    x = torch.randn((2, 32, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+
+    def run(dev):
+        leaves = [t.to(dev).requires_grad_(True) for t in tree.leaves(params)]
+        xt = x.to(dev).requires_grad_(True)
+        y, aux = moe.moe_apply(cfg, tree.unflatten(params, leaves), xt)
+        grads = torch.autograd.grad(torch.sum(y ** 2) + 0.01 * aux,
+                                    [xt] + leaves)
+        return [t.detach().cpu() for t in (y, aux) + grads]
+
+    want = run("cpu")
+    first, second = run(cuda_device), run(cuda_device)
+    for a, b, w in zip(first, second, want):
+        _same(a, b)
+        scale = max(1.0, float(w.abs().max()))
+        assert float((a - w).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_moe_train_and_serve_on_card(cuda_device):
+    """The reduced qwen3-moe config: 3 launcher steps twice on the card,
+    bit for bit; losses within 1e-4 of the CPU's; greedy serving tokens
+    equal to the CPU's, 0 channel slots and 0 uplink bits under OCS."""
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as lt
+    from repro_torch.protocol import Protocol
+
+    def train(dev):
+        # one init (the CPU generator's draws) for both devices
+        run = lt.setup(lt.parse_args([
+            "--arch", "qwen3-moe-30b-a3b", "--smoke", "--device", "cpu",
+            "--steps", "3", "--batch", "4", "--seq", "32"]))
+        run.values = tree.map(lambda t: t.to(dev), run.values)
+        pcfg = pipeline.for_model(run.cfg, batch=4, seq_len=32, seed=0)
+        run.data = lambda s: pipeline.batch_for_step(pcfg, s, device=dev)
+        return lt.launch(run)
+
+    a, b, c = train(cuda_device), train(cuda_device), train("cpu")
+    _same_tree(a.values, b.values)
+    _same_tree(a.opt_state, b.opt_state)
+    for ra, rc in zip(a.history, c.history):
+        assert abs(ra["loss"] - rc["loss"]) <= 1e-4 * abs(rc["loss"])
+    cfg = get_reduced("qwen3-moe-30b-a3b", use_flash=True)
+    m = TM.build(cfg)
+    cpu_values = m.init(torch.Generator().manual_seed(0))
+    gpu_values = tree.map(lambda t: t.to(cuda_device), cpu_values)
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, 32).astype(
+        np.int32), max_new_tokens=8) for i in range(4)]
+    proto = Protocol.ocs(bits=8, p_miss=np.full((cfg.n_workers,), 0.05,
+                                                np.float32))
+    config = ServeConfig(batch_slots=2, max_seq=48, eos_id=-1,
+                         protocol=proto)
+    want = ServeEngine(m, cpu_values, config, device="cpu").run(reqs)
+    got = ServeEngine(m, gpu_values, config, device=cuda_device).run(reqs)
+    for rid in want:
+        assert got[rid].tokens == want[rid].tokens, rid
+        assert got[rid].channel_slots == got[rid].uplink_bits == 0

@@ -1,5 +1,7 @@
 """The port's model stack (``repro_torch.models``, ``repro_torch.configs``)
-against the JAX package's, at ``get_reduced("qwen1.5-0.5b")`` in float32.
+against the JAX package's, at ``get_reduced("qwen1.5-0.5b")`` in float32,
+and with MoE plans at the reduced qwen3-moe-30b-a3b and
+llama4-scout-17b-a16e configs (and a mixed mlp/moe plan).
 
 Both packages start from the JAX package's parameters, carried across by
 ``repro_torch.convert.params_from_jax``, and see the same numpy inputs.
@@ -22,12 +24,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_IDS as J_ARCH_IDS
 from repro.configs import get_config as j_get_config
 from repro.configs import get_reduced as j_get_reduced
 from repro.models import attention as JA
 from repro.models import layers as JL
 from repro.models import mlp as JMLP
 from repro.models import model as JM
+from repro.models import transformer as JT
 from repro.parallel.sharding import split_tree
 from repro.protocol import Protocol as JP
 from repro_torch import random as jr
@@ -38,6 +42,7 @@ from repro_torch.models import attention as TA
 from repro_torch.models import layers as TL
 from repro_torch.models import mlp as TMLP
 from repro_torch.models import model as TM
+from repro_torch.models import transformer as TT
 from repro_torch.protocol import Protocol as TP
 
 torch.set_num_threads(1)
@@ -84,10 +89,18 @@ def _x(shape, seed=0, scale=1.0):
 _DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
 
+PORTED_ARCHS = ("glm4-9b", "qwen2.5-32b", "qwen1.5-0.5b", "minicpm-2b",
+                 "qwen3-moe-30b-a3b", "llama4-scout-17b-a16e")
+
+
+@pytest.mark.parametrize("arch", PORTED_ARCHS)
 @pytest.mark.parametrize("which", ["config", "reduced"])
-def test_config_matches_jax(which):
-    jc = (j_get_config if which == "config" else j_get_reduced)(ARCH)
-    tc = (get_config if which == "config" else get_reduced)(ARCH)
+def test_config_matches_jax(which, arch):
+    """Every registered config, field by field (torch types for the
+    JAX types), and the registry: the six ids the port builds, in the
+    JAX registry's order."""
+    jc = (j_get_config if which == "config" else j_get_reduced)(arch)
+    tc = (get_config if which == "config" else get_reduced)(arch)
     for f in dataclasses.fields(tc):
         want = getattr(jc, f.name)
         want = _DTYPES.get(want, want)
@@ -95,21 +108,36 @@ def test_config_matches_jax(which):
     assert tc.layer_plan() == jc.layer_plan()
     assert (tc.period, tc.n_periods, tc.head_dim_) == \
         (jc.period, jc.n_periods, jc.head_dim_)
-    assert ARCH_IDS == (ARCH,)
+    assert ARCH_IDS == PORTED_ARCHS
+    assert ARCH_IDS == tuple(a for a in J_ARCH_IDS if a in ARCH_IDS)
+    assert TA.attn_layout(tc) == JA.attn_layout(jc)
+    TM.build(tc)
 
 
 def test_config_checks_and_unported_plans():
+    """The checks of ``__post_init__``; the plans item 17b and 17c bring
+    are refused with the item named; an MoE plan builds and runs (its
+    parity: the ``moe`` tests below)."""
     with pytest.raises(AssertionError):
         get_reduced(ARCH, tp_fusion="median")
     with pytest.raises(AssertionError):
         get_reduced(ARCH, n_layers=3, block_pattern=("attn", "attn"))
-    for kw, what in ((dict(block_pattern=("mamba",)), "mamba"),
-                     (dict(ffn_pattern=("moe",)), "moe"),
+    for kw, what in ((dict(block_pattern=("mamba",)), "17b"),
+                     (dict(block_pattern=("mlstm",)), "mlstm"),
+                     (dict(ffn_pattern=("none",)), "17b"),
                      (dict(encoder_decoder=True), "encoder-decoder"),
                      (dict(frontend="patch"), "frontend")):
         with pytest.raises(NotImplementedError, match="ROADMAP") as e:
             TM.build(get_reduced(ARCH, **kw))
         assert what in str(e.value)
+    cfg = get_reduced(ARCH, ffn_pattern=("moe",), n_experts=4,
+                      experts_per_token=2)
+    m = TM.build(cfg)
+    v = m.init(torch.Generator().manual_seed(0))
+    toks = torch.arange(16, dtype=torch.int32).view(2, 8)
+    loss, metrics = m.loss(v, {"tokens": toks, "targets": toks + 1})
+    assert torch.isfinite(loss) and float(metrics["aux"]) > 0
+    assert m.channel_sites() == 0
 
 
 # ---------------------------------------------------------------------------
@@ -388,3 +416,134 @@ def test_params_from_jax_carries_bf16_tree_bitwise():
     own = TM.init(tcfg, torch.Generator().manual_seed(0))
     assert tree.map(lambda t: (tuple(t.shape), t.dtype), own) == \
         tree.map(lambda t: (tuple(t.shape), t.dtype), tv)
+
+
+# ---------------------------------------------------------------------------
+# MoE plans: blocks, prefill, decode and decode through the channel
+# ---------------------------------------------------------------------------
+
+_MOE_PLANS = {
+    "qwen3-moe": ("qwen3-moe-30b-a3b", {}),
+    "qwen3-moe gather": ("qwen3-moe-30b-a3b", dict(moe_impl="gather")),
+    "llama4 shared max": ("llama4-scout-17b-a16e", dict(tp_fusion="max")),
+    # attention + mlp, then attention + moe: one channel site a period
+    "mixed": ("qwen3-moe-30b-a3b", dict(ffn_pattern=("mlp", "moe"))),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(_MOE_PLANS))
+def moe_plan(request):
+    """(JAX cfg, port cfg, JAX values, port values) of an MoE plan."""
+    arch, kw = _MOE_PLANS[request.param]
+    jcfg, tcfg = j_get_reduced(arch, **kw), get_reduced(arch, **kw)
+    jv = _values(JM.init, jcfg, jax.random.PRNGKey(1))
+    return jcfg, tcfg, jv, _to_torch(jv)
+
+
+def _vocab_prompt(cfg, b=2, s=8, seed=0):
+    return _prompt(b, s, cfg.vocab_size, seed)
+
+
+def test_moe_blocks_match_jax(moe_plan):
+    """``block_full``, ``block_prefill`` and ``block_step`` (with and
+    without a protocol) of every position of the period: outputs, aux
+    and caches; an MoE block's channel dict is zeros, bitwise."""
+    jcfg, tcfg, jv, tv = moe_plan
+    x = _x((2, 8, jcfg.d_model), 7)
+    pos = np.broadcast_to(np.arange(8, dtype=np.int32), (2, 8)).copy()
+    for i, (mixer, ffn) in enumerate(jcfg.layer_plan()):
+        jp = jax.tree.map(lambda a: a[0], jv["blocks"][f"pos{i}"])
+        tp = tree.map(lambda a: a[0], tv["blocks"][f"pos{i}"])
+        want, aux_j = JT.block_full(jcfg, jp, jnp.asarray(x),
+                                    jnp.asarray(pos), mixer, ffn)
+        got, aux_t = TT.block_full(tcfg, tp, torch.from_numpy(x),
+                                   torch.from_numpy(pos), mixer, ffn)
+        _close(got, want, what=ffn)
+        _close(aux_t, aux_j, what=ffn)
+        want, cache_j, aux_j = JT.block_prefill(
+            jcfg, jp, jnp.asarray(x), jnp.asarray(pos), mixer, ffn, 12)
+        got, cache_t, aux_t = TT.block_prefill(
+            tcfg, tp, torch.from_numpy(x), torch.from_numpy(pos), mixer,
+            ffn, 12)
+        _close(got, want)
+        _close(aux_t, aux_j)
+        for name in ("k", "v"):
+            _close(cache_t["self"][name], cache_j["self"][name])
+        x1 = _x((2, 1, jcfg.d_model), 8)
+        p1 = np.array([8, 8], np.int32)
+        p = np.full((jcfg.n_workers,), 0.05, np.float32)
+        want, _, aux_j, chan_j = JT.block_step(
+            jcfg, jp, jnp.asarray(x1), jnp.asarray(p1), cache_j, mixer, ffn,
+            protocol=JP.ocs(bits=8, p_miss=p), rng=jax.random.PRNGKey(5))
+        got, _, aux_t, chan_t = TT.block_step(
+            tcfg, tp, torch.from_numpy(x1), torch.from_numpy(p1), cache_t,
+            mixer, ffn, protocol=TP.ocs(bits=8, p_miss=p),
+            rng=jr.PRNGKey(5))
+        _close(got, want)
+        _close(aux_t, aux_j)
+        for k in chan_j:
+            assert np.array_equal(_np(chan_t[k]), np.asarray(chan_j[k])), k
+        if ffn == "moe":
+            assert all(int(chan_t[k]) == 0 for k in chan_t)
+
+
+@pytest.mark.parametrize("use_flash", [False, True])
+def test_moe_prefill_logits_and_cache(moe_plan, use_flash):
+    jcfg, tcfg, jv, tv = moe_plan
+    jm = JM.build(jcfg.with_(use_flash=use_flash))
+    tm = TM.build(tcfg.with_(use_flash=use_flash))
+    toks = _vocab_prompt(jcfg)
+    want, cache_j = jm.prefill(jv, {"tokens": jnp.asarray(toks)}, max_seq=16)
+    got, cache_t = tm.prefill(tv, {"tokens": torch.from_numpy(toks)},
+                              max_seq=16)
+    _close(got, want)
+    for a, b in zip(tree.leaves(cache_t), jax.tree.leaves(cache_j)):
+        assert a.shape == b.shape
+        _close(a, b)
+    batch = {"tokens": toks, "targets": _vocab_prompt(jcfg, seed=1)}
+    lj, mj = jm.loss(jv, jax.tree.map(jnp.asarray, batch))
+    lt, mt = tm.loss(tv, {k: torch.from_numpy(v) for k, v in batch.items()})
+    _close(lt, lj)
+    _close(mt["aux"], mj["aux"])
+
+
+@pytest.mark.parametrize("p_miss", [None, 0.05])
+def test_moe_decode_steps(moe_plan, p_miss):
+    """Three decode ticks after a prefill, channel-free and through OCS:
+    logits within FLOAT_TOL, the tick's channel dict bitwise, its
+    ``calls`` the model's channel sites (0 for an all-MoE plan)."""
+    jcfg, tcfg, jv, tv = moe_plan
+    jm, tm = JM.build(jcfg), TM.build(tcfg)
+    toks = _vocab_prompt(jcfg)
+    _, cache_j = jm.prefill(jv, {"tokens": jnp.asarray(toks)}, max_seq=16)
+    _, cache_t = tm.prefill(tv, {"tokens": torch.from_numpy(toks)},
+                            max_seq=16)
+    tok, pos = np.array([[3], [5]], np.int32), np.array([8, 8], np.int32)
+    sites = sum(1 for _, f in jcfg.layer_plan() if f == "mlp") * \
+        jcfg.n_periods
+    assert tm.channel_sites() == jm.channel_sites() == sites
+    for tick in range(3):
+        if p_miss is None:
+            want, cache_j = jm.decode_step(jv, jnp.asarray(tok),
+                                           jnp.asarray(pos), cache_j)
+            got, cache_t = tm.decode_step(tv, torch.from_numpy(tok),
+                                          torch.from_numpy(pos), cache_t)
+        else:
+            p = np.full((jcfg.n_workers,), p_miss, np.float32)
+            want, cache_j, chan_j = jm.decode_step_channel(
+                jv, jnp.asarray(tok), jnp.asarray(pos), cache_j,
+                JP.ocs(bits=8, p_miss=p),
+                jax.random.fold_in(jax.random.PRNGKey(0), tick))
+            got, cache_t, chan_t = tm.decode_step_channel(
+                tv, torch.from_numpy(tok), torch.from_numpy(pos), cache_t,
+                TP.ocs(bits=8, p_miss=p), jr.fold_in(jr.PRNGKey(0), tick))
+            assert set(chan_t) == set(chan_j)
+            for k in chan_j:
+                assert np.array_equal(_np(chan_t[k]),
+                                      np.asarray(chan_j[k])), k
+            assert int(chan_t["calls"]) == sites
+        _close(got, want)
+        tok = np.asarray(jnp.argmax(want, -1)).astype(np.int32)[:, None]
+        pos = pos + 1
+    for a, b in zip(tree.leaves(cache_t), jax.tree.leaves(cache_j)):
+        _close(a, b)

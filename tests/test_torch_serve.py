@@ -240,6 +240,43 @@ def test_full_layer_width_matches_jax():
         assert got[rid].uplink_bits == want[rid].uplink_bits, rid
 
 
+_MOE = {"qwen3-moe": ("qwen3-moe-30b-a3b", {}),
+        "llama4 shared max": ("llama4-scout-17b-a16e", dict(tp_fusion="max"))}
+
+
+@pytest.mark.parametrize("channel", ["free", "ocs0.05"])
+@pytest.mark.parametrize("plan", sorted(_MOE))
+def test_moe_engine_matches_jax_engine(plan, channel):
+    """The reduced MoE configs (all-MoE plans: no mlp fusion site, so no
+    channel site) serve the mixed requests as the JAX engine: tokens and
+    latency ticks equal, and under OCS 0 channel slots and 0 uplink bits
+    billed, as the JAX engine bills."""
+    arch, kw = _MOE[plan]
+    jm = JM.build(j_get_reduced(arch, **kw))
+    tm = TM.build(get_reduced(arch, **kw))
+    jv, _ = split_tree(jm.init(jax.random.PRNGKey(2)))
+    tv = params_from_jax(jax.tree.map(np.asarray, jv))
+    assert tm.channel_sites() == jm.channel_sites() == 0
+    n = tm.cfg.n_workers
+    pj, pt = (None, None) if channel == "free" else (
+        JP.ocs(bits=8, p_miss=np.full((n,), 0.05, np.float32)),
+        TP.ocs(bits=8, p_miss=np.full((n,), 0.05, np.float32)))
+    cfg = dict(batch_slots=2, max_seq=16, eos_id=-1, seed=3)
+    rng = np.random.default_rng(4)
+    reqs = [Request(rid=i, prompt=rng.integers(
+        0, tm.cfg.vocab_size, 3 + i).astype(np.int32),
+        max_new_tokens=3 + (i % 3), arrival_tick=(0, 0, 1, 4, 12)[i])
+        for i in range(5)]
+    want = jse.ServeEngine(jm, jv, jse.ServeConfig(protocol=pj, **cfg)).run(
+        [jse.Request(**dataclasses.asdict(r)) for r in reqs])
+    got = ServeEngine(tm, tv, ServeConfig(protocol=pt, **cfg),
+                      device="cpu").run(reqs)
+    assert sorted(got) == sorted(want)
+    for rid in want:
+        assert _fields(got[rid]) == _fields(want[rid]), rid
+        assert got[rid].channel_slots == got[rid].uplink_bits == 0, rid
+
+
 # -- refill / retire semantics ---------------------------------------------
 
 def test_all_requests_complete(models):

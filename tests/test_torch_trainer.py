@@ -282,6 +282,98 @@ def test_make_train_step_variants_match_jax(compress_k, with_rng):
         _assert_close(tstate[0], jstate[0], PARAM_ATOL)
 
 
+_OPTS = {
+    "adamw": lambda: topt.adamw(tsched.linear_warmup_cosine(3e-3, 2, 6)),
+    "adamw bf16 moments, no clip": lambda: topt.adamw(
+        tsched.linear_warmup_cosine(3e-3, 2, 6), max_grad_norm=None,
+        moment_dtype=torch.bfloat16),
+    "adamw clipped hard": lambda: topt.adamw(lambda s: 1e-2 + 0 * s,
+                                             max_grad_norm=1e-3),
+    "sgd": lambda: topt.sgd(lambda s: 1e-2 + 0 * s, max_grad_norm=0.5),
+}
+
+
+def _moving_state(state):
+    """The optimizer state's leaves a step rewrites (the CPU step counter
+    is rebound, not written)."""
+    return tree.leaves({k: v for k, v in state.items() if k != "step"})
+
+
+@pytest.mark.parametrize("opt", sorted(_OPTS))
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+def test_step_writes_into_its_carries(lm, opt, param_dtype):
+    """``make_train_step`` donates its carries, as the JAX trainer does:
+    each of 4 steps writes the new parameters and optimizer state into the
+    tensors it was given and returns those tensors, with the values
+    ``opt.update`` gives on copies, bit for bit."""
+    _, _, tm, tv, _, tpc = lm
+    o = _OPTS[opt]()
+    step = make_train_step(tm.loss, o)
+    dt = getattr(torch, param_dtype)
+    values = tree.map(lambda t: t.to(dt, copy=True), tv)
+    state = o.init(values)
+    for s in range(4):
+        batch = _tdata(tpc)(s)
+        leaves = [x.detach().requires_grad_(True)
+                  for x in tree.leaves(values)]
+        loss, _ = tm.loss(tree.unflatten(values, leaves), batch)
+        grads = tree.unflatten(values, list(torch.autograd.grad(loss,
+                                                                leaves)))
+        want_v, want_s, _ = o.update(grads, state, values)
+        new_v, new_s, metrics = step(values, state, batch)
+        assert all(a is b for a, b in zip(tree.leaves(new_v),
+                                          tree.leaves(values)))
+        assert all(a is b for a, b in zip(_moving_state(new_s),
+                                          _moving_state(state)))
+        assert int(new_s["step"]) == s + 1
+        _assert_bitwise(new_v, want_v)
+        _assert_bitwise(new_s, want_s)
+        values, state = new_v, new_s
+
+
+@pytest.mark.parametrize("opt", sorted(_OPTS))
+def test_update_leaves_its_inputs_intact(lm, opt):
+    """``opt.update`` (the functional form of ``update_inplace``) writes
+    nothing it is given, over 3 updates, and returns new tensors."""
+    _, _, _, tv, _, _ = lm
+    o = _OPTS[opt]()
+    gen = torch.Generator().manual_seed(0)
+    values = tree.map(torch.clone, tv)
+    state = o.init(values)
+    for _ in range(3):
+        grads = tree.map(lambda t: torch.randn(t.shape, generator=gen),
+                         values)
+        before = tree.map(torch.clone, (grads, state, values))
+        new_v, new_s, _ = o.update(grads, state, values)
+        _assert_bitwise((grads, state, values), before)
+        assert not any(a is b for a, b in zip(tree.leaves(new_v),
+                                              tree.leaves(values)))
+        assert not any(a is b for a, b in zip(_moving_state(new_s),
+                                              _moving_state(state)))
+        values, state = new_v, new_s
+
+
+def test_unflatten_keeps_no_leaf_alive():
+    """``tree.unflatten`` (every step unflattens its gradients) drops its
+    hold on the new leaves when it returns, without the cyclic garbage
+    collector: a step's gradients, a parameter-sized tree, must not live
+    on into the next step."""
+    import gc
+    import weakref
+
+    structure = {"a": torch.zeros(3), "b": [torch.zeros(2), torch.zeros(1)]}
+    new = [torch.ones(3), torch.ones(2), torch.ones(1)]
+    refs = [weakref.ref(t) for t in new]
+    gc.disable()
+    try:
+        out = tree.unflatten(structure, new)
+        assert out["b"][1] is new[2]
+        del new, out
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()
+
+
 # -- train/trainer ---------------------------------------------------------------
 
 def test_trainer_matches_jax(lm):
@@ -304,6 +396,33 @@ def test_trainer_matches_jax(lm):
         assert a["dp_kept_elems"] == b["dp_kept_elems"]
     _assert_close(got.values, want.values, PARAM_ATOL)
     assert got.final_step == want.final_step == 5
+
+
+@pytest.mark.parametrize("impl", ["sort_scatter", "gather"])
+def test_moe_trainer_matches_jax(impl):
+    """5 trainer steps of the reduced qwen3-moe-30b-a3b (8 experts, top 2,
+    capacity drops at 16 tokens a sequence) in each package from one
+    init: nll, aux and loss within the float-order tolerance, lr within an
+    ulp, parameters within 1e-4."""
+    kw = dict(vocab_size=128, moe_impl=impl)
+    jm = JM.build(j_get_reduced("qwen3-moe-30b-a3b", **kw))
+    tm = TM.build(get_reduced("qwen3-moe-30b-a3b", **kw))
+    jv, _ = split_tree(jm.init(jax.random.PRNGKey(0)))
+    tv = params_from_jax(jax.tree.map(np.asarray, jv))
+    jpc = jpipe.for_model(jm.cfg, batch=8, seq_len=16, seed=1)
+    tpc = tpipe.for_model(tm.cfg, batch=8, seq_len=16, seed=1)
+    want = jtrainer.train(jm.loss, jv, _jopt(5),
+                          lambda s: jpipe.batch_for_step(jpc, s),
+                          jtrainer.TrainerConfig(steps=5, log_every=1))
+    got = trainer.train(tm.loss, tv, _topt(5), _tdata(tpc),
+                        TrainerConfig(steps=5, log_every=1))
+    assert sorted(got.history[0]) == sorted(want.history[0])
+    for a, b in zip(got.history, want.history):
+        for k in ("nll", "aux", "loss"):
+            np.testing.assert_allclose(a[k], b[k], rtol=LOSS_RTOL)
+        np.testing.assert_allclose(a["lr"], b["lr"], rtol=2e-7)
+    assert got.history[0]["aux"] > 0
+    _assert_close(got.values, want.values, PARAM_ATOL)
 
 
 def test_loss_decreases(lm):
