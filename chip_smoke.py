@@ -143,7 +143,36 @@ Phases, in order; any failed check raises and the script exits non-zero:
 24. run the reduced qwen3-moe and llama4 configs, both ``moe_impl``
     forms, on the card and on the CPU: 3 trainer steps' losses within
     1e-3, and the same served tokens;
-25. print one ``{"kernels": [...]}`` line and, last, the device line.
+25. run ``launch/train`` at the full xlstm-125m width and depth (12
+    layers, 3 mLSTM : 1 sLSTM, d_model 768, 4 heads, d_inner 1536, 16
+    workers), bf16, ``--fusion max``, ``XLSTM_BATCH`` x 256 tokens, 3
+    steps, counted (``maxpool.fwd`` and ``maxpool.ties_bwd`` 9 each a
+    step: the mLSTM sites; nothing else), every loss finite, the peak
+    device memory; a second run bitwise the first; then profile a step;
+    phase 3 also holds ``maxpool.fwd`` and ``ties_bwd`` at the mLSTM site
+    (16, ``XLSTM_BATCH`` x 256 x 768) and ``maxpool.fwd`` at jamba's mamba
+    site (16, 64 x 8192), both timed with the L2 evicted before each
+    call, ``maxpool.fwd`` at phases 26-27's prefill and tick widths,
+    ``noisy`` and ``maxpool.decode`` at jamba's mlp site in a tick, and
+    flash at jamba's (1, 64, 64, 128) Hkv 8;
+26. serve phase 8's traffic with that model (``tp_fusion="max"``, OCS p
+    0.05): 0 channel slots and 0 uplink bits (no mlp site), counted
+    (``maxpool.fwd`` 9 per prefill and per tick, nothing else), every
+    logit finite; the same traffic under phase 14's bursts and outages
+    with ``retry(2)`` (some held ticks); profile 10 decode ticks;
+27. serve one 8-layer period of jamba-1.5-large at its full width (the
+    experts cut 16 -> 4), 2 requests of 64-token prompts for 4 tokens,
+    OCS p 0.05, counted from the layout (flash per request;
+    ``maxpool.fwd`` at the mamba, attention and mlp sites in a prefill and
+    at the mamba and attention sites in a tick; ``noisy`` and
+    ``maxpool.decode`` at the 4 mlp sites a tick), every logit finite, the
+    peak device memory; profile 10 decode ticks;
+28. run the reduced xlstm and jamba configs on the card and on the CPU:
+    3 trainer steps' losses within 1e-3, and the same served tokens
+    channel-free, under OCS and under ``retry(2)`` (the held ticks'
+    copy-on-hold of the recurrent states); ``mamba_assoc_scan`` on the
+    card within 1e-3 of the sequential scan;
+29. print one ``{"kernels": [...]}`` line and, last, the device line.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -189,6 +218,7 @@ from repro_torch.kernels.ocs_quant import ref as q_ref  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
+from repro_torch.models import mamba as mamba_mod  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.optim import optimizers, schedules  # noqa: E402
 from repro_torch.optim.compressed_allreduce import (  # noqa: E402
@@ -205,6 +235,9 @@ from repro_torch.train.train_step import make_train_step  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate
 NONTENSOR_OPS_PER_S = 67e12    # H100 SXM float32 rate outside tensor cores
+# a site whose operands fit the 50 MB L2 is timed with the L2 evicted
+# before each call, by a pass over a buffer of this many bytes
+L2_FLUSH_BYTES = 128 * 2**20
 BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 INT32_LANES = 132 * 64         # H100 SXM: INT32 results per clock (x clock)
 # integer operations of one sensing hash in ocs_contention.noisy: threefry's
@@ -232,6 +265,18 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_EVERY = 8, 256, 6, 3
 QWEN3 = "qwen3-moe-30b-a3b"
 LLAMA4 = "llama4-scout-17b-a16e"
 MOE_LAYERS, MOE_STEPS, MOE_D = 4, 3, 2048
+# the recurrent slice: xlstm-125m at full width and depth (12 layers, 3
+# mLSTM : 1 sLSTM, d_model 768, 4 heads, d_inner 1536, 16 workers), 3 train
+# steps of XLSTM_BATCH x 256 tokens: the time loop keeps two (16, B, 4, 24,
+# 384) float32 memories a token a mLSTM layer for the backward (9 layers x
+# 256 tokens x 2 x 2.4 MB x B), and B 5 is the largest batch whose step
+# fits the card (peak 60.7 GiB; B 6 runs out of its 79.2 GiB); serving on
+# phase 8's traffic.  jamba-1.5-large at full width, one 8-layer period,
+# the experts cut 16 -> 4
+XLSTM, JAMBA = "xlstm-125m", "jamba-1.5-large-398b"
+XLSTM_PARAMS = 141_331_968
+XLSTM_BATCH, XLSTM_STEPS, XLSTM_D = 5, 3, 768
+JAMBA_EXPERTS, JAMBA_D, JAMBA_PROMPT = 4, 8192, 64
 # one period (one layer) of each other new config at its full width
 WIDE_ARCHS = (LLAMA4, "glm4-9b", "minicpm-2b", "qwen2.5-32b")
 WIDE_REQUESTS, WIDE_PROMPT, WIDE_NEW = 2, 64, 4
@@ -290,7 +335,7 @@ def _time_ms(fn, iters: int = 200) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def _device_ms(fn, iters: int = 50, symbol=None):
+def _device_ms(fn, iters: int = 50, symbol=None, flush=None):
     """(ms, source, own_ms): the device time per call of ``fn``, the summed
     duration of every kernel and memory operation it runs on the card, from
     a profiled window of ``iters`` calls (source ``"profiler"``), and of
@@ -299,7 +344,10 @@ def _device_ms(fn, iters: int = 50, symbol=None):
     host's issue rate (source ``"events"``), for both; the window is
     profiled a second time before that.  Each call launches the ``symbol``
     kernel once, so where the profiler recorded it fewer than ``iters``
-    times (it can drop records) both times are taken per recorded call."""
+    times (it can drop records) both times are taken per recorded call.
+    With ``flush`` (:func:`_l2_flush`: a call that evicts the L2, and the
+    names of its kernels) the call runs before each profiled call, and
+    its kernels are left out of both times."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -307,10 +355,13 @@ def _device_ms(fn, iters: int = 50, symbol=None):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
+                if flush is not None:
+                    flush[0]()
                 fn()
             torch.cuda.synchronize()
         dev = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and (flush is None or e.name not in flush[1])]
         total_us = sum(e.device_time_total for e in dev)
         if total_us:
             break
@@ -548,17 +599,53 @@ def _base(name: str) -> str:
     return name.split("[")[0]
 
 
+def _l2_flush(dev):
+    """(call, kernel names): a call that evicts the card's L2 by summing a
+    ``L2_FLUSH_BYTES`` buffer (a read: it leaves no dirty line for the
+    next call to write back), so that the next call reads its operands
+    from HBM, and the names the profiler gives its kernels (a timed call
+    launches none of them)."""
+    buf = torch.ones(L2_FLUSH_BYTES // 4, device=dev)
+
+    def call():
+        return buf.sum()
+
+    call()
+    torch.cuda.synchronize()
+    names = set()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                call()
+            torch.cuda.synchronize()
+        names = {e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+        if names:
+            break
+    assert names, "the profiler saw none of the L2 flush's kernels"
+    print(f"L2 flush: {L2_FLUSH_BYTES} bytes summed, kernels {names}",
+          flush=True)
+    return call, names
+
+
 def _record(name, launch, plain, nbytes, ops, lib, extra, err,
-            ops_per_s=NONTENSOR_OPS_PER_S) -> dict:
+            ops_per_s=NONTENSOR_OPS_PER_S, flush=None) -> dict:
     """Time ``launch`` (the kernel), ``plain`` and ``lib`` on the card and
     build the kernel's record for the ``{"kernels": [...]}`` line: ``ms``
     is the kernel's own device time, ``call_ms`` all device work of the
-    wrapper's call (its small conversions and the zeroed counts too)."""
+    wrapper's call (its small conversions and the zeroed counts too).
+    With ``flush`` (:func:`_l2_flush`) each timed call starts with the L2
+    evicted (``"l2": "flushed"`` in the record)."""
     base = _base(name)
-    call_ms, src_k, ms = _device_ms(launch, symbol=SYMBOLS[base])
-    plain_ms, src_p, _ = _device_ms(plain, iters=10 if ops > 1e10 else 50)
-    lib_ms, src_l, _ = _device_ms(lib) if lib is not None else (
-        None, None, None)
+    call_ms, src_k, ms = _device_ms(launch, symbol=SYMBOLS[base],
+                                    flush=flush)
+    plain_ms, src_p, _ = _device_ms(plain, iters=10 if ops > 1e10 else 50,
+                                    flush=flush)
+    lib_ms, src_l, _ = _device_ms(lib, flush=flush) if lib is not None \
+        else (None, None, None)
+    if flush is not None:
+        extra = dict(extra, l2="flushed")
     if base == "ocs_contention.noisy":
         ops_per_s = INT32_LANES * SM_CLOCK_HZ
     bound_ms, bound_by = _bound(nbytes, ops, ops_per_s)
@@ -594,9 +681,10 @@ def check_kernels(dev) -> dict:
     and flash attention (:func:`check_flash`)."""
     rows = {}
 
-    def row(name, launch, plain, nbytes, ops, lib, extra):
+    def row(name, launch, plain, nbytes, ops, lib, extra, flush=None):
         err = _check_equal(name, launch, plain, extra)
-        return _record(name, launch, plain, nbytes, ops, lib, extra, err)
+        return _record(name, launch, plain, nbytes, ops, lib, extra, err,
+                       flush=flush)
 
     for bits in (8, 16):
         for name, launch, plain, nbytes, ops, lib, shape in _kernel_cases(
@@ -622,11 +710,13 @@ def check_kernels(dev) -> dict:
     rows.update(check_sweep_kernels(dev, row))
     rows.update(check_train_maxpool(dev, row))
     rows.update(check_moe_site(dev, row))
+    rows.update(check_recurrent_sites(dev, row))
     check_decode_outputs(dev)
     check_noisy_cases(dev)
     check_fault_cases(dev)
     rows[("flash_attention.fwd", "serve")] = check_flash(dev)
     rows[("flash_attention.fwd", "moe")] = check_flash_gqa128(dev)
+    rows[("flash_attention.fwd", "jamba")] = check_flash_jamba(dev)
     return rows
 
 
@@ -920,6 +1010,33 @@ def check_flash_gqa128(dev) -> dict:
             raise AssertionError(f"flash kernel != plain at {tuple(q.shape)} "
                                  f"Hkv {hkv}: {err} > 0.05")
     return {"prefill": recs[0], "train": recs[1]}
+
+
+def check_flash_jamba(dev) -> dict:
+    """Phase 3, flash at jamba-1.5-large's attention layer in a phase-27
+    prefill: (1, 64, 64, 128) over 8 KV heads (GQA 8:1), bf16 causal,
+    within 0.05 of the plain version, timed beside
+    ``scaled_dot_product_attention`` (``enable_gqa``)."""
+    gen = torch.Generator(device="cpu").manual_seed(64)
+    q, k, v = (torch.randn(shape, generator=gen).to(torch.bfloat16).to(dev)
+               for shape in ((1, 64, JAMBA_PROMPT, 128),
+                             (1, 8, JAMBA_PROMPT, 128),
+                             (1, 8, JAMBA_PROMPT, 128)))
+    err = float((fa_ops.flash_attention(q, k, v).float()
+                 - fa_ref.flash_attention(q, k, v).float()).abs().max())
+    print(f"flash {tuple(q.shape)} Hkv 8 bf16 causal: max abs err {err:.3g} "
+          f"(tolerance 0.05)", flush=True)
+    if not err <= 0.05:
+        raise AssertionError(f"flash kernel != plain: {err} > 0.05")
+    nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
+    ops = 4 * 64 * 128 * JAMBA_PROMPT * (JAMBA_PROMPT + 1) // 2
+    return _record(
+        "flash_attention.fwd", lambda: fa_ops.flash_attention(q, k, v),
+        lambda: fa_ref.flash_attention(q, k, v), nbytes, ops,
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               enable_gqa=True),
+        dict(shape=list(q.shape), kv_heads=8, dtype="bfloat16", causal=True,
+             path="jamba"), err, BF16_TENSOR_OPS_PER_S)
 
 
 def check_p0_equivalence(dev) -> None:
@@ -1260,7 +1377,7 @@ def profile_serving(dev, serve, table="profile_serve.txt") -> dict:
     kernel; the table goes to ``<table>`` in the output directory)."""
     eng, proto = serve["eng"], serve["proto"]
     eng._reset()
-    for slot, req in enumerate(serve["reqs"][:SERVE_SLOTS]):
+    for slot, req in enumerate(serve["reqs"][:eng.B]):
         eng._insert(slot, req)
     eng._tick(proto, 0)
     torch.cuda.synchronize()
@@ -1289,7 +1406,7 @@ def profile_serving(dev, serve, table="profile_serve.txt") -> dict:
     (out / table).write_text(prof.key_averages().table(
         sort_by="self_device_time_total", row_limit=60))
     print(f"profile, 10 decode ticks of {serve['m'].cfg.name} at the full "
-          f"width ({serve['m'].cfg.n_layers} layers, {SERVE_SLOTS} slots, "
+          f"width ({serve['m'].cfg.n_layers} layers, {eng.B} slots, "
           f"OCS p {SERVE_P_MISS}): wall {wall:.4f} s unprofiled "
           f"({100 * wall:.2f} ms per tick), device busy {device_s:.4f} s, "
           f"idle share {1 - device_s / wall:.3f}; {launches} device kernels "
@@ -1995,18 +2112,7 @@ def check_train_maxpool(dev, row) -> dict:
                     lambda: _present(mp_ref.maxpool_fwd(h, 0, winner=winner,
                                                         ties=ties)),
                     dict(input=what, winner=winner, ties=ties))
-        pooled, mask = mp_ops.maxpool_ties(h, 0)
-        for special in (False, True):
-            g = _site_cotangent(dev, h.shape[1:], 22, special)
-            got = mp_ops.maxpool_ties_bwd(mask, g, QWEN_WORKERS, 0)
-            composed = g.unsqueeze(0) * (h == pooled.unsqueeze(0)).to(h.dtype)
-            for want, by in ((mp_ref.ties_bwd(mask, g, QWEN_WORKERS, 0),
-                              "plain"), (composed, "g * (h == max)")):
-                if special:
-                    _same_nan_as_nan(got, want, f"ties_bwd {what} vs {by}")
-                else:
-                    assert _bitwise_equal(got, want), \
-                        f"ties_bwd {what} vs {by}: differs"
+        _check_ties_bwd(dev, h, 22, what)
     print(f"maxpool.fwd at the train site: bitwise equal to plain for 4 "
           f"output subsets x {len(cases)} inputs ({list(cases)}); "
           f"maxpool.ties_bwd bitwise equal to plain and to g * (h == max) "
@@ -2037,6 +2143,24 @@ def check_train_maxpool(dev, row) -> dict:
         dict(shape=list(h.shape), dtype="bfloat16", path="train",
              library="g * (h == max) (3 launches)"))
     return out
+
+
+def _check_ties_bwd(dev, h, seed: int, what: str) -> None:
+    """``maxpool.ties_bwd`` from the kernel's tie mask of ``h`` bitwise
+    against its plain version and ``g * (h == max)``, for a finite
+    cotangent and, NaN as NaN, for one with +-0 and +-inf."""
+    pooled, mask = mp_ops.maxpool_ties(h, 0)
+    for special in (False, True):
+        g = _site_cotangent(dev, h.shape[1:], seed, special)
+        got = mp_ops.maxpool_ties_bwd(mask, g, QWEN_WORKERS, 0)
+        composed = g.unsqueeze(0) * (h == pooled.unsqueeze(0)).to(h.dtype)
+        for want, by in ((mp_ref.ties_bwd(mask, g, QWEN_WORKERS, 0),
+                          "plain"), (composed, "g * (h == max)")):
+            if special:
+                _same_nan_as_nan(got, want, f"ties_bwd {what} vs {by}")
+            else:
+                assert _bitwise_equal(got, want), \
+                    f"ties_bwd {what} vs {by}: differs"
 
 
 def _check_fwd_subsets(cases, shape, path) -> None:
@@ -2084,18 +2208,7 @@ def check_moe_site(dev, row) -> dict:
              "ties": _train_site_input(dev, cols, 31, ties=True).view(shape)}
     _check_fwd_subsets(cases, shape, "moe")
     for what, h in cases.items():
-        pooled, mask = mp_ops.maxpool_ties(h, 0)
-        for special in (False, True):
-            g = _site_cotangent(dev, h.shape[1:], 32, special)
-            got = mp_ops.maxpool_ties_bwd(mask, g, QWEN_WORKERS, 0)
-            composed = g.unsqueeze(0) * (h == pooled.unsqueeze(0)).to(h.dtype)
-            for want, by in ((mp_ref.ties_bwd(mask, g, QWEN_WORKERS, 0),
-                              "plain"), (composed, "g * (h == max)")):
-                if special:
-                    _same_nan_as_nan(got, want, f"ties_bwd {what} vs {by}")
-                else:
-                    assert _bitwise_equal(got, want), \
-                        f"ties_bwd {what} vs {by}: differs"
+        _check_ties_bwd(dev, h, 32, what)
     print(f"maxpool.ties_bwd at the MoE site {shape}: bitwise equal to "
           f"plain and to g * (h == max) on {len(cases)} inputs", flush=True)
     h = cases["randn"]
@@ -2294,14 +2407,17 @@ def _categorize(name: str) -> str:
     return "other (elementwise, reductions)"
 
 
-def _profile_steps(run, n: int, table: str):
+def _profile_steps(run, n: int, table: str,
+                   activities=(ProfilerActivity.CPU, ProfilerActivity.CUDA)):
     """``n`` train steps of ``run`` (the trainer's step function, its
     carries donated, batches from the pipeline; ``run.values`` is updated
     in place) timed unprofiled after a warm-up step, then ``n``
     more under torch.profiler: (values, opt state, wall seconds of the
     unprofiled steps, device ms a step by kernel class, by kernel, device
     launches).  The profiler table goes to ``<table>`` in the output
-    directory."""
+    directory.  ``activities=(ProfilerActivity.CUDA,)`` records the device
+    side alone, for a step of ~10^5 launches, where the host side's events
+    take the profiler minutes to parse."""
     step_fn = make_train_step(run.m.loss, run.opt)
     values, opt = run.values, run.opt.init(run.values)
     values, opt, _ = step_fn(values, opt, run.data(0))
@@ -2311,8 +2427,7 @@ def _profile_steps(run, n: int, table: str):
         values, opt, _ = step_fn(values, opt, run.data(s))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=list(activities)) as prof:
         for s in range(n + 1, 2 * n + 1):
             values, opt, _ = step_fn(values, opt, run.data(s))
         torch.cuda.synchronize()
@@ -2831,6 +2946,370 @@ def check_moe_against_cpu(dev) -> None:
                   f"OCS p {SERVE_P_MISS}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the recurrent mixers: xlstm-125m and jamba-1.5-large
+# ---------------------------------------------------------------------------
+
+def check_recurrent_sites(dev, row) -> dict:
+    """Phase 3, the recurrent slice's max-fusion sites, bf16: the mLSTM
+    down-projection of xlstm-125m in the train step, (16 workers,
+    ``XLSTM_BATCH`` x 256 tokens x 768), and jamba's mamba
+    out-projection in one 64-token prefill, (16, 64, 8192):
+    ``maxpool.fwd`` bitwise against its plain version for each subset of
+    its optional outputs on randn partials and on partials with forced
+    ties, +-0, +-inf and NaNs; at the mLSTM site ``maxpool.ties_bwd``
+    bitwise against its plain version and ``g * (h == max)``.  The same
+    ``maxpool.fwd`` check at the serve widths of phases 26-27 (an xlstm
+    256-token prefill and tick of 8 slots, a jamba tick of 2 slots), and
+    ``noisy`` and ``maxpool.decode`` bitwise at jamba's mlp site in a tick
+    (1 lane x 16 workers x 2 slots x 8192, bf16, bits 8, p_miss 0.05).
+    Timed, with the L2 evicted before each call (both sites' operands fit
+    it): the law's form beside ``torch.max(dim=0)`` at both sites, the
+    backward beside that composition at the mLSTM site."""
+    for site, serve_shape in (
+            ("xlstm serve prefill", (QWEN_WORKERS, 1, SERVE_PROMPT, XLSTM_D)),
+            ("xlstm serve tick", (QWEN_WORKERS, SERVE_SLOTS, 1, XLSTM_D)),
+            ("jamba serve tick", (QWEN_WORKERS, WIDE_REQUESTS, 1, JAMBA_D))):
+        n_cols = math.prod(serve_shape[1:])
+        _check_fwd_subsets(
+            {"randn": _train_site_input(dev, n_cols, 44),
+             "ties": _train_site_input(dev, n_cols, 45, ties=True)},
+            serve_shape, site)
+    for name, launch, plain, *_, shape in _kernel_cases(
+            dev, 1, WIDE_REQUESTS * JAMBA_D, 8, seed=46, n=QWEN_WORKERS,
+            dtype=torch.bfloat16, p_miss=(SERVE_P_MISS,)):
+        if name in ("ocs_contention.noisy", "maxpool.decode"):
+            _check_equal(name, launch, plain,
+                         dict(bits=8, shape=shape, path="jamba serve tick"))
+            print(f"{name} at the jamba serve tick {shape} bf16 bits 8: "
+                  "bitwise equal to plain", flush=True)
+    flush = _l2_flush(dev)
+    out = {}
+    for path, shape in (
+            ("xlstm", (QWEN_WORKERS, XLSTM_BATCH, TRAIN_SEQ, XLSTM_D)),
+            ("jamba", (QWEN_WORKERS, 1, JAMBA_PROMPT, JAMBA_D))):
+        cols = math.prod(shape[1:])
+        cases = {"randn": _train_site_input(dev, cols, 40).view(shape),
+                 "ties": _train_site_input(dev, cols, 41,
+                                           ties=True).view(shape)}
+        _check_fwd_subsets(cases, shape, path)
+        h = cases["randn"]
+        out[("maxpool.fwd", path)] = row(
+            "maxpool.fwd", lambda h=h: mp_ops.maxpool_ties(h, 0),
+            lambda h=h: mp_ref.maxpool_ties(h, 0),
+            h.numel() * 2 + cols * (2 + 2), 2 * h.numel(),
+            lambda h=h: torch.max(h, dim=0),
+            dict(shape=list(h.shape), dtype="bfloat16", path=path,
+                 outputs="pooled, ties"), flush=flush)
+        if path != "xlstm":
+            continue
+        for what, hc in cases.items():
+            _check_ties_bwd(dev, hc, 42, what)
+        print(f"maxpool.ties_bwd at the mLSTM site {shape}: bitwise equal "
+              f"to plain and to g * (h == max)", flush=True)
+        pooled, mask = mp_ops.maxpool_ties(h, 0)
+        g = _site_cotangent(dev, h.shape[1:], 43)
+        out[("maxpool.ties_bwd", path)] = row(
+            "maxpool.ties_bwd",
+            lambda: mp_ops.maxpool_ties_bwd(mask, g, QWEN_WORKERS, 0),
+            lambda: mp_ref.ties_bwd(mask, g, QWEN_WORKERS, 0),
+            cols * (2 + 2) + h.numel() * 2, h.numel(),
+            lambda: g.unsqueeze(0) * (h == pooled.unsqueeze(0)).to(h.dtype),
+            dict(shape=list(h.shape), dtype="bfloat16", path=path,
+                 library="g * (h == max) (3 launches)"), flush=flush)
+    del flush
+    return out
+
+
+def _xlstm_train_run(steps=XLSTM_STEPS):
+    """``launch/train``'s run at the full xlstm-125m width and depth,
+    fusion ``max``, every step logged."""
+    run = launch_train.setup(launch_train.parse_args([
+        "--arch", XLSTM, "--steps", str(steps), "--batch", str(XLSTM_BATCH),
+        "--seq", str(TRAIN_SEQ), "--seed", "0"]))
+    cfg = run.cfg
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_inner,
+            cfg.n_workers, cfg.tp_fusion, cfg.dtype, cfg.tie_embeddings) \
+        == (12, XLSTM_D, 4, 2 * XLSTM_D, QWEN_WORKERS, "max",
+            torch.bfloat16, True), cfg
+    assert cfg.param_count() == XLSTM_PARAMS, cfg.param_count()
+    run.tcfg = dataclasses.replace(run.tcfg, log_every=1)
+    return run
+
+
+def _mlstm_sites(cfg) -> int:
+    return cfg.n_periods * sum(1 for m, _ in cfg.layer_plan()
+                               if m == "mlstm")
+
+
+def _xlstm_train_counts(counts, steps, what) -> None:
+    """Per step ``maxpool.fwd`` and ``maxpool.ties_bwd`` once at each of the
+    9 mLSTM down-projections (the sLSTM blocks and the ``none`` FFN have no
+    fusion site, there is no attention), nothing else."""
+    sites = _mlstm_sites(get_config(XLSTM))
+    want = {k: 0 for k in kernels.KERNELS}
+    want.update({"maxpool.fwd": sites * steps,
+                 "maxpool.ties_bwd": sites * steps})
+    assert counts == want, (what, counts, want)
+
+
+def run_xlstm_train_phase(dev) -> dict:
+    """Phase 25: ``launch/train`` at the full xlstm-125m width and depth
+    (12 layers, 3 mLSTM : 1 sLSTM, d_model 768, 4 heads, d_inner 1536, 16
+    workers; bf16, random weights from seed 0, ``--fusion max``),
+    ``XLSTM_BATCH`` x 256 tokens, 3 steps, counted (``maxpool.fwd`` and
+    ``ties_bwd`` 9 each a step, nothing else), every loss finite, the
+    peak device memory; a second run bitwise the first; then one step
+    profiled, the device side alone (wall, device busy, idle share,
+    kernels a step)."""
+    _release("xlstm train phase start")
+    run = _xlstm_train_run()
+    n_params = sum(t.numel() for t in tree.leaves(run.values))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first, counts, wall = _counted(lambda: launch_train.launch(run))
+    peak = torch.cuda.max_memory_allocated()
+    del run
+    _xlstm_train_counts(counts, XLSTM_STEPS, "first run")
+    losses = [r["loss"] for r in first.history]
+    assert len(losses) == XLSTM_STEPS and all(
+        math.isfinite(x) for x in losses), losses
+    print(f"train {XLSTM} full width and depth ({n_params} parameters in the "
+          f"tree, {XLSTM_PARAMS} by param_count; bf16, fusion max): "
+          f"{XLSTM_STEPS} steps of {XLSTM_BATCH} x {TRAIN_SEQ} tokens in "
+          f"{wall:.3f} s wall; losses {losses}; step host times "
+          f"{[round(r['step_time_s'], 4) for r in first.history]}; peak "
+          f"device memory {peak / 2**30:.2f} GiB ({peak} bytes); launches "
+          f"{counts}", flush=True)
+    _release("first xlstm run done")
+    again, counts2, wall2 = _counted(
+        lambda: launch_train.launch(_xlstm_train_run()))
+    _xlstm_train_counts(counts2, XLSTM_STEPS, "second run")
+    _assert_same_run(first, again, "two xlstm runs")
+    del first, again
+    _release("second xlstm run compared")
+    print(f"train {XLSTM}: a second run ({wall2:.3f} s) bitwise the first: "
+          f"values, optimizer state, history", flush=True)
+    run = _xlstm_train_run(steps=3)
+    values, opt, pwall, by_class, by_name, launches = _profile_steps(
+        run, 1, "profile_train_xlstm.txt", (ProfilerActivity.CUDA,))
+    del run, values, opt
+    _release("xlstm profile done")
+    step_ms = sum(by_class.values())
+    res = dict(wall=wall, peak=peak, counts=counts, wall_ms=1e3 * pwall,
+               device_ms=step_ms, idle=1 - step_ms / (1e3 * pwall),
+               kernels=launches, by_class=by_class)
+    print(f"profile, one {XLSTM} train step ({XLSTM_BATCH} x "
+          f"{TRAIN_SEQ} tokens): wall {res['wall_ms']:.3f} ms a step "
+          f"unprofiled, device busy {step_ms:.3f} ms a step, idle share "
+          f"{res['idle']:.3f}; {res['kernels']:.0f} device kernels and "
+          f"copies a step; by class (ms a step) {by_class}", flush=True)
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"  {ms:10.3f} ms a step  {name[:100]}", flush=True)
+    return res
+
+
+def run_xlstm_serving(dev) -> dict:
+    """Phase 26: serve phase 8's traffic (16 Poisson requests of 256-token
+    prompts for 32 tokens over 8 slots) with xlstm-125m at its full width
+    and depth, ``tp_fusion="max"``, under ``Protocol.ocs(bits=8,
+    p_miss=0.05)``: no mlp site, so 0 channel slots and 0 uplink bits;
+    counted (``maxpool.fwd`` 9 per prefill and 9 per tick, the mLSTM
+    sites; nothing else); every logit finite.  Then the same traffic
+    under phase 14's bursts and outages with ``retry(2)`` (some held
+    ticks; the held ticks restore the recurrent states, which phase 28
+    holds against the CPU), counted the same way; the peak device
+    memory; then 10 decode ticks profiled."""
+    cfg = get_config(XLSTM, tp_fusion="max")
+    sites = _mlstm_sites(cfg)
+    m = M.build(cfg)
+    values = m.init(torch.Generator(device=dev).manual_seed(0))
+    finite = _watch_logits(m, dev)
+    proto = _ocs(SERVE_P_MISS)
+    reqs = poisson_requests(SERVE_REQUESTS, SERVE_RATE, cfg.vocab_size,
+                            prompt_len=SERVE_PROMPT,
+                            max_new_tokens=SERVE_NEW, seed=0)
+    assert m.channel_sites() == 0
+    res = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kind, fm in (("ocs", None), ("retry", faults.FaultModel.burst(
+            policy=faults.DegradePolicy.retry(2), **SERVE_FAULT
+            ).with_dropout(*SERVE_DROPOUT))):
+        eng = se.ServeEngine(m, values, se.ServeConfig(
+            batch_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, eos_id=-1,
+            protocol=proto, fault=fm), device=dev)
+        se.reset_dispatch_counts()
+        outs, counts, wall = _counted(lambda: eng.run(reqs))
+        ticks = se.dispatch_counts()["tick"]
+        want = {k: 0 for k in kernels.KERNELS}
+        want["maxpool.fwd"] = sites * (SERVE_REQUESTS + ticks)
+        assert counts == want, (kind, counts, want)
+        assert bool(finite["ok"]), "a logit is not finite"
+        assert sorted(outs) == list(range(SERVE_REQUESTS))
+        for c in outs.values():
+            assert len(c.tokens) == SERVE_NEW, (c.rid, len(c.tokens))
+            assert c.channel_slots == 0 and c.uplink_bits == 0, c.rid
+        retry_ticks = sum(c.retry_ticks for c in outs.values())
+        if fm is not None:
+            assert retry_ticks > 0, "no held tick: the retry was not driven"
+        n_tok = sum(len(c.tokens) for c in outs.values())
+        print(f"serve {XLSTM} full width ({kind}), OCS p {SERVE_P_MISS}: "
+              f"{len(outs)} requests, {n_tok} tokens, {ticks} ticks in "
+              f"{wall:.3f} s wall; {1e3 * wall / ticks:.2f} ms per tick "
+              f"(prefills included); retry ticks billed {retry_ticks}; 0 "
+              f"channel slots and 0 uplink bits (no channel site); "
+              f"launches {counts}", flush=True)
+        res[kind] = dict(counts=counts, wall=wall, ticks=ticks,
+                         tokens=n_tok, retry_ticks=retry_ticks)
+        if fm is None:
+            serve = dict(eng=eng, proto=proto, reqs=reqs, m=m)
+    res["peak"] = torch.cuda.max_memory_allocated()
+    print(f"serve {XLSTM}: peak device memory {res['peak'] / 2**30:.2f} GiB "
+          f"({res['peak']} bytes)", flush=True)
+    res["profile"] = profile_serving(dev, serve, "profile_serve_xlstm.txt")
+    del serve, eng, values, m
+    _release("xlstm serving done")
+    return res
+
+
+def run_jamba_serving(dev) -> dict:
+    """Phase 27: one 8-layer period of jamba-1.5-large at its full width
+    (d_model 8192, d_inner 16384, state 16, conv 4, 64 heads of 128 over 8
+    KV heads, d_ff 24576, no rotary positions; bf16, random weights from
+    seed 0, ``tp_fusion="max"``, flash prefill) with the experts cut from
+    16 to 4 (top-2 and every width kept: the period's 45.2 B parameters
+    do not fit the card), serving 2 requests of 64-token prompts for 4
+    tokens under OCS p 0.05, counted: flash once per request; a prefill
+    ``maxpool.fwd`` at the 7 mamba sites, the attention's worker-layout
+    site and the 4 mlp sites; a tick ``maxpool.fwd`` at the mamba and
+    attention sites and ``noisy`` and ``maxpool.decode`` at the 4 mlp
+    sites; every logit finite; the peak device memory; then 10 decode
+    ticks profiled."""
+    _release("jamba phase start")
+    torch.cuda.reset_peak_memory_stats()
+    base = get_config(JAMBA)
+    cfg = base.with_(n_layers=base.period, n_experts=JAMBA_EXPERTS,
+                     tp_fusion="max", use_flash=True)
+    assert (cfg.d_model, cfg.d_inner, cfg.ssm_state_dim, cfg.conv_width,
+            cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, cfg.d_ff,
+            cfg.experts_per_token, cfg.use_rope) == (
+        JAMBA_D, 2 * JAMBA_D, 16, 4, 64, 8, 128, 24576, 2, False), cfg
+    m = M.build(cfg)
+    values = m.init(torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(t.numel() for t in tree.leaves(values))
+    finite = _watch_logits(m, dev)
+    proto = _ocs(SERVE_P_MISS)
+    eng = se.ServeEngine(m, values, se.ServeConfig(
+        batch_slots=WIDE_REQUESTS, max_seq=2 * JAMBA_PROMPT, eos_id=-1,
+        protocol=proto), device=dev)
+    reqs = poisson_requests(WIDE_REQUESTS, 1.0, cfg.vocab_size,
+                            prompt_len=JAMBA_PROMPT,
+                            max_new_tokens=WIDE_NEW, seed=0)
+    se.reset_dispatch_counts()
+    outs, counts, wall = _counted(lambda: eng.run(reqs))
+    ticks = se.dispatch_counts()["tick"]
+    plan = cfg.layer_plan()
+    mamba = sum(1 for mx, _ in plan if mx == "mamba")
+    attn = sum(1 for mx, _ in plan if mx == "attn") * (
+        attention.attn_layout(cfg) == "worker")
+    mlp = m.channel_sites()
+    assert (mamba, attn, mlp) == (7, 1, 4), (mamba, attn, mlp)
+    want = {k: 0 for k in kernels.KERNELS}
+    want.update({
+        "flash_attention.fwd": WIDE_REQUESTS,
+        "maxpool.fwd": WIDE_REQUESTS * (mamba + attn + mlp)
+        + ticks * (mamba + attn),
+        "ocs_contention.noisy": mlp * ticks,
+        "maxpool.decode": mlp * ticks})
+    assert counts == want, (counts, want)
+    assert bool(finite["ok"]), "jamba: a logit is not finite"
+    assert all(len(c.tokens) == WIDE_NEW for c in outs.values())
+    assert all(c.channel_slots > 0 for c in outs.values())
+    peak = torch.cuda.max_memory_allocated()
+    print(f"serve {JAMBA}, one period at the full width, {JAMBA_EXPERTS} of "
+          f"16 experts ({n_params} parameters in the tree, "
+          f"{cfg.param_count()} by param_count; bf16): {WIDE_REQUESTS} "
+          f"requests, {ticks} ticks in {wall:.3f} s; every logit finite; "
+          f"peak device memory {peak / 2**30:.2f} GiB ({peak} bytes); "
+          f"launches {counts}", flush=True)
+    prof = profile_serving(dev, dict(eng=eng, proto=proto, reqs=reqs, m=m),
+                           "profile_serve_jamba.txt")
+    del eng, values, m, outs
+    _release("jamba done")
+    return dict(counts=counts, wall=wall, ticks=ticks, params=n_params,
+                peak=peak, profile=prof)
+
+
+def check_recurrent_against_cpu(dev) -> None:
+    """Phase 28: the reduced xlstm-125m and jamba-1.5-large configs in
+    float32 (``tp_fusion="max"``; flash for jamba's attention), the same
+    weights on the card and the CPU: 3 trainer steps with losses within
+    phase 6's 1e-3, and 6 requests served with equal tokens and retry
+    ticks, channel-free, under OCS p 0.05 and under bursts and outages
+    with ``retry(2)`` (some held ticks: the copy-on-hold of the recurrent
+    states); then the sequential and the associative mamba scans on the
+    card against each other within the JAX test's 1e-3."""
+    fault = faults.FaultModel.burst(
+        burst_len=4, gap_len=16, p_miss_bad=0.5, p_miss_good=0.01,
+        policy=faults.DegradePolicy.retry(2)).with_dropout(0.5, 0.3)
+    for arch in (XLSTM, JAMBA):
+        cfg = get_reduced(arch, tp_fusion="max", use_flash=arch == JAMBA)
+        m = M.build(cfg)
+        cpu_values = m.init(torch.Generator().manual_seed(0))
+        if cfg.tie_embeddings:
+            # logits flat enough that greedy tokens are not the prompt's
+            cpu_values["embed"]["tokens"].mul_(0.02)
+        gpu_values = tree.map(lambda t: t.to(dev), cpu_values)
+        pcfg = pipeline.for_model(cfg, batch=4, seq_len=32, seed=0)
+        losses = []
+        for d, v in (("cpu", cpu_values), (dev, gpu_values)):
+            opt = optimizers.adamw(schedules.for_arch(arch, 3e-3, 3),
+                                   weight_decay=0.01)
+            res = trainer.train(
+                m.loss, v, opt,
+                lambda s, d=d: pipeline.batch_for_step(pcfg, s, device=d),
+                trainer.TrainerConfig(steps=3, log_every=1))
+            losses.append([r["loss"] for r in res.history])
+        diff = max(abs(a - b) for a, b in zip(*losses))
+        assert diff < 1e-3, (arch, losses)
+        reqs = poisson_requests(6, SERVE_RATE, cfg.vocab_size,
+                                prompt_len=16, max_new_tokens=12, seed=2)
+        p = np.full((cfg.n_workers,), SERVE_P_MISS, np.float32)
+        held = 0
+        for proto, fm in ((None, None), (Protocol.ocs(bits=8, p_miss=p),
+                                         None),
+                          (Protocol.ocs(bits=8, p_miss=p), fault)):
+            config = se.ServeConfig(batch_slots=2, max_seq=48, eos_id=-1,
+                                    protocol=proto, fault=fm)
+            want = se.ServeEngine(m, cpu_values, config,
+                                  device="cpu").run(reqs)
+            got = se.ServeEngine(m, gpu_values, config, device=dev).run(reqs)
+            for rid in want:
+                assert got[rid].tokens == want[rid].tokens, (
+                    arch, fm, rid, got[rid].tokens, want[rid].tokens)
+                assert got[rid].retry_ticks == want[rid].retry_ticks
+            if fm is not None:
+                held = sum(c.retry_ticks for c in got.values())
+                assert held > 0, "no held tick: the retry was not driven"
+        print(f"{arch} reduced, card vs CPU: 3 train losses within "
+              f"{diff:.3g}; tokens equal channel-free, under OCS p "
+              f"{SERVE_P_MISS} and under retry(2) ({held} retry ticks "
+              f"billed)", flush=True)
+    cfg = get_reduced(JAMBA)
+    p = tree.map(lambda t: t.to(dev), mamba_mod.mamba_init(
+        cfg, torch.Generator().manual_seed(1)))
+    x = torch.randn((2, 64, cfg.d_model),
+                    generator=torch.Generator().manual_seed(2)).to(dev)
+    seq = mamba_mod.mamba_full(cfg, p, x)
+    assoc = mamba_mod.mamba_full(cfg.with_(mamba_assoc_scan=True), p, x)
+    err = float((seq - assoc).abs().max())
+    assert err <= 1e-3, err
+    print(f"mamba_assoc_scan on the card against the sequential scan "
+          f"(reduced jamba, 2 x 64 tokens): max abs difference {err:.3g} "
+          f"(tolerance 1e-3)", flush=True)
+
+
 _PHASE_SECONDS = {}
 
 
@@ -2894,6 +3373,10 @@ def main() -> int:
     moe_serve = _timed(run_moe_serving, dev)
     wide = _timed(run_wide_configs, dev)
     _timed(check_moe_against_cpu, dev)
+    xlstm_train = _timed(run_xlstm_train_phase, dev)
+    xlstm_serve = _timed(run_xlstm_serving, dev)
+    jamba = _timed(run_jamba_serving, dev)
+    _timed(check_recurrent_against_cpu, dev)
 
     line = []
     keep = ("shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
@@ -2907,9 +3390,13 @@ def main() -> int:
             rec = dict(rows[(name, "serve")])
             rec["moe"] = {at: {k: r[k] for k in keep + ("kv_heads",)}
                           for at, r in rows[(name, "moe")].items()}
+            rec["jamba"] = {k: rows[(name, "jamba")][k]
+                            for k in keep + ("kv_heads",)}
         elif name == "maxpool.ties_bwd":
             rec = dict(rows[(name, "train")])
             rec["moe"] = {k: rows[(name, "moe")][k] for k in keep}
+            rec["xlstm"] = {k: rows[(name, "xlstm")][k]
+                            for k in keep + ("l2",)}
         else:
             rec = dict(rows[(name, 8)])
             srv = rows.get((name, "serve"))
@@ -2924,9 +3411,11 @@ def main() -> int:
                                                            "outputs")}
                 win = rows[(name + "[winner]", "train")]
                 rec["train"]["winner_form"] = {k: win[k] for k in keep}
-            moe = rows.get((name, "moe"))
-            if moe is not None:
-                rec["moe"] = {k: moe[k] for k in keep + ("dtype", "outputs")}
+            for site in ("moe", "xlstm", "jamba"):
+                r = rows.get((name, site))
+                if r is not None:
+                    rec[site] = {k: r[k] for k in keep + ("dtype", "outputs",
+                                                          "l2") if k in r}
             forms = {case[len(name) + 1:-1]: {
                 "curves": {k: r[k] for k in keep},
                 "serve": {k: rows[(case, "serve")][k] for k in keep}}
@@ -2948,7 +3437,11 @@ def main() -> int:
                    "train_channel": hook["counts"][name],
                    "moe_train": moe_train["counts"][name],
                    "moe_serve": moe_serve["counts"][name],
-                   "wide_configs": wide["counts"][name]}
+                   "wide_configs": wide["counts"][name],
+                   "xlstm_train": xlstm_train["counts"][name],
+                   "xlstm_serve": xlstm_serve["ocs"]["counts"][name],
+                   "xlstm_faulty_serve": xlstm_serve["retry"]["counts"][name],
+                   "jamba_serve": jamba["counts"][name]}
         line.append(dict(rec, launches=sum(by_path.values()),
                          launches_by_path=by_path))
     print(f"run_curves wall seconds: {wall}", flush=True)
@@ -2986,6 +3479,20 @@ def main() -> int:
           f"{moe_serve['tokens']} tokens), decode tick profile "
           f"{moe_serve['profile']}; one-layer configs serve walls "
           f"{wide['walls']}; {smi}", flush=True)
+    xlstm_prof = {k: xlstm_train[k] for k in ("wall_ms", "device_ms",
+                                              "idle", "kernels")}
+    print(f"recurrent ({XLSTM}, full width and depth): train "
+          f"{xlstm_train['wall']} s for {XLSTM_STEPS} steps of {XLSTM_BATCH} "
+          f"x {TRAIN_SEQ} tokens, profile {xlstm_prof}, peak device memory "
+          f"{xlstm_train['peak']} bytes; serve {xlstm_serve['ocs']['wall']} "
+          f"s ({xlstm_serve['ocs']['ticks']} ticks), under retry(2) "
+          f"{xlstm_serve['retry']['wall']} s ({xlstm_serve['retry']['ticks']}"
+          f" ticks, {xlstm_serve['retry']['retry_ticks']} retry ticks), "
+          f"decode tick profile {xlstm_serve['profile']}, serving peak "
+          f"device memory {xlstm_serve['peak']} bytes; {JAMBA} one period "
+          f"({jamba['params']} parameters) serve {jamba['wall']} s, decode "
+          f"tick profile {jamba['profile']}, peak device memory "
+          f"{jamba['peak']} bytes; {smi}", flush=True)
     print(f"phase wall seconds: {_PHASE_SECONDS}", flush=True)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Architecture config registry: ``--arch <id>`` resolution.
 
-It holds the architectures the port builds; the others come with the
-slices that port their modules (ROADMAP queue 1, items 17b and 17c)."""
+It holds the architectures the port builds, in the JAX registry's order;
+the others come with the slice that ports their modules (ROADMAP queue 1,
+item 17c)."""
 
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ _MODULES = {
     "minicpm-2b": "minicpm_2b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "xlstm-125m": "xlstm_125m",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
 }
 
 ARCH_IDS = tuple(_MODULES)

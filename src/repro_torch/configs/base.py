@@ -7,10 +7,11 @@ fields, their defaults and the checks of ``__post_init__`` are the JAX
 package's, so a config built here equals its JAX counterpart field by
 field (``dtype``, ``param_dtype`` and ``logit_dtype`` as torch types).
 
-The port builds plans of self-attention (``attn``, ``attn_nocausal``)
-mixers and ``mlp`` or ``moe`` FFNs: :func:`check_ported` says which
-ROADMAP item brings the rest.  ``param_count`` is the JAX package's
-arithmetic on the fields.
+The port builds every decoder plan: the ``attn``, ``attn_nocausal``,
+``mamba``, ``mlstm`` and ``slstm`` mixers with an ``mlp``, ``moe`` or no
+(``none``) FFN.  :func:`check_ported` refuses the encoder-decoder and the
+non-token frontends, and names the ROADMAP item that brings them.
+``param_count`` is the JAX package's arithmetic on the fields.
 """
 
 from __future__ import annotations
@@ -24,8 +25,6 @@ import torch
 MIXERS = ("attn", "attn_nocausal", "mamba", "mlstm", "slstm")
 FFNS = ("mlp", "moe", "none")
 TP_FUSIONS = ("sum", "max", "max_q16", "max_q8", "concat")
-PORTED_MIXERS = ("attn", "attn_nocausal")
-PORTED_FFNS = ("mlp", "moe")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -226,8 +225,6 @@ def _param_count(c: ModelConfig, active_only: bool) -> int:
     return total
 
 
-SSM_TODO = ("not ported yet (ROADMAP queue 1, item 17b: the mamba, mLSTM "
-            "and sLSTM mixers and the xLSTM plans' FFN-less blocks)")
 ENC_TODO = ("not ported yet (ROADMAP queue 1, item 17c: cross-attention, "
             "the encoder-decoder, the patch/audio frontends and sinusoidal "
             "positions)")
@@ -235,16 +232,8 @@ ENC_TODO = ("not ported yet (ROADMAP queue 1, item 17c: cross-attention, "
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not build yet:
-    the mamba, mLSTM and sLSTM mixers and the ``none`` FFN (ROADMAP
-    queue 1, item 17b); the encoder-decoder, the patch/audio frontends
-    and sinusoidal positions (item 17c)."""
-    for mixer, ffn in cfg.layer_plan():
-        if mixer not in PORTED_MIXERS:
-            raise NotImplementedError(
-                f"{cfg.name}: mixer {mixer!r} is {SSM_TODO}")
-        if ffn not in PORTED_FFNS:
-            raise NotImplementedError(
-                f"{cfg.name}: ffn {ffn!r} is {SSM_TODO}")
+    the encoder-decoder, the patch/audio frontends and sinusoidal
+    positions (ROADMAP queue 1, item 17c)."""
     if cfg.encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder is {ENC_TODO}")

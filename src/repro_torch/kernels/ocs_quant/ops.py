@@ -3,7 +3,9 @@
 ``encode``/``decode`` take the plain version (``ref.py``) for a tensor on
 the CPU and launch the CUDA kernel for a tensor on the card.  The kernel
 covers D <= 16 (``uint8``/``uint16`` codes), which are the codes the TPU
-kernel covers; a wider code on the card raises.
+kernel covers; a wider code on the card raises.  ``quantize_st`` is
+``decode(encode(x))`` with a straight-through gradient, the JAX package's
+``custom_vjp`` of the same name.
 """
 
 from __future__ import annotations
@@ -55,3 +57,22 @@ def decode(code: torch.Tensor, bits: int, dtype: torch.dtype) -> torch.Tensor:
                    code.data_ptr(), out.data_ptr(), code.numel(),
                    code.element_size(), kernels.KIND[dtype], bits)
     return out
+
+
+class _QuantizeST(torch.autograd.Function):
+    """Forward ``decode(encode(x))``; backward the identity."""
+
+    @staticmethod
+    def forward(ctx, x, bits):
+        return decode(encode(x, bits), bits, x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def quantize_st(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """dequantize(encode(x)) with a straight-through gradient: each value
+    becomes its D-bit bucket's lowest float, and the cotangent passes
+    through unchanged."""
+    return _QuantizeST.apply(x, bits)

@@ -5,7 +5,8 @@ The flags are the JAX launcher's (``--steps``/``--batch``/``--seq``/
 ``--lr``/``--fusion``/``--microbatches``/``--compress``/``--ckpt-dir``/
 ``--seed``), plus ``--device`` (default ``cuda``), ``--use-flash`` (on
 by default: attention runs the flash-attention kernel's forward) and
-``--layers`` (a cut of the depth, 0 keeping the config's).  The
+``--layers`` (a cut of the depth to whole periods of the layer plan, 0
+keeping the config's).  The
 parameters are random, drawn from a ``torch.Generator`` seeded with
 ``--seed``.  With ``--ckpt-dir`` the run checkpoints four times and at the
 end, and resumes from the newest checkpoint there when relaunched.
@@ -16,6 +17,8 @@ end, and resumes from the newest checkpoint there when relaunched.
       --smoke --device cpu --steps 20 --seq 16        # reduced, on the CPU
   PYTHONPATH=src python -m repro_torch.launch.train \
       --arch qwen3-moe-30b-a3b --layers 4 --steps 3 --batch 8 --seq 256
+  PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \
+      --smoke --device cpu --steps 6 --seq 16
 """
 
 from __future__ import annotations
@@ -61,9 +64,13 @@ def setup(args: argparse.Namespace) -> types.SimpleNamespace:
     """The run the flags describe: model, initial values, optimizer, data
     and trainer config (``launch`` runs it)."""
     get = get_reduced if args.smoke else get_config
-    depth = {"n_layers": args.layers} if args.layers else {}
-    cfg = get(args.arch, tp_fusion=args.fusion, use_flash=args.use_flash,
-              **depth)
+    cfg = get(args.arch, tp_fusion=args.fusion, use_flash=args.use_flash)
+    if args.layers:
+        if args.layers % cfg.period:
+            raise ValueError(
+                f"--layers {args.layers}: {args.arch} has a layer plan with "
+                f"a period of {cfg.period}; cut to a multiple of it")
+        cfg = cfg.with_(n_layers=args.layers)
     m = M.build(cfg)
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():

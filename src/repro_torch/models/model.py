@@ -11,7 +11,8 @@ train    {"tokens": (B,S) int, "targets": (B,S) int} -> (loss, metrics)
 prefill  {"tokens": (B,S) int} -> (last_logits (B,V), cache)
 decode   (token (B,1) int, positions (B,) int, cache)
 
-The decode functions update the KV cache in place and return it.
+The decode functions update the cache in place (an attention layer's KV
+rows, a recurrent layer's state) and return it.
 ``input_specs`` comes with the dry-run (ROADMAP queue 1, item 19).
 """
 
@@ -146,7 +147,7 @@ def decode_step_channel(cfg, v, token: torch.Tensor, positions: torch.Tensor,
     """:func:`decode_step` with the wireless channel in the loop.
 
     Every mlp fusion of the stack aggregates the per-worker partials
-    through ``protocol`` under the sensing key ``rng``; the attention
+    through ``protocol`` under the sensing key ``rng``; the mixers'
     fusions stay on the ideal ``tp_fusion``.  Returns ``(logits, cache,
     chan)``, ``chan`` the summed channel-accounting dict over the tick's
     :func:`channel_sites` aggregate calls."""
@@ -171,6 +172,17 @@ def cache_init(cfg, batch: int, max_seq: int, device=None) -> dict:
         device)
 
 
+def min_prompt(cfg) -> int:
+    """The fewest prompt tokens a prefill can build the cache from."""
+    return transformer.min_prompt(cfg, cfg.layer_plan())
+
+
+def recurrent_leaves(cfg, cache: dict) -> list:
+    """The recurrent-state tensors of a ``cache_init`` cache, which a
+    decode step overwrites whole."""
+    return transformer.recurrent_leaves(cfg.layer_plan(), cache)
+
+
 def build(cfg: ModelConfig) -> types.SimpleNamespace:
     check_ported(cfg)
     return types.SimpleNamespace(
@@ -184,4 +196,6 @@ def build(cfg: ModelConfig) -> types.SimpleNamespace:
         decode_step_channel=functools.partial(decode_step_channel, cfg),
         channel_sites=functools.partial(channel_sites, cfg),
         cache_init=functools.partial(cache_init, cfg),
+        min_prompt=functools.partial(min_prompt, cfg),
+        recurrent_leaves=functools.partial(recurrent_leaves, cfg),
     )

@@ -4,27 +4,49 @@ A config's layer plan is a cyclic pattern of ``(mixer, ffn)`` pairs
 (``ModelConfig.layer_plan``); the stacked parameters carry one subtree per
 position of the period, each leaf with a leading period axis, exactly the
 JAX package's tree.  Where the JAX package scans over that axis
-(``lax.scan``), the port loops over it in Python.  The port builds
-``attn``/``attn_nocausal`` mixers and ``mlp`` or ``moe`` FFNs
-(``repro_torch.configs.check_ported``).
+(``lax.scan``), the port loops over it in Python.  Mixers: ``attn``/
+``attn_nocausal`` (a KV cache), ``mamba``, ``mlstm`` and ``slstm`` (a
+recurrent state); FFNs: ``mlp``, ``moe`` or ``none`` (no ``norm2``, no
+``ffn``, aux 0: the xLSTM blocks).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict, List, NamedTuple
 
 import torch
 
 from repro_torch import random as jr
 from repro_torch import tree
-from repro_torch.models import attention, fusion, layers, mlp, moe
+from repro_torch.models import attention, fusion, layers, mamba, mlp, moe, ssm
+
+ATTENTION = ("attn", "attn_nocausal")
 
 
-def _check_block(mixer: str, ffn: str) -> None:
-    if mixer not in ("attn", "attn_nocausal") or ffn not in ("mlp", "moe"):
-        raise NotImplementedError(
-            f"block ({mixer!r}, {ffn!r}) is not ported yet (ROADMAP queue "
-            "1, item 17b: SSM/mamba/xLSTM)")
+class Recurrent(NamedTuple):
+    """A mixer whose cache is a recurrent state: its parameters, its
+    full-sequence and one-token forwards, its state for a batch, and the
+    fewest prompt tokens from which a prefill builds that state."""
+    init: Callable
+    full: Callable
+    step: Callable
+    state_init: Callable        # (cfg, batch, dtype, device) -> state
+    min_prompt: Callable        # cfg -> int
+
+
+RECURRENT = {
+    # a prefill caches the prompt's last conv_width - 1 conv inputs
+    "mamba": Recurrent(mamba.mamba_init, mamba.mamba_full, mamba.mamba_step,
+                       mamba.init_cache, lambda cfg: cfg.conv_width - 1),
+    "mlstm": Recurrent(
+        ssm.mlstm_init, ssm.mlstm_full, ssm.mlstm_step,
+        lambda cfg, batch, dtype, device: ssm.mlstm_state_init(
+            cfg, batch, device), lambda cfg: 1),
+    "slstm": Recurrent(
+        ssm.slstm_init, ssm.slstm_full, ssm.slstm_step,
+        lambda cfg, batch, dtype, device: ssm.slstm_state_init(
+            cfg, batch, device), lambda cfg: 1),
+}
 
 
 def _zero(x: torch.Tensor) -> torch.Tensor:
@@ -36,16 +58,21 @@ def _zero(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def block_init(cfg, gen: torch.Generator, mixer: str, ffn: str) -> dict:
-    _check_block(mixer, ffn)
-    return {"norm1": layers.norm_init(cfg, gen),
-            "mixer": attention.attn_init(cfg, gen),
-            "norm2": layers.norm_init(cfg, gen),
-            "ffn": (mlp.mlp_init if ffn == "mlp" else moe.moe_init)(cfg,
-                                                                    gen)}
+    p = {"norm1": layers.norm_init(cfg, gen)}
+    if mixer in ATTENTION:
+        p["mixer"] = attention.attn_init(cfg, gen)
+    else:
+        p["mixer"] = RECURRENT[mixer].init(cfg, gen)
+    if ffn != "none":
+        p["norm2"] = layers.norm_init(cfg, gen)
+        p["ffn"] = (mlp.mlp_init if ffn == "mlp" else moe.moe_init)(cfg, gen)
+    return p
 
 
 def _ffn(cfg, p: dict, x: torch.Tensor, ffn: str):
     """The block's FFN on the residual stream: (x, aux)."""
+    if ffn == "none":
+        return x, _zero(x)
     h = layers.norm_apply(cfg, p["norm2"], x)
     if ffn == "moe":
         y, aux = moe.moe_apply(cfg, p["ffn"], h)
@@ -56,17 +83,21 @@ def _ffn(cfg, p: dict, x: torch.Tensor, ffn: str):
 def block_full(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
                mixer: str, ffn: str):
     """Training / prefill block. Returns (x, aux_loss)."""
-    _check_block(mixer, ffn)
     h = layers.norm_apply(cfg, p["norm1"], x)
-    x = x + attention.attn_full(cfg, p["mixer"], h, positions,
-                                causal=(mixer == "attn"))
-    return _ffn(cfg, p, x, ffn)
+    if mixer in ATTENTION:
+        out = attention.attn_full(cfg, p["mixer"], h, positions,
+                                  causal=(mixer == "attn"))
+    else:
+        out = RECURRENT[mixer].full(cfg, p["mixer"], h)
+    return _ffn(cfg, p, x + out, ffn)
 
 
 def block_cache_init(cfg, mixer: str, batch: int, max_seq: int, dtype,
                      device=None) -> dict:
-    _check_block(mixer, "mlp")
-    return {"self": attention.init_cache(cfg, batch, max_seq, dtype, device)}
+    if mixer in ATTENTION:
+        return {"self": attention.init_cache(cfg, batch, max_seq, dtype,
+                                             device)}
+    return {"self": RECURRENT[mixer].state_init(cfg, batch, dtype, device)}
 
 
 def block_step(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -76,16 +107,20 @@ def block_step(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     With a ``protocol`` an mlp FFN's worker-partial fusion routes through
     the simulated channel (``mlp_apply(protocol=, rng=)``) and the return
     grows a fourth element, the channel-accounting dict of this block's
-    fusion site (``fusion.chan_zeros()`` for a moe FFN, whose fusions stay
-    on ``tp_fusion`` as the mixer's do).  The KV cache is updated in place
-    (``attention.attn_step``)."""
-    _check_block(mixer, ffn)
+    fusion site (``fusion.chan_zeros()`` for a moe or no FFN; the mixer's
+    fusions stay on ``tp_fusion``).  An attention mixer writes its KV
+    cache in place (``attention.attn_step``); a recurrent mixer returns
+    its new state in the returned cache and leaves ``cache`` as it was."""
     h = layers.norm_apply(cfg, p["norm1"], x)
-    out, new_self = attention.attn_step(cfg, p["mixer"], h, positions,
-                                        cache["self"])
+    if mixer in ATTENTION:
+        out, new_self = attention.attn_step(cfg, p["mixer"], h, positions,
+                                            cache["self"])
+    else:
+        out, new_self = RECURRENT[mixer].step(cfg, p["mixer"], h,
+                                              cache["self"])
     new_cache = dict(cache, self=new_self)
     x = x + out
-    if protocol is None or ffn == "moe":
+    if protocol is None or ffn != "mlp":
         x, aux = _ffn(cfg, p, x, ffn)
         if protocol is None:
             return x, new_cache, aux
@@ -97,10 +132,15 @@ def block_step(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
 
 def block_prefill(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
                   mixer: str, ffn: str, max_seq: int):
-    """Full-sequence forward that also materializes the decode cache,
-    padded with zeros to ``max_seq``.  Returns (x, cache, aux)."""
-    _check_block(mixer, ffn)
+    """Full-sequence forward that also materializes the decode cache: a
+    KV cache padded with zeros to ``max_seq``, or the recurrent state
+    after the last position.  Returns (x, cache, aux)."""
     h = layers.norm_apply(cfg, p["norm1"], x)
+    if mixer not in ATTENTION:
+        out, state = RECURRENT[mixer].full(cfg, p["mixer"], h,
+                                           return_cache=True)
+        x, aux = _ffn(cfg, p, x + out, ffn)
+        return x, {"self": state}, aux
     out, kv = attention.attn_full(cfg, p["mixer"], h, positions,
                                   causal=(mixer == "attn"), return_kv=True)
     if max_seq > kv["k"].shape[1]:
@@ -157,7 +197,8 @@ def stack_full(cfg, values: dict, x: torch.Tensor, positions: torch.Tensor,
 def stack_step(cfg, values: dict, x: torch.Tensor, positions: torch.Tensor,
                cache: dict, plan, protocol=None, rng=None):
     """Decode step through the whole stack; the stacked cache is updated in
-    place and returned.  Returns (x, cache, aux).
+    place (the KV rows at ``positions``, every recurrent state whole) and
+    returned.  Returns (x, cache, aux).
 
     With a ``protocol`` (and ``rng``, the tick's sensing key) every mlp-FFN
     fusion site aggregates through the simulated channel under the key
@@ -174,16 +215,20 @@ def stack_step(cfg, values: dict, x: torch.Tensor, positions: torch.Tensor,
         for i, (mixer, ffn) in enumerate(plan):
             key = f"pos{i}"
             if chan_mode:
-                # only an mlp site draws sensing bits: a moe block's key
+                # only an mlp site draws sensing bits: another block's key
                 # would be ~170 int64 launches of unused threefry
-                x, _, a, ch = block_step(
+                x, c, a, ch = block_step(
                     cfg, pp[key], x, positions, pc[key], mixer, ffn,
                     protocol=protocol, rng=(jr.fold_in(keys[period], i)
                                             if ffn == "mlp" else None))
                 chan = fusion.chan_merge(chan, ch)
             else:
-                x, _, a = block_step(cfg, pp[key], x, positions, pc[key],
+                x, c, a = block_step(cfg, pp[key], x, positions, pc[key],
                                      mixer, ffn)
+            if mixer in RECURRENT:
+                # the new state into the period's views of the stack
+                tree.map(lambda dst, src: dst.copy_(src), pc[key]["self"],
+                         c["self"])
             aux = aux + a
     if chan_mode:
         return x, cache, aux, chan
@@ -213,3 +258,17 @@ def stack_cache_init(cfg, plan, n_periods: int, batch: int, max_seq: int,
            for i, (mixer, _) in enumerate(plan)}
     return tree.map(
         lambda v: v[None].repeat((n_periods,) + (1,) * v.ndim), one)
+
+
+def min_prompt(cfg, plan) -> int:
+    """The fewest prompt tokens from whose prefill every layer of ``plan``
+    builds its cache."""
+    return max([1] + [RECURRENT[mixer].min_prompt(cfg) for mixer, _ in plan
+                      if mixer in RECURRENT])
+
+
+def recurrent_leaves(plan, cache: dict) -> List[torch.Tensor]:
+    """The stacked cache's recurrent-state tensors (the mamba, mLSTM and
+    sLSTM positions), which a decode step overwrites whole."""
+    return [leaf for i, (mixer, _) in enumerate(plan) if mixer in RECURRENT
+            for leaf in tree.leaves(cache[f"pos{i}"])]

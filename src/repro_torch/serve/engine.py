@@ -8,8 +8,13 @@ simulated :class:`repro_torch.protocol.Protocol` channel), picks the next
 token greedily and advances the positions, all on the engine's device; the
 host reads the tick's tokens, positions and channel slots back in one
 copy.  Finished slots (EOS, budget or length cap) retire and refill from
-the arrival queue by a single-request prefill whose KV cache is copied
-into the batch cache at the slot, in place.
+the arrival queue by a single-request prefill whose cache (KV rows,
+recurrent states) is copied into the batch cache at the slot, in place,
+along each leaf's batch axis (:func:`_batch_axis`, the JAX engine's rule:
+axis 1 of a stacked KV buffer, axis 2 of a stacked mLSTM memory or mamba
+state, whose axis 1 is the workers').  A prompt has at least
+``model.min_prompt()`` tokens: a mamba layer caches the last
+``conv_width - 1`` rows of its prompt.
 
 Airtime accounting: the contention core measures the channel slots each
 tick consumed (``ProtocolAccounting`` summed over the stack's
@@ -25,7 +30,13 @@ emit: ``stale`` repeats the last token, ``zero_fill`` emits 0, ``retry``
 holds the tick (token, position) within its budget.  A held tick leaves
 the KV cache as the decode wrote it: the decode writes each layer's row at
 ``positions`` before that layer's attention reads it, and the next tick
-writes the same rows again, so no copy of the cache is needed to undo it.
+writes the same rows again, so no copy of the KV cache is needed to undo
+it.  A recurrent state (mamba, mLSTM, sLSTM) is overwritten whole by the
+decode and would advance twice: under a ``retry`` policy each tick copies
+the recurrent leaves before the decode and puts them back where the tick
+does not commit (``torch.where(commit, new, old)``, on the device, as the
+JAX tick selects its cache); other policies always commit and pay
+nothing.
 
 ``ServeConfig(greedy=False)`` samples each tick's tokens with
 ``random.categorical`` under ``fold_in(fold_in(PRNGKey(seed), 0x5A),
@@ -172,6 +183,9 @@ class ServeEngine:
         self._d_model = model.cfg.d_model
         self._n_workers = model.cfg.n_workers
         self.cache = model.cache_init(self.B, self.max_seq, dev)
+        # the cache's recurrent states, which a held retry tick restores
+        self._recurrent = model.recurrent_leaves(self.cache)
+        self._min_prompt = model.min_prompt()
         self._base_key = jr.PRNGKey(config.seed, dev)
         self._sample_key = jr.fold_in(self._base_key, 0x5A)
         self._reset()
@@ -201,14 +215,20 @@ class ServeEngine:
 
     @torch.no_grad()
     def _insert(self, slot: int, req: Request):
+        if len(req.prompt) < self._min_prompt:
+            raise ValueError(
+                f"request {req.rid}: a prompt of {len(req.prompt)} tokens; "
+                f"this model's prefill builds its cache from at least "
+                f"{self._min_prompt}")
         tokens = torch.as_tensor(np.asarray(req.prompt, np.int32),
                                  device=self.device)[None]
         logits, cache1 = self.m.prefill(self.values, {"tokens": tokens},
                                         max_seq=self.max_seq)
 
         def put(batch_leaf, one_leaf):
-            # (periods, B, S, kv, hd) <- (periods, 1, S, kv, hd) at `slot`
-            batch_leaf[:, slot] = one_leaf[:, 0].to(batch_leaf.dtype)
+            # e.g. (periods, B, S, kv, hd) <- (periods, 1, S, kv, hd)
+            axis = _batch_axis(batch_leaf.shape, one_leaf.shape, self.B)
+            batch_leaf.narrow(axis, slot, 1).copy_(one_leaf)
 
         tree.map(put, self.cache, cache1)
         tok = int(torch.argmax(logits, -1)[0])
@@ -231,6 +251,9 @@ class ServeEngine:
         copy.  ``flags`` is None without ``fault``, else ``(ok,
         retrying)``: whether some worker was online, and whether the tick
         was held for a retry."""
+        held = None
+        if fault is not None and fault.policy.kind == "retry":
+            held = [t.clone() for t in self._recurrent]
         if protocol is None:
             logits, self.cache = self.m.decode_step(
                 self.values, self.cur_token, self.positions, self.cache)
@@ -257,8 +280,10 @@ class ServeEngine:
         new_positions = self.positions + 1
         flags = None
         if fault is not None:
-            nxt, new_positions, flags = self._degrade(
+            nxt, new_positions, flags, commit = self._degrade(
                 fault, nxt, new_positions, online, new_bad, new_offline)
+            for new, old in zip(self._recurrent, held or ()):
+                new.copy_(torch.where(commit, new, old))
         self.positions = new_positions
         self.cur_token = nxt[:, None]
         parts = [nxt, new_positions]
@@ -277,7 +302,8 @@ class ServeEngine:
         """The policy on an outage tick (every worker offline: the pooled
         fusions resolved nothing and the decode's tokens are no value):
         what the slots emit, whether the tick commits, and the carried
-        chain state.  Returns (tokens, positions, flags int32 (2,))."""
+        chain state.  Returns (tokens, positions, flags int32 (2,), commit
+        (a 0-d bool on the device))."""
         st = self.fstate
         ok = online.any()
         zero = torch.zeros((), dtype=torch.int32, device=self.device)
@@ -300,7 +326,7 @@ class ServeEngine:
                                         stale=st.stale, age=age,
                                         consec=consec)
         flags = torch.stack([ok, retrying]).to(torch.int32)
-        return nxt, positions, flags
+        return nxt, positions, flags, commit
 
     # -- main loop ----------------------------------------------------------
 
@@ -374,3 +400,16 @@ class ServeEngine:
                         total_slots - slots_at_arrival[req.rid])
                     self._retire(slot)
         return self.outputs
+
+
+def _batch_axis(batch_shape, one_shape, b: int) -> int:
+    """The batch axis of a cache leaf: the first axis of size ``b`` in the
+    batch cache and 1 in a single request's, else the first of size ``b``
+    (the JAX engine's rule)."""
+    for i, (bs, os) in enumerate(zip(batch_shape, one_shape)):
+        if bs == b and os == 1:
+            return i
+    for i, bs in enumerate(batch_shape):
+        if bs == b:
+            return i
+    raise ValueError(f"no batch axis in {batch_shape} vs {one_shape}")

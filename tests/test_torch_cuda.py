@@ -937,3 +937,107 @@ def test_moe_train_and_serve_on_card(cuda_device):
     for rid in want:
         assert got[rid].tokens == want[rid].tokens, rid
         assert got[rid].channel_slots == got[rid].uplink_bits == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_quantize_st_kernel_matches_plain(cuda_device, dtype, bits):
+    """``quantize_st`` on the card (the encode and decode kernels) bitwise
+    against its plain version on the CPU, forward and straight-through
+    gradient."""
+    tdt = _DT[dtype][0]
+    gen = torch.Generator().manual_seed(bits)
+    x = (torch.randn((64, 1031), generator=gen) * 10).to(tdt)
+    g = torch.randn((64, 1031), generator=gen).to(tdt)
+    outs = []
+    for dev in ("cpu", cuda_device):
+        xt = x.to(dev, copy=True).requires_grad_(True)
+        y = QO.quantize_st(xt, bits)
+        (y * g.to(dev)).sum().backward()
+        outs.append((y.detach().cpu(), xt.grad.cpu()))
+    _same(outs[0][0], outs[1][0])
+    _same(outs[0][1], outs[1][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 2 * 256, 768), (16, 64, 8192)],
+                         ids=["mlstm site", "mamba site"])
+def test_maxpool_fwd_at_the_recurrent_sites(cuda_device, shape):
+    """``maxpool.fwd`` bitwise against its plain version at the new site
+    widths: xlstm-125m's mLSTM down-projection (16 workers, B x 256
+    tokens, d_model 768) and jamba's mamba out-projection at one 64-token
+    prefill (d_model 8192), bf16, every subset of its outputs."""
+    gen = torch.Generator().manual_seed(shape[-1])
+    h = torch.randn(shape, generator=gen).to(torch.bfloat16)
+    hc = h.to(cuda_device)
+    for winner in (False, True):
+        for ties in (False, True):
+            got = MPO.maxpool_fwd(hc, 1, winner=winner, ties=ties)
+            want = MPR.maxpool_fwd(h, 1, winner=winner, ties=ties)
+            for a, b in zip(got, want):
+                assert (a is None) == (b is None)
+                if a is not None:
+                    _same(b, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["xlstm-125m", "jamba-1.5-large-398b"])
+def test_recurrent_plans_card_match_cpu(cuda_device, arch):
+    """The reduced xlstm and jamba configs (``tp_fusion="max"``): 3
+    launcher steps on the card twice, bit for bit, losses within 1e-4 of
+    the CPU's; the sequential and the associative mamba scans on the card
+    within 1e-3 of each other; greedy tokens equal to the CPU's,
+    channel-free, under OCS p 0.05 and under ``retry(2)`` with bursts and
+    outages (the held ticks restore the recurrent states)."""
+    from repro_torch import faults
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as lt
+    from repro_torch.models import mamba
+    from repro_torch.protocol import Protocol
+
+    def train(dev):
+        run = lt.setup(lt.parse_args([
+            "--arch", arch, "--smoke", "--device", "cpu", "--steps", "3",
+            "--batch", "4", "--seq", "32"]))
+        run.values = tree.map(lambda t: t.to(dev), run.values)
+        pcfg = pipeline.for_model(run.cfg, batch=4, seq_len=32, seed=0)
+        run.data = lambda s: pipeline.batch_for_step(pcfg, s, device=dev)
+        return lt.launch(run)
+
+    a, b, c = train(cuda_device), train(cuda_device), train("cpu")
+    _same_tree(a.values, b.values)
+    _same_tree(a.opt_state, b.opt_state)
+    for ra, rc in zip(a.history, c.history):
+        assert abs(ra["loss"] - rc["loss"]) <= 1e-4 * abs(rc["loss"])
+    cfg = get_reduced(arch, tp_fusion="max")
+    if arch.startswith("jamba"):
+        p = mamba.mamba_init(cfg, torch.Generator().manual_seed(1))
+        p = tree.map(lambda t: t.to(cuda_device), p)
+        x = torch.randn((2, 16, cfg.d_model),
+                        generator=torch.Generator().manual_seed(2))
+        seq = mamba.mamba_full(cfg, p, x.to(cuda_device))
+        assoc = mamba.mamba_full(cfg.with_(mamba_assoc_scan=True), p,
+                                 x.to(cuda_device))
+        assert float((seq - assoc).abs().max()) <= 1e-3
+    m = TM.build(cfg)
+    cpu_values = m.init(torch.Generator().manual_seed(0))
+    gpu_values = tree.map(lambda t: t.to(cuda_device), cpu_values)
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, 8).astype(
+        np.int32), max_new_tokens=8, arrival_tick=i) for i in range(4)]
+    p_miss = np.full((cfg.n_workers,), 0.05, np.float32)
+    fault = faults.FaultModel.burst(
+        burst_len=4, gap_len=16, p_miss_bad=0.5, p_miss_good=0.01,
+        policy=faults.DegradePolicy.retry(2)).with_dropout(0.5, 0.3)
+    for proto, fm in ((None, None),
+                      (Protocol.ocs(bits=8, p_miss=p_miss), None),
+                      (Protocol.ocs(bits=8, p_miss=p_miss), fault)):
+        config = ServeConfig(batch_slots=2, max_seq=32, eos_id=-1,
+                             protocol=proto, fault=fm)
+        want = ServeEngine(m, cpu_values, config, device="cpu").run(reqs)
+        got = ServeEngine(m, gpu_values, config, device=cuda_device).run(
+            reqs)
+        for rid in want:
+            assert got[rid].tokens == want[rid].tokens, (rid, fm)
+            assert got[rid].retry_ticks == want[rid].retry_ticks

@@ -97,6 +97,28 @@ def test_encode_decode_match_jax(case):
               "decode vs kernel")
 
 
+@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("dtype", sorted(_DT))
+def test_quantize_st_matches_jax(dtype, bits):
+    """``quantize_st`` forward bitwise the JAX op's (``decode(encode(x))``
+    through the Pallas kernels in interpret mode), signed zeros and the
+    extremes of ``random_floats`` included, and its straight-through
+    gradient bitwise ``jax.grad``'s."""
+    from repro.kernels.ocs_quant import ops as JQO
+    x_np = random_floats(3, (64, 128), scale=10.0)
+    xj, xt = _pair(x_np, dtype)
+    g_np = random_floats(4, (64, 128), specials=False)
+    gj, gt = _pair(g_np, dtype)
+    xt.requires_grad_(True)
+    out = QO.quantize_st(xt, bits)
+    _same(JQO.quantize_st(xj, bits), out.detach(), "forward")
+    assert out.dtype == xt.dtype
+    (out * gt).sum().backward()
+    want = jax.grad(lambda v: jnp.sum(
+        (JQO.quantize_st(v, bits) * gj).astype(jnp.float32)))(xj)
+    _same(want, xt.grad, "gradient")
+
+
 @pytest.mark.parametrize("bits", [1, 8, 16])
 def test_decode_every_code(bits):
     """Every reachable 16-bit code (and the NaN buckets) decodes as JAX's."""

@@ -90,14 +90,15 @@ _DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
 
 PORTED_ARCHS = ("glm4-9b", "qwen2.5-32b", "qwen1.5-0.5b", "minicpm-2b",
-                 "qwen3-moe-30b-a3b", "llama4-scout-17b-a16e")
+                 "qwen3-moe-30b-a3b", "llama4-scout-17b-a16e", "xlstm-125m",
+                 "jamba-1.5-large-398b")
 
 
 @pytest.mark.parametrize("arch", PORTED_ARCHS)
 @pytest.mark.parametrize("which", ["config", "reduced"])
 def test_config_matches_jax(which, arch):
     """Every registered config, field by field (torch types for the
-    JAX types), and the registry: the six ids the port builds, in the
+    JAX types), and the registry: the eight ids the port builds, in the
     JAX registry's order."""
     jc = (j_get_config if which == "config" else j_get_reduced)(arch)
     tc = (get_config if which == "config" else get_reduced)(arch)
@@ -115,21 +116,30 @@ def test_config_matches_jax(which, arch):
 
 
 def test_config_checks_and_unported_plans():
-    """The checks of ``__post_init__``; the plans item 17b and 17c bring
-    are refused with the item named; an MoE plan builds and runs (its
-    parity: the ``moe`` tests below)."""
+    """The checks of ``__post_init__``; the plans item 17c brings are
+    refused with the item named; the recurrent mixers and the ``none``
+    FFN (item 17b) build and run (their parity: tests/test_torch_ssm.py),
+    and so does an MoE plan (its parity: the ``moe`` tests below)."""
     with pytest.raises(AssertionError):
         get_reduced(ARCH, tp_fusion="median")
     with pytest.raises(AssertionError):
         get_reduced(ARCH, n_layers=3, block_pattern=("attn", "attn"))
-    for kw, what in ((dict(block_pattern=("mamba",)), "17b"),
-                     (dict(block_pattern=("mlstm",)), "mlstm"),
-                     (dict(ffn_pattern=("none",)), "17b"),
-                     (dict(encoder_decoder=True), "encoder-decoder"),
+    for kw, what in ((dict(encoder_decoder=True), "encoder-decoder"),
                      (dict(frontend="patch"), "frontend")):
         with pytest.raises(NotImplementedError, match="ROADMAP") as e:
             TM.build(get_reduced(ARCH, **kw))
-        assert what in str(e.value)
+        assert what in str(e.value) and "17c" in str(e.value)
+    toks = torch.arange(16, dtype=torch.int32).view(2, 8)
+    for kw in (dict(block_pattern=("mamba",)),
+               dict(block_pattern=("mlstm",), ffn_pattern=("none",)),
+               dict(block_pattern=("slstm",), ffn_pattern=("none",))):
+        m = TM.build(get_reduced(ARCH, **kw))
+        v = m.init(torch.Generator().manual_seed(0))
+        loss, _ = m.loss(v, {"tokens": toks, "targets": toks + 1})
+        assert torch.isfinite(loss), kw
+        if kw["block_pattern"] != ("mamba",):
+            assert "ffn" not in v["blocks"]["pos0"]
+            assert m.channel_sites() == 0
     cfg = get_reduced(ARCH, ffn_pattern=("moe",), n_experts=4,
                       experts_per_token=2)
     m = TM.build(cfg)

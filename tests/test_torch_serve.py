@@ -27,6 +27,7 @@ from repro.protocol import Protocol as JP
 from repro.serve import engine as jse
 from repro.serve import load as jload
 from repro_torch.configs import get_config, get_reduced
+from repro_torch.tree import leaves as tree_leaves
 from repro_torch.convert import params_from_jax
 from repro_torch import faults as tfaults
 from repro_torch.faults import FaultModel
@@ -275,6 +276,181 @@ def test_moe_engine_matches_jax_engine(plan, channel):
     for rid in want:
         assert _fields(got[rid]) == _fields(want[rid]), rid
         assert got[rid].channel_slots == got[rid].uplink_bits == 0, rid
+
+
+@pytest.fixture(scope="module", params=sorted(_MOE))
+def moe_engines(request):
+    """(port model, port values, JAX engines by greedy) of a reduced MoE
+    plan; each JAX engine serves every case of the module (its jitted
+    tick and prefills are reused)."""
+    arch, kw = _MOE[request.param]
+    jm = JM.build(j_get_reduced(arch, **kw))
+    tm = TM.build(get_reduced(arch, **kw))
+    jv, _ = split_tree(jm.init(jax.random.PRNGKey(2)))
+    tv = params_from_jax(jax.tree.map(np.asarray, jv))
+    engines = {g: jse.ServeEngine(jm, jv, jse.ServeConfig(
+        greedy=g, **_FAULT_SERVE)) for g in (True, False)}
+    return tm, tv, engines
+
+
+_FAULT_SERVE = dict(batch_slots=2, max_seq=24, eos_id=-1, seed=5)
+
+
+_CASES = {
+    "free": (None, None), "ocs": ("ocs", None),
+    "stale": ("ocs", ("stale",)), "zero_fill": ("ocs", ("zero_fill",)),
+    "retry": ("ocs", ("retry", 2))}
+
+
+def _case(case, n):
+    """(JAX protocol, port protocol, JAX fault, port fault) of a case: OCS
+    at p 0.05 and the bursts and outages of ``_fault`` with its policy."""
+    proto, policy = _CASES[case]
+    p = np.full((n,), 0.05, np.float32)
+    return (None if proto is None else JP.ocs(bits=8, p_miss=p),
+            None if proto is None else TP.ocs(bits=8, p_miss=p),
+            None if policy is None else _fault(jf, policy),
+            None if policy is None else _fault(tfaults, policy))
+
+
+@pytest.mark.parametrize("greedy", [True, False], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("case", sorted(_CASES))
+def test_moe_faulty_engine_matches_jax_engine(moe_engines, case, greedy):
+    """The MoE plans channel-free, under OCS and under bursts and outages
+    (each policy), greedy and sampled: every field of ``_fault_fields``
+    equal to the JAX engine's, 0 slots billed (no channel site), and
+    under ``retry`` some retry ticks."""
+    tm, tv, engines = moe_engines
+    pj, pt, fj, ft = _case(case, tm.cfg.n_workers)
+    reqs = _mixed_requests()
+    want = engines[greedy].run(
+        [jse.Request(**dataclasses.asdict(r)) for r in reqs],
+        protocol=pj, fault=fj)
+    got = ServeEngine(tm, tv, ServeConfig(greedy=greedy, **_FAULT_SERVE),
+                      device="cpu").run(reqs, protocol=pt, fault=ft)
+    assert sorted(got) == sorted(want)
+    for rid in want:
+        assert _fault_fields(got[rid]) == _fault_fields(want[rid]), rid
+        assert got[rid].channel_slots == 0
+    if case == "retry":
+        assert sum(c.retry_ticks for c in got.values()) > 0
+    elif ft is not None:
+        assert sum(c.degraded_tokens for c in got.values()) > 0
+
+
+# -- recurrent plans: xlstm-125m and jamba-1.5-large-398b ---------------------
+
+_RECURRENT = {"xlstm max": ("xlstm-125m", dict(tp_fusion="max")),
+              "jamba": ("jamba-1.5-large-398b", {})}
+
+
+@pytest.fixture(scope="module", params=sorted(_RECURRENT))
+def recurrent(request):
+    """(JAX model, JAX values, port model, port values, JAX engines by
+    greedy) of a reduced recurrent plan; each JAX engine is built once
+    and serves every case of the module (its jitted tick and prefills
+    are reused)."""
+    arch, kw = _RECURRENT[request.param]
+    jm = JM.build(j_get_reduced(arch, vocab_size=VOCAB, **kw))
+    tm = TM.build(get_reduced(arch, vocab_size=VOCAB, **kw))
+    jv, _ = split_tree(jm.init(jax.random.PRNGKey(0)))
+    if jm.cfg.tie_embeddings:
+        # flat enough logits that greedy tokens are not the prompt's last
+        # and a draw leaves the argmax (test_sampling_engine_matches_...)
+        jv = dict(jv, embed={"tokens": jv["embed"]["tokens"] * 0.02})
+    tv = params_from_jax(jax.tree.map(np.asarray, jv))
+    engines = {g: jse.ServeEngine(jm, jv, jse.ServeConfig(
+        greedy=g, **_FAULT_SERVE)) for g in (True, False)}
+    return jm, jv, tm, tv, engines
+
+
+def _recurrent_requests():
+    """More requests than slots, prompts of 3 and 5 tokens (a mamba layer
+    caches the last conv_width - 1 = 3 rows), a late arrival."""
+    rng = np.random.default_rng(6)
+    return [Request(rid=i, prompt=rng.integers(0, VOCAB, 3 + 2 * (i % 2))
+                    .astype(np.int32), max_new_tokens=4 + (i % 3),
+                    arrival_tick=(0, 0, 1, 4, 12)[i]) for i in range(5)]
+
+
+@pytest.mark.parametrize("greedy", [True, False], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("case", sorted(_CASES))
+def test_recurrent_engine_matches_jax_engine(recurrent, case, greedy):
+    """The reduced xlstm (tp_fusion max: the mLSTM sites pool by the max
+    law) and jamba plans through both engines, channel-free, under OCS p
+    0.05 and under bursts and outages with each policy, greedy and
+    sampled: tokens, latency ticks, slots, bits, degraded tokens and
+    retry ticks equal.  Under ``retry`` the held ticks must leave the
+    recurrent states as they were (the copy-on-hold); xlstm has no
+    channel site, so it bills 0 slots and 0 bits."""
+    jm, jv, tm, tv, engines = recurrent
+    pj, pt, fj, ft = _case(case, N_WORKERS)
+    reqs = _recurrent_requests()
+    want = engines[greedy].run(
+        [jse.Request(**dataclasses.asdict(r)) for r in reqs],
+        protocol=pj, fault=fj)
+    got = ServeEngine(tm, tv, ServeConfig(greedy=greedy, **_FAULT_SERVE),
+                      device="cpu").run(reqs, protocol=pt, fault=ft)
+    assert sorted(got) == sorted(want)
+    for rid in want:
+        assert _fault_fields(got[rid]) == _fault_fields(want[rid]), rid
+    if tm.channel_sites() == 0:
+        assert all(c.channel_slots == c.uplink_bits == 0
+                   for c in got.values())
+    elif pt is not None:
+        assert all(c.channel_slots > 0 for c in got.values())
+    if case == "retry":
+        assert sum(c.retry_ticks for c in got.values()) > 0
+    elif ft is not None:
+        assert sum(c.degraded_tokens for c in got.values()) > 0
+    if case == "free":
+        # greedy tokens are not a repeat of the prompt, and a draw differs
+        other = engines[not greedy].run(
+            [jse.Request(**dataclasses.asdict(r)) for r in reqs],
+            protocol=None, fault=None)
+        assert any(other[r].tokens != got[r].tokens for r in got)
+        assert any(len(set(c.tokens)) > 1 for c in got.values())
+
+
+def test_mamba_prompts_need_conv_width_rows():
+    """A mamba layer's prefill caches the prompt's last conv_width - 1
+    rows: a shorter prompt is refused with the length named; a plan
+    without mamba serves one-token prompts."""
+    cfg = get_reduced("jamba-1.5-large-398b")
+    m = TM.build(cfg)
+    eng = ServeEngine(m, m.init(torch.Generator().manual_seed(0)),
+                      ServeConfig(batch_slots=1, max_seq=16), device="cpu")
+    with pytest.raises(ValueError, match="at least 3"):
+        eng.run([Request(rid=0, prompt=np.arange(2, dtype=np.int32),
+                         max_new_tokens=2)])
+    out = eng.run([Request(rid=0, prompt=np.arange(3, dtype=np.int32),
+                           max_new_tokens=2)])
+    assert len(out[0].tokens) == 2
+    m = TM.build(get_reduced("xlstm-125m"))
+    out = ServeEngine(m, m.init(torch.Generator().manual_seed(0)),
+                      ServeConfig(batch_slots=1, max_seq=16),
+                      device="cpu").run([Request(
+                          rid=0, prompt=np.arange(1, dtype=np.int32),
+                          max_new_tokens=2)])
+    assert len(out[0].tokens) == 2
+
+
+def test_batch_axis_of_every_cache_leaf():
+    """``_batch_axis`` finds the slot axis of each stacked cache leaf:
+    axis 1 of the KV buffers, the mLSTM (n, m) and the sLSTM state; axis 2
+    of the mLSTM memory and the mamba conv window and state, whose axis 1
+    is the workers (here as many as the slots)."""
+    for arch in ("xlstm-125m", "jamba-1.5-large-398b"):
+        cfg = get_reduced(arch)
+        b = cfg.n_workers
+        batch = TM.cache_init(cfg, b, 16)
+        one = TM.cache_init(cfg, 1, 16)
+        for i, (mixer, _) in enumerate(cfg.layer_plan()):
+            want = {"attn": (1, 1), "mlstm": (2, 1, 1),
+                    "slstm": (1, 1, 1, 1), "mamba": (2, 2)}[mixer]
+            got = tuple(se._batch_axis(x.shape, y.shape, b) for x, y in zip(
+                tree_leaves(batch[f"pos{i}"]), tree_leaves(one[f"pos{i}"])))
+            assert got == want, (arch, mixer, got)
 
 
 # -- refill / retire semantics ---------------------------------------------
