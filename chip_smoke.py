@@ -172,7 +172,40 @@ Phases, in order; any failed check raises and the script exits non-zero:
     channel-free, under OCS and under ``retry(2)`` (the held ticks'
     copy-on-hold of the recurrent states); ``mamba_assoc_scan`` on the
     card within 1e-3 of the sequential scan;
-29. print one ``{"kernels": [...]}`` line and, last, the device line.
+29. run ``launch/train`` at the full whisper-base width and depth (6 + 6
+    layers, d_model 512, 8 heads of 64, 16 workers, vocab 51,865, tied),
+    bf16, ``--fusion max --use-flash``, 8 x 384 frames and decoder
+    tokens, 6 steps with a checkpoint every 3, counted (flash 12, 6
+    non-causal and 6 causal, ``maxpool.fwd`` and ``ties_bwd`` 12 each a
+    step; nothing else), every loss finite, the peak device memory; a
+    second run and a relaunch after the step-3 checkpoint bitwise the
+    first; profile 3 steps; phase 3 also holds flash (two ulps of each
+    query row's largest value) at the slice's shapes (whisper's non-causal
+    encoder at 384 and 1,408 frames, its causal decoder at 384 and 4
+    tokens, pixtral's GQA 4:1 at head_dim 128 at (2, 32, 1024) and (8, 32,
+    256)) beside the library, ``maxpool.fwd``
+    and ``ties_bwd`` at the whisper and pixtral train sites and
+    ``maxpool.fwd`` at their serve widths, and ``noisy`` and
+    ``maxpool.decode`` at both tick sites;
+30. serve whisper-base with phase 29's values: 8 requests of 1,408
+    frames and the 4-token start-of-transcript prompt, greedy for 60
+    tokens through ``prefill`` and ``decode_step_channel`` under OCS p
+    0.05, counted (flash 12 and ``maxpool.fwd`` 12 a prefill, ``noisy``
+    and ``maxpool.decode`` 6 each a tick), every logit finite; at p 0 the
+    tokens those of ``ideal_max(8, "first")``; profile 10 ticks;
+31. pixtral-12b at full width: serve at full depth (40 layers), 2
+    requests of 1,024 patch features for 8 tokens under OCS p 0.05,
+    counted (a prefill: flash 40, ``maxpool.fwd`` 80; a tick:
+    ``maxpool.fwd``, ``noisy`` and ``maxpool.decode`` 40 each), every
+    logit finite, the init peak under a bound from the tree's bytes, the
+    serving peak, 10 ticks profiled; then
+    ``launch/train`` cut to 4 layers, 3 steps of 8 x 256 patches, counted
+    (flash 4, ``maxpool.fwd`` and ``ties_bwd`` 8 each a step), the peak
+    under 79.18 GiB, a second run bitwise the first;
+32. run the reduced whisper and pixtral configs on the card and on the
+    CPU: 3 trainer steps' losses within 1e-3, and the same tokens from a
+    prefill and 8 greedy ticks, ideal and under OCS;
+33. print one ``{"kernels": [...]}`` line and, last, the device line.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -220,6 +253,7 @@ from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
 from repro_torch.models import mamba as mamba_mod  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.optim import optimizers, schedules  # noqa: E402
 from repro_torch.optim.compressed_allreduce import (  # noqa: E402
     CompressedAllReduce)
@@ -277,6 +311,25 @@ XLSTM, JAMBA = "xlstm-125m", "jamba-1.5-large-398b"
 XLSTM_PARAMS = 141_331_968
 XLSTM_BATCH, XLSTM_STEPS, XLSTM_D = 5, 3, 768
 JAMBA_EXPERTS, JAMBA_D, JAMBA_PROMPT = 4, 8192, 64
+# the encoder-decoder slice: whisper-base at full width and depth (6 + 6
+# layers, d_model 512, 8 heads of 64, 16 workers) trains on 8 x 384 frames
+# and 384 decoder tokens (the longest --seq whose decoder length min(448,
+# seq) the flash kernel's block contract takes), 6 steps, a checkpoint
+# every 3, and serves 8 requests of 1,408 frames (the largest multiple of
+# 128 inside its 1,500-frame window) with its 4-token start-of-transcript
+# prompt (<|startoftranscript|><|en|><|transcribe|><|notimestamps|>) for 60
+# tokens; pixtral-12b at full width and depth (40 layers, d_model 5120)
+# serves 2 requests of 1,024 patch features (a 512 x 512 image at 16-pixel
+# patches) for 8 tokens and trains cut to 4 layers on 8 x 256 patches
+WHISPER, PIXTRAL = "whisper-base", "pixtral-12b"
+WHISPER_PARAMS = 70_648_320
+WHISPER_LAYERS, WHISPER_D = 6, 512
+WHISPER_BATCH, WHISPER_SEQ, WHISPER_STEPS = 8, 384, 6
+WHISPER_FRAMES, WHISPER_NEW = 1408, 60
+WHISPER_SOT = (50258, 50259, 50359, 50363)
+PIXTRAL_LAYERS, PIXTRAL_D = 40, 5120
+PIXTRAL_PATCHES, PIXTRAL_FEAT, PIXTRAL_NEW = 1024, 1024, 8
+PIXTRAL_TRAIN_LAYERS, PIXTRAL_TRAIN_STEPS = 4, 3
 # one period (one layer) of each other new config at its full width
 WIDE_ARCHS = (LLAMA4, "glm4-9b", "minicpm-2b", "qwen2.5-32b")
 WIDE_REQUESTS, WIDE_PROMPT, WIDE_NEW = 2, 64, 4
@@ -352,8 +405,7 @@ def _device_ms(fn, iters: int = 50, symbol=None, flush=None):
         fn()
     torch.cuda.synchronize()
     for _ in range(2):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 if flush is not None:
                     flush[0]()
@@ -717,6 +769,8 @@ def check_kernels(dev) -> dict:
     rows[("flash_attention.fwd", "serve")] = check_flash(dev)
     rows[("flash_attention.fwd", "moe")] = check_flash_gqa128(dev)
     rows[("flash_attention.fwd", "jamba")] = check_flash_jamba(dev)
+    rows.update(check_encdec_sites(dev, row))
+    rows[("flash_attention.fwd", "encdec")] = check_flash_encdec(dev)
     return rows
 
 
@@ -897,6 +951,44 @@ def check_fault_cases(dev) -> None:
               "gradient into h on the outage lane", flush=True)
 
 
+# flash against its plain version: float32 within the JAX parity test's
+# 3e-5; a 16-bit output within FLASH_ROW_ULPS ulps of its type at each query
+# row's largest |plain| value.  Both round nearly the same float32 sum to 16
+# bits, so a sound kernel is off by at most one ulp there; a limit in
+# absolute terms would be as large as the outputs of a long non-causal row
+# (|out| ~ 0.04 at 1,408 keys), where a dropped key tile would pass it.
+FLASH_F32_ATOL, FLASH_ROW_ULPS = 3e-5, 2
+
+
+def _row_rel_err(got, want) -> float:
+    """Each query row's largest |got - want| over its largest |want|, the
+    largest over the rows."""
+    g, w = got.float(), want.float()
+    return float(((g - w).abs().amax(-1) / w.abs().amax(-1)).max())
+
+
+def _check_flash(got, want, what: str) -> dict:
+    """Hold a flash output to its plain version (the limits above), print
+    both errors, raise past the limit; returns ``max_abs_err`` and, for a
+    16-bit output, ``max_row_rel_err``."""
+    err = float((got.float() - want.float()).abs().max())
+    if got.dtype == torch.float32:
+        print(f"flash {what}: max abs err {err:.3g} (tolerance "
+              f"{FLASH_F32_ATOL})", flush=True)
+        if not err <= FLASH_F32_ATOL:
+            raise AssertionError(f"flash kernel != plain ({what}): {err}")
+        return dict(max_abs_err=err)
+    rel, ulp = _row_rel_err(got, want), torch.finfo(got.dtype).eps
+    print(f"flash {what}: max abs err {err:.3g}, max|plain| "
+          f"{float(want.float().abs().max()):.4g}, row-relative err "
+          f"{rel:.4g} = {rel / ulp:.3f} ulps (tolerance {FLASH_ROW_ULPS})",
+          flush=True)
+    if not rel <= FLASH_ROW_ULPS * ulp:
+        raise AssertionError(f"flash kernel != plain ({what}): row-relative "
+                             f"{rel} > {FLASH_ROW_ULPS} ulps")
+    return dict(max_abs_err=err, max_row_rel_err=rel)
+
+
 def _flash_inputs(dev, h, hkv, s, dtype, seed):
     gen = torch.Generator(device="cpu").manual_seed(seed)
     return [torch.randn(shape, generator=gen).to(dtype).to(dev)
@@ -905,11 +997,12 @@ def _flash_inputs(dev, h, hkv, s, dtype, seed):
 
 def check_flash(dev) -> dict:
     """Phase 3, flash attention: the kernel against its plain version on
-    the card within the JAX parity test's tolerances (atol 3e-5 in float32,
-    0.05 in bfloat16 and float16: the kernel sums in another order than the
-    whole softmax, and the tensor-core design rounds P to 16 bits before
-    PV) at the prefill shapes — (1, 16, S, 64) bf16 causal for S 128, 256
-    (this run's prompts), 512, 1024 and 4096, and float16 at 256 — and at
+    the card (:func:`_check_flash`: atol 3e-5 in float32, the JAX parity
+    test's; in bfloat16 and float16 two ulps of each query row's largest
+    value: the kernel sums in another order than the whole softmax, and the
+    tensor-core design rounds P to 16 bits before PV) at the prefill
+    shapes — (1, 16, S, 64) bf16 causal for S 128, 256 (this run's
+    prompts), 512, 1024 and 4096, and float16 at 256 — and at
     the JAX test's float32 GQA cases (1, 4, 192, 64), Hkv 1, 2, 4, causal
     and not, blocks of 64; 192 at the default blocks of 128 must be
     refused.  Timed at S = 256 (the record), 1024 and 4096 (its
@@ -921,14 +1014,9 @@ def check_flash(dev) -> dict:
                 for hkv in (1, 2, 4) for causal in (True, False)])
     for h, hkv, s, dtype, causal, block in cases:
         q, k, v = _flash_inputs(dev, h, hkv, s, dtype, seed=s + hkv)
-        got = fa_ops.flash_attention(q, k, v, causal, block, block)
-        want = fa_ref.flash_attention(q, k, v, causal)
-        err = float((got.float() - want.float()).abs().max())
-        tol = 3e-5 if dtype == torch.float32 else 0.05
-        print(f"flash {(1, h, s, 64)} Hkv {hkv} {dtype} causal={causal}: "
-              f"max abs err {err:.3g} (tolerance {tol})", flush=True)
-        if not err <= tol:
-            raise AssertionError(f"flash kernel != plain: {err} > {tol}")
+        _check_flash(fa_ops.flash_attention(q, k, v, causal, block, block),
+                     fa_ref.flash_attention(q, k, v, causal),
+                     f"{(1, h, s, 64)} Hkv {hkv} {dtype} causal={causal}")
     q, k, v = _flash_inputs(dev, 4, 2, 192, torch.float32, seed=0)
     try:
         fa_ops.flash_attention(q, k, v)
@@ -942,8 +1030,9 @@ def check_flash(dev) -> dict:
     for s in (SERVE_PROMPT, 1024, 4096):
         h, d = QWEN_HEADS, 64
         q, k, v = _flash_inputs(dev, h, h, s, torch.bfloat16, seed=1)
-        err = float((fa_ops.flash_attention(q, k, v).float()
-                     - fa_ref.flash_attention(q, k, v).float()).abs().max())
+        errs = _check_flash(fa_ops.flash_attention(q, k, v),
+                            fa_ref.flash_attention(q, k, v),
+                            f"{(1, h, s, d)} bf16 causal (timed)")
         # bytes: q, k, v read once, out written once; operations: the
         # causal pairs' two products (QK^T and PV), 2 flops a multiply-add,
         # on the bf16 tensor-core rate
@@ -955,10 +1044,11 @@ def check_flash(dev) -> dict:
             lambda q=q, k=k, v=v: fa_ref.flash_attention(q, k, v), nbytes,
             ops, lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True),
-            dict(shape=[1, h, s, d], dtype="bfloat16", causal=True), err,
-            BF16_TENSOR_OPS_PER_S))
+            dict(shape=[1, h, s, d], dtype="bfloat16", causal=True,
+                 max_row_rel_err=errs["max_row_rel_err"]),
+            errs["max_abs_err"], BF16_TENSOR_OPS_PER_S))
     keep = ("shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "max_abs_err", "ms_source")
+            "library_ms", "max_abs_err", "max_row_rel_err", "ms_source")
     return dict(recs[0], long_prompts=[{k: r[k] for k in keep}
                                        for r in recs[1:]])
 
@@ -966,9 +1056,10 @@ def check_flash(dev) -> dict:
 def check_flash_gqa128(dev) -> dict:
     """Phase 3, flash at the MoE slice's attention: head_dim 128, 32 query
     heads over 4 KV heads (GQA 8:1), bf16 causal, S 256 — one prefill
-    (1, 32, 256, 128) and the train step (8, 32, 256, 128) — within 0.05
-    of the plain version, timed beside ``scaled_dot_product_attention``
-    (``enable_gqa``).  Untimed, within 0.05 at phase 23's prefills (S 64
+    (1, 32, 256, 128) and the train step (8, 32, 256, 128) — held to the
+    plain version (:func:`_check_flash`), timed beside
+    ``scaled_dot_product_attention`` (``enable_gqa``).  Untimed, held at
+    phase 23's prefills (S 64
     and each wide config's heads: GQA 5:1 and 16:1 at head_dim 128,
     minicpm's 36-head MHA at 64)."""
     recs = []
@@ -978,12 +1069,9 @@ def check_flash_gqa128(dev) -> dict:
                    .to(dev) for shape in ((b, 32, TRAIN_SEQ, 128),
                                           (b, 4, TRAIN_SEQ, 128),
                                           (b, 4, TRAIN_SEQ, 128)))
-        err = float((fa_ops.flash_attention(q, k, v).float()
-                     - fa_ref.flash_attention(q, k, v).float()).abs().max())
-        print(f"flash {tuple(q.shape)} Hkv 4 bf16 causal: max abs err "
-              f"{err:.3g} (tolerance 0.05)", flush=True)
-        if not err <= 0.05:
-            raise AssertionError(f"flash kernel != plain: {err} > 0.05")
+        errs = _check_flash(fa_ops.flash_attention(q, k, v),
+                            fa_ref.flash_attention(q, k, v),
+                            f"{tuple(q.shape)} Hkv 4 bf16 causal")
         nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
         ops = 4 * b * 32 * 128 * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
         recs.append(_record(
@@ -993,7 +1081,9 @@ def check_flash_gqa128(dev) -> dict:
             ops, lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True),
             dict(shape=list(q.shape), kv_heads=4, dtype="bfloat16",
-                 causal=True, path="moe"), err, BF16_TENSOR_OPS_PER_S))
+                 causal=True, path="moe",
+                 max_row_rel_err=errs["max_row_rel_err"]),
+            errs["max_abs_err"], BF16_TENSOR_OPS_PER_S))
     wide = sorted({(c.n_heads, c.n_kv_heads, c.head_dim_)
                    for c in map(get_config, WIDE_ARCHS)})
     for h, hkv, d in wide:
@@ -1002,32 +1092,26 @@ def check_flash_gqa128(dev) -> dict:
                    .to(dev) for shape in ((1, h, WIDE_PROMPT, d),
                                           (1, hkv, WIDE_PROMPT, d),
                                           (1, hkv, WIDE_PROMPT, d)))
-        err = float((fa_ops.flash_attention(q, k, v).float()
-                     - fa_ref.flash_attention(q, k, v).float()).abs().max())
-        print(f"flash {tuple(q.shape)} Hkv {hkv} (GQA {h // hkv}:1) bf16 "
-              f"causal: max abs err {err:.3g} (tolerance 0.05)", flush=True)
-        if not err <= 0.05:
-            raise AssertionError(f"flash kernel != plain at {tuple(q.shape)} "
-                                 f"Hkv {hkv}: {err} > 0.05")
+        _check_flash(fa_ops.flash_attention(q, k, v),
+                     fa_ref.flash_attention(q, k, v),
+                     f"{tuple(q.shape)} Hkv {hkv} (GQA {h // hkv}:1) bf16 "
+                     f"causal")
     return {"prefill": recs[0], "train": recs[1]}
 
 
 def check_flash_jamba(dev) -> dict:
     """Phase 3, flash at jamba-1.5-large's attention layer in a phase-27
     prefill: (1, 64, 64, 128) over 8 KV heads (GQA 8:1), bf16 causal,
-    within 0.05 of the plain version, timed beside
+    held to the plain version (:func:`_check_flash`), timed beside
     ``scaled_dot_product_attention`` (``enable_gqa``)."""
     gen = torch.Generator(device="cpu").manual_seed(64)
     q, k, v = (torch.randn(shape, generator=gen).to(torch.bfloat16).to(dev)
                for shape in ((1, 64, JAMBA_PROMPT, 128),
                              (1, 8, JAMBA_PROMPT, 128),
                              (1, 8, JAMBA_PROMPT, 128)))
-    err = float((fa_ops.flash_attention(q, k, v).float()
-                 - fa_ref.flash_attention(q, k, v).float()).abs().max())
-    print(f"flash {tuple(q.shape)} Hkv 8 bf16 causal: max abs err {err:.3g} "
-          f"(tolerance 0.05)", flush=True)
-    if not err <= 0.05:
-        raise AssertionError(f"flash kernel != plain: {err} > 0.05")
+    errs = _check_flash(fa_ops.flash_attention(q, k, v),
+                        fa_ref.flash_attention(q, k, v),
+                        f"{tuple(q.shape)} Hkv 8 bf16 causal")
     nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
     ops = 4 * 64 * 128 * JAMBA_PROMPT * (JAMBA_PROMPT + 1) // 2
     return _record(
@@ -1036,7 +1120,8 @@ def check_flash_jamba(dev) -> dict:
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                enable_gqa=True),
         dict(shape=list(q.shape), kv_heads=8, dtype="bfloat16", causal=True,
-             path="jamba"), err, BF16_TENSOR_OPS_PER_S)
+             path="jamba", max_row_rel_err=errs["max_row_rel_err"]),
+        errs["max_abs_err"], BF16_TENSOR_OPS_PER_S)
 
 
 def check_p0_equivalence(dev) -> None:
@@ -1370,28 +1455,23 @@ def check_serving_against_cpu(dev) -> None:
             assert same_tok == total, "channel-free tokens differ"
 
 
-def profile_serving(dev, serve, table="profile_serve.txt") -> dict:
-    """Phase 11: where a decode tick's time goes at the full width: the 8
-    slots filled (prefills not profiled), 10 ticks timed unprofiled, then
-    10 more under torch.profiler (device busy time, idle share, time by
-    kernel; the table goes to ``<table>`` in the output directory)."""
-    eng, proto = serve["eng"], serve["proto"]
-    eng._reset()
-    for slot, req in enumerate(serve["reqs"][:eng.B]):
-        eng._insert(slot, req)
-    eng._tick(proto, 0)
+def _profile_ticks(tick, what: str, table: str) -> dict:
+    """Where a decode tick's time goes: ``tick(0)`` warm, ticks 1-10 timed
+    unprofiled, then 11-20 under torch.profiler, the device side alone
+    (device busy time, idle share, launches a tick, time by kernel; the
+    table goes to ``<table>`` in the output directory)."""
+    tick(0)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     for t in range(1, 11):
-        eng._tick(proto, t)
+        tick(t)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     per_tick = {k: v / 10 for k, v in kernels.launch_counts().items() if v}
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for t in range(11, 21):
-            eng._tick(proto, t)
+            tick(t)
         torch.cuda.synchronize()
     by_name, launches = {}, 0
     for e in prof.events():
@@ -1405,18 +1485,30 @@ def profile_serving(dev, serve, table="profile_serve.txt") -> dict:
     out.mkdir(exist_ok=True)
     (out / table).write_text(prof.key_averages().table(
         sort_by="self_device_time_total", row_limit=60))
-    print(f"profile, 10 decode ticks of {serve['m'].cfg.name} at the full "
-          f"width ({serve['m'].cfg.n_layers} layers, {eng.B} slots, "
-          f"OCS p {SERVE_P_MISS}): wall {wall:.4f} s unprofiled "
-          f"({100 * wall:.2f} ms per tick), device busy {device_s:.4f} s, "
-          f"idle share {1 - device_s / wall:.3f}; {launches} device kernels "
-          f"and copies ({launches / 10:.0f} launches per tick); int64 "
-          f"elementwise kernels {int64_s:.4f} s of the device time; the "
-          f"port's kernel launches per tick {per_tick}", flush=True)
+    print(f"profile, 10 decode ticks of {what}: wall {wall:.4f} s "
+          f"unprofiled ({100 * wall:.2f} ms per tick), device busy "
+          f"{device_s:.4f} s, idle share {1 - device_s / wall:.3f}; "
+          f"{launches} device kernels and copies ({launches / 10:.0f} "
+          f"launches per tick); int64 elementwise kernels {int64_s:.4f} s "
+          f"of the device time; the port's kernel launches per tick "
+          f"{per_tick}", flush=True)
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  {us / 1e3:10.3f} ms  {name[:100]}", flush=True)
     return dict(wall_ms=100 * wall, device_ms=100 * device_s,
                 idle=1 - device_s / wall, launches=launches / 10)
+
+
+def profile_serving(dev, serve, table="profile_serve.txt") -> dict:
+    """Phase 11: where a decode tick's time goes at the full width, the
+    engine's slots filled (prefills not profiled; :func:`_profile_ticks`)."""
+    eng, proto, m = serve["eng"], serve["proto"], serve["m"]
+    eng._reset()
+    for slot, req in enumerate(serve["reqs"][:eng.B]):
+        eng._insert(slot, req)
+    return _profile_ticks(
+        lambda t: eng._tick(proto, t),
+        f"{m.cfg.name} at the full width ({m.cfg.n_layers} layers, {eng.B} "
+        f"slots, OCS p {SERVE_P_MISS})", table)
 
 
 # ---------------------------------------------------------------------------
@@ -1560,9 +1652,8 @@ def profile_scheduled(dev) -> dict:
 
 def _busy(fn):
     """(device busy seconds, device kernels and copies) of ``fn`` under
-    torch.profiler."""
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    torch.profiler, the device side alone."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     dev_ev = [e for e in prof.events()
@@ -3310,6 +3401,574 @@ def check_recurrent_against_cpu(dev) -> None:
           f"(tolerance 1e-3)", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the encoder-decoder and the frontends: whisper-base and pixtral-12b
+# ---------------------------------------------------------------------------
+
+def _flash_case(dev, b, h, hkv, s, d, seed):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.randn(shape, generator=gen).to(torch.bfloat16).to(dev)
+            for shape in ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d))]
+
+
+def check_flash_encdec(dev) -> dict:
+    """Phase 3, flash at the encoder-decoder slice's shapes, bf16, held to
+    the plain version (:func:`_check_flash`; at each non-causal shape past
+    256 keys the plain output with a 128-key tile lost must fail the same
+    limit) and timed beside
+    ``scaled_dot_product_attention(is_causal=...)``: whisper-base's
+    non-causal encoder at phase 29's 384 frames and phase 30's 1,408, its
+    causal decoder at phase 29's 384 tokens and phase 30's 4-token prompt
+    (a query tile taller than the sequence), and pixtral-12b's causal GQA
+    4:1 at head_dim 128 in phase 31's serving prefill (2 x 1,024 patches)
+    and training step (8 x 256).  Bytes: q, k, v read once, out written
+    once; operations: the two products over the pairs the mask keeps, 2
+    flops a multiply-add, on the bf16 tensor-core rate."""
+    out = {}
+    for site, (b, h, hkv, s, d), causal in (
+            ("whisper encoder train", (WHISPER_BATCH, 8, 8, WHISPER_SEQ, 64),
+             False),
+            ("whisper encoder serve", (WHISPER_BATCH, 8, 8, WHISPER_FRAMES,
+                                       64), False),
+            ("whisper decoder train", (WHISPER_BATCH, 8, 8, WHISPER_SEQ, 64),
+             True),
+            ("whisper decoder prefill", (WHISPER_BATCH, 8, 8,
+                                         len(WHISPER_SOT), 64), True),
+            ("pixtral serve", (WIDE_REQUESTS, 32, 8, PIXTRAL_PATCHES, 128),
+             True),
+            ("pixtral train", (TRAIN_BATCH, 32, 8, TRAIN_SEQ, 128), True)):
+        q, k, v = _flash_case(dev, b, h, hkv, s, d, seed=s + b)
+        want = fa_ref.flash_attention(q, k, v, causal)
+        errs = _check_flash(fa_ops.flash_attention(q, k, v, causal), want,
+                            f"{tuple(q.shape)} Hkv {hkv} bf16 "
+                            f"causal={causal} ({site})")
+        if not causal and s > 256:
+            # the limit's control: the plain output with keys 128-255
+            # dropped (a lost key tile) must fail it
+            kept = torch.cat([torch.arange(128), torch.arange(256, s)]
+                             ).to(dev)
+            lost = _row_rel_err(fa_ref.flash_attention(
+                q, k[:, :, kept], v[:, :, kept], False), want)
+            ulps = lost / torch.finfo(torch.bfloat16).eps
+            print(f"flash ({site}): a lost 128-key tile is {lost:.4g} "
+                  f"row-relative, {ulps:.1f} ulps", flush=True)
+            assert ulps > FLASH_ROW_ULPS, lost
+        pairs = s * (s + 1) // 2 if causal else s * s
+        out[site] = _record(
+            "flash_attention.fwd",
+            lambda q=q, k=k, v=v, c=causal: fa_ops.flash_attention(q, k, v,
+                                                                   c),
+            lambda q=q, k=k, v=v, c=causal: fa_ref.flash_attention(q, k, v,
+                                                                   c),
+            2 * (q.numel() + k.numel()) * q.element_size(),
+            4 * b * h * d * pairs,
+            lambda q=q, k=k, v=v, c=causal: F.scaled_dot_product_attention(
+                q, k, v, is_causal=c, enable_gqa=hkv < h),
+            dict(shape=list(q.shape), kv_heads=hkv, dtype="bfloat16",
+                 causal=causal, path=site,
+                 max_row_rel_err=errs["max_row_rel_err"]),
+            errs["max_abs_err"], BF16_TENSOR_OPS_PER_S)
+    return out
+
+
+def check_encdec_sites(dev, row) -> dict:
+    """Phase 3, the slice's max-fusion sites, bf16: whisper-base's mlp
+    out-projection in phase 29's step (16 workers, 8 x 384 x 512; the
+    encoder's and the decoder's sites have this width) and pixtral-12b's
+    attention and mlp out-projections (16, 8 x 256 x 5120) in phase 31's
+    step, whose flat width its serving prefill (16, 2 x 1024 x 5120)
+    shares: ``maxpool.fwd`` bitwise against its plain version for each
+    subset of its optional outputs on randn partials and on partials with
+    forced ties, +-0, +-inf and NaNs, also at phase 30's encoder and
+    decoder prefill widths and phase 31's tick width; ``maxpool.ties_bwd``
+    bitwise against its plain version and ``g * (h == max)`` at both
+    train sites; ``noisy`` and ``maxpool.decode`` bitwise at both tick
+    sites (1 lane x 16 workers x whisper's 8 slots x 512 and pixtral's 2
+    x 5120, bits 8, p_miss 0.05).  Timed: the law's form beside
+    ``torch.max(dim=0)`` and the backward beside that composition (the
+    whisper site, 50.3 MB, with the L2 evicted before each call), and the
+    two channel kernels at the pixtral tick site."""
+    for site, shape in (
+            ("whisper serve encoder", (QWEN_WORKERS, WHISPER_BATCH,
+                                       WHISPER_FRAMES, WHISPER_D)),
+            ("whisper serve decoder prefill", (QWEN_WORKERS, WHISPER_BATCH,
+                                               len(WHISPER_SOT), WHISPER_D)),
+            ("pixtral serve tick", (QWEN_WORKERS, WIDE_REQUESTS, 1,
+                                    PIXTRAL_D))):
+        n_cols = math.prod(shape[1:])
+        _check_fwd_subsets(
+            {"randn": _train_site_input(dev, n_cols, 50),
+             "ties": _train_site_input(dev, n_cols, 51, ties=True)},
+            shape, site)
+    out = {}
+    for path, slots, d in (("whisper tick", WHISPER_BATCH, WHISPER_D),
+                           ("pixtral tick", WIDE_REQUESTS, PIXTRAL_D)):
+        for name, launch, plain, nbytes, ops, lib, shape in _kernel_cases(
+                dev, 1, slots * d, 8, seed=52, n=QWEN_WORKERS,
+                dtype=torch.bfloat16, p_miss=(SERVE_P_MISS,), bounds=True):
+            if name not in ("ocs_contention.noisy", "maxpool.decode"):
+                continue
+            extra = dict(bits=8, shape=shape, dtype="bfloat16", path=path)
+            if path == "pixtral tick":
+                out[(name, path)] = row(name, launch, plain, nbytes, ops,
+                                        lib, extra)
+            else:
+                _check_equal(name, launch, plain, extra)
+                print(f"{name} at the {path} {shape}: bitwise equal to "
+                      f"plain", flush=True)
+    flush = _l2_flush(dev)
+    # the pixtral serving prefill (2 x 1024 patches) has the train site's
+    # flat width (8 x 256 tokens), which is all the kernel sees
+    assert WIDE_REQUESTS * PIXTRAL_PATCHES == TRAIN_BATCH * TRAIN_SEQ
+    for path, shape in (
+            ("whisper", (QWEN_WORKERS, WHISPER_BATCH, WHISPER_SEQ,
+                         WHISPER_D)),
+            ("pixtral", (QWEN_WORKERS, TRAIN_BATCH, TRAIN_SEQ, PIXTRAL_D))):
+        cols = math.prod(shape[1:])
+        cases = {"randn": _train_site_input(dev, cols, 53).view(shape),
+                 "ties": _train_site_input(dev, cols, 54,
+                                           ties=True).view(shape)}
+        _check_fwd_subsets(cases, shape, path)
+        for what, hc in cases.items():
+            _check_ties_bwd(dev, hc, 55, what)
+        print(f"maxpool.ties_bwd at the {path} train site {shape}: bitwise "
+              f"equal to plain and to g * (h == max)", flush=True)
+        h = cases["randn"]
+        site_flush = flush if path == "whisper" else None
+        out[("maxpool.fwd", path)] = row(
+            "maxpool.fwd", lambda h=h: mp_ops.maxpool_ties(h, 0),
+            lambda h=h: mp_ref.maxpool_ties(h, 0),
+            h.numel() * 2 + cols * (2 + 2), 2 * h.numel(),
+            lambda h=h: torch.max(h, dim=0),
+            dict(shape=list(h.shape), dtype="bfloat16", path=path,
+                 outputs="pooled, ties"), flush=site_flush)
+        pooled, mask = mp_ops.maxpool_ties(h, 0)
+        g = _site_cotangent(dev, h.shape[1:], 56)
+        out[("maxpool.ties_bwd", path)] = row(
+            "maxpool.ties_bwd",
+            lambda: mp_ops.maxpool_ties_bwd(mask, g, QWEN_WORKERS, 0),
+            lambda: mp_ref.ties_bwd(mask, g, QWEN_WORKERS, 0),
+            cols * (2 + 2) + h.numel() * 2, h.numel(),
+            lambda: g.unsqueeze(0) * (h == pooled.unsqueeze(0)).to(h.dtype),
+            dict(shape=list(h.shape), dtype="bfloat16", path=path,
+                 library="g * (h == max) (3 launches)"), flush=site_flush)
+        del cases, h, pooled, mask, g
+    del flush
+    return out
+
+
+def _whisper_train_run(ckpt_dir, steps=WHISPER_STEPS):
+    """``launch/train``'s run at the full whisper-base width and depth
+    (fusion ``max``, flash), ``WHISPER_BATCH`` x 384 frames and 384
+    decoder tokens, every step logged, a checkpoint every 3 steps."""
+    argv = ["--arch", WHISPER, "--steps", str(steps), "--batch",
+            str(WHISPER_BATCH), "--seq", str(WHISPER_SEQ), "--fusion", "max",
+            "--use-flash", "--seed", "0"]
+    if ckpt_dir is not None:
+        argv += ["--ckpt-dir", ckpt_dir]
+    run = launch_train.setup(launch_train.parse_args(argv))
+    cfg = run.cfg
+    assert (cfg.n_layers, cfg.n_encoder_layers, cfg.d_model, cfg.n_heads,
+            cfg.head_dim_, cfg.n_workers, cfg.vocab_size, cfg.frontend_dim,
+            cfg.tie_embeddings, cfg.use_abs_pos, cfg.dtype) == (
+        WHISPER_LAYERS, WHISPER_LAYERS, WHISPER_D, 8, 64, QWEN_WORKERS,
+        51865, 80, True, True, torch.bfloat16), cfg
+    assert attention.attn_layout(cfg) == "plain"
+    assert cfg.param_count() == WHISPER_PARAMS, cfg.param_count()
+    run.tcfg = dataclasses.replace(run.tcfg, ckpt_every=TRAIN_CKPT_EVERY,
+                                   log_every=1)
+    return run
+
+
+def _whisper_train_counts(counts, steps, what) -> None:
+    """Per step: flash at the 6 encoder layers (non-causal) and the 6
+    decoder layers (causal; the cross-attention is plain, as in the JAX
+    package), ``maxpool.fwd`` and ``ties_bwd`` at the 12 mlp sites (8
+    heads do not divide 16 workers: no attention site), nothing else."""
+    want = {k: 0 for k in kernels.KERNELS}
+    want.update({"flash_attention.fwd": 2 * WHISPER_LAYERS * steps,
+                 "maxpool.fwd": 2 * WHISPER_LAYERS * steps,
+                 "maxpool.ties_bwd": 2 * WHISPER_LAYERS * steps})
+    assert counts == want, (what, counts, want)
+
+
+def run_whisper_train_phase(dev) -> dict:
+    """Phase 29: ``launch/train`` at the full whisper-base width and depth
+    (6 + 6 layers, d_model 512, 8 heads of 64, 16 workers, vocab 51,865,
+    tied; bf16, random weights from seed 0, ``--fusion max --use-flash``),
+    8 x 384 frames of 80 features and 384 decoder tokens (the longest
+    ``--seq`` whose decoder length ``min(448, seq)`` the flash kernel's
+    block contract takes), 6 steps with a checkpoint every 3, counted,
+    every loss finite, the peak device memory; a second run bitwise the
+    first; the job preempted after its step-3 checkpoint and relaunched,
+    bitwise the uninterrupted run from step 3 on; then 3 steps profiled.
+    Returns the trained values for phase 30."""
+    _release("whisper train phase start")
+    work = ROOT / "build" / "train_ckpt"
+    work.mkdir(parents=True, exist_ok=True)
+    ckpt = tempfile.mkdtemp(dir=work)
+    try:
+        run = _whisper_train_run(ckpt)
+        n_params = sum(t.numel() for t in tree.leaves(run.values))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        full, counts, wall = _counted(lambda: launch_train.launch(run))
+        peak = torch.cuda.max_memory_allocated()
+        del run
+        _whisper_train_counts(counts, WHISPER_STEPS, "uninterrupted")
+        losses = [r["loss"] for r in full.history]
+        assert len(losses) == WHISPER_STEPS and all(
+            math.isfinite(x) for x in losses), losses
+        print(f"train {WHISPER} full width and depth ({n_params} parameters "
+              f"in the tree, {WHISPER_PARAMS} by param_count; bf16, fusion "
+              f"max, flash): {WHISPER_STEPS} steps of {WHISPER_BATCH} x "
+              f"{WHISPER_SEQ} frames and tokens in {wall:.3f} s wall "
+              f"(checkpoints included); losses {losses}; step host times "
+              f"{[round(r['step_time_s'], 4) for r in full.history]}; peak "
+              f"device memory {peak / 2**30:.2f} GiB ({peak} bytes); "
+              f"launches {counts}", flush=True)
+        again, counts2, wall2 = _counted(
+            lambda: launch_train.launch(_whisper_train_run(None)))
+        _whisper_train_counts(counts2, WHISPER_STEPS, "second run")
+        _assert_same_run(full, again, "two whisper runs")
+        del again
+        _preempt(ckpt, TRAIN_CKPT_EVERY)
+        resumed, counts3, wall3 = _counted(
+            lambda: launch_train.launch(_whisper_train_run(ckpt)))
+        _whisper_train_counts(counts3, WHISPER_STEPS - TRAIN_CKPT_EVERY,
+                              "resumed")
+        assert resumed.history[0]["step"] == TRAIN_CKPT_EVERY
+        _assert_same_run(full, resumed, "whisper resume", TRAIN_CKPT_EVERY)
+        del resumed
+        print(f"train {WHISPER}: a second run ({wall2:.3f} s) bitwise the "
+              f"first; relaunched after its step-{TRAIN_CKPT_EVERY} "
+              f"checkpoint ({wall3:.3f} s), bitwise the uninterrupted run "
+              f"(the encoder leaves among them)", flush=True)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    run = _whisper_train_run(None, steps=7)
+    values, opt, pwall, by_class, by_name, launches = _profile_steps(
+        run, 3, "profile_train_whisper.txt")
+    del run, values, opt
+    step_ms = sum(by_class.values())
+    res = dict(wall=wall, peak=peak, counts=counts, values=full.values,
+               wall_ms=1e3 * pwall / 3, device_ms=step_ms,
+               idle=1 - step_ms * 3 / (1e3 * pwall), kernels=launches / 3,
+               by_class=by_class)
+    print(f"profile, 3 {WHISPER} train steps ({WHISPER_BATCH} x "
+          f"{WHISPER_SEQ}): wall {res['wall_ms']:.3f} ms a step unprofiled, "
+          f"device busy {step_ms:.3f} ms a step, idle share "
+          f"{res['idle']:.3f}; {res['kernels']:.0f} device kernels and "
+          f"copies a step; by class (ms a step) {by_class}", flush=True)
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  {ms:10.3f} ms a step  {name[:100]}", flush=True)
+    return res
+
+
+def _greedy_ticks(m, values, batch, ticks, proto, seed, finite):
+    """The serving path of an encoder-decoder or a patch LM, the JAX
+    package's model API (its engine prefills token prompts only):
+    ``prefill``, then ``ticks`` greedy ``decode_step_channel`` ticks under
+    ``proto`` with the sensing key ``fold_in(PRNGKey(seed), tick)``.
+    Every logit is checked finite on the card into ``finite["ok"]``.
+    Returns (tokens (B, ticks + 1) on the host, prefill seconds, tick
+    seconds, the summed channel accounting)."""
+    s = batch["tokens" if "tokens" in batch else "feats"].shape[1]
+    dev = batch["feats"].device
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = m.prefill(values, batch, max_seq=s + ticks)
+    finite["ok"] = finite["ok"] & torch.isfinite(logits).all()
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    toks = [tok]
+    _sync(dev)
+    t1 = time.perf_counter()
+    chan = None
+    for t in range(ticks):
+        pos = torch.full_like(tok, s + t)
+        logits, cache, ch = m.decode_step_channel(
+            values, tok[:, None], pos, cache, proto,
+            jr.fold_in(jr.PRNGKey(seed), t))
+        finite["ok"] = finite["ok"] & torch.isfinite(logits).all()
+        chan = ch if chan is None else {k: chan[k] + ch[k] for k in chan}
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        toks.append(tok)
+    out = torch.stack(toks, 1).cpu()
+    t2 = time.perf_counter()
+    return out, t1 - t0, t2 - t1, {k: v.item() for k, v in chan.items()}
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _profile_model_ticks(m, values, batch, proto, table) -> dict:
+    """A prefill, then :func:`_profile_ticks` over ``decode_step_channel``
+    (the model API, the encoder-decoder and patch models' serving path)."""
+    s = batch["tokens" if "tokens" in batch else "feats"].shape[1]
+    logits, cache = m.prefill(values, batch, max_seq=s + 21)
+    tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+
+    def tick(t):
+        return m.decode_step_channel(values, tok, torch.full(
+            (tok.shape[0],), s + t, dtype=torch.int32, device=tok.device),
+            cache, proto, jr.fold_in(jr.PRNGKey(1), t))
+
+    return _profile_ticks(tick, f"{m.cfg.name} ({tok.shape[0]} rows, OCS "
+                          f"p {SERVE_P_MISS})", table)
+
+
+def run_whisper_serving(dev, values) -> dict:
+    """Phase 30: whisper-base at its full width and depth with phase 29's
+    trained values (``tp_fusion="max"``, flash prefill) serves 8 requests
+    of 1,408 frames (the largest multiple of 128 inside whisper's
+    1,500-frame window: the flash kernel's block contract) with whisper's
+    4-token start-of-transcript prompt, greedy for 60 tokens through
+    ``prefill`` and ``decode_step_channel`` under OCS bits 8, p_miss 0.05,
+    counted (a prefill: flash at the 6 encoder and the 6 decoder layers,
+    ``maxpool.fwd`` at the 12 mlp sites; a tick: ``noisy`` and
+    ``maxpool.decode`` at the 6 decoder mlp sites; nothing else), every
+    logit finite; at p_miss 0 the tokens bitwise those of
+    ``Protocol.ideal_max(8, "first")``; then 10 ticks profiled."""
+    cfg = get_config(WHISPER, tp_fusion="max", use_flash=True)
+    m = M.build(cfg)
+    gen = torch.Generator(device="cpu").manual_seed(30)
+    batch = {"feats": torch.randn((WHISPER_BATCH, WHISPER_FRAMES,
+                                   cfg.frontend_dim), generator=gen).to(dev),
+             "tokens": torch.tensor([WHISPER_SOT] * WHISPER_BATCH,
+                                    dtype=torch.int32, device=dev)}
+    finite = {"ok": torch.ones((), dtype=torch.bool, device=dev)}
+    ticks = WHISPER_NEW - 1
+    sites = m.channel_sites()
+    assert sites == WHISPER_LAYERS
+    (toks, pre_s, tick_s, chan), counts, wall = _counted(
+        lambda: _greedy_ticks(m, values, batch, ticks, _ocs(SERVE_P_MISS), 0,
+                              finite))
+    want = {k: 0 for k in kernels.KERNELS}
+    want.update({"flash_attention.fwd": 2 * WHISPER_LAYERS,
+                 "maxpool.fwd": 2 * WHISPER_LAYERS,
+                 "ocs_contention.noisy": sites * ticks,
+                 "maxpool.decode": sites * ticks})
+    assert counts == want, (counts, want)
+    assert bool(finite["ok"]), "whisper: a logit is not finite"
+    assert toks.shape == (WHISPER_BATCH, WHISPER_NEW)
+    assert chan["calls"] == sites * ticks and chan["contention_slots"] > 0
+    print(f"serve {WHISPER} full width and depth (phase 29's values), OCS p "
+          f"{SERVE_P_MISS}: {WHISPER_BATCH} requests of {WHISPER_FRAMES} "
+          f"frames and a {len(WHISPER_SOT)}-token prompt, {WHISPER_NEW} "
+          f"greedy tokens each in {wall:.3f} s wall: prefill {pre_s:.4f} s, "
+          f"{ticks} ticks {tick_s:.4f} s ({1e3 * tick_s / ticks:.3f} ms a "
+          f"tick); channel {chan}; every logit finite; launches {counts}; "
+          f"request 0 tokens {toks[0].tolist()}", flush=True)
+    a = _greedy_ticks(m, values, batch, 8, _ocs(0.0), 0, finite)[0]
+    b = _greedy_ticks(m, values, batch, 8,
+                      Protocol.ideal_max(8, tie_break="first"), 0, finite)[0]
+    assert torch.equal(a, b), (a, b)
+    print(f"serve {WHISPER} p0: OCS(p_miss=0) == ideal_max(8, 'first') in "
+          f"every token of {WHISPER_BATCH} requests x 9", flush=True)
+    prof = _profile_model_ticks(m, values, batch, _ocs(SERVE_P_MISS),
+                                "profile_serve_whisper.txt")
+    return dict(counts=counts, wall=wall, prefill_s=pre_s,
+                tick_ms=1e3 * tick_s / ticks, ticks=ticks, profile=prof)
+
+
+def _init_peak_bound(values) -> int:
+    """The most device bytes ``init`` may hold above what was allocated
+    before it: the tree, one drawn period beside the stack it is copied
+    into, and the largest leaf's float32 draw beside its scaled copy (8
+    bytes an element).  A ``torch.stack`` of the drawn periods holds the
+    blocks twice and exceeds it."""
+    stacks = [values[k] for k in ("blocks", "encoder") if k in values]
+    draws = [t.numel() for k, sub in values.items()
+             if k not in ("blocks", "encoder") for t in tree.leaves(sub)]
+    draws += [t[0].numel() for st in stacks for t in tree.leaves(st)]
+    period = max(sum(t[0].numel() * t.element_size()
+                     for t in tree.leaves(st)) for st in stacks)
+    return (sum(t.numel() * t.element_size() for t in tree.leaves(values))
+            + period + 8 * max(draws))
+
+
+def _pixtral_train_run(steps=PIXTRAL_TRAIN_STEPS):
+    """``launch/train``'s run at the full pixtral-12b width, the depth cut
+    to ``PIXTRAL_TRAIN_LAYERS`` (``--layers``), fusion ``max``, flash,
+    8 x 256 patches of 1,024 features, every step logged."""
+    run = launch_train.setup(launch_train.parse_args([
+        "--arch", PIXTRAL, "--layers", str(PIXTRAL_TRAIN_LAYERS), "--steps",
+        str(steps), "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+        "--seed", "0"]))
+    run.tcfg = dataclasses.replace(run.tcfg, log_every=1)
+    return run
+
+
+def _pixtral_train_counts(counts, steps, what) -> None:
+    """Per step: flash once per layer, ``maxpool.fwd`` and ``ties_bwd`` at
+    each layer's attention site (32 heads over 16 workers) and mlp site."""
+    want = {k: 0 for k in kernels.KERNELS}
+    want.update({"flash_attention.fwd": PIXTRAL_TRAIN_LAYERS * steps,
+                 "maxpool.fwd": 2 * PIXTRAL_TRAIN_LAYERS * steps,
+                 "maxpool.ties_bwd": 2 * PIXTRAL_TRAIN_LAYERS * steps})
+    assert counts == want, (what, counts, want)
+
+
+def run_pixtral_phase(dev) -> dict:
+    """Phase 31: pixtral-12b at its full width.  Serving at full depth (40
+    layers, d_model 5120, 32 heads of 128 over 8 KV heads, d_ff 14336, 16
+    workers; 12,253,020,160 parameters by ``param_count``; bf16, random
+    weights from seed 0, ``tp_fusion="max"``, flash prefill): 2 requests
+    of 1,024 patch features of 1,024-d (a 512 x 512 image at 16-pixel
+    patches), greedy for 8 tokens through ``prefill`` and
+    ``decode_step_channel`` under OCS p 0.05, counted (a prefill: flash
+    40, ``maxpool.fwd`` at the 40 attention and 40 mlp sites; a tick:
+    ``maxpool.fwd`` at the 40 attention sites, ``noisy`` and
+    ``maxpool.decode`` at the 40 mlp sites), every logit finite, the
+    model's init peak above what was allocated before it under
+    :func:`_init_peak_bound`, the peak device memory, 10 ticks profiled.
+    Then ``launch/train`` cut to ``PIXTRAL_TRAIN_LAYERS`` layers (the
+    float32 master and moments of 40 layers do not fit the card), 3 steps
+    of 8 x 256 patches, counted, the peak under the card's 79.18 GiB, a
+    second run bitwise the first (the first run's state held on the
+    CPU)."""
+    cfg = get_config(PIXTRAL, tp_fusion="max", use_flash=True)
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim_, cfg.d_ff, cfg.vocab_size, cfg.frontend_dim,
+            cfg.n_workers, cfg.dtype) == (
+        PIXTRAL_LAYERS, PIXTRAL_D, 32, 8, 128, 14336, 131072,
+        PIXTRAL_FEAT, QWEN_WORKERS, torch.bfloat16), cfg
+    assert attention.attn_layout(cfg) == "worker"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    m = M.build(cfg)
+    values = m.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for t in tree.leaves(values))
+    assert n_params == cfg.param_count() + cfg.d_model, n_params
+    bound = _init_peak_bound(values)
+    print(f"{PIXTRAL} init: {n_params} parameters in the tree "
+          f"({cfg.param_count()} by param_count, the final norm beside), "
+          f"{n_params * 2 / 2**30:.2f} GiB bf16; init peak "
+          f"{init_peak / 2**30:.2f} GiB ({init_peak} bytes), "
+          f"{(init_peak - base) / 2**30:.2f} GiB above the {base} bytes "
+          f"allocated before it, under its bound {bound / 2**30:.2f} GiB "
+          f"({bound} bytes)", flush=True)
+    assert init_peak - base <= bound, (init_peak, base, bound)
+    gen = torch.Generator(device="cpu").manual_seed(31)
+    batch = {"feats": torch.randn((WIDE_REQUESTS, PIXTRAL_PATCHES,
+                                   PIXTRAL_FEAT), generator=gen).to(dev)}
+    finite = {"ok": torch.ones((), dtype=torch.bool, device=dev)}
+    ticks = PIXTRAL_NEW - 1
+    (toks, pre_s, tick_s, chan), counts, wall = _counted(
+        lambda: _greedy_ticks(m, values, batch, ticks, _ocs(SERVE_P_MISS), 0,
+                              finite))
+    sites = m.channel_sites()
+    assert sites == PIXTRAL_LAYERS
+    want = {k: 0 for k in kernels.KERNELS}
+    want.update({"flash_attention.fwd": PIXTRAL_LAYERS,
+                 "maxpool.fwd": 2 * PIXTRAL_LAYERS + PIXTRAL_LAYERS * ticks,
+                 "ocs_contention.noisy": sites * ticks,
+                 "maxpool.decode": sites * ticks})
+    assert counts == want, (counts, want)
+    assert bool(finite["ok"]), "pixtral: a logit is not finite"
+    assert toks.shape == (WIDE_REQUESTS, PIXTRAL_NEW)
+    serve_peak = torch.cuda.max_memory_allocated()
+    print(f"serve {PIXTRAL} full width and depth, OCS p {SERVE_P_MISS}: "
+          f"{WIDE_REQUESTS} requests of {PIXTRAL_PATCHES} patches, "
+          f"{PIXTRAL_NEW} greedy tokens each in {wall:.3f} s wall: prefill "
+          f"{pre_s:.4f} s, {ticks} ticks {tick_s:.4f} s "
+          f"({1e3 * tick_s / ticks:.3f} ms a tick); channel {chan}; every "
+          f"logit finite; peak device memory {serve_peak / 2**30:.2f} GiB "
+          f"({serve_peak} bytes); launches {counts}; tokens "
+          f"{toks.tolist()}", flush=True)
+    prof = _profile_model_ticks(m, values, batch, _ocs(SERVE_P_MISS),
+                                "profile_serve_pixtral.txt")
+    del values, m
+    _release("pixtral serving done")
+
+    run = _pixtral_train_run()
+    n_train = sum(t.numel() for t in tree.leaves(run.values))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first, tcounts, twall = _counted(lambda: launch_train.launch(run))
+    train_peak = torch.cuda.max_memory_allocated()
+    del run
+    _pixtral_train_counts(tcounts, PIXTRAL_TRAIN_STEPS, "first run")
+    assert train_peak < 79.18 * 2**30, train_peak
+    losses = [r["loss"] for r in first.history]
+    assert len(losses) == PIXTRAL_TRAIN_STEPS and all(
+        math.isfinite(x) for x in losses), losses
+    print(f"train {PIXTRAL} full width, {PIXTRAL_TRAIN_LAYERS} of 40 layers "
+          f"({n_train} parameters, bf16, fusion max, flash): "
+          f"{PIXTRAL_TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"patches in {twall:.3f} s wall; losses {losses}; step host times "
+          f"{[round(r['step_time_s'], 4) for r in first.history]}; peak "
+          f"device memory {train_peak / 2**30:.2f} GiB ({train_peak} "
+          f"bytes); launches {tcounts}", flush=True)
+    held = (_cpu_tree(first.values), _cpu_tree(first.opt_state),
+            _rows(first.history))
+    del first
+    _release("first pixtral run held on the CPU")
+    again, counts2, _ = _counted(
+        lambda: launch_train.launch(_pixtral_train_run()))
+    _pixtral_train_counts(counts2, PIXTRAL_TRAIN_STEPS, "second run")
+    _assert_same_run_cpu(held, again, "two pixtral runs")
+    del again, held
+    _release("second pixtral run compared")
+    print(f"train {PIXTRAL}: a second run bitwise the first: values, "
+          f"optimizer state, history", flush=True)
+    return dict(counts=counts, wall=wall, prefill_s=pre_s,
+                tick_ms=1e3 * tick_s / ticks, init_peak=init_peak,
+                init_base=base, serve_peak=serve_peak, profile=prof,
+                train_counts=tcounts, train_wall=twall, train_peak=train_peak,
+                params=n_params, train_params=n_train)
+
+
+def check_encdec_against_cpu(dev) -> None:
+    """Phase 32: the reduced whisper-base and pixtral-12b configs in
+    float32 (``tp_fusion="max"``, flash), the same weights on the card and
+    the CPU: 3 trainer steps with losses within phase 6's 1e-3, and the
+    tokens of a prefill and 8 greedy decode ticks equal, ideal and under
+    OCS p 0.05."""
+    for arch in (WHISPER, PIXTRAL):
+        cfg = get_reduced(arch, tp_fusion="max", use_flash=True)
+        m = M.build(cfg)
+        cpu_values = m.init(torch.Generator().manual_seed(0))
+        if cfg.tie_embeddings:
+            # logits flat enough that greedy tokens are not the prompt's
+            cpu_values["embed"]["tokens"].mul_(0.02)
+        gpu_values = tree.map(lambda t: t.to(dev), cpu_values)
+        pcfg = pipeline.for_model(cfg, batch=4, seq_len=32, seed=0)
+        losses = []
+        for d, v in (("cpu", cpu_values), (dev, gpu_values)):
+            opt = optimizers.adamw(schedules.for_arch(arch, 3e-3, 3),
+                                   weight_decay=0.01)
+            res = trainer.train(
+                m.loss, v, opt,
+                lambda s, d=d: pipeline.batch_for_step(pcfg, s, device=d),
+                trainer.TrainerConfig(steps=3, log_every=1))
+            losses.append([r["loss"] for r in res.history])
+        diff = max(abs(a - b) for a, b in zip(*losses))
+        assert diff < 1e-3, (arch, losses)
+        rng = np.random.default_rng(32)
+        batch = {"feats": torch.from_numpy(rng.standard_normal(
+            (2, 32, cfg.frontend_dim)).astype(np.float32))}
+        if cfg.encoder_decoder:
+            batch["tokens"] = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (2, 4)).astype(np.int32))
+        p = np.full((cfg.n_workers,), SERVE_P_MISS, np.float32)
+        for proto in (Protocol.ideal_max(8, tie_break="first"),
+                      Protocol.ocs(bits=8, p_miss=p)):
+            got, want = (_greedy_ticks(
+                m, v, {k: t.to(d) for k, t in batch.items()}, 8, proto, 0,
+                {"ok": torch.ones((), dtype=torch.bool, device=d)})[0]
+                for d, v in ((dev, gpu_values), ("cpu", cpu_values)))
+            assert torch.equal(got, want), (arch, proto.kind, got, want)
+        print(f"{arch} reduced, card vs CPU: 3 train losses within "
+              f"{diff:.3g}; prefill + 8 greedy ticks' tokens equal, ideal "
+              f"and under OCS p {SERVE_P_MISS}", flush=True)
+
+
 _PHASE_SECONDS = {}
 
 
@@ -3377,10 +4036,16 @@ def main() -> int:
     xlstm_serve = _timed(run_xlstm_serving, dev)
     jamba = _timed(run_jamba_serving, dev)
     _timed(check_recurrent_against_cpu, dev)
+    whisper_train = _timed(run_whisper_train_phase, dev)
+    whisper_serve = _timed(run_whisper_serving, dev,
+                           whisper_train.pop("values"))
+    pixtral = _timed(run_pixtral_phase, dev)
+    _timed(check_encdec_against_cpu, dev)
 
     line = []
     keep = ("shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "max_abs_err", "ms_source")
+    flash_keep = keep + ("max_row_rel_err", "kv_heads")
     for name in kernels.KERNELS:
         # the curves' kernels timed at the main path's first depth (bits=8),
         # with their serving-shape timing beside; flash at the prefill shape;
@@ -3388,15 +4053,19 @@ def main() -> int:
         # kernel's other forms (off the main paths) under "forms"
         if name == "flash_attention.fwd":
             rec = dict(rows[(name, "serve")])
-            rec["moe"] = {at: {k: r[k] for k in keep + ("kv_heads",)}
+            rec["moe"] = {at: {k: r[k] for k in flash_keep}
                           for at, r in rows[(name, "moe")].items()}
-            rec["jamba"] = {k: rows[(name, "jamba")][k]
-                            for k in keep + ("kv_heads",)}
+            rec["jamba"] = {k: rows[(name, "jamba")][k] for k in flash_keep}
+            rec["encdec"] = {at: {k: r[k] for k in flash_keep + ("causal",)}
+                             for at, r in rows[(name, "encdec")].items()}
         elif name == "maxpool.ties_bwd":
             rec = dict(rows[(name, "train")])
             rec["moe"] = {k: rows[(name, "moe")][k] for k in keep}
             rec["xlstm"] = {k: rows[(name, "xlstm")][k]
                             for k in keep + ("l2",)}
+            for site in ("whisper", "pixtral"):
+                rec[site] = {k: rows[(name, site)][k] for k in keep
+                             + ("l2",) if k in rows[(name, site)]}
         else:
             rec = dict(rows[(name, 8)])
             srv = rows.get((name, "serve"))
@@ -3411,7 +4080,8 @@ def main() -> int:
                                                            "outputs")}
                 win = rows[(name + "[winner]", "train")]
                 rec["train"]["winner_form"] = {k: win[k] for k in keep}
-            for site in ("moe", "xlstm", "jamba"):
+            for site in ("moe", "xlstm", "jamba", "whisper", "pixtral",
+                         "whisper tick", "pixtral tick"):
                 r = rows.get((name, site))
                 if r is not None:
                     rec[site] = {k: r[k] for k in keep + ("dtype", "outputs",
@@ -3441,7 +4111,11 @@ def main() -> int:
                    "xlstm_train": xlstm_train["counts"][name],
                    "xlstm_serve": xlstm_serve["ocs"]["counts"][name],
                    "xlstm_faulty_serve": xlstm_serve["retry"]["counts"][name],
-                   "jamba_serve": jamba["counts"][name]}
+                   "jamba_serve": jamba["counts"][name],
+                   "whisper_train": whisper_train["counts"][name],
+                   "whisper_serve": whisper_serve["counts"][name],
+                   "pixtral_serve": pixtral["counts"][name],
+                   "pixtral_train": pixtral["train_counts"][name]}
         line.append(dict(rec, launches=sum(by_path.values()),
                          launches_by_path=by_path))
     print(f"run_curves wall seconds: {wall}", flush=True)
@@ -3493,6 +4167,25 @@ def main() -> int:
           f"({jamba['params']} parameters) serve {jamba['wall']} s, decode "
           f"tick profile {jamba['profile']}, peak device memory "
           f"{jamba['peak']} bytes; {smi}", flush=True)
+    whisper_prof = {k: whisper_train[k] for k in ("wall_ms", "device_ms",
+                                                  "idle", "kernels")}
+    print(f"encoder-decoder ({WHISPER}, full width and depth): train "
+          f"{whisper_train['wall']} s for {WHISPER_STEPS} steps of "
+          f"{WHISPER_BATCH} x {WHISPER_SEQ}, profile {whisper_prof}, peak "
+          f"device memory {whisper_train['peak']} bytes; serve "
+          f"{whisper_serve['wall']} s ({whisper_serve['ticks']} ticks, "
+          f"{whisper_serve['tick_ms']} ms a tick, prefill "
+          f"{whisper_serve['prefill_s']} s), decode tick profile "
+          f"{whisper_serve['profile']}; {PIXTRAL} ({pixtral['params']} "
+          f"parameters) serve {pixtral['wall']} s ({pixtral['tick_ms']} ms a "
+          f"tick, prefill {pixtral['prefill_s']} s), decode tick profile "
+          f"{pixtral['profile']}, init peak {pixtral['init_peak']} bytes "
+          f"({pixtral['init_base']} allocated before it), "
+          f"serving peak {pixtral['serve_peak']} bytes; train "
+          f"{PIXTRAL_TRAIN_LAYERS} layers ({pixtral['train_params']} "
+          f"parameters) {pixtral['train_wall']} s for "
+          f"{PIXTRAL_TRAIN_STEPS} steps, peak {pixtral['train_peak']} "
+          f"bytes; {smi}", flush=True)
     print(f"phase wall seconds: {_PHASE_SECONDS}", flush=True)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,11 @@
-"""Architecture config registry: ``--arch <id>`` resolution.
-
-It holds the architectures the port builds, in the JAX registry's order;
-the others come with the slice that ports their modules (ROADMAP queue 1,
-item 17c)."""
+"""Architecture config registry: ``--arch <id>`` resolution, the JAX
+registry's ten ids in its order."""
 
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, check_ported
+from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
     "glm4-9b": "glm4_9b",
@@ -18,7 +15,9 @@ _MODULES = {
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "xlstm-125m": "xlstm_125m",
+    "pixtral-12b": "pixtral_12b",
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "whisper-base": "whisper_base",
 }
 
 ARCH_IDS = tuple(_MODULES)
@@ -38,5 +37,4 @@ def get_reduced(arch_id: str, **overrides) -> ModelConfig:
     return _module(arch_id).reduced(**overrides)
 
 
-__all__ = ["ModelConfig", "ARCH_IDS", "check_ported", "get_config",
-           "get_reduced"]
+__all__ = ["ModelConfig", "ARCH_IDS", "get_config", "get_reduced"]

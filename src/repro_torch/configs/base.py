@@ -7,11 +7,11 @@ fields, their defaults and the checks of ``__post_init__`` are the JAX
 package's, so a config built here equals its JAX counterpart field by
 field (``dtype``, ``param_dtype`` and ``logit_dtype`` as torch types).
 
-The port builds every decoder plan: the ``attn``, ``attn_nocausal``,
-``mamba``, ``mlstm`` and ``slstm`` mixers with an ``mlp``, ``moe`` or no
-(``none``) FFN.  :func:`check_ported` refuses the encoder-decoder and the
-non-token frontends, and names the ROADMAP item that brings them.
-``param_count`` is the JAX package's arithmetic on the fields.
+The port builds every plan the JAX package builds: the ``attn``,
+``attn_nocausal``, ``mamba``, ``mlstm`` and ``slstm`` mixers with an
+``mlp``, ``moe`` or no (``none``) FFN, the encoder-decoder and the
+patch/audio frontends.  ``param_count`` is the JAX package's arithmetic on
+the fields.
 """
 
 from __future__ import annotations
@@ -223,21 +223,3 @@ def _param_count(c: ModelConfig, active_only: bool) -> int:
         # decoder cross-attention (one per decoder layer)
         total += c.n_layers * _attn_params(c)
     return total
-
-
-ENC_TODO = ("not ported yet (ROADMAP queue 1, item 17c: cross-attention, "
-            "the encoder-decoder, the patch/audio frontends and sinusoidal "
-            "positions)")
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not build yet:
-    the encoder-decoder, the patch/audio frontends and sinusoidal
-    positions (ROADMAP queue 1, item 17c)."""
-    if cfg.encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder is {ENC_TODO}")
-    if cfg.frontend != "token" or cfg.use_abs_pos:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend!r} frontend and sinusoidal "
-            f"positions are {ENC_TODO}")

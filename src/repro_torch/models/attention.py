@@ -1,5 +1,5 @@
-"""GQA self-attention with RoPE, a KV cache, and worker fusion on the output
-projection (the JAX package's ``models/attention.py``).
+"""GQA attention with RoPE, a KV cache, cross-attention, and worker fusion
+on the output projection (the JAX package's ``models/attention.py``).
 
 Layouts, as in the JAX package:
   q proj   : (embed, heads, head_dim)
@@ -10,12 +10,13 @@ Layouts, as in the JAX package:
   KV cache : (batch, kv_seq, kv_heads, head_dim)
 
 ``attn_full`` runs the flash-attention kernel when ``cfg.use_flash`` is
-set, under the JAX package's condition; decode attention (``attn_step``)
-is plain PyTorch, as the JAX package computes it outside any kernel.
-``attn_step`` writes the new key and value rows into the cache in place
-(the JAX package returns an updated copy): the port keeps one cache
-buffer for the whole run.  Cross-attention waits for the encoder-decoder
-slice (ROADMAP queue 1, item 17c).
+set, under the JAX package's condition (self-attention only: a cross call
+takes the plain softmax, unmasked, and no rotary positions); decode
+attention (``attn_step``) is plain PyTorch, as the JAX package computes it
+outside any kernel.  ``attn_step`` writes the new key and value rows into
+the cache in place (the JAX package returns an updated copy): the port
+keeps one cache buffer for the whole run.  A cross step reads the encoder's
+keys and values, which stay as the prefill left them.
 """
 
 from __future__ import annotations
@@ -80,11 +81,11 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w.reshape(d, -1)).reshape(b, s, *w.shape[1:])
 
 
-def _qkv(cfg, p, x):
+def _qkv(cfg, p, x, kv_x):
     d = cfg.dtype
     q = _proj(x, p["wq"].to(d))
-    k = _proj(x, p["wk"].to(d))
-    v = _proj(x, p["wv"].to(d))
+    k = _proj(kv_x, p["wk"].to(d))
+    v = _proj(kv_x, p["wv"].to(d))
     if "bq" in p:
         q = q + p["bq"].to(d)
         k = k + p["bk"].to(d)
@@ -140,16 +141,15 @@ def _project_out(cfg, p, attn_out) -> torch.Tensor:
 def attn_full(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
               causal: bool = True, kv_x: Optional[torch.Tensor] = None,
               return_kv: bool = False):
-    """Full-sequence self-attention (train / prefill). x: (B, S, d)."""
-    if kv_x is not None:
-        raise NotImplementedError(
-            "cross-attention is not ported yet (ROADMAP queue 1, item 17c: "
-            "the encoder-decoder)")
-    q, k, v = _qkv(cfg, p, x)
-    if cfg.use_rope:
+    """Full-sequence attention (train / prefill). x: (B, S, d); with
+    ``kv_x`` (B, T, d) cross-attention over it (the encoder's output).
+    With ``return_kv`` also the keys and values, unpadded."""
+    cross = kv_x is not None
+    q, k, v = _qkv(cfg, p, x, kv_x if cross else x)
+    if cfg.use_rope and not cross:
         q = layers.apply_rope(cfg, q, positions)
         k = layers.apply_rope(cfg, k, positions)
-    if cfg.use_flash:
+    if cfg.use_flash and not cross:
         # the kernel's (B,H,S,D) layout; positions are arange here, so the
         # kernel's block-causal mask is exact
         out = flash_ops.flash_attention(
@@ -167,14 +167,23 @@ def attn_full(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
 
 
 def attn_step(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
-              cache: dict) -> Tuple[torch.Tensor, dict]:
+              cache: dict, cross: bool = False) -> Tuple[torch.Tensor, dict]:
     """Single decode step. x: (B, 1, d); positions: (B,) current index;
     cache: {"k","v"} (B, S_max, Kv, Dh), entries < positions valid.  The
     new rows are written into ``cache`` in place, at ``positions``
     clamped to the cache (JAX's ``dynamic_update_slice`` clamps the
-    same way), and ``cache`` is returned."""
+    same way), and ``cache`` is returned.  With ``cross`` the cache holds
+    the encoder's keys and values: every entry is valid, no row is
+    written and no rotary position applied."""
     d = cfg.dtype
     q = _proj(x, p["wq"].to(d))
+    if cross:
+        if "bq" in p:
+            q = q + p["bq"].to(d)
+        k, v = cache["k"], cache["v"]
+        valid = torch.ones((x.shape[0], 1, k.shape[1]), dtype=torch.bool,
+                           device=x.device)
+        return _project_out(cfg, p, _sdpa(cfg, q, k, v, valid)), cache
     knew = _proj(x, p["wk"].to(d))
     vnew = _proj(x, p["wv"].to(d))
     if "bq" in p:

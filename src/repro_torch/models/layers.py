@@ -1,4 +1,5 @@
-"""Primitive layers: initializers, norms, embeddings, rotary embeddings.
+"""Primitive layers: initializers, norms, embeddings (tokens and the
+patch/audio frontend's projection), rotary and sinusoidal positions.
 
 The JAX package's ``models/layers.py`` without the logical sharding axes:
 a parameter is a plain tensor, drawn from a ``torch.Generator`` whose
@@ -64,13 +65,28 @@ def norm_apply(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def embed_init(cfg, gen: torch.Generator) -> dict:
-    return {"tokens": param(gen, (cfg.vocab_size, cfg.d_model),
-                            cfg.param_dtype, scale=1.0)}
+    """The token table, and for the patch/audio frontends the projection
+    of the precomputed features, (frontend_dim, d_model)."""
+    p = {"tokens": param(gen, (cfg.vocab_size, cfg.d_model),
+                         cfg.param_dtype, scale=1.0)}
+    if cfg.frontend in ("patch", "audio"):
+        p["frontend_proj"] = param(
+            gen, (cfg.frontend_dim or cfg.d_model, cfg.d_model),
+            cfg.param_dtype)
+    return p
 
 
 def embed_tokens(cfg, p: dict, tokens: torch.Tensor) -> torch.Tensor:
     """Token ids (B, S) -> (B, S, d)."""
     return F.embedding(tokens.long(), p["tokens"].to(cfg.dtype))
+
+
+def embed_frontend(cfg, p: dict, feats: torch.Tensor) -> torch.Tensor:
+    """Precomputed patch/frame features (B, S, frontend_dim) -> (B, S, d),
+    in ``cfg.dtype``.  The modality frontend itself (ViT patcher, audio
+    conv stack) is a stub, as in the JAX package: the batch carries its
+    features."""
+    return torch.matmul(feats.to(cfg.dtype), p["frontend_proj"].to(cfg.dtype))
 
 
 def unembed_init(cfg, gen: torch.Generator) -> dict:
@@ -115,6 +131,21 @@ def apply_rope(cfg, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     r2 = x2 * cos + x1 * sin
     rotated = torch.stack([r1, r2], dim=-1).reshape(x_rot.shape)
     return torch.cat([rotated.to(x.dtype), x_pass], dim=-1)
+
+
+def sinusoidal_positions(seq_len: int, d_model: int,
+                         device=None) -> torch.Tensor:
+    """(seq_len, d_model) float32 absolute positions in the JAX package's
+    order of operations: angles ``pos / 10000 ** (2i / d)``, their sines
+    in the even columns and cosines in the odd ones."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32,
+                       device=device)[None, :]
+    ang = pos / torch.pow(10000.0, dim / d_model)
+    pe = torch.zeros((seq_len, d_model), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(ang)
+    pe[:, 1::2] = torch.cos(ang[:, : (d_model // 2)])
+    return pe
 
 
 def activation(cfg, x: torch.Tensor) -> torch.Tensor:

@@ -5,15 +5,23 @@ the JAX package's tree leaf for leaf); ``build(cfg)`` binds them into a
 ``types.SimpleNamespace``, as the JAX package does (a namespace, not an
 ``nn.Module``: the parameters stay a plain tree that ``convert`` fills).
 
-Batch conventions (token frontend)
-----------------------------------
-train    {"tokens": (B,S) int, "targets": (B,S) int} -> (loss, metrics)
-prefill  {"tokens": (B,S) int} -> (last_logits (B,V), cache)
-decode   (token (B,1) int, positions (B,) int, cache)
+Batch conventions
+-----------------
+train (token frontend)   {"tokens": (B,S) int, "targets": (B,S) int}
+                         -> (loss, metrics)
+train (patch/audio)      {"feats": (B,S,Df) float, "targets": (B,S) int};
+                         the encoder-decoder adds {"tokens": (B,S_dec)
+                         int} and its targets align with the decoder
+                         tokens
+prefill                  the same minus targets -> (last_logits (B,V),
+                         cache)
+decode                   (token (B,1) int, positions (B,) int, cache)
 
 The decode functions update the cache in place (an attention layer's KV
-rows, a recurrent layer's state) and return it.
-``input_specs`` comes with the dry-run (ROADMAP queue 1, item 19).
+rows, a recurrent layer's state) and return it; an encoder-decoder's
+cross cache holds the encoder's keys and values from the prefill.
+``input_specs`` and ``cache_axes`` come with the dry-run (ROADMAP queue
+1, item 19).
 """
 
 from __future__ import annotations
@@ -24,7 +32,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, check_ported
+from repro_torch import tree
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers, transformer
 
 WHISPER_DECODER_LEN = 448   # whisper's real positional cap for train targets
@@ -32,14 +41,20 @@ WHISPER_DECODER_LEN = 448   # whisper's real positional cap for train targets
 
 def init(cfg: ModelConfig, gen: torch.Generator) -> dict:
     """Random parameters on ``gen``'s device, in the JAX package's tree."""
-    check_ported(cfg)
     p: Dict[str, Any] = {
         "embed": layers.embed_init(cfg, gen),
         "blocks": transformer.stack_init(cfg, gen, cfg.layer_plan(),
-                                         cfg.n_periods),
+                                         cfg.n_periods,
+                                         cross=cfg.encoder_decoder),
         "final_norm": layers.norm_init(cfg, gen),
     }
     p.update(layers.unembed_init(cfg, gen))
+    if cfg.encoder_decoder:
+        enc_plan = cfg.encoder_layer_plan()
+        assert cfg.n_encoder_layers % len(enc_plan) == 0
+        p["encoder"] = transformer.stack_init(
+            cfg, gen, enc_plan, cfg.n_encoder_layers // len(enc_plan))
+        p["encoder_norm"] = layers.norm_init(cfg, gen)
     return p
 
 
@@ -47,21 +62,49 @@ def _head(v: dict) -> dict:
     return {k: v[k] for k in ("head",) if k in v}
 
 
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    b, s = x.shape[:2]
+    return torch.arange(s, dtype=torch.int32,
+                        device=x.device)[None].expand(b, s)
+
+
+def _add_abs_pos(cfg, x: torch.Tensor) -> torch.Tensor:
+    """``x`` plus the sinusoidal positions cast to its type (with
+    ``cfg.use_abs_pos``)."""
+    if not cfg.use_abs_pos:
+        return x
+    pe = layers.sinusoidal_positions(x.shape[1], cfg.d_model, x.device)
+    return x + pe.to(x.dtype)[None]
+
+
 def _embed_inputs(cfg, v, batch) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (x (B,S,d), positions (B,S) int32)."""
-    tokens = batch["tokens"]
-    x = layers.embed_tokens(cfg, v["embed"], tokens)
-    b, s = tokens.shape
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=x.device)[None].expand(b, s)
-    return x, positions
+    """Returns (x (B,S,d), positions (B,S) int32): the decoder's tokens
+    (token frontend, encoder-decoder) or the projected features."""
+    if cfg.encoder_decoder or cfg.frontend == "token":
+        x = layers.embed_tokens(cfg, v["embed"], batch["tokens"])
+    else:
+        x = layers.embed_frontend(cfg, v["embed"], batch["feats"])
+    return _add_abs_pos(cfg, x), _positions(x)
+
+
+def _encode(cfg, v, feats: torch.Tensor) -> torch.Tensor:
+    """The encoder's output (B, S_enc, d) over the projected features."""
+    x = _add_abs_pos(cfg, layers.embed_frontend(cfg, v["embed"], feats))
+    x, _ = transformer.stack_full(cfg, v["encoder"], x, _positions(x),
+                                  cfg.encoder_layer_plan())
+    return layers.norm_apply(cfg, v["encoder_norm"], x)
+
+
+def _enc_out(cfg, v, batch):
+    return _encode(cfg, v, batch["feats"]) if cfg.encoder_decoder else None
 
 
 def forward(cfg, v, batch) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full forward to final hidden states. Returns (x, aux_loss)."""
+    enc_out = _enc_out(cfg, v, batch)
     x, positions = _embed_inputs(cfg, v, batch)
     x, aux = transformer.stack_full(cfg, v["blocks"], x, positions,
-                                    cfg.layer_plan())
+                                    cfg.layer_plan(), enc_out=enc_out)
     return layers.norm_apply(cfg, v["final_norm"], x), aux
 
 
@@ -121,19 +164,36 @@ def loss_fn(cfg, v, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
 def prefill(cfg, v, batch, max_seq: Optional[int] = None
             ) -> Tuple[torch.Tensor, dict]:
     """Returns (last-position logits (B,V), decode cache)."""
+    enc_out = _enc_out(cfg, v, batch)
     x, positions = _embed_inputs(cfg, v, batch)
     max_seq = max_seq or x.shape[1]
     x, cache, _ = transformer.stack_prefill(
-        cfg, v["blocks"], x, positions, cfg.layer_plan(), max_seq)
+        cfg, v["blocks"], x, positions, cfg.layer_plan(), max_seq,
+        enc_out=enc_out)
     x = layers.norm_apply(cfg, v["final_norm"], x)
     logits = layers.unembed_apply(cfg, _head(v), v["embed"], x[:, -1:])
     return logits[:, 0], cache
 
 
+def _embed_token(cfg, v, token: torch.Tensor, positions: torch.Tensor,
+                 cache: dict) -> torch.Tensor:
+    """A decode step's token embedding (B, 1, d), with ``cfg.use_abs_pos``
+    plus each row's sinusoidal position from a table of
+    :func:`_max_pos` rows, the index clamped to the table as JAX's
+    gather clamps it."""
+    x = layers.embed_tokens(cfg, v["embed"], token)
+    if cfg.use_abs_pos:
+        rows = _max_pos(cfg, cache)
+        pe = layers.sinusoidal_positions(rows, cfg.d_model, x.device)
+        at = positions.long().clamp(max=rows - 1)
+        x = x + pe.to(x.dtype)[at][:, None]
+    return x
+
+
 def decode_step(cfg, v, token: torch.Tensor, positions: torch.Tensor,
                 cache: dict) -> Tuple[torch.Tensor, dict]:
     """token: (B,1) int; positions: (B,) current write index."""
-    x = layers.embed_tokens(cfg, v["embed"], token)
+    x = _embed_token(cfg, v, token, positions, cache)
     x, cache, _ = transformer.stack_step(cfg, v["blocks"], x, positions,
                                          cache, cfg.layer_plan())
     x = layers.norm_apply(cfg, v["final_norm"], x)
@@ -151,7 +211,7 @@ def decode_step_channel(cfg, v, token: torch.Tensor, positions: torch.Tensor,
     fusions stay on the ideal ``tp_fusion``.  Returns ``(logits, cache,
     chan)``, ``chan`` the summed channel-accounting dict over the tick's
     :func:`channel_sites` aggregate calls."""
-    x = layers.embed_tokens(cfg, v["embed"], token)
+    x = _embed_token(cfg, v, token, positions, cache)
     x, cache, _, chan = transformer.stack_step(
         cfg, v["blocks"], x, positions, cache, cfg.layer_plan(),
         protocol=protocol, rng=rng)
@@ -166,10 +226,24 @@ def channel_sites(cfg) -> int:
                                if ffn == "mlp")
 
 
-def cache_init(cfg, batch: int, max_seq: int, device=None) -> dict:
+def _max_pos(cfg, cache) -> int:
+    """The rows of the sinusoid table a decode step reads from: the
+    sequence length of the first stacked attention cache (layers, B, S,
+    kv_heads, head_dim) in the JAX package's leaf order, which sorts
+    ``"cross"`` before ``"self"``; so for an encoder-decoder it is the
+    encoder's length, as in the JAX package (ROADMAP queue 3)."""
+    for leaf in tree.leaves(cache):
+        if (leaf.ndim == 5 and leaf.shape[-2] == cfg.n_kv_heads
+                and leaf.shape[-1] == cfg.head_dim_):
+            return leaf.shape[2]
+    return 32768
+
+
+def cache_init(cfg, batch: int, max_seq: int, device=None,
+               cross_len: int = 0) -> dict:
     return transformer.stack_cache_init(
         cfg, cfg.layer_plan(), cfg.n_periods, batch, max_seq, cfg.dtype,
-        device)
+        device, cross_len)
 
 
 def min_prompt(cfg) -> int:
@@ -184,7 +258,6 @@ def recurrent_leaves(cfg, cache: dict) -> list:
 
 
 def build(cfg: ModelConfig) -> types.SimpleNamespace:
-    check_ported(cfg)
     return types.SimpleNamespace(
         cfg=cfg,
         init=functools.partial(init, cfg),

@@ -7,7 +7,10 @@ JAX package's tree.  Where the JAX package scans over that axis
 (``lax.scan``), the port loops over it in Python.  Mixers: ``attn``/
 ``attn_nocausal`` (a KV cache), ``mamba``, ``mlstm`` and ``slstm`` (a
 recurrent state); FFNs: ``mlp``, ``moe`` or ``none`` (no ``norm2``, no
-``ffn``, aux 0: the xLSTM blocks).
+``ffn``, aux 0: the xLSTM blocks).  An encoder-decoder's decoder blocks
+carry a cross-attention (``norm_cross``, ``cross``) over the encoder's
+output between the mixer and the FFN; its cache is the encoder's keys and
+values (``cache["cross"]``), which the prefill writes and decoding reads.
 """
 
 from __future__ import annotations
@@ -57,12 +60,16 @@ def _zero(x: torch.Tensor) -> torch.Tensor:
 # single block
 # ---------------------------------------------------------------------------
 
-def block_init(cfg, gen: torch.Generator, mixer: str, ffn: str) -> dict:
+def block_init(cfg, gen: torch.Generator, mixer: str, ffn: str,
+               cross: bool = False) -> dict:
     p = {"norm1": layers.norm_init(cfg, gen)}
     if mixer in ATTENTION:
         p["mixer"] = attention.attn_init(cfg, gen)
     else:
         p["mixer"] = RECURRENT[mixer].init(cfg, gen)
+    if cross:
+        p["norm_cross"] = layers.norm_init(cfg, gen)
+        p["cross"] = attention.attn_init(cfg, gen)
     if ffn != "none":
         p["norm2"] = layers.norm_init(cfg, gen)
         p["ffn"] = (mlp.mlp_init if ffn == "mlp" else moe.moe_init)(cfg, gen)
@@ -80,8 +87,21 @@ def _ffn(cfg, p: dict, x: torch.Tensor, ffn: str):
     return x + mlp.mlp_apply(cfg, p["ffn"], h), _zero(x)
 
 
+def _cross_full(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
+                enc_out):
+    """(the residual stream after the block's cross-attention over
+    ``enc_out``, the encoder's keys and values); ``(x, None)`` for a block
+    without one."""
+    if "cross" not in p:
+        return x, None
+    h = layers.norm_apply(cfg, p["norm_cross"], x)
+    out, kv = attention.attn_full(cfg, p["cross"], h, positions,
+                                  causal=False, kv_x=enc_out, return_kv=True)
+    return x + out, kv
+
+
 def block_full(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
-               mixer: str, ffn: str):
+               mixer: str, ffn: str, enc_out=None):
     """Training / prefill block. Returns (x, aux_loss)."""
     h = layers.norm_apply(cfg, p["norm1"], x)
     if mixer in ATTENTION:
@@ -89,15 +109,21 @@ def block_full(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
                                   causal=(mixer == "attn"))
     else:
         out = RECURRENT[mixer].full(cfg, p["mixer"], h)
-    return _ffn(cfg, p, x + out, ffn)
+    x, _ = _cross_full(cfg, p, x + out, positions, enc_out)
+    return _ffn(cfg, p, x, ffn)
 
 
 def block_cache_init(cfg, mixer: str, batch: int, max_seq: int, dtype,
-                     device=None) -> dict:
+                     device=None, cross_len: int = 0) -> dict:
     if mixer in ATTENTION:
-        return {"self": attention.init_cache(cfg, batch, max_seq, dtype,
-                                             device)}
-    return {"self": RECURRENT[mixer].state_init(cfg, batch, dtype, device)}
+        c = {"self": attention.init_cache(cfg, batch, max_seq, dtype,
+                                          device)}
+    else:
+        c = {"self": RECURRENT[mixer].state_init(cfg, batch, dtype, device)}
+    if cross_len:
+        c["cross"] = attention.init_cache(cfg, batch, cross_len, dtype,
+                                          device)
+    return c
 
 
 def block_step(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -120,6 +146,11 @@ def block_step(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
                                               cache["self"])
     new_cache = dict(cache, self=new_self)
     x = x + out
+    if "cross" in p:
+        h = layers.norm_apply(cfg, p["norm_cross"], x)
+        out, _ = attention.attn_step(cfg, p["cross"], h, positions,
+                                     cache["cross"], cross=True)
+        x = x + out
     if protocol is None or ffn != "mlp":
         x, aux = _ffn(cfg, p, x, ffn)
         if protocol is None:
@@ -131,26 +162,31 @@ def block_step(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
 
 
 def block_prefill(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
-                  mixer: str, ffn: str, max_seq: int):
+                  mixer: str, ffn: str, max_seq: int, enc_out=None):
     """Full-sequence forward that also materializes the decode cache: a
     KV cache padded with zeros to ``max_seq``, or the recurrent state
-    after the last position.  Returns (x, cache, aux)."""
+    after the last position; with a cross-attention also the encoder's
+    keys and values, unpadded.  Returns (x, cache, aux)."""
     h = layers.norm_apply(cfg, p["norm1"], x)
     if mixer not in ATTENTION:
-        out, state = RECURRENT[mixer].full(cfg, p["mixer"], h,
-                                           return_cache=True)
-        x, aux = _ffn(cfg, p, x + out, ffn)
-        return x, {"self": state}, aux
-    out, kv = attention.attn_full(cfg, p["mixer"], h, positions,
-                                  causal=(mixer == "attn"), return_kv=True)
-    if max_seq > kv["k"].shape[1]:
-        buf = attention.init_cache(cfg, x.shape[0], max_seq, cfg.dtype,
-                                   x.device)
-        for name in ("k", "v"):
-            buf[name][:, :kv[name].shape[1]] = kv[name]
-        kv = buf
-    x, aux = _ffn(cfg, p, x + out, ffn)
-    return x, {"self": kv}, aux
+        out, kv = RECURRENT[mixer].full(cfg, p["mixer"], h,
+                                        return_cache=True)
+    else:
+        out, kv = attention.attn_full(cfg, p["mixer"], h, positions,
+                                      causal=(mixer == "attn"),
+                                      return_kv=True)
+        if max_seq > kv["k"].shape[1]:
+            buf = attention.init_cache(cfg, x.shape[0], max_seq, cfg.dtype,
+                                       x.device)
+            for name in ("k", "v"):
+                buf[name][:, :kv[name].shape[1]] = kv[name]
+            kv = buf
+    cache = {"self": kv}
+    x, ckv = _cross_full(cfg, p, x + out, positions, enc_out)
+    if ckv is not None:
+        cache["cross"] = ckv
+    x, aux = _ffn(cfg, p, x, ffn)
+    return x, cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -176,20 +212,43 @@ def _periods(stacked) -> list:
             for i in range(_n_periods(stacked))]
 
 
-def stack_init(cfg, gen: torch.Generator, plan, n_periods: int) -> dict:
-    periods = [{f"pos{i}": block_init(cfg, gen, mixer, ffn)
+def stack_init(cfg, gen: torch.Generator, plan, n_periods: int,
+               cross: bool = False) -> dict:
+    """The stacked tree, its periods drawn from ``gen`` one after another.
+    Each leaf is allocated once with its period axis and each period's
+    draws are copied into it, so the peak is the stack and one period,
+    not the periods and their stacked copy; a single period is the stack
+    itself, viewed with its period axis."""
+
+    def one_period():
+        return {f"pos{i}": block_init(cfg, gen, mixer, ffn, cross=cross)
                 for i, (mixer, ffn) in enumerate(plan)}
-               for _ in range(n_periods)]
-    return tree.map(lambda *xs: torch.stack(xs), *periods)
+
+    def fill(stacked, period, drawn):
+        tree.map(lambda dst, src: dst[period].copy_(src), stacked, drawn)
+
+    first = one_period()
+    if n_periods == 1:
+        return tree.map(lambda v: v[None], first)
+    stacked = tree.map(lambda v: torch.empty(
+        (n_periods,) + tuple(v.shape), dtype=v.dtype, device=v.device),
+        first)
+    fill(stacked, 0, first)
+    del first
+    for period in range(1, n_periods):
+        fill(stacked, period, one_period())
+    return stacked
 
 
 def stack_full(cfg, values: dict, x: torch.Tensor, positions: torch.Tensor,
-               plan):
-    """values: the stacked tree; x: (B,S,d). Returns (x, aux)."""
+               plan, enc_out=None):
+    """values: the stacked tree; x: (B,S,d); ``enc_out`` the encoder's
+    output for the cross-attentions. Returns (x, aux)."""
     aux = _zero(x)
     for pp in _periods(values):
         for i, (mixer, ffn) in enumerate(plan):
-            x, a = block_full(cfg, pp[f"pos{i}"], x, positions, mixer, ffn)
+            x, a = block_full(cfg, pp[f"pos{i}"], x, positions, mixer, ffn,
+                              enc_out)
             aux = aux + a
     return x, aux
 
@@ -236,7 +295,7 @@ def stack_step(cfg, values: dict, x: torch.Tensor, positions: torch.Tensor,
 
 
 def stack_prefill(cfg, values: dict, x: torch.Tensor, positions: torch.Tensor,
-                  plan, max_seq: int):
+                  plan, max_seq: int, enc_out=None):
     """Full forward that also builds the stacked decode cache."""
     aux = _zero(x)
     caches = []
@@ -245,16 +304,17 @@ def stack_prefill(cfg, values: dict, x: torch.Tensor, positions: torch.Tensor,
         cache: Dict[str, Any] = {}
         for i, (mixer, ffn) in enumerate(plan):
             x, cache[f"pos{i}"], a = block_prefill(
-                cfg, pp[f"pos{i}"], x, positions, mixer, ffn, max_seq)
+                cfg, pp[f"pos{i}"], x, positions, mixer, ffn, max_seq,
+                enc_out)
             aux = aux + a
         caches.append(cache)
     return x, tree.map(lambda *xs: torch.stack(xs), *caches), aux
 
 
 def stack_cache_init(cfg, plan, n_periods: int, batch: int, max_seq: int,
-                     dtype, device=None) -> dict:
+                     dtype, device=None, cross_len: int = 0) -> dict:
     one = {f"pos{i}": block_cache_init(cfg, mixer, batch, max_seq, dtype,
-                                       device)
+                                       device, cross_len)
            for i, (mixer, _) in enumerate(plan)}
     return tree.map(
         lambda v: v[None].repeat((n_periods,) + (1,) * v.ndim), one)

@@ -397,8 +397,13 @@ def test_stack_pool_card_matches_cpu(cuda_device, bits):
 
 # flash attention: the prefill shapes (bf16, causal) up to long prompts,
 # float16, head_dim 128, and the JAX parity test's float32 GQA cases at
-# blocks of 64; tolerances are the JAX test's (the kernel sums in another
-# order than the whole-matrix softmax, and rounds P to 16 bits before PV)
+# blocks of 64.  float32 within the JAX test's 3e-5; a 16-bit output within
+# two ulps of its type at each query row's largest |plain| value (the kernel
+# sums in another order than the whole-matrix softmax and rounds P to 16
+# bits before PV, yet both round nearly the same float32 sum to 16 bits, so
+# a sound kernel is off by at most one ulp there; an absolute limit would be
+# as large as the outputs of a long non-causal row, |out| ~ 0.04 at 1,408
+# keys, where a lost key tile would pass)
 _FLASH_CASES = ([(16, 16, s, torch.bfloat16, True, 128, 64)
                  for s in (128, 512, 1024, 4096)]
                 + [(16, 16, 256, torch.float16, True, 128, 64),
@@ -407,6 +412,15 @@ _FLASH_CASES = ([(16, 16, s, torch.bfloat16, True, 128, 64)
                    (4, 4, 192, torch.bfloat16, True, 64, 32)]
                 + [(4, hkv, 192, torch.float32, causal, 64, 64)
                    for hkv in (1, 2, 4) for causal in (True, False)])
+
+
+def _assert_flash_close(got, want):
+    g, w = got.float(), want.float()
+    if got.dtype == torch.float32:
+        assert float((g - w).abs().max()) <= 3e-5
+        return
+    rel = ((g - w).abs().amax(-1) / w.abs().amax(-1)).max()
+    assert float(rel) <= 2 * torch.finfo(got.dtype).eps, float(rel)
 
 
 @pytest.mark.cuda
@@ -418,9 +432,8 @@ def test_flash_matches_plain(cuda_device, h, hkv, s, dtype, causal, block,
                for shape in ((1, h, s, d), (1, hkv, s, d), (1, hkv, s, d)))
     got = FO.flash_attention(q, k, v, causal, block, block)
     want = FR.flash_attention(q, k, v, causal)
-    atol = 3e-5 if dtype == torch.float32 else 0.05
     assert got.dtype == dtype
-    assert float((got.float() - want.float()).abs().max()) <= atol
+    _assert_flash_close(got, want)
 
 
 @pytest.mark.cuda
@@ -1041,3 +1054,93 @@ def test_recurrent_plans_card_match_cpu(cuda_device, arch):
         for rid in want:
             assert got[rid].tokens == want[rid].tokens, (rid, fm)
             assert got[rid].retry_ticks == want[rid].retry_ticks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal", [
+    (2, 8, 8, 384, 384, 64, False), (2, 8, 8, 1408, 1408, 64, False),
+    (2, 8, 8, 4, 4, 64, True), (1, 32, 8, 256, 256, 128, True)],
+    ids=["whisper encoder", "whisper serve encoder", "whisper 4-token "
+         "prefill", "pixtral"])
+def test_flash_at_the_encdec_shapes(cuda_device, b, h, hkv, sq, sk, d,
+                                    causal):
+    """Flash at the encoder-decoder slice's shapes, bf16, within two ulps
+    of each query row's largest plain value (``_assert_flash_close``):
+    whisper's non-causal encoder (384 and 1,408 frames), its 4-token
+    decoder prefill (a query tile taller than the sequence) and pixtral's
+    GQA 4:1 at head_dim 128."""
+    gen = torch.Generator().manual_seed(sq + h)
+    q, k, v = (torch.randn(shape, generator=gen).to(torch.bfloat16)
+               .to(cuda_device) for shape in ((b, h, sq, d), (b, hkv, sk, d),
+                                              (b, hkv, sk, d)))
+    _assert_flash_close(FO.flash_attention(q, k, v, causal),
+                        FR.flash_attention(q, k, v, causal))
+
+
+def _greedy(m, values, batch, ticks, protocol, dev):
+    """``prefill`` then ``ticks`` greedy ``decode_step_channel`` ticks
+    (``decode_step`` without a protocol): the tokens, (B, ticks + 1)."""
+    from repro_torch import random as jrand
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    s = batch["tokens"].shape[1] if "tokens" in batch else \
+        batch["feats"].shape[1]
+    logits, cache = m.prefill(values, batch, max_seq=s + ticks)
+    tok = torch.argmax(logits, -1)
+    out = [tok]
+    for t in range(ticks):
+        pos = torch.full_like(tok, s + t, dtype=torch.int32)
+        if protocol is None:
+            logits, cache = m.decode_step(values, tok[:, None].int(), pos,
+                                          cache)
+        else:
+            logits, cache, _ = m.decode_step_channel(
+                values, tok[:, None].int(), pos, cache, protocol,
+                jrand.fold_in(jrand.PRNGKey(0), t))
+        tok = torch.argmax(logits, -1)
+        out.append(tok)
+    return torch.stack(out, 1).cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-base", "pixtral-12b"])
+def test_encdec_plans_card_match_cpu(cuda_device, arch):
+    """The reduced whisper and pixtral configs (``tp_fusion="max"``,
+    flash): 3 launcher steps on the card twice, bit for bit, losses within
+    1e-4 of the CPU's; the greedy tokens of a prefill and 8 decode ticks
+    equal to the CPU's, channel-free and under OCS p 0.05."""
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as lt
+    from repro_torch.protocol import Protocol
+
+    def train(dev):
+        run = lt.setup(lt.parse_args([
+            "--arch", arch, "--smoke", "--device", "cpu", "--steps", "3",
+            "--batch", "4", "--seq", "32"]))
+        run.values = tree.map(lambda t: t.to(dev), run.values)
+        pcfg = pipeline.for_model(run.cfg, batch=4, seq_len=32, seed=0)
+        run.data = lambda s: pipeline.batch_for_step(pcfg, s, device=dev)
+        return lt.launch(run)
+
+    a, b, c = train(cuda_device), train(cuda_device), train("cpu")
+    _same_tree(a.values, b.values)
+    _same_tree(a.opt_state, b.opt_state)
+    for ra, rc in zip(a.history, c.history):
+        assert abs(ra["loss"] - rc["loss"]) <= 1e-4 * abs(rc["loss"])
+    cfg = get_reduced(arch, tp_fusion="max", use_flash=True)
+    m = TM.build(cfg)
+    cpu_values = m.init(torch.Generator().manual_seed(0))
+    if cfg.tie_embeddings:
+        # logits flat enough that greedy tokens are not the prompt's
+        cpu_values["embed"]["tokens"].mul_(0.02)
+    gpu_values = tree.map(lambda t: t.to(cuda_device), cpu_values)
+    rng = np.random.default_rng(0)
+    batch = {"feats": torch.from_numpy(rng.standard_normal(
+        (2, 32, cfg.frontend_dim)).astype(np.float32))}
+    if cfg.encoder_decoder:
+        batch["tokens"] = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (2, 4)).astype(np.int32))
+    p_miss = np.full((cfg.n_workers,), 0.05, np.float32)
+    for proto in (None, Protocol.ocs(bits=8, p_miss=p_miss)):
+        want = _greedy(m, cpu_values, batch, 8, proto, "cpu")
+        got = _greedy(m, gpu_values, batch, 8, proto, cuda_device)
+        assert torch.equal(got, want), (proto, got, want)

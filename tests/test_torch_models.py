@@ -91,15 +91,15 @@ _DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
 PORTED_ARCHS = ("glm4-9b", "qwen2.5-32b", "qwen1.5-0.5b", "minicpm-2b",
                  "qwen3-moe-30b-a3b", "llama4-scout-17b-a16e", "xlstm-125m",
-                 "jamba-1.5-large-398b")
+                 "pixtral-12b", "jamba-1.5-large-398b", "whisper-base")
 
 
 @pytest.mark.parametrize("arch", PORTED_ARCHS)
 @pytest.mark.parametrize("which", ["config", "reduced"])
 def test_config_matches_jax(which, arch):
     """Every registered config, field by field (torch types for the
-    JAX types), and the registry: the eight ids the port builds, in the
-    JAX registry's order."""
+    JAX types), and the registry: the JAX registry's ten ids in its
+    order."""
     jc = (j_get_config if which == "config" else j_get_reduced)(arch)
     tc = (get_config if which == "config" else get_reduced)(arch)
     for f in dataclasses.fields(tc):
@@ -109,27 +109,39 @@ def test_config_matches_jax(which, arch):
     assert tc.layer_plan() == jc.layer_plan()
     assert (tc.period, tc.n_periods, tc.head_dim_) == \
         (jc.period, jc.n_periods, jc.head_dim_)
-    assert ARCH_IDS == PORTED_ARCHS
-    assert ARCH_IDS == tuple(a for a in J_ARCH_IDS if a in ARCH_IDS)
+    assert ARCH_IDS == PORTED_ARCHS == J_ARCH_IDS
     assert TA.attn_layout(tc) == JA.attn_layout(jc)
     TM.build(tc)
 
 
 def test_config_checks_and_unported_plans():
-    """The checks of ``__post_init__``; the plans item 17c brings are
-    refused with the item named; the recurrent mixers and the ``none``
-    FFN (item 17b) build and run (their parity: tests/test_torch_ssm.py),
-    and so does an MoE plan (its parity: the ``moe`` tests below)."""
+    """The checks of ``__post_init__``; the plans item 17c brought (the
+    encoder-decoder with sinusoidal positions, the patch frontend) build
+    and run (their parity: tests/test_torch_encdec.py); the recurrent
+    mixers and the ``none`` FFN (item 17b) build and run (their parity:
+    tests/test_torch_ssm.py), and so does an MoE plan (its parity: the
+    ``moe`` tests below)."""
     with pytest.raises(AssertionError):
         get_reduced(ARCH, tp_fusion="median")
     with pytest.raises(AssertionError):
         get_reduced(ARCH, n_layers=3, block_pattern=("attn", "attn"))
-    for kw, what in ((dict(encoder_decoder=True), "encoder-decoder"),
-                     (dict(frontend="patch"), "frontend")):
-        with pytest.raises(NotImplementedError, match="ROADMAP") as e:
-            TM.build(get_reduced(ARCH, **kw))
-        assert what in str(e.value) and "17c" in str(e.value)
     toks = torch.arange(16, dtype=torch.int32).view(2, 8)
+    feats = torch.randn((2, 8, 16), generator=torch.Generator().manual_seed(0))
+    for kw, batch in (
+            (dict(encoder_decoder=True, n_encoder_layers=2, use_rope=False,
+                  use_abs_pos=True, frontend="audio", frontend_dim=16),
+             {"feats": feats, "tokens": toks}),
+            (dict(frontend="patch", frontend_dim=16), {"feats": feats})):
+        m = TM.build(get_reduced(ARCH, **kw))
+        v = m.init(torch.Generator().manual_seed(0))
+        loss, _ = m.loss(v, dict(batch, targets=toks + 1))
+        assert torch.isfinite(loss), kw
+        logits, cache = m.prefill(v, batch, max_seq=12)
+        logits, cache = m.decode_step(v, toks[:, :1], torch.full(
+            (2,), 8, dtype=torch.int32), cache)
+        assert torch.isfinite(logits).all(), kw
+        assert ("cross" in cache["pos0"]) == ("tokens" in batch)
+
     for kw in (dict(block_pattern=("mamba",)),
                dict(block_pattern=("mlstm",), ffn_pattern=("none",)),
                dict(block_pattern=("slstm",), ffn_pattern=("none",))):
