@@ -205,7 +205,16 @@ Phases, in order; any failed check raises and the script exits non-zero:
 32. run the reduced whisper and pixtral configs on the card and on the
     CPU: 3 trainer steps' losses within 1e-3, and the same tokens from a
     prefill and 8 greedy ticks, ideal and under OCS;
-33. print one ``{"kernels": [...]}`` line and, last, the device line.
+33. run the channel engines over ``torch.distributed`` ranks: ``run_curves``
+    at phase 5's config on one NCCL rank in this process, bitwise phase
+    5's result; then two gloo ranks sharing the card (``spawn`` start
+    method, a process-group timeout and a join deadline) run
+    ``run_curves`` at phase 5's config, phase 16's sweep grid and
+    ``run_curves_dp`` at phase 17's settings with the DP axis on the
+    ranks, every rank's result bitwise phases 5, 16 and 17's in every
+    field, the DP payload the bill at every logged step, each rank's
+    launches counted and held to its block's share;
+34. print one ``{"kernels": [...]}`` line and, last, the device line.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -214,6 +223,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import gc
 import json
 import math
@@ -227,6 +237,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
@@ -257,6 +268,7 @@ from repro_torch.models import transformer  # noqa: E402
 from repro_torch.optim import optimizers, schedules  # noqa: E402
 from repro_torch.optim.compressed_allreduce import (  # noqa: E402
     CompressedAllReduce)
+from repro_torch.parallel import comm  # noqa: E402
 from repro_torch.protocol import (CollisionAdaptiveBits,  # noqa: E402
                                   FixedBits, Protocol)
 from repro_torch.serve import engine as se  # noqa: E402
@@ -339,6 +351,9 @@ HOOK_STEPS, HOOK_BATCH = 8, 64
 SWEEP_K, SWEEP_ROUNDS = 64, 8
 # the DP curves: benchmarks/bench_curves.py's _DP_SHARDS and _DP_K_FRAC
 DP_SHARDS, DP_K_FRAC = 2, 1 / 8
+# phase 33: gloo ranks sharing cuda:0 and their process groups' timeout
+# (seconds; their processes are killed after twice that)
+RANKS, RANKS_TIMEOUT = 2, 75.0
 SOURCES = {"ocs_quant.encode": "ocs_quant.cu",
            "ocs_quant.decode": "ocs_quant.cu", "maxpool.fwd": "maxpool.cu",
            "maxpool.decode": "maxpool.cu", "maxpool.winner_bwd": "maxpool.cu",
@@ -2024,7 +2039,7 @@ def run_sweep_phase(dev) -> dict:
     for line in brows:
         print(line)
     return dict(counts=counts, wall=wall, cpu_wall=cpu_wall,
-                bench_wall=bwall)
+                bench_wall=bwall, result=res)
 
 
 def _dp_config(**overrides):
@@ -2083,7 +2098,7 @@ def run_dp_phase(dev) -> dict:
           f"{loss_err:.3g}, max accuracy diff {acc_err:.0f} of "
           f"{small.n_val} samples", flush=True)
     assert loss_err < 1e-3 and acc_err <= 2, (loss_err, acc_err)
-    return dict(counts=counts, wall=wall)
+    return dict(counts=counts, wall=wall, result=res)
 
 
 def profile_dp(dev) -> dict:
@@ -3972,6 +3987,161 @@ def check_encdec_against_cpu(dev) -> None:
 _PHASE_SECONDS = {}
 
 
+# ---------------------------------------------------------------------------
+# the engines over torch.distributed ranks
+# ---------------------------------------------------------------------------
+
+def _differences(a, b, what="") -> list:
+    """The fields where two results differ, recursively (dataclasses
+    field by field, tensors and arrays bitwise, floats in their raw
+    bits)."""
+    if dataclasses.is_dataclass(b) and not isinstance(b, type):
+        if type(a) is not type(b):
+            return [what]
+        return [d for f in dataclasses.fields(b) for d in _differences(
+            getattr(a, f.name), getattr(b, f.name), f"{what}.{f.name}")]
+    if isinstance(b, dict):
+        if sorted(a) != sorted(b):
+            return [what]
+        return [d for k in b for d in _differences(a[k], b[k],
+                                                   f"{what}[{k}]")]
+    if isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return [what]
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in _differences(x, y, f"{what}[{i}]")]
+    if isinstance(b, torch.Tensor):
+        same = isinstance(a, torch.Tensor) and _bitwise_equal(a, b)
+        return [] if same else [what]
+    if isinstance(b, np.ndarray):
+        a = np.asarray(a)
+        if a.dtype != b.dtype or a.shape != b.shape:
+            return [what]
+        if b.dtype.kind == "f":
+            a, b = a.view(f"i{b.itemsize}"), b.view(f"i{b.itemsize}")
+        return [] if np.array_equal(a, b) else [what]
+    return [] if a == b else [what]
+
+
+def _sweep_group_counts(cells, rank: int) -> dict:
+    """What rank ``rank`` of ``RANKS`` launches on the sweep: one encode
+    per clean ``bits`` group and one ``noisy`` and one ``maxpool.decode``
+    per ``(bits, id_bits)`` sub-group whose placement gives it a block
+    (a group of ``g`` scenarios takes ``min(RANKS, g)`` ranks)."""
+    def used(size):
+        return rank < min(RANKS, size)
+
+    by_bits, by_sub = {}, {}
+    for sc in cells:
+        by_bits[sc.bits] = by_bits.get(sc.bits, 0) + 1
+        key = (sc.bits, ocs.host_id_bits(sc.n_workers))
+        by_sub[key] = by_sub.get(key, 0) + 1
+    want = {k: 0 for k in kernels.KERNELS}
+    want["ocs_quant.encode"] = sum(map(used, by_bits.values()))
+    want["ocs_contention.noisy"] = want["maxpool.decode"] = sum(
+        map(used, by_sub.values()))
+    return want
+
+
+def _rank_paths() -> dict:
+    """Phase 33's task on each gloo rank: the curves, the sweep and the DP
+    engine placed over the ranks, each counted and timed.  The rank loads
+    the library the parent built and builds nothing."""
+    built = kernels.BUILD_DIR / f"libreprotorch_{kernels._source_hash()}.so"
+    assert built.exists(), "the parent process did not build the kernels"
+    kernels.library()
+    dev = torch.device("cuda")
+    car = CompressedAllReduce.topk(DP_K_FRAC)
+    out = {}
+    for name, fn in (
+            ("curves", lambda: tc.run_curves(cifar_config(), device=dev,
+                                             n_devices=RANKS)),
+            ("sweep", lambda: sweep.run_sweep(
+                sweep_grid(), k_elems=SWEEP_K, rounds=SWEEP_ROUNDS,
+                device=dev, n_devices=RANKS)),
+            ("dp", lambda: tc.run_curves_dp(_dp_config(), car, device=dev,
+                                            n_devices=RANKS))):
+        res, counts, wall = _counted(fn)
+        out[name] = dict(result=res, counts=counts, wall=wall)
+    return out
+
+
+def run_ranks_phase(dev, curves, swept, dp) -> dict:
+    """Phase 33: the engines over ``torch.distributed`` ranks.  (i) One
+    NCCL rank in this process (a ``FileStore`` group of one):
+    ``run_curves`` at phase 5's config, bitwise phase 5's result.  (ii)
+    ``RANKS`` gloo ranks sharing cuda:0, started with the ``spawn`` start
+    method: ``run_curves`` at phase 5's config, ``bench_sweep.py``'s grid
+    and ``run_curves_dp`` at phase 17's settings with the DP axis on the
+    ranks, every rank's result bitwise phases 5, 16 and 17's in every
+    field, the DP payload the bill at every logged step, each rank's
+    launches its block's share.  The ranks' process groups time out after
+    ``RANKS_TIMEOUT`` s and their processes are killed after twice that."""
+    ccfg = cifar_config()
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = pathlib.Path(tempfile.mkdtemp(dir=ROOT / "build"))
+    try:
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            store=dist.FileStore(str(work / "nccl_store"), 1),
+            rank=0, world_size=1,
+            timeout=datetime.timedelta(seconds=RANKS_TIMEOUT))
+        try:
+            one, one_counts, one_wall = _counted(lambda: tc.run_curves(
+                ccfg, device=dev, n_devices=1))
+        finally:
+            dist.destroy_process_group()
+        failed = [f"nccl rank {d}" for d in _differences(one, curves,
+                                                         "curves")]
+        _assert_curve_counts(one_counts, ccfg, len(ccfg.bits), "nccl rank")
+        print(f"one NCCL rank: run_curves {one_wall:.3f} s wall, launches "
+              f"{one_counts}; " + (f"DIFFERS in {failed[:12]}" if failed
+                                   else "bitwise phase 5's result"),
+              flush=True)
+
+        t0 = time.perf_counter()
+        got = comm.spawn(_rank_paths, RANKS, workdir=work / "gloo",
+                         timeout=RANKS_TIMEOUT, threads=4)
+        spawn_wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    want = {"curves": curves, "sweep": swept["result"], "dp": dp["result"]}
+    for r, out in enumerate(got):
+        for name, ref in want.items():
+            diff = _differences(out[name]["result"], ref, name)
+            print(f"gloo rank {r}/{RANKS}: {name} {out[name]['wall']:.3f} s "
+                  f"wall, launches {out[name]['counts']}; "
+                  + ("bitwise the one-device result" if not diff else
+                     f"DIFFERS in {diff[:12]} ({len(diff)} fields)"),
+                  flush=True)
+            failed += [f"rank {r} {d}" for d in diff]
+    assert not failed, f"ranks != the one-device runs: {failed[:40]}"
+    for r, out in enumerate(got):
+        _assert_curve_counts(out["curves"]["counts"], ccfg, len(ccfg.bits),
+                             f"gloo rank {r} curves")
+        sw = _sweep_group_counts(sweep_grid(), r)
+        assert out["sweep"]["counts"] == sw, (r, out["sweep"]["counts"], sw)
+        dcfg = _dp_config()
+        sites = (dcfg.steps + 1) * len(dcfg.bits)
+        dp_want = {k: 0 for k in kernels.KERNELS}
+        dp_want.update({"ocs_contention.noisy": sites,
+                        "maxpool.decode": sites,
+                        "maxpool.winner_bwd": dcfg.steps * len(dcfg.bits)})
+        assert out["dp"]["counts"] == dp_want, (r, out["dp"]["counts"])
+        res = out["dp"]["result"]
+        assert np.all(res.dp_payload_bits == res.dp_payload_bits_step), \
+            "measured DP payload on ranks != the exact-k bill"
+    print(f"{RANKS} gloo ranks sharing cuda:0: spawn to join "
+          f"{spawn_wall:.3f} s; every rank's curves, sweep and DP results "
+          "bitwise the one-device runs; launches as each block's share",
+          flush=True)
+    summed = {name: {k: sum(out[name]["counts"][k] for out in got)
+                     for k in kernels.KERNELS} for name in want}
+    return dict(nccl_counts=one_counts, nccl_wall=one_wall, counts=summed,
+                walls={name: [out[name]["wall"] for out in got]
+                       for name in want}, spawn_wall=spawn_wall)
+
+
 def _timed(fn, *args):
     """Call one phase; keep its wall seconds for the closing summary."""
     t0 = time.perf_counter()
@@ -4041,6 +4211,7 @@ def main() -> int:
                            whisper_train.pop("values"))
     pixtral = _timed(run_pixtral_phase, dev)
     _timed(check_encdec_against_cpu, dev)
+    ranks = _timed(run_ranks_phase, dev, curves, swept, dp)
 
     line = []
     keep = ("shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
@@ -4115,7 +4286,11 @@ def main() -> int:
                    "whisper_train": whisper_train["counts"][name],
                    "whisper_serve": whisper_serve["counts"][name],
                    "pixtral_serve": pixtral["counts"][name],
-                   "pixtral_train": pixtral["train_counts"][name]}
+                   "pixtral_train": pixtral["train_counts"][name],
+                   "ranks_nccl_curves": ranks["nccl_counts"][name],
+                   "ranks_curves": ranks["counts"]["curves"][name],
+                   "ranks_sweep": ranks["counts"]["sweep"][name],
+                   "ranks_dp": ranks["counts"]["dp"][name]}
         line.append(dict(rec, launches=sum(by_path.values()),
                          launches_by_path=by_path))
     print(f"run_curves wall seconds: {wall}", flush=True)
@@ -4186,6 +4361,10 @@ def main() -> int:
           f"parameters) {pixtral['train_wall']} s for "
           f"{PIXTRAL_TRAIN_STEPS} steps, peak {pixtral['train_peak']} "
           f"bytes; {smi}", flush=True)
+    print(f"ranks: one NCCL rank run_curves {ranks['nccl_wall']:.3f} s; "
+          f"{RANKS} gloo ranks on cuda:0, walls by rank "
+          f"{ranks['walls']}, spawn to join {ranks['spawn_wall']:.3f} s; "
+          f"{smi}", flush=True)
     print(f"phase wall seconds: {_PHASE_SECONDS}", flush=True)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,7 @@ flattens to ``aux/.bad``, ..., ``aux/.consec``), joined by ``/``.  A
 index's ``dtypes``; ``restore`` rebuilds the type from the index.  The
 JAX package's logical axes and target shardings have no counterpart: the
 port restores onto one device (elastic re-meshing is ROADMAP queue 1,
-item 19).
+item 19b).
 """
 
 from __future__ import annotations

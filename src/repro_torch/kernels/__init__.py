@@ -168,10 +168,13 @@ def library() -> ctypes.CDLL:
 
 def launch(name: str, fn: str, device: torch.device, *args) -> None:
     """Call kernel entry ``fn`` on ``device``'s current stream; raise on a
-    CUDA error; count the launch under ``name``.  The port drives one card:
-    the library's runtime launches on device 0."""
-    if device.index not in (None, 0):
-        raise ValueError(f"the kernels run on cuda:0, got {device}")
+    CUDA error; count the launch under ``name``.  The library's runtime
+    launches on the current device: a rank of a job over several cards
+    sets its own with ``torch.cuda.set_device``."""
+    current = torch.cuda.current_device()
+    if device.index not in (None, current):
+        raise ValueError(f"the kernels run on the current device "
+                         f"cuda:{current}, got {device}")
     stream = torch.cuda.current_stream(device).cuda_stream
     err = getattr(library(), fn)(*args, stream)
     if err != 0:

@@ -21,7 +21,7 @@ The decode functions update the cache in place (an attention layer's KV
 rows, a recurrent layer's state) and return it; an encoder-decoder's
 cross cache holds the encoder's keys and values from the prefill.
 ``input_specs`` and ``cache_axes`` come with the dry-run (ROADMAP queue
-1, item 19).
+1, item 19c).
 """
 
 from __future__ import annotations

@@ -11,10 +11,13 @@ masks, so the number in :class:`DPAccounting` is a measurement that equals
 the analytic bill, not the ``2 * k_frac`` estimate the per-leaf k floor
 makes wrong for small leaves.
 
-On one device the DP ranks are a tensor axis (``rank_dim``), where the JAX
-package names a vmap or mesh axis.  The ranks' sparse leaves are summed in
-fixed rank order by explicit adds, so the card and the CPU sum the same
-values in the same order.
+The DP ranks are a tensor axis on one device (``rank_dim``, where the JAX
+package names a vmap axis), or ``torch.distributed`` ranks (``group``,
+where it names a mesh axis), or both: each rank then holds a block of the
+rank axis.  Either way the ranks' sparse leaves are gathered into the one
+``rank_dim`` layout and summed in fixed rank order by explicit adds, so
+every placement, the card and the CPU sum the same values in the same
+order.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.optim import grad_compression
+from repro_torch.parallel import comm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,8 +128,8 @@ class CompressedAllReduce:
 
     # -- the reduction law --------------------------------------------------
 
-    def reduce(self, grads, err, *, rank_dim: Optional[int] = None
-               ) -> Tuple[object, object, DPAccounting]:
+    def reduce(self, grads, err, *, rank_dim: Optional[int] = None,
+               group=None) -> Tuple[object, object, DPAccounting]:
         """Compress, all-reduce and bill one gradient tree.
 
         With ``rank_dim=None`` ``grads``/``err`` are one rank's trees and
@@ -136,6 +140,15 @@ class CompressedAllReduce:
         summed in rank order (``(*lanes, *leaf_shape)``), ``new_err`` keeps
         the rank axis, and the accounting is totalled over the ranks, one
         value per lane.  ``reduced`` is NOT divided by the rank count.
+
+        ``group`` (a ``torch.distributed`` process group, the JAX
+        package's ``axis_name``) adds the group's ranks to the rank axis:
+        each rank sparsifies its own leaves, one ``all_gather`` over the
+        group puts every rank's sparse leaves and counts into the
+        ``rank_dim`` layout in group-rank order (a new leading rank axis
+        for ``rank_dim=None``), and the same left fold sums them, so the
+        sum is bitwise the one-device sum.  Every rank gets the whole
+        reduction; ``new_err`` stays the rank's own.
         """
         batch = 0 if rank_dim is None else rank_dim + 1
         sparse_leaves, new_err_leaves = [], []
@@ -153,6 +166,17 @@ class CompressedAllReduce:
             new_err_leaves.append(new_err)
         if payload is None:
             raise ValueError("CompressedAllReduce: tree has no leaves")
+        if group is not None:
+            if rank_dim is None:                # one rank's tree: a rank axis
+                rank_dim = 0
+                sparse_leaves = [s.unsqueeze(0) for s in sparse_leaves]
+                payload, kept_total = payload[None], kept_total[None]
+            parts = comm.all_gather(sparse_leaves + [payload, kept_total],
+                                    group)
+            sparse_leaves = [torch.cat([p[i] for p in parts], dim=rank_dim)
+                             for i in range(len(sparse_leaves))]
+            payload = torch.cat([p[-2] for p in parts], dim=-1)
+            kept_total = torch.cat([p[-1] for p in parts], dim=-1)
         if rank_dim is not None:
             ranks = payload.shape[-1]
             reduced_leaves = []

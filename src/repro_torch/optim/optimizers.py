@@ -25,16 +25,31 @@ from repro_torch import tree
 def global_norm(grads, lane_dims: int = 0) -> torch.Tensor:
     """sqrt of the sum of squares over all leaves, per lane.
 
-    The leaves' sums are added one by one, elementwise over the lanes: a
-    reduction across a stacked lane axis may take another order for some
-    lanes than for others, and lanes that saw the same gradients must get
-    the same norm."""
+    The leaves' sums are added one by one, elementwise over the lanes, and
+    each lane's sum of a leaf is summed in an order that depends neither on
+    the other lanes nor on how many there are, so a lane's norm is the same
+    in a stack of any height (a rank's block of lanes, or the whole stack).
+    The reduction that keeps that order differs by device.  On the CPU one
+    reduction over the stacked lane axis keeps it (with more than one lane
+    it sums each lane serially, in parallel over the lanes).  On the card
+    such a reduction splits each lane over thread blocks by the number of
+    lanes, so each lane gets a reduction of its own there."""
     total = None
     for x in tree.leaves(grads):
-        sq = torch.sum(torch.square(x.float()),
-                       dim=tuple(range(lane_dims, x.ndim)))
-        total = sq if total is None else total + sq
+        sq = torch.square(x.float())
+        if lane_dims and sq.is_cuda:
+            runs = sq.reshape((-1,) + sq.shape[lane_dims:])
+            s = torch.stack([_sum_from(r, 0) for r in runs]).reshape(
+                sq.shape[:lane_dims])
+        else:
+            s = _sum_from(sq, lane_dims)
+        total = s if total is None else total + s
     return torch.sqrt(total)
+
+
+def _sum_from(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The sum over the axes of ``x`` from ``dim`` on."""
+    return torch.sum(x, dim=tuple(range(dim, x.ndim)))
 
 
 def _clip_scale(grads, max_norm: float, lane_dims: int):

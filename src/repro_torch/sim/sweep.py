@@ -25,8 +25,14 @@ Two points keep the port bit for bit the JAX package's vmap path:
     (scenario, round), stable under regrouping.
 
 Nothing here compiles: ``dispatch_counts()`` counts each engine's core
-calls (the JAX package's ``trace_counts`` has no counterpart).  The
-scenario axis runs on one device; sharding it is queue 1 item 19.
+calls (the JAX package's ``trace_counts`` has no counterpart).
+
+``n_devices`` shards each group's scenarios over ``torch.distributed``
+ranks (``repro_torch.sim.shard``), as the JAX package shards each
+``bits`` group's: the clean engine's ``bits`` groups and the noisy
+engine's ``(bits, id_bits)`` sub-groups, each padded to a multiple of its
+rank count, rank ``r`` running its block, the blocks gathered in rank
+order.  Every rank returns the whole result, bitwise the one-rank result.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from repro_torch import random as jr
 from repro_torch.core import ocs
 from repro_torch.kernels.ocs_contention.ops import MAX_WORKERS
 from repro_torch.kernels.ocs_quant.ref import to_int64
+from repro_torch.sim import shard
 from repro_torch.sim.scenarios import Scenario
 from repro_torch.sim.train_curves import resolve_device
 
@@ -54,8 +61,9 @@ def reset_dispatch_counts() -> None:
 
 
 def dispatch_counts() -> Dict[str, int]:
-    """Core calls issued by each engine: one ``clean`` per ``bits`` value
-    and one ``noisy`` per distinct ``(bits, id_bits)`` pair of a sweep."""
+    """Core calls issued by each engine on this rank: one ``clean`` per
+    ``bits`` value and one ``noisy`` per distinct ``(bits, id_bits)`` pair
+    of a sweep whose placement gives this rank a block."""
     return dict(_DISPATCH_COUNTS)
 
 
@@ -123,9 +131,8 @@ class _Stacked:
         self.rounds = rounds
         self.groups = []
 
-    def put(self, sel: np.ndarray, res, latency: torch.Tensor) -> None:
-        named = {f.name: getattr(res, f.name) for f in dataclasses.fields(res)}
-        named["latency_slots"] = latency
+    def put(self, sel: np.ndarray, named: Dict[str, torch.Tensor]) -> None:
+        """One group's fields and ``latency_slots``, (S * R, ...) each."""
         arrays = {}
         for k, t in named.items():
             a = _numpy(t)
@@ -143,6 +150,24 @@ class _Stacked:
 
 def _ceil_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a + b - 1) // b
+
+
+def _placed(core, sel: np.ndarray, n_devices: int, rounds: int, dev
+            ) -> Dict[str, torch.Tensor]:
+    """Run ``core`` on this rank's block of the scenarios ``sel`` and
+    gather every block: the result's fields and ``latency_slots``,
+    (len(sel) * rounds, ...) each, on every rank.  ``core(part)`` returns
+    ``(result, latency)`` for the scenarios ``part``."""
+    mesh = shard.mesh_1d(shard.lane_devices(n_devices, len(sel)))
+    here = mesh.coord()
+    out = None
+    if here is not None:
+        part = shard.block(shard.pad_lanes(sel, mesh.size), mesh.size,
+                           here[0])
+        res, latency = core(part)
+        out = {f.name: getattr(res, f.name) for f in dataclasses.fields(res)}
+        out["latency_slots"] = latency
+    return shard.gather_lanes(out, len(sel) * rounds, mesh, dev)
 
 
 def run_sweep(scenarios: Sequence[Scenario], *,
@@ -172,7 +197,10 @@ def run_sweep(scenarios: Sequence[Scenario], *,
                      both give the same bits and the device decides what
                      runs.
       include_clean / include_noisy: which engines to run.
-      n_devices:     ``None`` or ``1``: the port sweeps on one device.
+      n_devices:     ranks to shard each group's scenarios over
+                     (``repro_torch.sim.shard``): ``None`` is every rank of
+                     the default process group (1 without one).  Results
+                     are identical either way.
       device:        ``cuda`` by default, which raises without a GPU; pass
                      ``"cpu"`` for the plain versions.  The noisy engine's
                      contention kernel takes at most 64 workers, so on the
@@ -182,12 +210,8 @@ def run_sweep(scenarios: Sequence[Scenario], *,
       SweepResult with (S, R)-stacked numpy fields, in the scenario order
       given.
     """
-    if n_devices not in (None, 1):
-        raise NotImplementedError(
-            "sharding the scenario axis over devices is not ported yet "
-            "(ROADMAP queue 1, item 19: launchers and parallelism); pass "
-            "n_devices=None or 1")
     dev = resolve_device(device)
+    n_dev = shard.resolve_devices(n_devices)
     scenarios = list(scenarios)
     if not scenarios:
         raise ValueError("run_sweep needs at least one scenario")
@@ -245,23 +269,30 @@ def run_sweep(scenarios: Sequence[Scenario], *,
         # the id_bits of an unrelated large-N narrow-bits cell
         max_id_bits = int(id_bits[sel].max())
         if include_clean:
-            _DISPATCH_COUNTS["clean"] += 1
-            res = ocs.ocs_maxpool_core(
-                h_dev[sel].reshape(-1, n_max, k_elems), lanes(mask, sel),
-                lanes(id_bits, sel), bits=bits, max_id_bits=max_id_bits)
-            clean.put(sel, res, _ceil_div(res.contention_slots,
-                                          lanes(n_channels, sel)))
+            def clean_core(part):
+                _DISPATCH_COUNTS["clean"] += 1
+                res = ocs.ocs_maxpool_core(
+                    h_dev[part].reshape(-1, n_max, k_elems),
+                    lanes(mask, part), lanes(id_bits, part), bits=bits,
+                    max_id_bits=max_id_bits)
+                return res, _ceil_div(res.contention_slots,
+                                      lanes(n_channels, part))
+            clean.put(sel, _placed(clean_core, sel, n_dev, rounds, dev))
         if include_noisy:
             for ib in sorted(set(id_bits[sel].tolist())):
                 sub = sel[id_bits[sel] == ib]
-                _DISPATCH_COUNTS["noisy"] += 1
-                res = ocs.ocs_maxpool_noisy_core(
-                    h_dev[sub].reshape(-1, n_max, k_elems),
-                    lanes(mask, sub), ib, keys[sub].reshape(-1, 2),
-                    lanes(p_miss, sub), bits=bits, max_id_bits=max_id_bits,
-                    max_rounds=max_rounds, backend=backend)
-                noisy.put(sub, res, _ceil_div(res.contention_slots,
-                                              lanes(n_channels, sub)))
+
+                def noisy_core(part):
+                    _DISPATCH_COUNTS["noisy"] += 1
+                    res = ocs.ocs_maxpool_noisy_core(
+                        h_dev[part].reshape(-1, n_max, k_elems),
+                        lanes(mask, part), ib, keys[part].reshape(-1, 2),
+                        lanes(p_miss, part), bits=bits,
+                        max_id_bits=max_id_bits, max_rounds=max_rounds,
+                        backend=backend)
+                    return res, _ceil_div(res.contention_slots,
+                                          lanes(n_channels, part))
+                noisy.put(sub, _placed(noisy_core, sub, n_dev, rounds, dev))
 
     out = SweepResult(scenarios=scenarios, k_elems=k_elems, rounds=rounds,
                       n_max=n_max, h=h_pad, mask=mask, device=str(dev))

@@ -19,6 +19,11 @@ sensing key is ``fold_in(lane_keys[l], s)`` (``s == steps`` for the
 evaluation), so a run here draws the same batches and the same sensing
 bits as ``repro.sim.train_curves.run_curves``.
 
+``run_curves`` and ``run_curves_dp`` take ``n_devices``, a placement over
+``torch.distributed`` ranks (``repro_torch.sim.shard``): each rank trains
+its block of lanes (the ideal lane riding along in every block) and every
+rank gets the whole result, bitwise the one-rank result.
+
 No result is read back to the host inside the step loop: logged losses
 collect in a device buffer that is read once per ``bits`` value.
 
@@ -57,8 +62,10 @@ from repro_torch.data.vertical_data import (PatchTaskConfig,
                                             patch_classification)
 from repro_torch.optim import optimizers, schedules
 from repro_torch.optim.compressed_allreduce import CompressedAllReduce
+from repro_torch.parallel import comm
 from repro_torch.protocol import BitsSchedule, Protocol
 from repro_torch.protocol.protocol import mean_f32
+from repro_torch.sim import shard
 from repro_torch.train.train_step import make_train_step
 
 
@@ -346,15 +353,30 @@ def _make_fault_steps(ccfg: CurveConfig, bits: int):
                                                   with_rng=True)
 
 
-def _init_stack(ccfg: CurveConfig, vcfg, opt, init_params, stack: int, dev):
+def _initial_params(ccfg: CurveConfig, vcfg, init_params, dev):
+    """``init_params`` on ``dev``, or ``vertical.init`` from ``ccfg.seed``."""
+    return (vertical.init(vcfg, ccfg.seed, dev) if init_params is None
+            else tree.map(lambda x: x.to(dev), init_params))
+
+
+def _init_stack(params0, opt, stack: int):
     """``stack`` lane-stacked copies of one initial point (the noisy lanes
     and, where the engine has one, the ideal lane) and their optimizer
     state."""
-    params0 = (vertical.init(vcfg, ccfg.seed, dev) if init_params is None
-               else tree.map(lambda x: x.to(dev), init_params))
     vals = tree.map(lambda x: x[None].expand(
         (stack,) + x.shape).clone(), params0)
     return vals, opt.init(vals)
+
+
+def _lane_rows(mesh: shard.Mesh, lanes: int):
+    """This rank's lane indices on a lane mesh's first axis (the padded
+    lane axis's block; row 0 repeats as padding), or ``None`` for a rank
+    the mesh leaves out; and the block's size."""
+    rows = shard.pad_lanes(np.arange(lanes), mesh.shape[0])
+    size = rows.shape[0] // mesh.shape[0]
+    here = mesh.coord()
+    return (None if here is None
+            else shard.block(rows, mesh.shape[0], here[0])), size
 
 
 def resolve_device(device=None) -> torch.device:
@@ -369,7 +391,8 @@ def resolve_device(device=None) -> torch.device:
 
 
 def run_curves(ccfg: Optional[CurveConfig] = None, *, device=None,
-               init_params: Optional[dict] = None) -> CurveResult:
+               init_params: Optional[dict] = None,
+               n_devices: Optional[int] = None) -> CurveResult:
     """Train the p_miss lane axis through the simulated channel, per bits.
 
     ``ccfg=None`` runs the default :class:`CurveConfig` grid.  For every
@@ -383,15 +406,25 @@ def run_curves(ccfg: Optional[CurveConfig] = None, *, device=None,
     JAX package's ``vertical.init``) sets the initial parameters; without
     it they come from ``vertical.init``'s own ``torch.Generator`` seeded
     with ``ccfg.seed``, which are not the JAX package's values.
+
+    ``n_devices`` shards the noisy lanes over ``torch.distributed`` ranks
+    (``repro_torch.sim.shard``: ``None`` is every rank of the default
+    group, 1 without one).  Each rank trains its block of lanes with the
+    ideal lane riding along, as the JAX package replicates its ideal run,
+    and every rank returns the whole result, bitwise the one-rank result.
     """
     ccfg = ccfg if ccfg is not None else CurveConfig()
     dev = resolve_device(device)
     lanes = len(ccfg.p_miss)
+    mesh = shard.mesh_1d(shard.lane_devices(shard.resolve_devices(n_devices),
+                                            lanes))
+    rows, blk = _lane_rows(mesh, lanes)
     p_lanes = ccfg.lane_p_miss()
-    p_dev = torch.from_numpy(p_lanes).to(dev)
-    views, labels, vviews, vlabels = _make_data(ccfg, dev)
     logged = ccfg.logged_steps()
     slot = {s: i for i, s in enumerate(logged)}
+    if rows is not None:
+        p_dev = torch.from_numpy(p_lanes[rows]).to(dev)
+        views, labels, vviews, vlabels = _make_data(ccfg, dev)
 
     n_bits = len(ccfg.bits)
     acc = np.zeros((n_bits, lanes), np.float64)
@@ -403,31 +436,42 @@ def run_curves(ccfg: Optional[CurveConfig] = None, *, device=None,
     noisy_params, ideal_params = [], []
 
     for bi, bits in enumerate(ccfg.bits):
-        vcfg, stack_loss, opt, step_fn = _make_steps(ccfg, bits)
-        k_data, lane_keys = _stream_keys(ccfg, bits, dev)
-        vals, opts = _init_stack(ccfg, vcfg, opt, init_params, lanes + 1,
-                                 dev)
-        buf = torch.zeros((lanes + 1, len(logged)), dtype=torch.float32,
-                          device=dev)
-        for s in range(ccfg.steps):
-            idx = _batch_indices(k_data, s, ccfg.batch, ccfg.n_train).long()
-            batch = (views[:, idx], labels[idx])
-            chan = (_fold_lanes(lane_keys, s), p_dev)
-            vals, opts, met = step_fn(vals, opts, batch, chan)
-            if s in slot:
-                buf[:, slot[s]] = met["loss_mean"]
-        with torch.no_grad():
-            _, met = stack_loss(vals, (vviews, vlabels),
-                                (_fold_lanes(lane_keys, ccfg.steps), p_dev))
+        out = None
+        if rows is not None:
+            vcfg, stack_loss, opt, step_fn = _make_steps(ccfg, bits)
+            k_data, lane_keys = _stream_keys(ccfg, bits, dev)
+            lane_keys = lane_keys[torch.from_numpy(rows).to(dev)]
+            vals, opts = _init_stack(
+                _initial_params(ccfg, vcfg, init_params, dev), opt, blk + 1)
+            buf = torch.zeros((blk + 1, len(logged)), dtype=torch.float32,
+                              device=dev)
+            for s in range(ccfg.steps):
+                idx = _batch_indices(k_data, s, ccfg.batch,
+                                     ccfg.n_train).long()
+                batch = (views[:, idx], labels[idx])
+                chan = (_fold_lanes(lane_keys, s), p_dev)
+                vals, opts, met = step_fn(vals, opts, batch, chan)
+                if s in slot:
+                    buf[:, slot[s]] = met["loss_mean"]
+            with torch.no_grad():
+                _, met = stack_loss(
+                    vals, (vviews, vlabels),
+                    (_fold_lanes(lane_keys, ccfg.steps), p_dev))
+            out = {"acc": met["acc"], "nll": met["nll"], "hist": buf,
+                   "vals": vals}
+        # every rank's block (its lanes, then the ideal row), in lane order
+        blocks = shard.gather_blocks(out, mesh, dev)
+        stacked = tree.map(lambda *bs: torch.cat(
+            [b[:blk] for b in bs])[:lanes].cpu(), *blocks)
+        ideal = tree.map(lambda b: b[blk:].cpu(), blocks[0])
         # the one host read of this bits value
-        a, n, b = (met["acc"].cpu().numpy(), met["nll"].cpu().numpy(),
-                   buf.cpu().numpy())
-        acc[bi], nll[bi] = a[:lanes], n[:lanes]
-        acc_ideal[bi], nll_ideal[bi] = a[lanes], n[lanes]
-        hist[bi], hist_ideal[bi] = b[:lanes].T, b[lanes]
-        cpu = tree.map(lambda x: x.cpu(), vals)
-        noisy_params.append(tree.map(lambda x: x[:lanes], cpu))
-        ideal_params.append(tree.map(lambda x: x[lanes:], cpu))
+        acc[bi], nll[bi] = stacked["acc"].numpy(), stacked["nll"].numpy()
+        acc_ideal[bi] = ideal["acc"].numpy()[0]
+        nll_ideal[bi] = ideal["nll"].numpy()[0]
+        hist[bi] = stacked["hist"].numpy().T
+        hist_ideal[bi] = ideal["hist"].numpy()[0]
+        noisy_params.append(stacked["vals"])
+        ideal_params.append(ideal["vals"])
 
     return CurveResult(
         config=ccfg, p_miss=p_lanes, acc=acc, nll=nll, acc_ideal=acc_ideal,
@@ -469,8 +513,9 @@ def run_scheduled_curves(ccfg: CurveConfig, schedule: BitsSchedule, *,
     k_data, lane_keys = _stream_keys(
         ccfg, schedule.candidates[schedule.init_index], dev)
     # the model is depth-independent: one train state serves every depth
-    vals, opts = _init_stack(ccfg, per_cand[0][0], per_cand[0][2],
-                             init_params, lanes + 1, dev)
+    vals, opts = _init_stack(
+        _initial_params(ccfg, per_cand[0][0], init_params, dev),
+        per_cand[0][2], lanes + 1)
     buf = torch.zeros((lanes + 1, len(logged)), dtype=torch.float32,
                       device=dev)
     coll_buf = torch.zeros((len(logged),), dtype=torch.float32, device=dev)
@@ -559,8 +604,8 @@ def run_fault_curves(ccfg: CurveConfig, fault_lanes: Sequence, *,
     for bi, bits in enumerate(ccfg.bits):
         vcfg, fault_loss, opt, step_fn = _make_fault_steps(ccfg, bits)
         k_data, lane_keys = _fault_stream_keys(ccfg, bits, lanes, dev)
-        vals, opts = _init_stack(ccfg, vcfg, opt, init_params, lanes + 1,
-                                 dev)
+        vals, opts = _init_stack(
+            _initial_params(ccfg, vcfg, init_params, dev), opt, lanes + 1)
         fs = lane_state((ccfg.batch, ccfg.embed_dim))
         buf = torch.zeros((lanes + 1, len(logged)), dtype=torch.float32,
                           device=dev)
@@ -633,10 +678,10 @@ def run_curves_dp(ccfg: CurveConfig, compress: CompressedAllReduce, *,
 
     Each step, rank ``d`` of lane ``l`` trains on its slice
     ``idx[d*B/D : (d+1)*B/D]`` of the shared batch stream with sensing key
-    ``fold_in(fold_in(lane_keys[l], step), d)``; the L*D (lane, rank) pairs
-    run as one noisy lane stack (one contention, one pooling epilogue and
-    one winner-routed backward a step).  Every rank sparsifies its
-    gradients (top-k with its own error-feedback memory),
+    ``fold_in(fold_in(lane_keys[l], step), d)``; the (lane, rank) pairs a
+    device holds run as one noisy lane stack (one contention, one pooling
+    epilogue and one winner-routed backward a step).  Every rank
+    sparsifies its gradients (top-k with its own error-feedback memory),
     ``compress.reduce`` sums them over the ranks, and AdamW applies the
     sum divided by D: the parameters stay the same on every rank, so they
     are held once per lane, and only the error memory differs.  The logged
@@ -644,26 +689,38 @@ def run_curves_dp(ccfg: CurveConfig, compress: CompressedAllReduce, *,
     and are read back once per ``bits`` value.  Evaluation runs the lanes'
     parameters with keys ``fold_in(lane_keys, steps)``.
 
+    ``n_devices`` places the grid on ``torch.distributed`` ranks as
+    ``repro_torch.sim.shard.dp_mesh_shape`` splits them: the DP axis lies
+    wholly on ranks (``n_d == dp_shards``: each device holds one DP rank,
+    and ``compress.reduce`` gathers over its row of the mesh) or wholly in
+    the tensor, and the lanes shard over the ranks that remain.  Every
+    rank returns the whole result, bitwise the one-rank result.
+
     The streams are :func:`run_curves`'s.  ``device`` and ``init_params``
-    as in :func:`run_curves`; ``n_devices`` takes ``None`` or ``1``.
-    Feed the result to ``repro_torch.sim.results.summarize_dp_curves``.
+    as in :func:`run_curves`.  Feed the result to
+    ``repro_torch.sim.results.summarize_dp_curves``.
     """
-    if n_devices not in (None, 1):
-        raise NotImplementedError(
-            "DP ranks across devices are not ported yet (ROADMAP queue 1, "
-            "item 19: launchers and parallelism); the ranks run as a tensor "
-            "axis on one device: pass n_devices=None or 1")
     dev = resolve_device(device)
     lanes, ranks = len(ccfg.p_miss), ccfg.dp_shards
     shard_b = ccfg.batch // ranks
-    stack = lanes * ranks                       # row l * ranks + d
+    n_s, n_d = shard.dp_mesh_shape(shard.resolve_devices(n_devices), lanes,
+                                   ranks)
+    mesh = shard.mesh_2d(n_s, n_d) if n_d > 1 else shard.mesh_1d(n_s)
+    rows, blk = _lane_rows(mesh, lanes)
+    here = mesh.coord()
+    # the DP ranks this device holds; the mesh row's group holds the others
+    d_ids = [here[1]] if n_d > 1 and here is not None else list(range(ranks))
+    group = mesh.groups.get("d")
+    held = len(d_ids)
+    stack = blk * held                      # row l * held + d
     p_lanes = ccfg.lane_p_miss()
-    p_dev = torch.from_numpy(p_lanes).to(dev)
-    p_stack = p_dev.repeat_interleave(ranks, dim=0)
-    views, labels, vviews, vlabels = _make_data(ccfg, dev)
-    rank_ids = torch.arange(ranks, device=dev)
     logged = ccfg.logged_steps()
     slot = {s: i for i, s in enumerate(logged)}
+    if rows is not None:
+        p_dev = torch.from_numpy(p_lanes[rows]).to(dev)
+        p_stack = p_dev.repeat_interleave(held, dim=0)
+        views, labels, vviews, vlabels = _make_data(ccfg, dev)
+        rank_ids = torch.tensor(d_ids, device=dev)
 
     n_bits = len(ccfg.bits)
     acc = np.zeros((n_bits, lanes), np.float64)
@@ -675,35 +732,34 @@ def run_curves_dp(ccfg: CurveConfig, compress: CompressedAllReduce, *,
     pay_step = dense_step = 0
 
     def per_rank(x):
-        """A lane-stacked leaf repeated for each rank: (L * D, ...)."""
-        return x[:, None].expand((lanes, ranks) + x.shape[1:]).reshape(
+        """A lane-stacked leaf repeated for each held rank: (blk * held,
+        ...)."""
+        return x[:, None].expand((blk, held) + x.shape[1:]).reshape(
             (stack,) + x.shape[1:])
 
-    for bi, bits in enumerate(ccfg.bits):
-        vcfg, noisy, dp_loss = _make_dp_loss(ccfg, bits)
+    def train_block(bits, vcfg, noisy, dp_loss, params0) -> dict:
+        """This device's lanes x DP ranks of one ``bits`` value, trained
+        and evaluated."""
         opt = _optimizer(ccfg)
         k_data, lane_keys = _stream_keys(ccfg, bits, dev)
-        vals, opts = _init_stack(ccfg, vcfg, opt, init_params, lanes, dev)
-        one = tree.map(lambda x: x[0], vals)
-        # the analytic per-step bill every measured step must equal
-        pay_step = compress.payload_bits(one) * ranks
-        dense_step = compress.dense_bits(one) * ranks
-        # per-(lane, rank) error-feedback memory
+        lane_keys = lane_keys[torch.from_numpy(rows).to(dev)]
+        vals, opts = _init_stack(params0, opt, blk)
+        # per-(lane, held rank) error-feedback memory
         errs = tree.map(lambda x: torch.zeros(
-            (lanes, ranks) + x.shape[1:], dtype=torch.float32, device=dev),
+            (blk, held) + x.shape[1:], dtype=torch.float32, device=dev),
             vals)
-        buf = torch.zeros((lanes, len(logged)), dtype=torch.float32,
+        buf = torch.zeros((blk, len(logged)), dtype=torch.float32,
                           device=dev)
-        pay_buf = torch.zeros((lanes, len(logged)), dtype=torch.int64,
+        pay_buf = torch.zeros((blk, len(logged)), dtype=torch.int64,
                               device=dev)
-        pay_run = torch.zeros((lanes,), dtype=torch.int64, device=dev)
+        pay_run = torch.zeros((blk,), dtype=torch.int64, device=dev)
         for s in range(ccfg.steps):
             idx = _batch_indices(k_data, s, ccfg.batch, ccfg.n_train).long()
-            idx = idx.reshape(ranks, shard_b)            # rank d's slice
-            bviews = views[:, idx].transpose(0, 1)       # (D, N, b, d)
-            bviews = bviews[None].expand((lanes,) + bviews.shape).reshape(
+            idx = idx.reshape(ranks, shard_b)[d_ids]     # rank d's slice
+            bviews = views[:, idx].transpose(0, 1)       # (held, N, b, d)
+            bviews = bviews[None].expand((blk,) + bviews.shape).reshape(
                 (stack,) + bviews.shape[1:])
-            blabels = labels[idx][None].expand(lanes, ranks, shard_b
+            blabels = labels[idx][None].expand(blk, held, shard_b
                                                ).reshape(stack, shard_b)
             keys = jr.fold_in(_fold_lanes(lane_keys, s)[:, None],
                               rank_ids).reshape(stack, 2)
@@ -714,26 +770,42 @@ def run_curves_dp(ccfg: CurveConfig, compress: CompressedAllReduce, *,
                                   blabels, keys, p_stack)
                 grads = torch.autograd.grad(loss.sum(), leaves)
             grads = tree.unflatten(vals, [
-                g.reshape((lanes, ranks) + g.shape[1:]) for g in grads])
-            reduced, errs, acct = compress.reduce(grads, errs, rank_dim=1)
+                g.reshape((blk, held) + g.shape[1:]) for g in grads])
+            reduced, errs, acct = compress.reduce(grads, errs, rank_dim=1,
+                                                  group=group)
             reduced = tree.map(lambda g: g / ranks, reduced)
             vals, opts, _ = opt.update(reduced, opts, vals)
             pay_run += acct.payload_bits
             if s in slot:
-                buf[:, slot[s]] = mean_f32(loss.detach().reshape(lanes,
-                                                                 ranks))
+                losses = loss.detach().reshape(blk, held)
+                if group is not None:       # every DP rank's, in rank order
+                    losses = torch.cat([p[0] for p in comm.all_gather(
+                        [losses], group)], dim=1)
+                buf[:, slot[s]] = mean_f32(losses)
                 pay_buf[:, slot[s]] = acct.payload_bits
         with torch.no_grad():
             _, met = vertical.loss_fn(
                 vcfg, vals, vviews, vlabels,
                 rng=_fold_lanes(lane_keys, ccfg.steps),
                 protocol=noisy.with_p_miss(p_dev), lanes=True)
+        return {"acc": met["acc"], "nll": met["nll"], "hist": buf,
+                "pay": pay_buf, "pay_run": pay_run, "vals": vals}
+
+    for bi, bits in enumerate(ccfg.bits):
+        vcfg, noisy, dp_loss = _make_dp_loss(ccfg, bits)
+        # the analytic per-step bill every measured step must equal
+        params0 = _initial_params(ccfg, vcfg, init_params, dev)
+        pay_step = compress.payload_bits(params0) * ranks
+        dense_step = compress.dense_bits(params0) * ranks
+        out = (None if rows is None
+               else train_block(bits, vcfg, noisy, dp_loss, params0))
+        got = tree.map(lambda x: x.cpu(),
+                       shard.gather_lanes(out, lanes, mesh, dev))
         # the one host read of this bits value
-        a, n, b, pb, pt = (t.cpu().numpy() for t in (
-            met["acc"], met["nll"], buf, pay_buf, pay_run))
-        acc[bi], nll[bi], hist[bi] = a, n, b.T
-        pay[bi], pay_total[bi] = pb.T, pt
-        params_out.append(tree.map(lambda x: x.cpu(), vals))
+        acc[bi], nll[bi] = got["acc"].numpy(), got["nll"].numpy()
+        hist[bi], pay[bi] = got["hist"].numpy().T, got["pay"].numpy().T
+        pay_total[bi] = got["pay_run"].numpy()
+        params_out.append(got["vals"])
 
     return DPCurveResult(
         config=ccfg, compress=compress, p_miss=p_lanes, acc=acc, nll=nll,

@@ -14,7 +14,7 @@ Fault-tolerance model:
     full carry at once.
 
 The JAX package's target shardings (elastic re-meshing) are ROADMAP queue
-1 item 19: a restore lands on the devices the initial values are on.
+1 item 19b: a restore lands on the devices the initial values are on.
 """
 
 from __future__ import annotations

@@ -759,6 +759,87 @@ def test_dp_curves_card_accounting_matches_cpu(cuda_device):
     assert np.max(np.abs(got.loss_history - want.loss_history)) < 1e-3
 
 
+def _same_result(a, b, what="") -> None:
+    """Two results of one engine, every field bitwise."""
+    import dataclasses
+    if dataclasses.is_dataclass(b) and not isinstance(b, type):
+        for f in dataclasses.fields(b):
+            _same_result(getattr(a, f.name), getattr(b, f.name),
+                         f"{what}.{f.name}")
+    elif isinstance(b, dict):
+        assert sorted(a) == sorted(b), what
+        for k in b:
+            _same_result(a[k], b[k], f"{what}[{k}]")
+    elif isinstance(b, (list, tuple)):
+        assert len(a) == len(b), what
+        for x, y in zip(a, b):
+            _same_result(x, y, what)
+    elif isinstance(b, torch.Tensor):
+        _same(a, b)
+    elif isinstance(b, np.ndarray):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), what
+    else:
+        assert a == b, what
+
+
+@pytest.mark.cuda
+def test_global_norm_of_a_lane_is_its_own_run_on_card(cuda_device):
+    """A lane's global norm on the card is bitwise the same in a stack of
+    5 lanes, of 3 and run alone (the fedocs-cifar encoder's largest leaf
+    and a bias): a rank's block of lanes clips as the whole stack does."""
+    from repro_torch.optim.optimizers import global_norm
+
+    gen = torch.Generator().manual_seed(0)
+    grads = {"w": torch.randn((5, 4, 256, 256), generator=gen),
+             "b": torch.randn((5, 4, 256), generator=gen)}
+    grads = tree.map(lambda x: x.to(cuda_device), grads)
+    five = global_norm(grads, 1)
+    three = global_norm(tree.map(lambda x: x[[0, 1, 4]], grads), 1)
+    assert torch.equal(five[[0, 1, 4]], three)
+    for i in range(5):
+        one = global_norm(tree.map(lambda x, i=i: x[i], grads))
+        assert torch.equal(five[i], one), i
+
+
+@pytest.mark.cuda
+def test_engines_on_one_nccl_rank_bitwise(cuda_device, tmp_path):
+    """``n_devices`` over a one-rank NCCL group (``None`` and ``1``):
+    ``run_curves``, ``run_sweep`` and ``run_curves_dp`` bitwise their runs
+    without a group, every field."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.optim.compressed_allreduce import CompressedAllReduce
+    from repro_torch.sim import scenarios, sweep
+    from repro_torch.sim import train_curves as tc
+
+    cfg = tc.CurveConfig(bits=(8, 16), p_miss=(0.0, 0.3, 0.05), steps=6,
+                         batch=16, n_train=128, n_val=64, hw=8,
+                         encoder_dims=(8,), embed_dim=8, head_dims=(8,),
+                         log_every=3, dp_shards=2)
+    car = CompressedAllReduce.topk(1 / 8)
+    cells = scenarios.scenario_grid(n_workers=(4, 16), bits=(8, 16),
+                                    p_miss=(0.0, 0.1))
+    runs = {
+        "curves": lambda n: tc.run_curves(cfg, device=cuda_device,
+                                          n_devices=n),
+        "dp": lambda n: tc.run_curves_dp(cfg, car, device=cuda_device,
+                                         n_devices=n),
+        "sweep": lambda n: sweep.run_sweep(cells, k_elems=16, rounds=2,
+                                           device=cuda_device, n_devices=n)}
+    plain = {k: fn(None) for k, fn in runs.items()}
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        for n in (None, 1):
+            for k, fn in runs.items():
+                _same_result(fn(n), plain[k], f"{k} n_devices={n}")
+    finally:
+        dist.destroy_process_group()
+
+
 # ---------------------------------------------------------------------------
 # the trainer, checkpoints and sampling
 # ---------------------------------------------------------------------------

@@ -317,7 +317,7 @@ def test_dp_config_validation_matches_jax(dp_shards):
 def test_dp_placement_and_device():
     cfg = _port_config(TINY_DP)
     car = tca.CompressedAllReduce.topk(K_FRAC)
-    with pytest.raises(NotImplementedError, match="item 19"):
+    with pytest.raises(ValueError, match="no process group"):
         ttc.run_curves_dp(cfg, car, n_devices=2, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -279,7 +279,7 @@ def test_near_far_scenario_matches_unbatched_vector_p():
 
 def test_sweep_placement_and_device():
     cells = [tscen.Scenario("t/a", n_workers=2)]
-    with pytest.raises(NotImplementedError, match="item 19"):
+    with pytest.raises(ValueError, match="no process group"):
         tsweep.run_sweep(cells, n_devices=2, device="cpu")
     sw = tsweep.run_sweep(cells, k_elems=4, n_devices=1, device="cpu")
     assert sw.device == "cpu"
