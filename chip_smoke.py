@@ -32,7 +32,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
    80 lanes, per-worker ``p_keep``);
    flash attention
    within the JAX parity test's tolerances at the prefill shapes and the
-   JAX test's float32 GQA cases, timed at S 256, 1024 and 4096;
+   JAX test's float32 GQA cases, timed at S 256, 1024 and 4096; at phase
+   34's shapes (a rank's 8 of 16 workers and heads) ``maxpool.fwd`` and
+   ``maxpool.ties_bwd`` bitwise, flash within its limit;
 4. check that at ``p_miss=0`` ``Protocol.ocs(bits).aggregate`` equals
    ``Protocol.ideal_max(bits, tie_break="first").aggregate`` bitwise,
    forward and input gradient, at bits 8 and 16;
@@ -214,7 +216,29 @@ Phases, in order; any failed check raises and the script exits non-zero:
     ranks, every rank's result bitwise phases 5, 16 and 17's in every
     field, the DP payload the bill at every logged step, each rank's
     launches counted and held to its block's share;
-34. print one ``{"kernels": [...]}`` line and, last, the device line.
+34. run the dense LM stack over a (1 data x 2 model) mesh of two gloo
+    ranks sharing the card (``spawn`` start method, a process-group
+    timeout and a join deadline): qwen1.5-0.5b at full width and depth,
+    bf16, seed-0 weights, ``tp_fusion="max"``, flash, each rank holding 8
+    of 16 workers and heads and half the vocabulary.  (i) ``trainer.train``
+    for 3 of phase 18's steps (its batches and optimizer), the losses
+    within ``TP_LOSS_ATOL_FIRST`` and ``TP_LOSS_RTOL`` of phase 18's first
+    three and step 1's gathered gradient norm within
+    ``TP_GRAD_NORM_RTOL`` of phase 18's, each rank's launches a step
+    phase 18's, the collective bytes a step by op and type; then the same
+    run under a control fault (``wk``/``wv`` outside the *f* copy), which
+    must fail both limits; (ii) 4 of phase 8's requests under OCS p 0.05
+    with ``tp_fusion="max"`` against a one-device run of the same traffic
+    in this process, launches per rank counted; on every rank the max
+    site (forward and gradient) and the channel site (pooled value and
+    accounting) on its block of an equal stack bitwise the one-device
+    law; where the tokens, channel slots or bits differ, the split
+    products that are not bitwise the one-device product must be named
+    (probed at a tick's, a prefill's and a step's rows) and the float32
+    logits of a prefill and 2 decode steps held within
+    ``TP_LOGITS_RTOL`` of their largest magnitude, which a control fault
+    (one worker's partial lost at the last MLP site) must exceed;
+35. print one ``{"kernels": [...]}`` line and, last, the device line.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -259,9 +283,10 @@ from repro_torch.kernels.ocs_contention import ops as ct_ops  # noqa: E402
 from repro_torch.kernels.ocs_contention import ref as ct_ref  # noqa: E402
 from repro_torch.kernels.ocs_quant import ops as q_ops  # noqa: E402
 from repro_torch.kernels.ocs_quant import ref as q_ref  # noqa: E402
+from repro_torch.launch import mesh as launch_mesh  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
-from repro_torch.models import attention  # noqa: E402
+from repro_torch.models import attention, fusion  # noqa: E402
 from repro_torch.models import mamba as mamba_mod  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
@@ -269,6 +294,7 @@ from repro_torch.optim import optimizers, schedules  # noqa: E402
 from repro_torch.optim.compressed_allreduce import (  # noqa: E402
     CompressedAllReduce)
 from repro_torch.parallel import comm  # noqa: E402
+from repro_torch.parallel import sharding  # noqa: E402
 from repro_torch.protocol import (CollisionAdaptiveBits,  # noqa: E402
                                   FixedBits, Protocol)
 from repro_torch.serve import engine as se  # noqa: E402
@@ -354,6 +380,27 @@ DP_SHARDS, DP_K_FRAC = 2, 1 / 8
 # phase 33: gloo ranks sharing cuda:0 and their process groups' timeout
 # (seconds; their processes are killed after twice that)
 RANKS, RANKS_TIMEOUT = 2, 75.0
+# phase 34: the model axis as gloo ranks sharing cuda:0, their process
+# groups' timeout (the join deadline is twice that), 3 train steps and 4
+# of phase 8's requests.  The losses: the first step's within 1e-4 of
+# phase 18's (the same bf16 products but for the GEMMs over half the
+# workers, heads and vocabulary, and a float32 log-sum-exp over the
+# vocabulary in another order), the next two within TP_LOSS_RTOL of
+# phase 18's, relative.  AdamW's first updates are nearly the gradient's
+# sign times the learning rate, so a gradient summed wrong moves the next
+# losses little: the control fault (``_qkv_without_f``) moved steps 2-3
+# by 4.1e-5 and 3.2e-4 of the loss, the sound run by 1.0e-6 and 1.25e-4.
+# Step 1's gathered gradient norm, from equal parameters, tells them
+# apart by far more: the sound run 1.8e-5 off phase 18's, the control
+# 0.11-0.12 (later steps' norms part as the parameters do: 7.2e-3 at
+# step 3).  Both faults must fail their limits.  The float32 logits:
+# their largest difference over their largest magnitude (276 here) within
+# TP_LOGITS_RTOL: the sound run 1.4e-7, the logits' control fault
+# (``_lost_partial``) 1.4e-3.  (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6,
+# PR 24.)
+TP_RANKS, TP_TIMEOUT, TP_STEPS, TP_REQUESTS = 2, 120.0, 3, 4
+TP_LOSS_ATOL_FIRST, TP_LOSS_RTOL = 1e-4, 2e-4
+TP_GRAD_NORM_RTOL, TP_LOGITS_RTOL = 1e-3, 1e-5
 SOURCES = {"ocs_quant.encode": "ocs_quant.cu",
            "ocs_quant.decode": "ocs_quant.cu", "maxpool.fwd": "maxpool.cu",
            "maxpool.decode": "maxpool.cu", "maxpool.winner_bwd": "maxpool.cu",
@@ -776,6 +823,7 @@ def check_kernels(dev) -> dict:
                                              dtype="bfloat16"))
     rows.update(check_sweep_kernels(dev, row))
     rows.update(check_train_maxpool(dev, row))
+    check_tp_sites(dev)
     rows.update(check_moe_site(dev, row))
     rows.update(check_recurrent_sites(dev, row))
     check_decode_outputs(dev)
@@ -2140,26 +2188,28 @@ def profile_dp(dev) -> dict:
 # channel trainer hook
 # ---------------------------------------------------------------------------
 
-def _train_site_input(dev, e, seed, ties=False, offset=0):
-    """(16 workers, ``e`` columns) bf16 partials: randn, or with ``ties``
-    values on a coarse grid (many workers tie at the max), -0.0 beside
-    +0.0 at a zero max, +-inf, and NaNs in a few columns: positive ones in
-    column 4 of every 64, a negative one (sign bit set) alone in column 41
-    of every 64.  ``offset`` elements before the first make the base
-    pointer misaligned."""
+def _train_site_input(dev, e, seed, ties=False, offset=0,
+                      n=QWEN_WORKERS):
+    """(``n`` workers, ``e`` columns) bf16 partials: randn, or with
+    ``ties`` values on a coarse grid (many workers tie at the max), -0.0
+    beside +0.0 at a zero max, +-inf, and NaNs in a few columns: positive
+    ones in column 4 of every 64, a negative one (sign bit set) alone in
+    column 41 of every 64.  ``offset`` elements before the first make the
+    base pointer misaligned.  The special workers are 3, 9, 5, 6 and 12
+    modulo ``n`` (distinct for ``n`` 8 and 16)."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
     if not ties:
-        h = torch.randn((QWEN_WORKERS, e), generator=gen)
+        h = torch.randn((n, e), generator=gen)
     else:
-        h = torch.randint(-4, 3, (QWEN_WORKERS, e), generator=gen) / 2.0
+        h = torch.randint(-4, 3, (n, e), generator=gen) / 2.0
         h[:, 1::7] = -1.0
-        h[3, 1::7], h[9, 1::7] = -0.0, 0.0       # a -0.0/+0.0 tie at 0
-        h[5, 2::11] = float("inf")
+        h[3 % n, 1::7], h[9 % n, 1::7] = -0.0, 0.0   # a -0.0/+0.0 tie at 0
+        h[5 % n, 2::11] = float("inf")
         h[:, 3::13] = -float("inf")
-        h[6, 4::64] = float("nan")
+        h[6 % n, 4::64] = float("nan")
     h = h.to(torch.bfloat16)
     if ties:
-        h.view(torch.int16)[12, 41::64] = -0x003F        # 0xFFC1
+        h.view(torch.int16)[12 % n, 41::64] = -0x003F    # 0xFFC1
     buf = torch.empty(h.numel() + offset, dtype=torch.bfloat16, device=dev)
     out = buf[offset:].view(h.shape)
     out.copy_(h)
@@ -2258,9 +2308,9 @@ def _check_ties_bwd(dev, h, seed: int, what: str) -> None:
     pooled, mask = mp_ops.maxpool_ties(h, 0)
     for special in (False, True):
         g = _site_cotangent(dev, h.shape[1:], seed, special)
-        got = mp_ops.maxpool_ties_bwd(mask, g, QWEN_WORKERS, 0)
+        got = mp_ops.maxpool_ties_bwd(mask, g, h.shape[0], 0)
         composed = g.unsqueeze(0) * (h == pooled.unsqueeze(0)).to(h.dtype)
-        for want, by in ((mp_ref.ties_bwd(mask, g, QWEN_WORKERS, 0),
+        for want, by in ((mp_ref.ties_bwd(mask, g, h.shape[0], 0),
                           "plain"), (composed, "g * (h == max)")):
             if special:
                 _same_nan_as_nan(got, want, f"ties_bwd {what} vs {by}")
@@ -2271,7 +2321,7 @@ def _check_ties_bwd(dev, h, seed: int, what: str) -> None:
 
 def _check_fwd_subsets(cases, shape, path) -> None:
     """``maxpool.fwd`` bitwise against its plain version for each subset
-    of its optional outputs, on each of ``cases``' (16, cols) inputs
+    of its optional outputs, on each of ``cases``' (workers, cols) inputs
     viewed as ``shape``."""
     for what, h in cases.items():
         h = h.view(shape)
@@ -2286,6 +2336,42 @@ def _check_fwd_subsets(cases, shape, path) -> None:
                     dict(input=what, winner=winner, ties=ties, path=path))
     print(f"maxpool.fwd at {path} {shape}: bitwise equal to plain for 4 "
           f"output subsets x {len(cases)} inputs", flush=True)
+
+
+def check_tp_sites(dev) -> None:
+    """Phase 3, the kernels at the shapes that phase 34's ranks give them
+    (each rank of the (1 x ``TP_RANKS``) mesh holds 8 of qwen1.5's 16
+    workers and heads): ``maxpool.fwd`` bitwise against its plain version
+    for each subset of its optional outputs at the train site (8 workers,
+    8 x 256 x 1024), a prefill's (8, 1 x 256 x 1024) and a tick's (8, 8 x
+    1 x 1024), on randn partials and on partials with forced ties, +-0,
+    +-inf and NaNs; ``maxpool.ties_bwd`` at the train site bitwise against
+    its plain version and ``g * (h == max)``; flash over 8 heads, causal
+    bf16, at the train step's (8, 8, 256, 64) and a prefill's (1, 8, 256,
+    64) within :func:`_check_flash`'s limit."""
+    n = QWEN_WORKERS // TP_RANKS
+    for path, shape in (
+            ("tp train", (n, TRAIN_BATCH, TRAIN_SEQ, QWEN_D)),
+            ("tp serve prefill", (n, 1, SERVE_PROMPT, QWEN_D)),
+            ("tp serve tick", (n, SERVE_SLOTS, 1, QWEN_D))):
+        cols = math.prod(shape[1:])
+        cases = {"randn": _train_site_input(dev, cols, 60, n=n),
+                 "ties": _train_site_input(dev, cols, 61, ties=True, n=n)}
+        _check_fwd_subsets(cases, shape, path)
+        if path == "tp train":
+            for what, h in cases.items():
+                _check_ties_bwd(dev, h.view(shape), 62, f"{path} {what}")
+            print(f"maxpool.ties_bwd at {path} {shape}: bitwise equal to "
+                  f"plain and to g * (h == max) (NaN as NaN where g holds "
+                  f"+-inf)", flush=True)
+    h = QWEN_HEADS // TP_RANKS
+    for site, b, seq in (("tp train", TRAIN_BATCH, TRAIN_SEQ),
+                         ("tp serve prefill", 1, SERVE_PROMPT)):
+        q, k, v = _flash_case(dev, b, h, h, seq, QWEN_D // QWEN_HEADS,
+                              seed=63 + b)
+        _check_flash(fa_ops.flash_attention(q, k, v, True),
+                     fa_ref.flash_attention(q, k, v, True),
+                     f"{tuple(q.shape)} Hkv {h} bf16 causal=True ({site})")
 
 
 def check_moe_site(dev, row) -> dict:
@@ -2423,6 +2509,7 @@ def run_train_phase(dev) -> dict:
         peak = torch.cuda.max_memory_allocated()
         _assert_train_counts(counts, TRAIN_STEPS, "uninterrupted")
         losses = [r["loss"] for r in full.history]
+        grad_norms = [r["grad_norm"] for r in full.history]
         assert len(losses) == TRAIN_STEPS and all(
             math.isfinite(x) for x in losses), losses
         saved = sorted(n for n in os.listdir(ckpt) if n.startswith("step_"))
@@ -2496,6 +2583,8 @@ def run_train_phase(dev) -> dict:
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     return dict(counts=counts, wall=wall, resumed_wall=wall3, peak=peak,
+                losses=losses,
+                grad_norms=grad_norms,
                 serve_counts=counts4, serve_wall=wall4)
 
 
@@ -4142,6 +4231,408 @@ def run_ranks_phase(dev, curves, swept, dp) -> dict:
                        for name in want}, spawn_wall=spawn_wall)
 
 
+# ---------------------------------------------------------------------------
+# the dense LM stack over a (1 data x 2 model) mesh
+# ---------------------------------------------------------------------------
+
+def _tp_train_run(dev):
+    """Phase 18's run (its batches and its 6-step schedule), cut to
+    ``TP_STEPS`` steps, every step logged, no checkpoints."""
+    run = launch_train.setup(launch_train.parse_args([
+        "--arch", QWEN, "--steps", str(TRAIN_STEPS), "--batch",
+        str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--seed", "0",
+        "--device", dev.type]))
+    run.tcfg = dataclasses.replace(run.tcfg, steps=TP_STEPS, log_every=1,
+                                   ckpt_dir=None)
+    return run
+
+
+def _tp_serve_model(dev, dtype=torch.bfloat16):
+    cfg = get_config(QWEN, use_flash=True, tp_fusion="max")
+    if dtype != cfg.dtype:
+        cfg = cfg.with_(dtype=dtype, param_dtype=dtype)
+    m = M.build(cfg)
+    return m, m.init(torch.Generator(device=dev).manual_seed(0))
+
+
+def _tp_serve(m, values, dev):
+    """4 of phase 8's requests under OCS p 0.05: ({rid: (tokens, channel
+    slots, uplink bits)}, counts, wall, ticks), the counts and ticks of
+    the run after a warm-up request."""
+    eng = se.ServeEngine(m, values, se.ServeConfig(
+        batch_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, eos_id=-1,
+        protocol=_ocs(SERVE_P_MISS)), device=dev)
+    reqs = poisson_requests(SERVE_REQUESTS, SERVE_RATE, m.cfg.vocab_size,
+                            prompt_len=SERVE_PROMPT,
+                            max_new_tokens=SERVE_NEW, seed=0)[:TP_REQUESTS]
+    eng.run([se.Request(rid=0, prompt=reqs[0].prompt, max_new_tokens=2)])
+    se.reset_dispatch_counts()
+    outs, counts, wall = _counted(lambda: eng.run(reqs))
+    got = {rid: (c.tokens, c.channel_slots, c.uplink_bits)
+           for rid, c in outs.items()}
+    return got, counts, wall, se.dispatch_counts()["tick"], reqs
+
+
+def _tp_logits(m, values, reqs, dev) -> torch.Tensor:
+    """The float32 prefill's last logits of the first request and those of
+    two greedy decode steps after it (``decode_step``: the max sites)."""
+    prompt = torch.as_tensor(np.asarray(reqs[0].prompt, np.int32),
+                             device=dev)[None]
+    logits, cache = m.prefill(values, {"tokens": prompt},
+                              max_seq=SERVE_PROMPT + 2)
+    seq = [logits]
+    pos = torch.full((1,), SERVE_PROMPT, dtype=torch.int32, device=dev)
+    for t in range(2):
+        tok = logits.argmax(-1)[:, None].to(torch.int32)
+        logits, cache = m.decode_step(values, tok, pos + t, cache)
+        seq.append(logits)
+    return torch.cat(seq).float().cpu()
+
+
+def _tp_products(dev, mesh) -> dict:
+    """Whether each product the model axis splits is, on this rank's
+    block, bitwise the block of the one-device product in bf16, at a
+    tick's, a prefill's and a train step's rows: the q projection, the
+    MLP's up and down projections over the workers, the attention
+    out-projection's worker partials, the unembedding (the token table's
+    transpose); a tick's attention over the rank's heads; and flash over
+    the rank's heads at the prefill."""
+    axis = sharding.mesh_axis(mesh, "model")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    d, n, f, vocab = QWEN_D, QWEN_WORKERS, 2816, 151936
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    table = rnd(vocab, d)
+    out = {}
+    for rows in (SERVE_SLOTS, SERVE_PROMPT, TRAIN_BATCH * TRAIN_SEQ):
+        x = rnd(1, rows, d)
+        cases = {"q_proj": (x[0], rnd(d, d)),
+                 "mlp_up": (x, rnd(n, d, f // n)),
+                 "mlp_down": (rnd(n, rows, f // n), rnd(n, f // n, d)),
+                 "attn_out": (rnd(n, rows, d // n), rnd(n, d // n, d)),
+                 "unembed": (x[0], table.T)}
+        for name, (a, w) in cases.items():
+            whole = torch.matmul(a, w)
+            if w.ndim == 2:                 # columns split
+                got = torch.matmul(a, sharding.split_dim(w, axis, 1))
+                want = sharding.split_dim(whole, axis, 1)
+            else:                           # the worker batch split
+                a_mine = a if a.shape[0] == 1 else sharding.split_dim(
+                    a, axis)
+                got = torch.matmul(a_mine, sharding.split_dim(w, axis))
+                want = sharding.split_dim(whole, axis)
+            out[f"{name}@{rows}"] = _bitwise_equal(got, want)
+    # a tick's attention (plain PyTorch) over the rank's heads: q whole
+    # as the projection leaves it, k and v views of the whole cache, over
+    # 16 draws (an output that rounds otherwise may be one in thousands)
+    hd = d // QWEN_HEADS
+    pos = torch.arange(SERVE_SLOTS, device=dev) + SERVE_PROMPT
+    valid = (torch.arange(SERVE_MAX_SEQ, device=dev)[None, :]
+             <= pos[:, None])[:, None, :]
+    cfg = get_config(QWEN)
+    same = True
+    for _ in range(16):
+        q = rnd(SERVE_SLOTS, 1, QWEN_HEADS, hd)
+        k, v = (rnd(SERVE_SLOTS, SERVE_MAX_SEQ, QWEN_HEADS, hd)
+                for _ in range(2))
+        whole = attention._sdpa(cfg, q, k, v, valid)
+        got = attention._sdpa(cfg, sharding.split_dim(q, axis, 2).clone(),
+                              sharding.split_dim(k, axis, 2),
+                              sharding.split_dim(v, axis, 2), valid)
+        same = same and _bitwise_equal(got,
+                                       sharding.split_dim(whole, axis, 2))
+    out["decode_attn@tick"] = same
+    q, k, v = (rnd(1, QWEN_HEADS, SERVE_PROMPT, hd) for _ in range(3))
+    whole = fa_ops.flash_attention(q, k, v, True)
+    got = fa_ops.flash_attention(*(sharding.split_dim(t, axis, 1)
+                                   for t in (q, k, v)), True)
+    out[f"flash@{SERVE_PROMPT}"] = _bitwise_equal(
+        got, sharding.split_dim(whole, axis, 1))
+    return out
+
+
+def _tp_sites(dev, mesh) -> dict:
+    """Whether a fusion site over the model group, given this rank's block
+    of a stack, is bitwise the one-device law on the whole stack: the max
+    site (``tie_break="all"``) at a tick's and a train step's shape,
+    forward and the block's gradient, and the OCS channel site at a
+    tick's shape, the pooled value and the accounting."""
+    axis = sharding.mesh_axis(mesh, "model")
+    cfg = get_config(QWEN, tp_fusion="max")
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    def fuse(h, g):
+        h = h.detach().requires_grad_(True)
+        pooled = fusion.worker_reduce(cfg, {}, h)
+        return pooled, torch.autograd.grad(pooled, h, g)[0]
+
+    out = {}
+    for name, rows in (("tick", (SERVE_SLOTS, 1)),
+                       ("train", (TRAIN_BATCH, TRAIN_SEQ))):
+        h = rnd(QWEN_WORKERS, *rows, QWEN_D)
+        g = rnd(*rows, QWEN_D)
+        want, want_grad = fuse(h, g)
+        with sharding.use_mesh(mesh):
+            got, grad = fuse(sharding.split_dim(h, axis), g)
+        out[f"max@{name}"] = (_bitwise_equal(got, want) and _bitwise_equal(
+            grad, sharding.split_dim(want_grad, axis)))
+    proto = _ocs(SERVE_P_MISS)
+    key = jr.PRNGKey(3, dev)
+    h = rnd(QWEN_WORKERS, SERVE_SLOTS, 1, QWEN_D)
+    want, wacct = proto.aggregate(h, key)
+    with sharding.use_mesh(mesh):
+        got, gacct = fusion.worker_reduce_channel(
+            cfg, {}, sharding.split_dim(h, axis), proto, key)
+    out["channel@tick"] = _bitwise_equal(got, want) and all(
+        _bitwise_equal(getattr(gacct, f.name), getattr(wacct, f.name))
+        for f in dataclasses.fields(wacct))
+    return out
+
+
+def _qkv_without_f(cfg, p, x, kv_x, heads):
+    """Phase 34's control fault: ``attention._qkv`` with ``wk``, ``wv``,
+    ``bk`` and ``bv`` outside the model group's *f* copy, so that each
+    rank keeps only its own heads' share of their gradients."""
+    d = cfg.dtype
+    x = heads.copy(x)
+    kv_x = x if kv_x is None else heads.copy(kv_x)
+    q = attention._proj(x, p["wq"].to(d))
+    k = attention._proj(kv_x, p["wk"].to(d))
+    v = attention._proj(kv_x, p["wv"].to(d))
+    if "bq" in p:
+        q = q + p["bq"].to(d)
+        k = k + p["bk"].to(d)
+        v = v + p["bv"].to(d)
+    return q, k, v
+
+
+def _tp_train(dev, mesh) -> dict:
+    """``TP_STEPS`` of phase 18's steps on this rank's blocks of ``mesh``:
+    losses, gathered gradient norms, launches, wall, collective bytes."""
+    run = _tp_train_run(dev)
+    axes = run.m.axes()
+    shd = sharding.tree_shardings_for_values(axes, run.values, mesh)
+    blocks = sharding.shard_values(run.values, axes, mesh)
+    run.values = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    with sharding.use_mesh(mesh), comm.recording() as rec:
+        res, counts, wall = _counted(lambda: trainer.train(
+            run.m.loss, blocks, run.opt, run.data, run.tcfg,
+            shardings=shd))
+    out = dict(losses=[r["loss"] for r in res.history],
+               grad_norms=[r["grad_norm"] for r in res.history],
+               counts=counts, wall=wall, bytes=comm.summarize(rec),
+               step_s=[r["step_time_s"] for r in res.history])
+    del res, blocks, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_rank() -> dict:
+    """Phase 34's task on each gloo rank: the trainer and the engine on
+    this rank's blocks of a (1 x ``TP_RANKS``) mesh, counted, timed and
+    their collectives recorded, and the trainer again under the control
+    fault (:func:`_qkv_without_f`).  The rank loads the library the
+    parent built and builds nothing."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    built = kernels.BUILD_DIR / f"libreprotorch_{kernels._source_hash()}.so"
+    assert built.exists(), "the parent process did not build the kernels"
+    kernels.library()
+    dev = torch.device("cuda")
+    mesh = launch_mesh.make_mesh(1, TP_RANKS)
+    out = {"coord": mesh.coord(), "train": _tp_train(dev, mesh)}
+    sound = attention._qkv
+    attention._qkv = _qkv_without_f
+    try:
+        ctl = _tp_train(dev, mesh)
+    finally:
+        attention._qkv = sound
+    out["control"] = {k: ctl[k] for k in ("losses", "grad_norms")}
+
+    m, whole = _tp_serve_model(dev)
+    blocks = sharding.shard_values(whole, m.axes(), mesh)
+    del whole
+    with sharding.use_mesh(mesh), comm.recording() as rec:
+        got, counts, wall, ticks, reqs = _tp_serve(m, blocks, dev)
+    out["serve"] = dict(result=got, counts=counts, wall=wall, ticks=ticks,
+                        bytes=comm.summarize(rec))
+    del blocks
+    m32, whole = _tp_serve_model(dev, torch.float32)
+    blocks = sharding.shard_values(whole, m32.axes(), mesh)
+    del whole
+    with sharding.use_mesh(mesh):
+        out["logits"] = _tp_logits(m32, blocks, reqs, dev)
+    out["products"] = _tp_products(dev, mesh)
+    out["sites"] = _tp_sites(dev, mesh)
+    out["peak"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def _lost_partial(values) -> dict:
+    """The logits' control fault: ``values`` with the last layer's MLP
+    down-projection of worker 0 zeroed (one worker's partial lost at one
+    site)."""
+    out = tree.map(lambda t: t, values)
+    ffn = out["blocks"]["pos0"]["ffn"]
+    ffn["w_down"] = ffn["w_down"].clone()
+    ffn["w_down"][-1, 0].zero_()
+    return out
+
+
+def _rel_gaps(got, want) -> list:
+    """|got - want| / |want|, element by element."""
+    return [abs(a - b) / abs(b) for a, b in zip(got, want)]
+
+
+def _logits_rel_err(got, want) -> float:
+    """The largest |got - want| over the largest |want|."""
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def run_tp_phase(dev, phase18) -> dict:
+    """Phase 34: the dense LM stack over a (1 data x ``TP_RANKS`` model)
+    mesh of gloo ranks sharing cuda:0 (see the module doc), against
+    phase 18's losses and gradient norms and a one-device run of the
+    serving traffic in this process.  Every reading is printed before
+    any is held to its limit."""
+    _release("tp phase start")
+    m, values = _tp_serve_model(dev)
+    want, one_counts, one_wall, one_ticks, reqs = _tp_serve(m, values, dev)
+    del values
+    m32, values = _tp_serve_model(dev, torch.float32)
+    one_logits = _tp_logits(m32, values, reqs, dev)
+    ctl_logits = _tp_logits(m32, _lost_partial(values), reqs, dev)
+    del values
+    _release("tp phase spawn")
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = pathlib.Path(tempfile.mkdtemp(dir=ROOT / "build"))
+    try:
+        t0 = time.perf_counter()
+        got = comm.spawn(_tp_rank, TP_RANKS, workdir=work / "gloo",
+                         timeout=TP_TIMEOUT, threads=2)
+        spawn_wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    assert [o["coord"] for o in got] == [(0, r) for r in range(TP_RANKS)]
+    train_want = {k: 0 for k in kernels.KERNELS}
+    train_want.update({"flash_attention.fwd": QWEN_LAYERS * TP_STEPS,
+                       "maxpool.fwd": 2 * QWEN_LAYERS * TP_STEPS,
+                       "maxpool.ties_bwd": 2 * QWEN_LAYERS * TP_STEPS})
+    first = phase18["losses"][:TP_STEPS]
+    first_gn = phase18["grad_norms"][:TP_STEPS]
+    gaps = {}
+    for r, o in enumerate(got):
+        t, c = o["train"], o["control"]
+        gaps[r] = dict(
+            first=abs(t["losses"][0] - first[0]),
+            loss=_rel_gaps(t["losses"], first),
+            grad_norm=_rel_gaps(t["grad_norms"], first_gn),
+            control_loss=_rel_gaps(c["losses"], first),
+            control_grad_norm=_rel_gaps(c["grad_norms"], first_gn))
+        per_step = {k: {"calls": v["calls"] / TP_STEPS,
+                        "bytes": v["bytes"] / TP_STEPS}
+                    for k, v in t["bytes"].items()}
+        print(f"tp rank {r}/{TP_RANKS}: train {TP_STEPS} steps in "
+              f"{t['wall']:.3f} s wall (step host times "
+              f"{[round(x, 4) for x in t['step_s']]}), losses {t['losses']} "
+              f"against phase 18's {first} (relative gaps "
+              f"{gaps[r]['loss']}), gradient norms {t['grad_norms']} "
+              f"against phase 18's {first_gn} (relative gaps "
+              f"{gaps[r]['grad_norm']}); launches {t['counts']}; "
+              f"collectives a step {per_step}; peak device memory "
+              f"{o['peak']} bytes", flush=True)
+        print(f"tp rank {r}/{TP_RANKS}: control (wk/wv/bk/bv outside the "
+              f"f copy): losses {c['losses']} (relative gaps "
+              f"{gaps[r]['control_loss']}), gradient norms "
+              f"{c['grad_norms']} (relative gaps "
+              f"{gaps[r]['control_grad_norm']})", flush=True)
+    ticks = one_ticks
+    serve_want = {k: 0 for k in kernels.KERNELS}
+    serve_want.update({
+        "flash_attention.fwd": QWEN_LAYERS * TP_REQUESTS,
+        "maxpool.fwd": 2 * QWEN_LAYERS * TP_REQUESTS + QWEN_LAYERS * ticks,
+        "ocs_contention.noisy": QWEN_LAYERS * ticks,
+        "maxpool.decode": QWEN_LAYERS * ticks})
+    print(f"tp one device: serve {TP_REQUESTS} requests in {one_wall:.3f} s "
+          f"wall, {one_ticks} ticks, launches {one_counts}; request 0 "
+          f"tokens {want[0][0]}", flush=True)
+    same = all(o["serve"]["result"] == want for o in got)
+    errs = [_logits_rel_err(o["logits"], one_logits) for o in got]
+    ctl_err = _logits_rel_err(ctl_logits, one_logits)
+    for r, o in enumerate(got):
+        sv = o["serve"]
+        per_tick = {k: {"calls": v["calls"] / sv["ticks"],
+                        "bytes": v["bytes"] / sv["ticks"]}
+                    for k, v in sv["bytes"].items()}
+        differ = [rid for rid in want if sv["result"].get(rid) != want[rid]]
+        print(f"tp rank {r}/{TP_RANKS}: serve {sv['wall']:.3f} s wall, "
+              f"{sv['ticks']} ticks, launches {sv['counts']}; collectives a "
+              f"tick (prefills included) {per_tick}; requests differing "
+              f"from the one-device run {differ}; float32 prefill and 2 "
+              f"decode steps' logits: max diff "
+              f"{float((o['logits'] - one_logits).abs().max()):.4g}, "
+              f"{errs[r]:.4g} of max|logit| "
+              f"{float(one_logits.abs().max()):.4g}; sites bitwise the "
+              f"one-device law on equal inputs {o['sites']}; split "
+              f"products bitwise the one-device block {o['products']}",
+              flush=True)
+        for rid in differ[:2]:
+            fields = [name for name, a, b in zip(
+                ("tokens", "channel_slots", "uplink_bits"),
+                sv["result"][rid], want[rid]) if a != b]
+            print(f"  request {rid} differs in {fields}: rank "
+                  f"{sv['result'][rid][1:]}, one device {want[rid][1:]}, "
+                  f"first tokens {sv['result'][rid][0][:4]} against "
+                  f"{want[rid][0][:4]}", flush=True)
+    print(f"tp: logits control (worker 0's last MLP partial lost, one "
+          f"device): {ctl_err:.4g} of max|logit|", flush=True)
+    print(f"tp: {TP_RANKS} gloo ranks on cuda:0, spawn to join "
+          f"{spawn_wall:.3f} s", flush=True)
+
+    for r, o in enumerate(got):
+        g = gaps[r]
+        assert o["train"]["counts"] == train_want, \
+            (r, o["train"]["counts"], train_want)
+        assert g["first"] <= TP_LOSS_ATOL_FIRST, (r, g)
+        assert max(g["loss"]) <= TP_LOSS_RTOL, (r, g)
+        assert g["grad_norm"][0] <= TP_GRAD_NORM_RTOL, (r, g)
+        # the limits' control: the fault must fail both
+        assert g["control_grad_norm"][0] > TP_GRAD_NORM_RTOL, (r, g)
+        assert max(g["control_loss"]) > TP_LOSS_RTOL, (r, g)
+        sv = o["serve"]
+        assert sv["ticks"] == one_ticks, (r, sv["ticks"], one_ticks)
+        assert sv["counts"] == serve_want, (r, sv["counts"], serve_want)
+        assert all(o["sites"].values()), (r, o["sites"])
+    assert ctl_err > TP_LOGITS_RTOL, ctl_err
+    if not same:
+        broken = sorted({k for o in got for k, ok in o["products"].items()
+                         if not ok})
+        assert broken, "tokens differ although every split product is " \
+            "bitwise the one-device product"
+        assert max(errs) <= TP_LOGITS_RTOL, errs
+        print(f"tp: the tokens or channel slots differ from the one-device "
+              f"run; the products not bitwise on the card: {broken}; the "
+              f"float32 logits within {TP_LOGITS_RTOL} of max|logit|",
+              flush=True)
+    else:
+        print("tp: every rank's tokens, channel slots and uplink bits "
+              "equal the one-device run's", flush=True)
+    summed = {name: {k: sum(o[name]["counts"][k] for o in got)
+                     for k in kernels.KERNELS} for name in ("train", "serve")}
+    return dict(counts=summed, same_tokens=same, spawn_wall=spawn_wall,
+                walls={name: [o[name]["wall"] for o in got]
+                       for name in ("train", "serve")})
+
+
 def _timed(fn, *args):
     """Call one phase; keep its wall seconds for the closing summary."""
     t0 = time.perf_counter()
@@ -4212,6 +4703,7 @@ def main() -> int:
     pixtral = _timed(run_pixtral_phase, dev)
     _timed(check_encdec_against_cpu, dev)
     ranks = _timed(run_ranks_phase, dev, curves, swept, dp)
+    tp = _timed(run_tp_phase, dev, train)
 
     line = []
     keep = ("shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
@@ -4290,7 +4782,9 @@ def main() -> int:
                    "ranks_nccl_curves": ranks["nccl_counts"][name],
                    "ranks_curves": ranks["counts"]["curves"][name],
                    "ranks_sweep": ranks["counts"]["sweep"][name],
-                   "ranks_dp": ranks["counts"]["dp"][name]}
+                   "ranks_dp": ranks["counts"]["dp"][name],
+                   "tp_train": tp["counts"]["train"][name],
+                   "tp_serve": tp["counts"]["serve"][name]}
         line.append(dict(rec, launches=sum(by_path.values()),
                          launches_by_path=by_path))
     print(f"run_curves wall seconds: {wall}", flush=True)
@@ -4364,6 +4858,10 @@ def main() -> int:
     print(f"ranks: one NCCL rank run_curves {ranks['nccl_wall']:.3f} s; "
           f"{RANKS} gloo ranks on cuda:0, walls by rank "
           f"{ranks['walls']}, spawn to join {ranks['spawn_wall']:.3f} s; "
+          f"{smi}", flush=True)
+    print(f"tp: (1 x {TP_RANKS}) mesh of gloo ranks on cuda:0, walls by "
+          f"rank {tp['walls']}, tokens bitwise the one-device run: "
+          f"{tp['same_tokens']}, spawn to join {tp['spawn_wall']:.3f} s; "
           f"{smi}", flush=True)
     print(f"phase wall seconds: {_PHASE_SECONDS}", flush=True)
     print(json.dumps({"kernels": line}))

@@ -19,9 +19,14 @@ flattens to ``aux/.bad``, ..., ``aux/.consec``), joined by ``/``.  A
 ``bfloat16`` leaf is stored as its raw 2-byte words (numpy ``V2``, as
 ``np.asarray`` of a JAX bf16 array saves) with ``"bfloat16"`` in the
 index's ``dtypes``; ``restore`` rebuilds the type from the index.  The
-JAX package's logical axes and target shardings have no counterpart: the
-port restores onto one device (elastic re-meshing is ROADMAP queue 1,
-item 19b).
+index's ``"axes"`` holds each leaf's logical axes where ``save`` is given
+them, in the JAX package's format.
+
+Leaves are stored whole, so a checkpoint restores onto any mesh (elastic
+re-meshing).  Under a mesh, ``save`` takes the leaves' shardings, gathers
+every leaf over the ranks that split it, and rank 0 writes while the
+others wait at a barrier; ``restore(shardings=)`` reads the whole leaves
+and keeps this rank's block of each.
 """
 
 from __future__ import annotations
@@ -35,8 +40,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.convert import _ML_DTYPES
+from repro_torch.parallel import comm
+from repro_torch.parallel import sharding as sh
 
 SEP = "/"
 
@@ -44,12 +52,15 @@ SEP = "/"
 _WORDS = {dtype: (name, word) for name, (word, dtype) in _ML_DTYPES.items()}
 
 
-def _flatten_with_paths(tree, prefix: Tuple[str, ...] = ()
-                        ) -> Dict[str, Any]:
+def _flatten_with_paths(tree, prefix: Tuple[str, ...] = (),
+                        is_leaf=None) -> Dict[str, Any]:
     """Leaves of ``tree`` by their JAX path strings, in JAX's leaf order
-    (``None`` is an empty subtree, as in JAX)."""
+    (``None`` is an empty subtree, as in JAX); a ``NamedSharding``, and
+    whatever ``is_leaf`` accepts, is a leaf."""
     if tree is None:
         return {}
+    if isinstance(tree, sh.NamedSharding) or (is_leaf and is_leaf(tree)):
+        return {SEP.join(prefix): tree}
     if isinstance(tree, dict):
         items = [(str(k), tree[k]) for k in sorted(tree)]
     elif isinstance(tree, (list, tuple)):
@@ -61,7 +72,7 @@ def _flatten_with_paths(tree, prefix: Tuple[str, ...] = ()
         return {SEP.join(prefix): tree}
     flat: Dict[str, Any] = {}
     for name, sub in items:
-        flat.update(_flatten_with_paths(sub, prefix + (name,)))
+        flat.update(_flatten_with_paths(sub, prefix + (name,), is_leaf))
     return flat
 
 
@@ -105,24 +116,50 @@ def _from_numpy(a: np.ndarray, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
-def save(ckpt_dir: str, step: int, values,
-         extra: Optional[Dict[str, Any]] = None) -> str:
+def save(ckpt_dir: str, step: int, values, axes_tree=None,
+         extra: Optional[Dict[str, Any]] = None, shardings=None) -> str:
     """Write one checkpoint of ``values`` (nested dicts, lists, tuples and
-    dataclasses of tensors); returns its directory."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    dataclasses of tensors) and, with ``axes_tree``, each leaf's logical
+    axes; returns its directory.  With ``shardings`` (a tree of
+    ``NamedSharding`` matching ``values``, as ``restore`` takes it) the
+    leaves are this rank's blocks: every rank calls ``save``, the leaves
+    are gathered whole, rank 0 writes and every rank waits for it at a
+    barrier of the default group."""
     final = os.path.join(ckpt_dir, f"step_{step:010d}")
+    if shardings is None:
+        _write(ckpt_dir, final, step, values, axes_tree, extra)
+        return final
+    flat = _flatten_with_paths(values)
+    shd = _flatten_with_paths(shardings)
+    whole = sh.gather_leaves(list(flat.values()),
+                             [shd[k].spec if k in shd else () for k in flat],
+                             next(iter(shd.values())).mesh)
+    if comm.rank() == 0:
+        _write(ckpt_dir, final, step, dict(zip(flat, whole)), axes_tree,
+               extra)
+    if comm.initialized():
+        dist.barrier()
+    return final
+
+
+def _write(ckpt_dir, final, step, values, axes_tree, extra) -> None:
+    """Write one checkpoint's directory and move the pointer to it."""
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_")
     try:
         arrays, dtypes = {}, {}
         for k, v in _flatten_with_paths(values).items():
             arrays[k], dtypes[k] = _to_numpy(v)
         np.savez(os.path.join(tmp, "shard_0.npz"), **arrays)
+        axes = {} if axes_tree is None else {
+            k: list(v) for k, v in _flatten_with_paths(
+                axes_tree, is_leaf=sh.is_axes).items()}
         index = {
             "step": step,
             "keys": sorted(arrays),
             "shapes": {k: list(a.shape) for k, a in arrays.items()},
             "dtypes": dtypes,
-            "axes": {},
+            "axes": axes,
             "extra": extra or {},
             "n_hosts": 1,
         }
@@ -140,7 +177,6 @@ def save(ckpt_dir: str, step: int, values,
         f.write(str(step))
     os.replace(os.path.join(ckpt_dir, ".latest_tmp"),
                os.path.join(ckpt_dir, "latest"))
-    return final
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
@@ -163,14 +199,16 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, step: Optional[int] = None, template=None,
-            device=None) -> Tuple[Any, int, Dict[str, Any]]:
+            shardings=None, device=None) -> Tuple[Any, int, Dict[str, Any]]:
     """Load a checkpoint: ``(tree, step, extra)``.
 
     ``template`` is a tree of the same structure (its leaves only name
     the paths; a ``None`` subtree is skipped).  Each leaf comes back with
     the type the index records, on ``device``, or where ``device`` is
     None on the device of the template's leaf (the CPU for a leaf that is
-    no tensor)."""
+    no tensor).  ``shardings``, a tree of ``NamedSharding`` matching the
+    template, keeps this rank's block of each leaf (any mesh: the elastic
+    path); a leaf it does not name stays whole."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -191,8 +229,14 @@ def restore(ckpt_dir: str, step: Optional[int] = None, template=None,
     if missing:
         raise KeyError(f"checkpoint missing keys: {sorted(missing)[:5]} ...")
 
+    flat_shd = (_flatten_with_paths(shardings)
+                if shardings is not None else {})
+
     def materialize(key, like):
         t = _from_numpy(data[key], index["dtypes"][key])
+        if key in flat_shd:
+            t = sh.block(t, flat_shd[key].spec,
+                         flat_shd[key].mesh).contiguous()
         if device is not None:
             return t.to(device)
         return t.to(like.device) if isinstance(like, torch.Tensor) else t

@@ -34,6 +34,8 @@ from repro_torch.core import ocs
 from repro_torch.core import quantize as qz
 from repro_torch.kernels.maxpool import ops as maxpool_ops
 from repro_torch.kernels.maxpool.ref import PoolDecode
+from repro_torch.kernels.ocs_quant import ref as code_ref
+from repro_torch.parallel import comm
 
 VALID_MODES = ("sum", "max", "max_q16", "max_q8", "max_noisy", "mean",
                "concat")
@@ -236,6 +238,131 @@ def maxpool_noisy(h: torch.Tensor, rng: torch.Tensor, p_miss,
     p = torch.as_tensor(p_miss, dtype=torch.float32, device=h.device)
     return noisy_pool(h[None], rng[None], p[None], None, bits, max_rounds,
                       backend)[0][0]
+
+
+# ---------------------------------------------------------------------------
+# the laws over a model group: each rank holds a contiguous block of workers
+# ---------------------------------------------------------------------------
+#
+# Rank ``r`` of the group (an ``Axis`` of ``repro_torch.parallel.sharding``)
+# pools its own workers with the kernel, and one all-reduce over the group
+# combines the local results into the pooled value of the whole stack, the
+# same bits on every rank.  Workers are contiguous by rank, so the law's
+# first argmax is on the lowest rank whose local max equals the pooled
+# value, at that rank's own first argmax.  The backward stays local: each
+# rank routes the cotangent to its own winners, as the one-rank law routes
+# it to those rows of the stack.
+
+
+def _max_key(m: torch.Tensor, index: int, size: int) -> torch.Tensor:
+    """An integer key of a rank's local max whose max over the ranks
+    decodes (:func:`_from_key`) to the law's pooled value: a number's
+    full-width order code (-0.0 just below +0.0, so a tie of the two pools
+    to +0.0, as ``jnp.max``), and a NaN above every number, the lowest
+    rank's first, keeping that NaN's own bits.  int32 for 16-bit floats,
+    int64 for float32: a backend's own max of floats has no rule for
+    signed zeros and NaNs."""
+    w = 8 * m.element_size()
+    raw = code_ref.to_int64(m.view(torch.int16 if w == 16 else torch.int32))
+    key = torch.where(torch.isnan(m), ((1 + size - index) << w) | raw,
+                      code_ref.monotone_code_int64(m))
+    return key.to(torch.int32 if w == 16 else torch.int64)
+
+
+def _from_key(key: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    w = 8 * dtype.itemsize
+    mask, sign = (1 << w) - 1, 1 << (w - 1)
+    k = key.to(torch.int64)
+    low = k & mask
+    bits = torch.where((low & sign) == 0, ~low & mask, low & ~sign)
+    return code_ref.from_int64(torch.where(k > mask, low, bits), dtype)
+
+
+def _owner(eq: torch.Tensor, axis) -> torch.Tensor:
+    """Whether this rank holds the law's first argmax of each element:
+    the lowest rank where ``eq`` holds, by an all-reduce(min) of the rank
+    index (uint8 where the group has fewer than 256 ranks)."""
+    dt = torch.uint8 if axis.size < 256 else torch.int32
+    cand = torch.where(eq, axis.index, axis.size).to(dt)
+    return comm.all_reduce(cand, "min", axis.group) == axis.index
+
+
+class _MaxPoolOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, tie_break, axis):
+        ctx.tie_break, ctx.n = tie_break, h.shape[0]
+        local = maxpool_ops.maxpool_fwd(h, 0, winner=tie_break == "first",
+                                        ties=tie_break == "all")
+        key = _max_key(local.pooled, axis.index, axis.size)
+        pooled = _from_key(comm.all_reduce(key, "max", axis.group), h.dtype)
+        eq = local.pooled == pooled
+        if tie_break == "all":
+            ctx.save_for_backward(local.ties, eq)
+        else:
+            eq = eq | (torch.isnan(local.pooled) & torch.isnan(pooled))
+            ctx.save_for_backward(local.winner, _owner(eq, axis))
+        return pooled
+
+    @staticmethod
+    def backward(ctx, g):
+        saved, mine = ctx.saved_tensors
+        # g where this rank's workers can hold the max, g * 0 (g's sign)
+        # where none can, as the one-rank law's rows there
+        g = torch.where(mine, g, g * 0)
+        bwd = (maxpool_ops.maxpool_ties_bwd if ctx.tie_break == "all"
+               else maxpool_ops.maxpool_winner_bwd)
+        return bwd(saved, g, ctx.n, 0), None, None
+
+
+def maxpool_over(h: torch.Tensor, tie_break: str, axis) -> torch.Tensor:
+    """:func:`maxpool` (over axis 0) of the stack whose workers are split
+    over ``axis``'s ranks, ``h`` this rank's block: ``maxpool.fwd`` over
+    the local workers and an all-reduce(max) of an order key of their max;
+    ``"first"`` adds an all-reduce(min) of the owning rank."""
+    _check_tie_break(tie_break)
+    return _MaxPoolOver.apply(h, tie_break, axis)
+
+
+class _MaxPoolQuantizedOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, bits, tie_break, axis):
+        ctx.tie_break, ctx.n = tie_break, h.shape[0]
+        if tie_break == "first":
+            local = maxpool_ops.maxpool_decode(h, bits, h.dtype, dim=0,
+                                               max_code=True, argmax=True)
+        else:
+            codes = qz.quantize(h, bits)
+            local = maxpool_ops.maxpool_decode(codes, bits, h.dtype, dim=0,
+                                               max_code=True)
+        code = comm.all_reduce(local.max_code, "max", axis.group)
+        if tie_break == "first":
+            eq = (code_ref.to_int64(local.max_code)
+                  == code_ref.to_int64(code))
+            ctx.save_for_backward(local.argmax, _owner(eq, axis))
+        else:
+            ctx.save_for_backward(codes, code)
+        return qz.dequantize(code, bits, h.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.tie_break == "first":
+            winner, mine = ctx.saved_tensors
+            return (maxpool_ops.maxpool_winner_bwd(
+                winner, torch.where(mine, g, g * 0), ctx.n, 0),
+                None, None, None)
+        codes, pooled_code = ctx.saved_tensors
+        mask = codes == pooled_code.unsqueeze(0)
+        return g.unsqueeze(0) * mask.to(g.dtype), None, None, None
+
+
+def maxpool_quantized_over(h: torch.Tensor, bits: int, tie_break: str,
+                           axis) -> torch.Tensor:
+    """:func:`maxpool_quantized` (over axis 0) of the stack whose workers
+    are split over ``axis``'s ranks: the local workers' D-bit codes and
+    their max, an all-reduce(max) of the codes themselves (uint8 for
+    D <= 8), then the Eq. 7 decode."""
+    _check_tie_break(tie_break)
+    return _MaxPoolQuantizedOver.apply(h, bits, tie_break, axis)
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,18 @@ outside any kernel.  ``attn_step`` writes the new key and value rows into
 the cache in place (the JAX package returns an updated copy): the port
 keeps one cache buffer for the whole run.  A cross step reads the encoder's
 keys and values, which stay as the prefill left them.
+
+Under a mesh whose model axis splits the heads (``wq`` holds ``H/R`` of
+them), each rank projects q for its heads and k/v for every KV head (the
+cache stays whole on every rank, as the JAX package's ``CACHE_AXES``), and
+attends with its heads against the KV heads they read under GQA, at a
+prefill and at a decode step alike.  The input and ``wk``/``wv``/``bk``/
+``bv`` pass through the model group's *f* copy, so their gradients, each
+rank's share, add up over the group.  The "worker" layout fuses the local
+workers' partials over the group (``fusion.worker_reduce``); the "plain"
+layout adds the local heads' products by an all-reduce(sum).  A site
+whose heads the mesh does not divide runs whole on every rank, with no
+collective.
 """
 
 from __future__ import annotations
@@ -27,6 +39,8 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import fusion, layers
+from repro_torch.parallel import comm
+from repro_torch.parallel import sharding
 
 NEG_INF = -1e9
 
@@ -69,6 +83,18 @@ def attn_init(cfg, gen: torch.Generator) -> dict:
     return p
 
 
+def attn_axes(cfg) -> dict:
+    """:func:`attn_init`'s logical axes."""
+    p = {"wq": ("embed", "heads", None), "wk": ("embed", None, None),
+         "wv": ("embed", None, None),
+         "wo": (("worker", None, None, "embed") if attn_layout(cfg)
+                == "worker" else ("heads", None, "embed"))}
+    if cfg.qkv_bias:
+        p.update(bq=("heads", None), bk=(None, None), bv=(None, None))
+    p.update(fusion.fusion_axes(cfg))
+    return p
+
+
 def init_cache(cfg, batch: int, max_seq: int, dtype, device=None) -> dict:
     shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim_)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -81,15 +107,61 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w.reshape(d, -1)).reshape(b, s, *w.shape[1:])
 
 
-def _qkv(cfg, p, x, kv_x):
+class Heads:
+    """The heads a site computes: ``count`` of them from global head
+    ``first``, split over ``axis`` (``None`` for all of them), reading
+    ``kv_count`` KV heads from ``kv_first``."""
+
+    def __init__(self, cfg, p: dict):
+        hp = n_heads_padded(cfg)
+        self.count = p["wq"].shape[1]
+        self.axis = sharding.split_of("heads", self.count, hp)
+        self.first = 0
+        self.kv_first, self.kv_count = 0, cfg.n_kv_heads
+        if self.axis is None:
+            return
+        self.first = self.axis.index * self.count
+        group = hp // cfg.n_kv_heads            # q heads per KV head
+        if self.count % group == 0:
+            self.kv_first, self.kv_count = (self.first // group,
+                                            self.count // group)
+        elif group % self.count == 0:
+            self.kv_first, self.kv_count = self.first // group, 1
+        else:
+            raise NotImplementedError(
+                f"{self.count} heads a rank with {group} q heads per KV "
+                f"head")
+        wo = p["wo"]
+        local = (wo.shape[0] * (hp // cfg.n_workers)
+                 if attn_layout(cfg) == "worker" else wo.shape[0])
+        if local != self.count:
+            raise NotImplementedError(
+                "the mesh splits the heads and the workers of the "
+                "out-projection apart")
+
+    def copy(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` behind the model group's *f* copy, where split."""
+        return t if self.axis is None else comm.copy_to_group(
+            t, self.axis.group)
+
+    def kv(self, t: torch.Tensor) -> torch.Tensor:
+        """The KV heads (axis 2) this site's q heads read."""
+        if self.axis is None:
+            return t
+        return t.narrow(2, self.kv_first, self.kv_count)
+
+
+def _qkv(cfg, p, x, kv_x, heads: Heads):
     d = cfg.dtype
+    x = heads.copy(x)
+    kv_x = x if kv_x is None else heads.copy(kv_x)
     q = _proj(x, p["wq"].to(d))
-    k = _proj(kv_x, p["wk"].to(d))
-    v = _proj(kv_x, p["wv"].to(d))
+    k = _proj(kv_x, heads.copy(p["wk"]).to(d))
+    v = _proj(kv_x, heads.copy(p["wv"]).to(d))
     if "bq" in p:
         q = q + p["bq"].to(d)
-        k = k + p["bk"].to(d)
-        v = v + p["bv"].to(d)
+        k = k + heads.copy(p["bk"]).to(d)
+        v = v + heads.copy(p["bv"]).to(d)
     return q, k, v
 
 
@@ -121,18 +193,22 @@ def _sdpa(cfg, q, k, v, mask) -> torch.Tensor:
     return out.reshape(b, s, h, hd)
 
 
-def _project_out(cfg, p, attn_out) -> torch.Tensor:
+def _project_out(cfg, p, attn_out, heads: Heads) -> torch.Tensor:
     """(B,S,H,Dh) -> fused (B,S,d) via the configured layout."""
     b, s, h, hd = attn_out.shape
-    if h != cfg.n_heads:                       # zero-mask padded heads
-        head_mask = (torch.arange(h, device=attn_out.device)
+    if n_heads_padded(cfg) != cfg.n_heads:     # zero-mask padded heads
+        head_mask = (torch.arange(heads.first, heads.first + h,
+                                  device=attn_out.device)
                      < cfg.n_heads).to(attn_out.dtype)
         attn_out = attn_out * head_mask[None, None, :, None]
     wo = p["wo"].to(cfg.dtype)
     if attn_layout(cfg) == "plain":
-        return torch.matmul(attn_out.reshape(b, s, h * hd),
-                            wo.reshape(h * hd, -1))
-    n = cfg.n_workers
+        out = torch.matmul(attn_out.reshape(b, s, h * hd),
+                           wo.reshape(h * hd, -1))
+        if heads.axis is None:
+            return out
+        return comm.reduce_from_group(out, heads.axis.group)
+    n = wo.shape[0]
     grouped = attn_out.reshape(b * s, n, (h // n) * hd).transpose(0, 1)
     partial = torch.matmul(grouped, wo.reshape(n, (h // n) * hd, -1))
     return fusion.worker_reduce(cfg, p, partial.reshape(n, b, s, -1))
@@ -145,22 +221,24 @@ def attn_full(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     ``kv_x`` (B, T, d) cross-attention over it (the encoder's output).
     With ``return_kv`` also the keys and values, unpadded."""
     cross = kv_x is not None
-    q, k, v = _qkv(cfg, p, x, kv_x if cross else x)
+    heads = Heads(cfg, p)
+    q, k, v = _qkv(cfg, p, x, kv_x, heads)
     if cfg.use_rope and not cross:
         q = layers.apply_rope(cfg, q, positions)
         k = layers.apply_rope(cfg, k, positions)
+    kh, vh = heads.kv(k), heads.kv(v)
     if cfg.use_flash and not cross:
         # the kernel's (B,H,S,D) layout; positions are arange here, so the
         # kernel's block-causal mask is exact
         out = flash_ops.flash_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            q.transpose(1, 2), kh.transpose(1, 2), vh.transpose(1, 2),
             causal).transpose(1, 2)
     else:
         mask = None
         if causal:
             mask = positions[:, None, :] <= positions[:, :, None]  # (B,S,S)
-        out = _sdpa(cfg, q, k, v, mask)
-    y = _project_out(cfg, p, out)
+        out = _sdpa(cfg, q, kh, vh, mask)
+    y = _project_out(cfg, p, out, heads)
     if return_kv:
         return y, {"k": k, "v": v}
     return y
@@ -176,20 +254,17 @@ def attn_step(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     the encoder's keys and values: every entry is valid, no row is
     written and no rotary position applied."""
     d = cfg.dtype
-    q = _proj(x, p["wq"].to(d))
+    heads = Heads(cfg, p)
     if cross:
+        q = _proj(heads.copy(x), p["wq"].to(d))
         if "bq" in p:
             q = q + p["bq"].to(d)
         k, v = cache["k"], cache["v"]
         valid = torch.ones((x.shape[0], 1, k.shape[1]), dtype=torch.bool,
                            device=x.device)
-        return _project_out(cfg, p, _sdpa(cfg, q, k, v, valid)), cache
-    knew = _proj(x, p["wk"].to(d))
-    vnew = _proj(x, p["wv"].to(d))
-    if "bq" in p:
-        q = q + p["bq"].to(d)
-        knew = knew + p["bk"].to(d)
-        vnew = vnew + p["bv"].to(d)
+        out = _sdpa(cfg, q, heads.kv(k), heads.kv(v), valid)
+        return _project_out(cfg, p, out, heads), cache
+    q, knew, vnew = _qkv(cfg, p, x, None, heads)
     if cfg.use_rope:
         q = layers.apply_rope(cfg, q, positions[:, None])
         knew = layers.apply_rope(cfg, knew, positions[:, None])
@@ -200,5 +275,5 @@ def attn_step(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     v[rows, at] = vnew[:, 0].to(v.dtype)
     t = torch.arange(k.shape[1], device=x.device)
     valid = (t[None, :] <= positions[:, None])[:, None, :]   # (B,1,S_max)
-    out = _sdpa(cfg, q, k, v, valid)
-    return _project_out(cfg, p, out), cache
+    out = _sdpa(cfg, q, heads.kv(k), heads.kv(v), valid)
+    return _project_out(cfg, p, out, heads), cache

@@ -10,8 +10,19 @@ it by the config's ``tp_fusion``:
 
 :func:`worker_reduce_channel` instead pools the partials through an
 explicit :class:`repro_torch.protocol.Protocol`, the simulated wireless
-channel.  The JAX package's sharding constraints have no counterpart: the
-port runs on one card.
+channel.
+
+Under a mesh (``repro_torch.parallel.sharding.use_mesh``) whose model axis
+splits the workers, ``partial`` holds this rank's ``N/R`` workers and the
+fusion runs over the model group, as GSPMD lowers the JAX package's:
+``max`` is ``maxpool.fwd`` over the local workers plus an all-reduce(max),
+``max_q8``/``max_q16`` an all-reduce(max) of the local max codes, ``sum``
+(and ``mean``) an all-reduce(sum), ``concat`` a rank-ordered all-gather.
+Each rank sends one pooled tensor whatever the number of workers it
+holds, but for ``concat``.  A channel site gathers the whole stack (and,
+where the batch is split over the data axis, every row of it), so that
+every rank runs the same contention on the same key and gets the same
+winners and accounting.
 """
 
 from __future__ import annotations
@@ -22,6 +33,8 @@ import torch
 
 from repro_torch.core import fedocs
 from repro_torch.models import layers
+from repro_torch.parallel import comm
+from repro_torch.parallel import sharding
 from repro_torch.protocol import Protocol
 
 
@@ -33,8 +46,43 @@ def fusion_init(cfg, gen: torch.Generator, k_out: int) -> dict:
     return {}
 
 
+def fusion_axes(cfg) -> dict:
+    """:func:`fusion_init`'s logical axes."""
+    if cfg.tp_fusion == "concat":
+        return {"w_fuse": (None, "embed")}
+    return {}
+
+
+def worker_axis(cfg, n_local: int):
+    """The mesh axis that splits the workers of a site holding ``n_local``
+    of ``cfg.n_workers``; ``None`` where the site holds them all."""
+    return sharding.split_of("worker", n_local, cfg.n_workers)
+
+
+def _reduce_over(cfg, p: dict, partial: torch.Tensor, axis):
+    mode = cfg.tp_fusion
+    if mode == "concat":
+        whole = comm.gather_from_group(partial, axis.group, 0)
+        return torch.matmul(fedocs.concat(whole),
+                            p["w_fuse"].to(partial.dtype))
+    proto = Protocol.from_mode(mode, tie_break=cfg.tie_break)
+    if proto.kind == "max":
+        return fedocs.maxpool_over(partial, proto.tie_break, axis)
+    if proto.kind == "ideal_max":
+        return fedocs.maxpool_quantized_over(partial, proto.bits,
+                                             proto.tie_break, axis)
+    if proto.kind in ("sum", "mean"):
+        total = comm.reduce_from_group(torch.sum(partial, dim=0), axis.group)
+        return total if proto.kind == "sum" else total / cfg.n_workers
+    raise NotImplementedError(f"tp_fusion {mode!r} over a model group")
+
+
 def worker_reduce(cfg, p: dict, partial: torch.Tensor) -> torch.Tensor:
-    """partial: (N, B, S, K) -> (B, S, K) fused output."""
+    """partial: (N, B, S, K) -> (B, S, K) fused output; under a mesh
+    ``partial`` may hold this rank's block of the workers."""
+    axis = worker_axis(cfg, partial.shape[0])
+    if axis is not None:
+        return _reduce_over(cfg, p, partial, axis)
     mode = cfg.tp_fusion
     if mode == "concat":
         gathered = fedocs.concat(partial)                  # (B, S, N*K)
@@ -53,7 +101,16 @@ def worker_reduce_channel(cfg, p: dict, partial: torch.Tensor,
         raise ValueError(
             "worker_reduce_channel cannot use a concat protocol: the fused "
             "width N*K does not match the block's residual width K")
-    return protocol.aggregate(partial, rng)
+    axis = worker_axis(cfg, partial.shape[0])
+    if axis is not None:
+        partial = comm.gather_from_group(partial, axis.group, 0)
+    rows = sharding.batch_axis()
+    if rows is None:
+        return protocol.aggregate(partial, rng)
+    b = partial.shape[1]
+    whole = comm.gather_from_group(partial, rows.group, 1, sum_grads=True)
+    out, acct = protocol.aggregate(whole, rng)
+    return out.narrow(0, rows.index * b, b), acct
 
 
 # -- per-tick channel-accounting accumulator: a dict of 0-d tensors --

@@ -1,11 +1,19 @@
 """Primitive layers: initializers, norms, embeddings (tokens and the
 patch/audio frontend's projection), rotary and sinusoidal positions.
 
-The JAX package's ``models/layers.py`` without the logical sharding axes:
-a parameter is a plain tensor, drawn from a ``torch.Generator`` whose
-device is where it lives.  Apply functions take the value tree with the
-structure the init produced (the JAX package's value tree, leaf for leaf,
-so ``repro_torch.convert`` carries its parameters across).
+The JAX package's ``models/layers.py``: a parameter is a plain tensor,
+drawn from a ``torch.Generator`` whose device is where it lives, and its
+logical sharding axes come from the ``*_axes`` function beside its init
+(the tree the JAX package's ``split_tree`` returns).  Apply functions take
+the value tree with the structure the init produced (the JAX package's
+value tree, leaf for leaf, so ``repro_torch.convert`` carries its
+parameters across).
+
+Under a mesh whose model axis splits the vocabulary, a rank holds its
+rows of the token table (and columns of the head): the embedding is a
+masked local lookup summed over the model group, and the unembedding
+gives this rank's vocabulary logits (``models/model.py`` reduces or
+gathers them).
 """
 
 from __future__ import annotations
@@ -15,6 +23,9 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel import comm
+from repro_torch.parallel import sharding
 
 
 def param(gen: torch.Generator, shape: Sequence[int], dtype,
@@ -43,6 +54,13 @@ def norm_init(cfg, gen: torch.Generator) -> dict:
     p = {"scale": param(gen, (cfg.d_model,), cfg.param_dtype, mode="ones")}
     if cfg.norm == "layernorm":
         p["bias"] = param(gen, (cfg.d_model,), cfg.param_dtype, mode="zeros")
+    return p
+
+
+def norm_axes(cfg) -> dict:
+    p = {"scale": ("embed",)}
+    if cfg.norm == "layernorm":
+        p["bias"] = ("embed",)
     return p
 
 
@@ -76,9 +94,32 @@ def embed_init(cfg, gen: torch.Generator) -> dict:
     return p
 
 
+def embed_axes(cfg) -> dict:
+    p = {"tokens": ("vocab", "embed")}
+    if cfg.frontend in ("patch", "audio"):
+        p["frontend_proj"] = (None, "embed")
+    return p
+
+
+def vocab_axis(cfg, n_local: int):
+    """The mesh axis that splits a vocabulary of which a leaf holds
+    ``n_local`` rows; ``None`` where it holds them all."""
+    return sharding.split_of("vocab", n_local, cfg.vocab_size)
+
+
 def embed_tokens(cfg, p: dict, tokens: torch.Tensor) -> torch.Tensor:
     """Token ids (B, S) -> (B, S, d)."""
-    return F.embedding(tokens.long(), p["tokens"].to(cfg.dtype))
+    table = p["tokens"].to(cfg.dtype)
+    axis = vocab_axis(cfg, table.shape[0])
+    if axis is None:
+        return F.embedding(tokens.long(), table)
+    rows = table.shape[0]
+    local = tokens.long() - axis.index * rows
+    mine = (local >= 0) & (local < rows)
+    out = F.embedding(local.clamp(0, rows - 1), table)
+    out = torch.where(mine[..., None], out, torch.zeros((), dtype=out.dtype,
+                                                        device=out.device))
+    return comm.reduce_from_group(out, axis.group)
 
 
 def embed_frontend(cfg, p: dict, feats: torch.Tensor) -> torch.Tensor:
@@ -96,14 +137,24 @@ def unembed_init(cfg, gen: torch.Generator) -> dict:
                           cfg.param_dtype)}
 
 
+def unembed_axes(cfg) -> dict:
+    if cfg.tie_embeddings:
+        return {}
+    return {"head": ("embed", "vocab")}
+
+
 def unembed_apply(cfg, p: dict, embed_params: dict,
                   x: torch.Tensor) -> torch.Tensor:
     """(B, S, d) -> (B, S, V) logits in ``cfg.logit_dtype`` (the product in
-    ``cfg.dtype``, as the JAX einsum)."""
+    ``cfg.dtype``, as the JAX einsum); under a vocabulary split this
+    rank's ``V/R`` of them, from the input behind the *f* copy."""
     if cfg.tie_embeddings:
         w = embed_params["tokens"].to(cfg.dtype).T
     else:
         w = p["head"].to(cfg.dtype)
+    axis = vocab_axis(cfg, w.shape[1])
+    if axis is not None:
+        x = comm.copy_to_group(x, axis.group)
     return torch.matmul(x, w).to(cfg.logit_dtype)
 
 

@@ -56,6 +56,21 @@ def mamba_init(cfg, gen: torch.Generator) -> dict:
     return p
 
 
+def mamba_axes(cfg) -> dict:
+    """:func:`mamba_init`'s logical axes."""
+    p = {"w_in": ("worker", "embed", "ff_local"),
+         "w_conv": ("worker", "ff_local", "conv"),
+         "b_conv": ("worker", "ff_local"),
+         "w_xdbc": ("worker", "ff_local", None),
+         "w_dt": ("worker", None, "ff_local"),
+         "b_dt": ("worker", "ff_local"),
+         "A_log": ("worker", "ff_local", "state"),
+         "D": ("worker", "ff_local"),
+         "w_out": ("worker", "ff_local", "embed")}
+    p.update(fusion.fusion_axes(cfg))
+    return p
+
+
 def a_log_init(n: int, dl: int, st: int, device=None) -> torch.Tensor:
     """S4D-real initialisation: A = -(1..st) per channel, stored as its
     log, float32 whatever ``param_dtype`` is (the JAX ``Tagged_A``)."""

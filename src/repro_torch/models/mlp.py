@@ -6,7 +6,10 @@ package:
   w_down      : (worker, ff_local, embed)
 
 Each worker computes a private hidden slice and a full-width partial
-output; the partials fuse through :mod:`repro_torch.models.fusion`.
+output; the partials fuse through :mod:`repro_torch.models.fusion`.  Under
+a mesh whose model axis splits the workers, a rank holds its workers'
+weights and computes their partials from the input behind the model
+group's *f* copy, so that the input's gradient adds up over the group.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import fusion, layers
+from repro_torch.parallel import comm
 
 
 def mlp_init(cfg, gen: torch.Generator, d_ff: int | None = None) -> dict:
@@ -36,11 +40,24 @@ def mlp_init(cfg, gen: torch.Generator, d_ff: int | None = None) -> dict:
     return p
 
 
+def mlp_axes(cfg) -> dict:
+    """:func:`mlp_init`'s logical axes."""
+    p = {"w_up": ("worker", "embed", "ff_local"),
+         "w_down": ("worker", "ff_local", "embed")}
+    if cfg.act == "silu":
+        p["w_gate"] = ("worker", "embed", "ff_local")
+    p.update(fusion.fusion_axes(cfg))
+    return p
+
+
 def worker_partials(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
     """x (B, S, d) -> the per-worker partial outputs (N, B, S, d): one
     batched product per weight, the input broadcast over the workers."""
     d = cfg.dtype
     b, s, e = x.shape
+    axis = fusion.worker_axis(cfg, p["w_up"].shape[0])
+    if axis is not None:
+        x = comm.copy_to_group(x, axis.group)
     xs = x.reshape(1, b * s, e)
     up = torch.matmul(xs, p["w_up"].to(d))                 # (N, BS, f)
     if "w_gate" in p:

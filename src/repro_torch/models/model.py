@@ -20,8 +20,21 @@ decode                   (token (B,1) int, positions (B,) int, cache)
 The decode functions update the cache in place (an attention layer's KV
 rows, a recurrent layer's state) and return it; an encoder-decoder's
 cross cache holds the encoder's keys and values from the prefill.
-``input_specs`` and ``cache_axes`` come with the dry-run (ROADMAP queue
-1, item 19c).
+``axes()`` is the parameters' logical axes, the tree of the JAX package's
+``split_tree(init(...))[1]``; ``input_specs`` and ``cache_axes`` come with
+the dry-run (ROADMAP queue 1, item 19c).
+
+Under a mesh (``repro_torch.parallel.sharding.use_mesh``) the entry
+points take this rank's blocks of the parameters and the whole batch,
+whose rows they split over the data axis where it divides them.  The loss
+is a vocabulary-parallel log-sum-exp over the model group, each data
+rank's rows summed over the global token count and added over the data
+group, so every rank returns the whole loss; ``prefill`` and the decode
+steps gather the logits (and a prefill's cache) over both axes, so every
+rank samples the same token from the same key.  The dense decoder stack
+runs so; a MoE, recurrent, encoder-decoder or patch/audio config under a
+mesh axis above 1 raises ``NotImplementedError`` (ROADMAP queue 1 item 19b
+part 2).
 """
 
 from __future__ import annotations
@@ -35,6 +48,8 @@ import torch
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers, transformer
+from repro_torch.parallel import comm
+from repro_torch.parallel import sharding
 
 WHISPER_DECODER_LEN = 448   # whisper's real positional cap for train targets
 
@@ -56,6 +71,51 @@ def init(cfg: ModelConfig, gen: torch.Generator) -> dict:
             cfg, gen, enc_plan, cfg.n_encoder_layers // len(enc_plan))
         p["encoder_norm"] = layers.norm_init(cfg, gen)
     return p
+
+
+def axes(cfg: ModelConfig) -> dict:
+    """The logical axes of every leaf of :func:`init`'s tree."""
+    p: Dict[str, Any] = {
+        "embed": layers.embed_axes(cfg),
+        "blocks": transformer.stack_axes(cfg, cfg.layer_plan(),
+                                         cross=cfg.encoder_decoder),
+        "final_norm": layers.norm_axes(cfg),
+    }
+    p.update(layers.unembed_axes(cfg))
+    if cfg.encoder_decoder:
+        p["encoder"] = transformer.stack_axes(cfg,
+                                              cfg.encoder_layer_plan())
+        p["encoder_norm"] = layers.norm_axes(cfg)
+    return p
+
+
+def _check_mesh(cfg) -> None:
+    """Refuse what the mesh paths do not cover yet."""
+    mesh = sharding.active_mesh()
+    if mesh is None or mesh.devices.size == 1:
+        return
+    plan = tuple(cfg.layer_plan()) + (tuple(cfg.encoder_layer_plan())
+                                      if cfg.encoder_decoder else ())
+    if (cfg.encoder_decoder or cfg.frontend != "token"
+            or any(m not in transformer.ATTENTION or f == "moe"
+                   for m, f in plan)):
+        raise NotImplementedError(
+            f"{cfg.name} under a {mesh.shape} mesh: the MoE, recurrent, "
+            f"encoder-decoder and frontend configs over a mesh are ROADMAP "
+            f"queue 1 item 19b part 2")
+
+
+def _whole_logits(cfg, logits: torch.Tensor, rows) -> torch.Tensor:
+    """Logits (b, V_local) -> (B, V) on every rank: the vocabulary
+    gathered over the model group, then the rows over the data group, in
+    rank order."""
+    vocab = layers.vocab_axis(cfg, logits.shape[-1])
+    if vocab is not None:
+        logits = comm.gather_from_group(logits, vocab.group, -1)
+    if rows is not None:
+        logits = comm.gather_from_group(logits, rows.group, 0,
+                                        sum_grads=True)
+    return logits
 
 
 def _head(v: dict) -> dict:
@@ -132,13 +192,36 @@ class _Gold(torch.autograd.Function):
         return grad.scatter_(-1, targets, g), None
 
 
-def _xent(cfg, v, x: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def _logz_gold(cfg, logits: torch.Tensor, targets: torch.Tensor):
+    """(logsumexp, the target's logit) of logits (b, c, V) whole, or of
+    this rank's vocabulary block: a local max and an all-reduce(max), a
+    local sum of exps and an all-reduce(sum), and the target's logit from
+    the rank that holds it (all-reduce(sum) of the masked gathers)."""
+    axis = layers.vocab_axis(cfg, logits.shape[-1])
+    if axis is None:
+        return (torch.logsumexp(logits, dim=-1),
+                _Gold.apply(logits, targets[..., None].long())[..., 0])
+    rows = logits.shape[-1]
+    top = comm.all_reduce(logits.detach().amax(-1), "max", axis.group)
+    sumexp = torch.sum(torch.exp(logits - top[..., None]), dim=-1)
+    logz = top + torch.log(comm.reduce_from_group(sumexp, axis.group))
+    local = targets.long() - axis.index * rows
+    mine = (local >= 0) & (local < rows)
+    gold = _Gold.apply(logits, local.clamp(0, rows - 1)[..., None])[..., 0]
+    gold = torch.where(mine, gold, torch.zeros((), dtype=gold.dtype,
+                                               device=gold.device))
+    return logz, comm.reduce_from_group(gold, axis.group)
+
+
+def _xent(cfg, v, x: torch.Tensor, targets: torch.Tensor,
+          ways: int = 1) -> torch.Tensor:
     """Cross-entropy over the unembedding, chunked over the sequence.
 
     Chunks of ``cfg.loss_chunk`` positions (the whole sequence where that
     does not divide it) bound the live float32 logits to (B, chunk, V);
     each chunk adds ``sum(logsumexp - gold)`` in float32, in order, as the
-    JAX package's scan does, and the total is divided by ``B * S``."""
+    JAX package's scan does, and the total is divided by ``B * S``, with
+    ``B`` the rows of all ``ways`` data blocks."""
     b, s, _ = x.shape
     chunk = cfg.loss_chunk
     if s % chunk != 0:
@@ -147,16 +230,26 @@ def _xent(cfg, v, x: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     for lo in range(0, s, chunk):
         logits = layers.unembed_apply(cfg, _head(v), v["embed"],
                                       x[:, lo:lo + chunk])
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = _Gold.apply(logits, targets[:, lo:lo + chunk, None].long())
-        total = total + torch.sum(logz - gold[..., 0])
-    return total / (b * s)
+        logz, gold = _logz_gold(cfg, logits, targets[:, lo:lo + chunk])
+        total = total + torch.sum(logz - gold)
+    return total / (b * ways * s)
+
+
+def _batch_rows(batch) -> int:
+    return tree.leaves(batch)[0].shape[0]
 
 
 def loss_fn(cfg, v, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Training loss ``nll + router_aux_weight * aux`` and its metrics."""
-    x, aux = forward(cfg, v, batch)
-    nll = _xent(cfg, v, x, batch["targets"])
+    _check_mesh(cfg)
+    with sharding.split_batch(_batch_rows(batch)) as rows:
+        batch = tree.map(lambda t: sharding.split_dim(t, rows), batch)
+        x, aux = forward(cfg, v, batch)
+        if rows is None:
+            nll = _xent(cfg, v, x, batch["targets"])
+        else:
+            nll = comm.reduce_from_group(
+                _xent(cfg, v, x, batch["targets"], rows.size), rows.group)
     loss = nll + cfg.router_aux_weight * aux
     return loss, {"nll": nll, "aux": aux, "loss": loss}
 
@@ -164,15 +257,22 @@ def loss_fn(cfg, v, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
 def prefill(cfg, v, batch, max_seq: Optional[int] = None
             ) -> Tuple[torch.Tensor, dict]:
     """Returns (last-position logits (B,V), decode cache)."""
-    enc_out = _enc_out(cfg, v, batch)
-    x, positions = _embed_inputs(cfg, v, batch)
-    max_seq = max_seq or x.shape[1]
-    x, cache, _ = transformer.stack_prefill(
-        cfg, v["blocks"], x, positions, cfg.layer_plan(), max_seq,
-        enc_out=enc_out)
-    x = layers.norm_apply(cfg, v["final_norm"], x)
-    logits = layers.unembed_apply(cfg, _head(v), v["embed"], x[:, -1:])
-    return logits[:, 0], cache
+    _check_mesh(cfg)
+    with sharding.split_batch(_batch_rows(batch)) as rows:
+        batch = tree.map(lambda t: sharding.split_dim(t, rows), batch)
+        enc_out = _enc_out(cfg, v, batch)
+        x, positions = _embed_inputs(cfg, v, batch)
+        max_seq = max_seq or x.shape[1]
+        x, cache, _ = transformer.stack_prefill(
+            cfg, v["blocks"], x, positions, cfg.layer_plan(), max_seq,
+            enc_out=enc_out)
+        x = layers.norm_apply(cfg, v["final_norm"], x)
+        logits = layers.unembed_apply(cfg, _head(v), v["embed"], x[:, -1:])
+        if rows is not None:
+            # the stacked caches' rows (axis 1) of every data block
+            cache = tree.map(lambda t: comm.gather_from_group(
+                t, rows.group, 1, sum_grads=True), cache)
+        return _whole_logits(cfg, logits[:, 0], rows), cache
 
 
 def _embed_token(cfg, v, token: torch.Tensor, positions: torch.Tensor,
@@ -192,13 +292,28 @@ def _embed_token(cfg, v, token: torch.Tensor, positions: torch.Tensor,
 
 def decode_step(cfg, v, token: torch.Tensor, positions: torch.Tensor,
                 cache: dict) -> Tuple[torch.Tensor, dict]:
-    """token: (B,1) int; positions: (B,) current write index."""
-    x = _embed_token(cfg, v, token, positions, cache)
-    x, cache, _ = transformer.stack_step(cfg, v["blocks"], x, positions,
-                                         cache, cfg.layer_plan())
-    x = layers.norm_apply(cfg, v["final_norm"], x)
-    logits = layers.unembed_apply(cfg, _head(v), v["embed"], x)[:, 0]
-    return logits, cache
+    """token: (B,1) int; positions: (B,) current write index.  Under a
+    data split each rank writes the cache rows of its block."""
+    _check_mesh(cfg)
+    with sharding.split_batch(token.shape[0]) as rows:
+        token, pos, part = _decode_rows(token, positions, cache, rows)
+        x = _embed_token(cfg, v, token, pos, part)
+        x, _, _ = transformer.stack_step(cfg, v["blocks"], x, pos,
+                                         part, cfg.layer_plan())
+        x = layers.norm_apply(cfg, v["final_norm"], x)
+        logits = layers.unembed_apply(cfg, _head(v), v["embed"], x)[:, 0]
+        return _whole_logits(cfg, logits, rows), cache
+
+
+def _decode_rows(token, positions, cache, rows):
+    """A decode step's token, positions and cache rows of this rank's
+    data block (the cache's as views, so the step writes into ``cache``);
+    all of them without a data split."""
+    if rows is None:
+        return token, positions, cache
+    return (sharding.split_dim(token, rows),
+            sharding.split_dim(positions, rows),
+            tree.map(lambda t: sharding.split_dim(t, rows, 1), cache))
 
 
 def decode_step_channel(cfg, v, token: torch.Tensor, positions: torch.Tensor,
@@ -211,13 +326,16 @@ def decode_step_channel(cfg, v, token: torch.Tensor, positions: torch.Tensor,
     fusions stay on the ideal ``tp_fusion``.  Returns ``(logits, cache,
     chan)``, ``chan`` the summed channel-accounting dict over the tick's
     :func:`channel_sites` aggregate calls."""
-    x = _embed_token(cfg, v, token, positions, cache)
-    x, cache, _, chan = transformer.stack_step(
-        cfg, v["blocks"], x, positions, cache, cfg.layer_plan(),
-        protocol=protocol, rng=rng)
-    x = layers.norm_apply(cfg, v["final_norm"], x)
-    logits = layers.unembed_apply(cfg, _head(v), v["embed"], x)[:, 0]
-    return logits, cache, chan
+    _check_mesh(cfg)
+    with sharding.split_batch(token.shape[0]) as rows:
+        token, pos, part = _decode_rows(token, positions, cache, rows)
+        x = _embed_token(cfg, v, token, pos, part)
+        x, _, _, chan = transformer.stack_step(
+            cfg, v["blocks"], x, pos, part, cfg.layer_plan(),
+            protocol=protocol, rng=rng)
+        x = layers.norm_apply(cfg, v["final_norm"], x)
+        logits = layers.unembed_apply(cfg, _head(v), v["embed"], x)[:, 0]
+        return _whole_logits(cfg, logits, rows), cache, chan
 
 
 def channel_sites(cfg) -> int:
@@ -261,6 +379,7 @@ def build(cfg: ModelConfig) -> types.SimpleNamespace:
     return types.SimpleNamespace(
         cfg=cfg,
         init=functools.partial(init, cfg),
+        axes=functools.partial(axes, cfg),
         loss=functools.partial(loss_fn, cfg),
         logits=functools.partial(logits_fn, cfg),
         forward=functools.partial(forward, cfg),

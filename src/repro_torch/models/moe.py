@@ -52,6 +52,17 @@ def moe_init(cfg, gen: torch.Generator) -> dict:
     return p
 
 
+def moe_axes(cfg) -> dict:
+    """:func:`moe_init`'s logical axes."""
+    p = {"router": ("embed", None),
+         "w_up": ("experts", "embed", "ff_local"),
+         "w_gate": ("experts", "embed", "ff_local"),
+         "w_down": ("experts", "ff_local", "embed")}
+    if cfg.moe_shared_expert:
+        p["shared"] = mlp.mlp_axes(cfg)
+    return p
+
+
 def _capacity(cfg, tokens_per_seq: int) -> int:
     return max(1, math.ceil(
         tokens_per_seq * cfg.experts_per_token / cfg.n_experts

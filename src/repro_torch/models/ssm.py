@@ -58,6 +58,16 @@ def mlstm_init(cfg, gen: torch.Generator) -> dict:
     return p
 
 
+def mlstm_axes(cfg) -> dict:
+    """:func:`mlstm_init`'s logical axes."""
+    p = {"w_up": ("embed", None), "w_q": (None, None, None),
+         "w_k": (None, None, None), "w_v": ("worker", None, None, None),
+         "w_gates": (None, None), "b_gates": (None,),
+         "w_down": ("worker", None, "embed")}
+    p.update(fusion.fusion_axes(cfg))
+    return p
+
+
 def _mlstm_scan(q, k, v, i_raw, f_raw, state):
     """Stabilised exponential-gated matrix-memory recurrence.
 
@@ -155,6 +165,11 @@ def slstm_init(cfg, gen: torch.Generator) -> dict:
         "r": layers.param(gen, (h, dh, 4 * dh), pdt, scale=dh ** -0.5),
         "b": layers.param(gen, (4 * d,), pdt, mode="zeros"),
     }
+
+
+def slstm_axes(cfg) -> dict:
+    """:func:`slstm_init`'s logical axes."""
+    return {"w": (None, None), "r": (None, None, None), "b": (None,)}
 
 
 def slstm_state_init(cfg, batch: int, device=None) -> Tuple:

@@ -52,6 +52,11 @@ RECURRENT = {
 }
 
 
+# each recurrent mixer's logical parameter axes
+RECURRENT_AXES = {"mamba": mamba.mamba_axes, "mlstm": ssm.mlstm_axes,
+                  "slstm": ssm.slstm_axes}
+
+
 def _zero(x: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -73,6 +78,20 @@ def block_init(cfg, gen: torch.Generator, mixer: str, ffn: str,
     if ffn != "none":
         p["norm2"] = layers.norm_init(cfg, gen)
         p["ffn"] = (mlp.mlp_init if ffn == "mlp" else moe.moe_init)(cfg, gen)
+    return p
+
+
+def block_axes(cfg, mixer: str, ffn: str, cross: bool = False) -> dict:
+    """:func:`block_init`'s logical axes."""
+    p = {"norm1": layers.norm_axes(cfg),
+         "mixer": (attention.attn_axes(cfg) if mixer in ATTENTION
+                   else RECURRENT_AXES[mixer](cfg))}
+    if cross:
+        p["norm_cross"] = layers.norm_axes(cfg)
+        p["cross"] = attention.attn_axes(cfg)
+    if ffn != "none":
+        p["norm2"] = layers.norm_axes(cfg)
+        p["ffn"] = (mlp.mlp_axes if ffn == "mlp" else moe.moe_axes)(cfg)
     return p
 
 
@@ -238,6 +257,17 @@ def stack_init(cfg, gen: torch.Generator, plan, n_periods: int,
     for period in range(1, n_periods):
         fill(stacked, period, one_period())
     return stacked
+
+
+def stack_axes(cfg, plan, cross: bool = False) -> dict:
+    """:func:`stack_init`'s logical axes: each block's, behind the period
+    axis ``"layers"``."""
+    def stacked(ax):
+        if isinstance(ax, tuple):
+            return ("layers",) + ax
+        return {k: stacked(v) for k, v in ax.items()}
+    return {f"pos{i}": stacked(block_axes(cfg, mixer, ffn, cross))
+            for i, (mixer, ffn) in enumerate(plan)}
 
 
 def stack_full(cfg, values: dict, x: torch.Tensor, positions: torch.Tensor,

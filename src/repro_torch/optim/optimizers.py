@@ -10,6 +10,12 @@ to copies, nothing passed in is written.  Master weights and moments
 are float32 whatever the parameters' dtype.  ``lane_dims`` leading axes
 of every leaf are independent runs (the p_miss lanes): the global norm,
 and so the clipping, is taken per lane.
+
+Under a mesh whose model axis splits some leaves, the leaves are this
+rank's blocks and ``repro_torch.parallel.sharding.use_leaf_shardings``
+names their shardings: the global norm adds a split leaf's squares over
+the model group and counts a replicated leaf once, so every rank clips by
+the norm of the whole tree.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch import tree
+from repro_torch.parallel import comm
+from repro_torch.parallel import sharding
 
 
 def global_norm(grads, lane_dims: int = 0) -> torch.Tensor:
@@ -34,6 +42,9 @@ def global_norm(grads, lane_dims: int = 0) -> torch.Tensor:
     it sums each lane serially, in parallel over the lanes).  On the card
     such a reduction splits each lane over thread blocks by the number of
     lanes, so each lane gets a reduction of its own there."""
+    split = _model_split(grads, lane_dims)
+    if split is not None:
+        return _split_norm(grads, *split)
     total = None
     for x in tree.leaves(grads):
         sq = torch.square(x.float())
@@ -44,6 +55,42 @@ def global_norm(grads, lane_dims: int = 0) -> torch.Tensor:
         else:
             s = _sum_from(sq, lane_dims)
         total = s if total is None else total + s
+    return torch.sqrt(total)
+
+
+def _model_split(grads, lane_dims: int):
+    """``(model axis, which leaves it splits)`` under a mesh with a model
+    axis of more than one rank; ``None`` otherwise."""
+    axis = sharding.mesh_axis(sharding.active_mesh(), "model")
+    if axis is None:
+        return None
+    shd = sharding.leaf_shardings()
+    n = len(tree.leaves(grads))
+    if shd is None or len(shd) != n:
+        raise ValueError(
+            "the global norm over a model axis needs the shardings of the "
+            "leaves (sharding.use_leaf_shardings, or trainer.train's "
+            "shardings=)")
+    if lane_dims:
+        raise NotImplementedError("lane axes over a model axis")
+    return axis, [any("model" in ((e,) if isinstance(e, str) else e or ())
+                      for e in s.spec) for s in shd]
+
+
+def _split_norm(grads, axis, split) -> torch.Tensor:
+    """The whole tree's norm from this rank's blocks: the split leaves'
+    squares summed over the model group, the replicated ones once."""
+    parts = {True: None, False: None}
+    for x, is_split in zip(tree.leaves(grads), split):
+        s = torch.sum(torch.square(x.float()))
+        parts[is_split] = s if parts[is_split] is None else \
+            parts[is_split] + s
+    zero = torch.zeros((), dtype=torch.float32,
+                       device=tree.leaves(grads)[0].device)
+    total = comm.all_reduce(
+        zero if parts[True] is None else parts[True], "sum", axis.group)
+    if parts[False] is not None:
+        total = total + parts[False]
     return torch.sqrt(total)
 
 

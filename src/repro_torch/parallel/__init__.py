@@ -1,2 +1,3 @@
 """The port's multi-rank machinery: collectives and rank processes
-(``comm``) and the GPipe schedule (``pipeline``)."""
+(``comm``), logical-axis sharding of the model's leaves (``sharding``) and
+the GPipe schedule (``pipeline``)."""

@@ -8,6 +8,15 @@ tensors travel as the bytes of one packed buffer, so a call is one
 collective whatever their number and types (unsigned codes and booleans
 included, which not every backend reduces or gathers as such).
 
+The model functions under a mesh (``repro_torch.parallel.sharding``) call
+:func:`all_reduce` (``MAX``, ``SUM`` or ``MIN`` over a group) and the
+autograd-aware pair of Megatron's tensor parallelism:
+:func:`copy_to_group` (identity forward, ``SUM`` backward: *f*) and
+:func:`reduce_from_group` (``SUM`` forward, identity backward: *g*);
+:func:`gather_from_group` concatenates every rank's tensor in rank order.
+Each collective adds one entry (op, dtype, bytes this rank sends into it)
+to the lists that :func:`recording` opens.
+
 Nothing here falls back: a rank that is missing or fails raises in its
 collective at the process group's timeout, and :func:`spawn` kills the
 ranks it started when one fails or the deadline passes.
@@ -15,6 +24,7 @@ ranks it started when one fails or the deadline passes.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import math
 import os
@@ -104,8 +114,131 @@ def all_gather(tensors: Optional[Sequence[torch.Tensor]], group=None, *,
         spec_list = _specs(tensors)
         buf = _pack(tensors)
     outs = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
+    _note("all_gather", torch.uint8, buf.numel())
     dist.all_gather(outs, buf, group=group)
     return [_unpack(o, spec_list) for o in outs]
+
+
+# ---------------------------------------------------------------------------
+# reductions and the tensor-parallel pair
+# ---------------------------------------------------------------------------
+
+_RECORDS: List[list] = []
+
+
+@contextlib.contextmanager
+def recording():
+    """A list that every collective of this process appends one dict to
+    while the context is open: ``op`` (``all_gather``, ``all_reduce.max``,
+    ...), ``dtype`` (what travels) and ``bytes`` (what this rank puts in;
+    an ``all_gather``'s packed buffer)."""
+    rec: list = []
+    _RECORDS.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDS.remove(rec)
+
+
+def _note(op: str, dtype: torch.dtype, nbytes: int) -> None:
+    for rec in _RECORDS:
+        rec.append({"op": op, "dtype": str(dtype).replace("torch.", ""),
+                    "bytes": int(nbytes)})
+
+
+def summarize(rec: list) -> dict:
+    """A record's bytes summed by ``"op dtype"``, and its call count."""
+    out: dict = {}
+    for e in rec:
+        key = f"{e['op']} {e['dtype']}"
+        calls, nbytes = out.get(key, (0, 0))
+        out[key] = (calls + 1, nbytes + e["bytes"])
+    return {k: {"calls": c, "bytes": b} for k, (c, b) in sorted(out.items())}
+
+
+_OPS = {"max": dist.ReduceOp.MAX, "sum": dist.ReduceOp.SUM,
+        "min": dist.ReduceOp.MIN}
+# types that no backend reduces, widened exactly for the call: neither
+# gloo nor NCCL reduces uint16 (the 16-bit Eq. 7 codes)
+_WIDEN = {torch.uint16: torch.int32}
+
+
+def all_reduce(x: torch.Tensor, op: str, group=None) -> torch.Tensor:
+    """``op`` (``"max"``, ``"sum"`` or ``"min"``) of every rank's ``x``
+    over ``group``, as a new tensor of ``x``'s type; ``x`` is not
+    written.  A type that the backends do not reduce travels widened
+    (uint16 as int32); a backend that refuses any other type raises."""
+    wide = _WIDEN.get(x.dtype, x.dtype)
+    y = x.detach().to(wide).clone()
+    _note(f"all_reduce.{op}", wide, y.numel() * y.element_size())
+    dist.all_reduce(y, op=_OPS[op], group=group)
+    return y.to(x.dtype)
+
+
+class _Copy(torch.autograd.Function):
+    """Identity forward, the gradient summed over the group backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, "sum", ctx.group), None
+
+
+class _Reduce(torch.autograd.Function):
+    """Sum over the group forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    """Every rank's ``x`` concatenated along ``dim`` in rank order.
+    Backward: this rank's slice of the cotangent, summed over the group
+    first where the ranks' cotangents differ (``sum_grads``)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, sum_grads):
+        ctx.group, ctx.dim, ctx.sum_grads = group, dim, sum_grads
+        ctx.size = x.shape[dim]
+        parts = all_gather([x], group)
+        return torch.cat([p[0] for p in parts], dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.sum_grads:
+            g = all_reduce(g, "sum", ctx.group)
+        at = dist.get_rank(ctx.group) * ctx.size
+        return g.narrow(ctx.dim, at, ctx.size), None, None, None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's *f*: ``x`` as it is, its gradient summed over ``group``
+    (the input of a product split over the group's ranks)."""
+    return _Copy.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's *g*: the sum of every rank's ``x`` over ``group``, the
+    gradient passed through."""
+    return _Reduce.apply(x, group)
+
+
+def gather_from_group(x: torch.Tensor, group, dim: int = 0,
+                      sum_grads: bool = False) -> torch.Tensor:
+    """Every rank's ``x`` along ``dim``, in rank order.  The cotangent of
+    a replicated consumer is the same on every rank and each keeps its
+    slice; with ``sum_grads`` (consumers that differ by rank) the slices
+    are summed over the group first."""
+    return _Gather.apply(x, group, dim % x.ndim, sum_grads)
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,11 @@ forward is stochastic (the channel in the loop) and the contract is
 ``loss_fn(values, batch, rng)``.  ``loss`` may carry lane axes (one loss
 per p_miss lane): the step differentiates their sum, which gives every
 lane its own gradient, and reports ``metrics["loss_mean"]`` per lane.
+
+Under a mesh whose data axis splits the batch (the model's entry points
+split it where the axis divides its rows), each rank differentiates its
+rows' share of the loss and the gradients are summed over the data group
+(one all-reduce a dtype), as GSPMD reduces the JAX package's.
 """
 
 from __future__ import annotations
@@ -17,6 +22,8 @@ import torch
 from repro_torch import random as jr
 from repro_torch import tree
 from repro_torch.optim.compressed_allreduce import CompressedAllReduce
+from repro_torch.parallel import comm
+from repro_torch.parallel import sharding
 
 
 def _fold_keys(rng, i: int):
@@ -29,6 +36,45 @@ def _fold_keys(rng, i: int):
     if isinstance(rng, (list, tuple)):
         return type(rng)(_fold_keys(r, i) for r in rng)
     return rng
+
+
+def value_and_grad(loss_fn: Callable, values, batch, rng=None,
+                   with_rng: bool = False):
+    """``(loss, metrics, grads)`` of ``loss_fn(values, batch[, rng])``,
+    the gradient of ``loss.sum()`` (a leaf it does not reach gets zeros),
+    summed over the data group where the mesh's data axis splits the
+    batch's rows."""
+    leaves = [x.detach().requires_grad_(True) for x in tree.leaves(values)]
+    live = tree.unflatten(values, leaves)
+    with torch.enable_grad():
+        loss, metrics = (loss_fn(live, batch, rng) if with_rng
+                         else loss_fn(live, batch))
+        grads = torch.autograd.grad(loss.sum(), leaves, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for x, g in zip(leaves, grads)]
+    rows = (None if sharding.active_mesh() is None
+            else sharding.batch_split(tree.leaves(batch)[0].shape[0]))
+    if rows is not None:
+        grads = sum_over(grads, rows.group)
+    # a carried state (the fault path's FaultState) passes through
+    metrics = {k: v.detach() if isinstance(v, torch.Tensor)
+               else v.map(torch.Tensor.detach)
+               for k, v in metrics.items()}
+    return loss.detach(), metrics, tree.unflatten(values, grads)
+
+
+def sum_over(tensors, group) -> list:
+    """Each tensor summed over ``group``: one all-reduce for each dtype,
+    of the tensors of that dtype flattened into one buffer."""
+    out = list(tensors)
+    for dt in dict.fromkeys(t.dtype for t in tensors):
+        at = [i for i, t in enumerate(tensors) if t.dtype == dt]
+        flat = comm.all_reduce(torch.cat([tensors[i].reshape(-1)
+                                          for i in at]), "sum", group)
+        for i, part in zip(at, flat.split([tensors[i].numel()
+                                           for i in at])):
+            out[i] = part.view(tensors[i].shape)
+    return out
 
 
 def make_train_step(loss_fn: Callable, optimizer, microbatches: int = 1,
@@ -52,21 +98,7 @@ def make_train_step(loss_fn: Callable, optimizer, microbatches: int = 1,
     """
 
     def grad_fn(values, batch, rng):
-        leaves = [x.detach().requires_grad_(True)
-                  for x in tree.leaves(values)]
-        live = tree.unflatten(values, leaves)
-        with torch.enable_grad():
-            loss, metrics = (loss_fn(live, batch, rng) if with_rng
-                             else loss_fn(live, batch))
-            grads = torch.autograd.grad(loss.sum(), leaves,
-                                        allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g
-                 for x, g in zip(leaves, grads)]
-        # a carried state (the fault path's FaultState) passes through
-        metrics = {k: v.detach() if isinstance(v, torch.Tensor)
-                   else v.map(torch.Tensor.detach)
-                   for k, v in metrics.items()}
-        return loss.detach(), metrics, tree.unflatten(values, grads)
+        return value_and_grad(loss_fn, values, batch, rng, with_rng)
 
     def compute_grads(values, batch, rng):
         if microbatches == 1:

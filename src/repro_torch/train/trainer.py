@@ -13,8 +13,14 @@ Fault-tolerance model:
     ``clock`` that flags slow steps and, with ``ckpt_on_stall``, saves the
     full carry at once.
 
-The JAX package's target shardings (elastic re-meshing) are ROADMAP queue
-1 item 19b: a restore lands on the devices the initial values are on.
+Under a mesh (``repro_torch.parallel.sharding.use_mesh``) the values are
+this rank's blocks and ``shardings``, a tree of ``NamedSharding`` of the
+values' structure, names their placement, as the JAX package's target
+shardings do; the optimizer state's trees of the values' structure take
+the same shardings and every other leaf of the carry stays whole.  The checkpoints hold
+whole leaves (every rank gathers, rank 0 writes), a resume keeps this
+rank's blocks of them (any mesh to any mesh), and the global norm adds
+the split leaves' squares over the model group.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from repro_torch import tree
 from repro_torch.checkpoint import checkpointer
 from repro_torch.optim import grad_compression
 from repro_torch.optim.compressed_allreduce import CompressedAllReduce
+from repro_torch.parallel import sharding
 from repro_torch.train.train_step import make_train_step
 
 
@@ -102,12 +109,48 @@ def _history_row(metrics: Dict[str, Any]) -> Dict[str, float]:
     return row
 
 
+def _paths(t) -> list:
+    return list(checkpointer._flatten_with_paths(t))
+
+
+def carry_shardings(shardings, carry):
+    """The whole ``carry``'s shardings from the values' (``shardings``):
+    the values' for ``values`` and for every subtree of the carry with
+    the values' structure (the optimizer's moments and master weights),
+    every other leaf whole."""
+    shape = _paths(carry["values"])
+    mesh = sharding.flat_shardings(shardings)[0].mesh
+
+    def like(sub):
+        if isinstance(sub, dict) and _paths(sub) == shape:
+            return shardings
+        if isinstance(sub, dict):
+            return {k: like(v) for k, v in sub.items()}
+        if isinstance(sub, (list, tuple)):
+            return type(sub)(like(x) for x in sub)
+        if isinstance(sub, torch.Tensor):
+            return sharding.replicated(mesh, sub.ndim)
+        return None
+    return {k: like(v) for k, v in carry.items()}
+
+
 def train(loss_fn: Callable, init_values, optimizer, data_fn: Callable,
-          tcfg: TrainerConfig,
+          tcfg: TrainerConfig, shardings=None,
           delay_injector: Optional[Callable[[int], float]] = None
           ) -> TrainResult:
     """``data_fn(step)`` -> the batch; ``delay_injector(step)`` -> the
-    simulated data latency of a slow host, in seconds."""
+    simulated data latency of a slow host, in seconds; ``shardings`` the
+    placement of the values under a mesh."""
+    if shardings is None:
+        return _train(loss_fn, init_values, optimizer, data_fn, tcfg, None,
+                      delay_injector)
+    with sharding.use_leaf_shardings(sharding.flat_shardings(shardings)):
+        return _train(loss_fn, init_values, optimizer, data_fn, tcfg,
+                      shardings, delay_injector)
+
+
+def _train(loss_fn, init_values, optimizer, data_fn, tcfg, shardings,
+           delay_injector) -> TrainResult:
     values = _copy(init_values)
     opt_state = optimizer.init(values)
     # the error-feedback memory only where a compressed step carries it
@@ -137,11 +180,17 @@ def train(loss_fn: Callable, init_values, optimizer, data_fn: Callable,
             state["aux"] = aux
         return state
 
+    shd = (None if shardings is None
+           else carry_shardings(shardings, carry_state()))
+
+    def save(step):
+        checkpointer.save(tcfg.ckpt_dir, step, carry_state(), shardings=shd)
+
     if tcfg.ckpt_dir and tcfg.resume:
         step = checkpointer.latest_step(tcfg.ckpt_dir)
         if step is not None:
             restored, step, _ = checkpointer.restore(
-                tcfg.ckpt_dir, step, template=carry_state())
+                tcfg.ckpt_dir, step, template=carry_state(), shardings=shd)
             values, opt_state = restored["values"], restored["opt"]
             err = restored.get("err", err)
             aux = restored.get("aux", aux)
@@ -192,7 +241,7 @@ def train(loss_fn: Callable, init_values, optimizer, data_fn: Callable,
             if tcfg.ckpt_on_stall and tcfg.ckpt_dir:
                 # persist the full carry now, so a relaunch resumes from
                 # right before the stall
-                checkpointer.save(tcfg.ckpt_dir, step + 1, carry_state())
+                save(step + 1)
         durations.append(dt)
         if step % tcfg.log_every == 0 or step == tcfg.steps - 1:
             row = _history_row(metrics)
@@ -201,10 +250,10 @@ def train(loss_fn: Callable, init_values, optimizer, data_fn: Callable,
             history.append(row)
         if (tcfg.ckpt_dir and tcfg.ckpt_every
                 and (step + 1) % tcfg.ckpt_every == 0):
-            checkpointer.save(tcfg.ckpt_dir, step + 1, carry_state())
+            save(step + 1)
 
     if tcfg.ckpt_dir:
-        checkpointer.save(tcfg.ckpt_dir, tcfg.steps, carry_state())
+        save(tcfg.steps)
     return TrainResult(values=values, opt_state=opt_state, history=history,
                        substituted_steps=substituted, straggler_flags=flagged,
                        final_step=tcfg.steps, aux_state=aux)

@@ -840,6 +840,66 @@ def test_engines_on_one_nccl_rank_bitwise(cuda_device, tmp_path):
         dist.destroy_process_group()
 
 
+@pytest.mark.cuda
+def test_lm_on_a_one_nccl_rank_mesh_bitwise(cuda_device, tmp_path):
+    """A (1 x 1) mesh over a one-rank NCCL group: the reduced qwen config
+    in bf16 with flash and the max fusion, the loss and every gradient,
+    a prefill and 4 decode ticks under OCS, and 3 trainer steps (its
+    shardings given) bitwise the run without a mesh."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.protocol import Protocol
+    from repro_torch.train import trainer
+    from repro_torch.train.train_step import value_and_grad
+
+    def runs(mesh):
+        run, launch_train = _train_setup(cuda_device, steps=3)
+        m, values = run.m, run.values
+        shd = None if mesh is None else sh.tree_shardings_for_values(
+            m.axes(), values, mesh)
+        batch = run.data(0)
+        out = {"grad": value_and_grad(m.loss, values, batch)}
+        tokens = batch["tokens"][:2, :8]
+        logits, cache = m.prefill(values, {"tokens": tokens}, max_seq=16)
+        proto = Protocol.ocs(bits=8, p_miss=np.full(
+            (m.cfg.n_workers,), 0.05, np.float32))
+        tok = logits.argmax(-1)[:, None].int()
+        pos = torch.full((2,), 8, dtype=torch.int32, device=cuda_device)
+        seq = [logits]
+        for t in range(4):
+            logits, cache, _ = m.decode_step_channel(
+                values, tok, pos + t, cache, proto,
+                jr.PRNGKey(t, cuda_device))
+            tok = logits.argmax(-1)[:, None].int()
+            seq.append(logits)
+        out["decode"] = seq
+        res = trainer.train(m.loss, values, run.opt, run.data, run.tcfg,
+                            shardings=shd)
+        out["train"] = (res.values, res.opt_state,
+                        [r["loss"] for r in res.history])
+        return out
+
+    plain = runs(None)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = lmesh.make_mesh(1, 1)
+        with sh.use_mesh(mesh):
+            meshed = runs(mesh)
+    finally:
+        dist.destroy_process_group()
+    _same(meshed["grad"][0], plain["grad"][0])
+    _same_tree(meshed["grad"][2], plain["grad"][2])
+    _same_tree(meshed["decode"], plain["decode"])
+    _same_tree(meshed["train"][:2], plain["train"][:2])
+    assert meshed["train"][2] == plain["train"][2]
+
+
 # ---------------------------------------------------------------------------
 # the trainer, checkpoints and sampling
 # ---------------------------------------------------------------------------
