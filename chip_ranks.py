@@ -25,8 +25,17 @@ one); and the float32 logits of a prefill of 8 of phase 8's prompts and
 over their largest magnitude must be within phase 34's
 ``TP_LOGITS_RTOL``, which phase 34's control fault (one worker's partial
 lost at the last MLP site) must exceed.  Each rank prints its walls and
-its collective bytes a step and a tick.  The exit code is 1 if a check
-fails.  It imports nothing of JAX.
+its collective bytes a step and a tick.
+
+Then ``chip_smoke.py`` phase 35's trainers over the four cards, each held
+to every rank's own one-card run under phase 35's limits (step 1's loss
+by ``_tpm_loss_held``, its gathered gradient norm within
+``TP_GRAD_NORM_RTOL``, later losses within ``TP_LOSS_RTOL``):
+qwen3-moe-30b-a3b cut to 4 of 48 layers on (1 x 4), 32 of 128 experts a
+card, and on (2 x 2), where the router's load-balancing loss sums its
+expert means and counts over the data axis and must equal the whole
+batch's; xlstm-125m's first period and whisper-base on (1 x 4) and (2 x
+2).  The exit code is 1 if a check fails.  It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -179,6 +188,50 @@ def lm_meshes(rank: int, world: int) -> int:
     return failed
 
 
+# phase 35's trainers over the four cards: (arch, meshes)
+MODEL_MESHES = ((cs.QWEN3, ((1, 4), (2, 2))), (cs.XLSTM, ((1, 4), (2, 2))),
+                (cs.WHISPER, ((1, 4), (2, 2))))
+MOE_LAYERS = 4
+
+
+def model_meshes(rank: int, world: int, dev) -> int:
+    """Phase 35's trainers on the meshes of :data:`MODEL_MESHES` against
+    this rank's one-card runs; the number of failed checks.  Every
+    reading is printed before it is held to its limit."""
+    failed = 0
+    for arch, shapes in MODEL_MESHES:
+        one = cs._tpm_train(arch, dev, None, moe_layers=MOE_LAYERS)
+        print(f"rank {rank}/{world} one card {arch}: train "
+              f"{one['wall']:.3f} s (steps {one['step_s']}), losses "
+              f"{one['losses']}, gradient norms {one['grad_norms']}, aux "
+              f"{one['aux']}", flush=True)
+        for shape in shapes:
+            mesh = launch_mesh.make_mesh(*shape)
+            cs._sync(dev)
+            dist.barrier()
+            got = cs._tpm_train(arch, dev, mesh, moe_layers=MOE_LAYERS)
+            first = abs(got["losses"][0] - one["losses"][0])
+            loss_gaps = cs._rel_gaps(got["losses"][1:], one["losses"][1:])
+            gn_gaps = cs._rel_gaps(got["grad_norms"], one["grad_norms"])
+            aux = [abs(a - b) for a, b in zip(got["aux"], one["aux"])
+                   if a is not None]
+            ok = (cs._tpm_loss_held(got["losses"][0], one["losses"][0])
+                  and max(loss_gaps, default=0.0) <= cs.TP_LOSS_RTOL
+                  and gn_gaps[0] <= cs.TP_GRAD_NORM_RTOL
+                  and (not aux or aux[0] <= cs.TP_LOSS_ATOL_FIRST))
+            failed += not ok
+            steps = len(got["losses"])
+            print(f"rank {rank}/{world} {arch} mesh {shape}: train "
+                  f"{got['wall']:.3f} s (steps {got['step_s']}), losses "
+                  f"{got['losses']} (step 1 off by {first}, later relative "
+                  f"gaps {loss_gaps}), gradient norms {got['grad_norms']} "
+                  f"(relative gaps {gn_gaps}), aux {got['aux']} (off by "
+                  f"{aux}): {'within' if ok else 'OUTSIDE'} phase 35's "
+                  f"limits; collective bytes a step "
+                  f"{cs._per(got['bytes'], steps)}", flush=True)
+    return failed
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dist.init_process_group("nccl")
@@ -217,6 +270,8 @@ def main() -> int:
                      else f"DIFFERS in {diff[:6]}"), flush=True)
     dist.barrier()
     differing += lm_meshes(rank, world)
+    dist.barrier()
+    differing += model_meshes(rank, world, torch.device("cuda"))
     dist.barrier()
     dist.destroy_process_group()
     return 1 if differing else 0

@@ -34,7 +34,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
    within the JAX parity test's tolerances at the prefill shapes and the
    JAX test's float32 GQA cases, timed at S 256, 1024 and 4096; at phase
    34's shapes (a rank's 8 of 16 workers and heads) ``maxpool.fwd`` and
-   ``maxpool.ties_bwd`` bitwise, flash within its limit;
+   ``maxpool.ties_bwd`` bitwise, flash within its limit; the same at
+   every shape phase 35 gives them, on a rank and in its one-device runs
+   (:func:`check_tp_model_sites`), and ``noisy``/``maxpool.decode`` at
+   whisper's 2-row tick;
 4. check that at ``p_miss=0`` ``Protocol.ocs(bits).aggregate`` equals
    ``Protocol.ideal_max(bits, tie_break="first").aggregate`` bitwise,
    forward and input gradient, at bits 8 and 16;
@@ -238,7 +241,24 @@ Phases, in order; any failed check raises and the script exits non-zero:
     logits of a prefill and 2 decode steps held within
     ``TP_LOGITS_RTOL`` of their largest magnitude, which a control fault
     (one worker's partial lost at the last MLP site) must exceed;
-35. print one ``{"kernels": [...]}`` line and, last, the device line.
+35. run the MoE, recurrent and encoder-decoder models over the same (1 x
+    2) mesh, each against a one-device run of the same cut in this
+    process: qwen3-moe-30b-a3b at 2 of 48 layers (64 of 128 experts a
+    rank: the rank's slots built, its experts run, the slot outputs
+    gathered), 3 train steps and 4 of phase 8's requests; xlstm-125m's
+    first period (the mLSTM workers and memory split, the sLSTM whole),
+    2 steps of 2 x 256 and 2 requests, plain and under ``retry(2)``;
+    jamba's phase-27 period (mamba's workers and states split), 2
+    requests and the gradient of its mamba layers' norm scales;
+    whisper-base (split self- and cross-attention heads, the "plain"
+    layout), 2 steps and 2 requests of 1,408 frames; pixtral-12b at 4
+    layers, 2 requests of 2 x 1,024 patches.  Step 1's loss and gradient
+    norm, later losses, served results, float32 logits and launches held
+    as in phase 34 (:func:`run_tp_models_phase`); one control fault a
+    family (the MoE dispatch input, mLSTM q and k, mamba's input,
+    whisper's encoder output outside the *f* copy) must fail the
+    gradient norm's limit;
+36. print one ``{"kernels": [...]}`` line and, last, the device line.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -288,6 +308,8 @@ from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import attention, fusion  # noqa: E402
 from repro_torch.models import mamba as mamba_mod  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.optim import optimizers, schedules  # noqa: E402
@@ -401,6 +423,20 @@ RANKS, RANKS_TIMEOUT = 2, 75.0
 TP_RANKS, TP_TIMEOUT, TP_STEPS, TP_REQUESTS = 2, 120.0, 3, 4
 TP_LOSS_ATOL_FIRST, TP_LOSS_RTOL = 1e-4, 2e-4
 TP_GRAD_NORM_RTOL, TP_LOGITS_RTOL = 1e-3, 1e-5
+# phase 35: the MoE, recurrent and encoder-decoder models on the same
+# (1 x TP_RANKS) mesh, each held to a one-device run of the same cut in
+# the parent under phase 34's limits: qwen3-moe-30b-a3b at 2 of 48 layers
+# (64 of 128 experts a rank), 3 train steps of 8 x 256 and 4 of phase 8's
+# requests; xlstm-125m's first period (4 of 12 layers), 2 steps of 2 x
+# 256 and 2 of phase 8's requests, plain and under retry(2); jamba's
+# period of phase 27 (4 of 16 experts), 2 requests and the gradient of
+# its mamba layers' norm scales; whisper-base whole, 2 steps of 8 x 384
+# and 2 requests of 1,408 frames; pixtral-12b at 4 of 40 layers, 2
+# requests of 2 x 1,024 patches.  The ranks' process-group timeout (the
+# join deadline is twice that).
+TPM_MOE_LAYERS, TPM_MOE_STEPS, TPM_XLSTM_BATCH, TPM_XLSTM_STEPS = 2, 3, 2, 2
+TPM_WHISPER_STEPS, TPM_PIXTRAL_LAYERS, TPM_NEW = 2, 4, 8
+TPM_TIMEOUT = 300.0
 SOURCES = {"ocs_quant.encode": "ocs_quant.cu",
            "ocs_quant.decode": "ocs_quant.cu", "maxpool.fwd": "maxpool.cu",
            "maxpool.decode": "maxpool.cu", "maxpool.winner_bwd": "maxpool.cu",
@@ -824,6 +860,7 @@ def check_kernels(dev) -> dict:
     rows.update(check_sweep_kernels(dev, row))
     rows.update(check_train_maxpool(dev, row))
     check_tp_sites(dev)
+    check_tp_model_sites(dev)
     rows.update(check_moe_site(dev, row))
     rows.update(check_recurrent_sites(dev, row))
     check_decode_outputs(dev)
@@ -2189,14 +2226,14 @@ def profile_dp(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 def _train_site_input(dev, e, seed, ties=False, offset=0,
-                      n=QWEN_WORKERS):
-    """(``n`` workers, ``e`` columns) bf16 partials: randn, or with
-    ``ties`` values on a coarse grid (many workers tie at the max), -0.0
-    beside +0.0 at a zero max, +-inf, and NaNs in a few columns: positive
-    ones in column 4 of every 64, a negative one (sign bit set) alone in
-    column 41 of every 64.  ``offset`` elements before the first make the
-    base pointer misaligned.  The special workers are 3, 9, 5, 6 and 12
-    modulo ``n`` (distinct for ``n`` 8 and 16)."""
+                      n=QWEN_WORKERS, dtype=torch.bfloat16):
+    """(``n`` workers, ``e`` columns) bf16 (or ``dtype``) partials: randn,
+    or with ``ties`` values on a coarse grid (many workers tie at the
+    max), -0.0 beside +0.0 at a zero max, +-inf, and NaNs in a few
+    columns: positive ones in column 4 of every 64, a negative one (sign
+    bit set) alone in column 41 of every 64.  ``offset`` elements before
+    the first make the base pointer misaligned.  The special workers are
+    3, 9, 5, 6 and 12 modulo ``n`` (distinct for ``n`` 8 and 16)."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
     if not ties:
         h = torch.randn((n, e), generator=gen)
@@ -2207,10 +2244,12 @@ def _train_site_input(dev, e, seed, ties=False, offset=0,
         h[5 % n, 2::11] = float("inf")
         h[:, 3::13] = -float("inf")
         h[6 % n, 4::64] = float("nan")
-    h = h.to(torch.bfloat16)
-    if ties:
+    h = h.to(dtype)
+    if ties and dtype == torch.bfloat16:
         h.view(torch.int16)[12 % n, 41::64] = -0x003F    # 0xFFC1
-    buf = torch.empty(h.numel() + offset, dtype=torch.bfloat16, device=dev)
+    elif ties:
+        h.view(torch.int32)[12 % n, 41::64] = -0x003FFFFF   # 0xFFC00001
+    buf = torch.empty(h.numel() + offset, dtype=dtype, device=dev)
     out = buf[offset:].view(h.shape)
     out.copy_(h)
     return out
@@ -2372,6 +2411,122 @@ def check_tp_sites(dev) -> None:
         _check_flash(fa_ops.flash_attention(q, k, v, True),
                      fa_ref.flash_attention(q, k, v, True),
                      f"{tuple(q.shape)} Hkv {h} bf16 causal=True ({site})")
+
+
+def _tpm_sites():
+    """Phase 35's max sites, each over a rank's 8 of 16 workers and over
+    all 16 in the one-device run it is held to: (path, the site's rows
+    and width, dtype, whether a backward runs there).  bf16: qwen3-moe's
+    attention site in a step, a prefill and a tick of 8 slots; xlstm's
+    mLSTM sites in a step (2 x 256), a prefill and a tick of 2 slots;
+    jamba's mamba, attention and mlp sites in a 64-token prefill (and the
+    gradient reading's backward) and its mamba and attention sites in a
+    tick of 2; whisper's mlp sites in a step and in a prefill of 2 x 1,408
+    frames and of the 4-token prompt; pixtral's in a prefill of 2 x 1,024
+    patches and a tick of 2.  float32: the logits readings' one-row
+    prefill and decode steps."""
+    bf, f32 = torch.bfloat16, torch.float32
+    return [
+        ("qwen3-moe train", (TRAIN_BATCH, TRAIN_SEQ, MOE_D), bf, True),
+        ("qwen3-moe prefill", (1, SERVE_PROMPT, MOE_D), bf, False),
+        ("qwen3-moe tick", (SERVE_SLOTS, 1, MOE_D), bf, False),
+        ("xlstm train", (TPM_XLSTM_BATCH, TRAIN_SEQ, XLSTM_D), bf, True),
+        ("xlstm prefill", (1, SERVE_PROMPT, XLSTM_D), bf, False),
+        ("xlstm tick", (WIDE_REQUESTS, 1, XLSTM_D), bf, False),
+        ("jamba prefill", (1, JAMBA_PROMPT, JAMBA_D), bf, True),
+        ("jamba tick", (WIDE_REQUESTS, 1, JAMBA_D), bf, False),
+        ("whisper train", (WHISPER_BATCH, WHISPER_SEQ, WHISPER_D), bf, True),
+        ("whisper encoder prefill", (WIDE_REQUESTS, WHISPER_FRAMES,
+                                     WHISPER_D), bf, False),
+        ("whisper decoder prefill", (WIDE_REQUESTS, len(WHISPER_SOT),
+                                     WHISPER_D), bf, False),
+        ("pixtral prefill", (WIDE_REQUESTS, PIXTRAL_PATCHES, PIXTRAL_D), bf,
+         False),
+        ("pixtral tick", (WIDE_REQUESTS, 1, PIXTRAL_D), bf, False),
+        ("qwen3-moe logits prefill", (1, SERVE_PROMPT, MOE_D), f32, False),
+        ("qwen3-moe logits step", (1, 1, MOE_D), f32, False),
+        ("xlstm logits prefill", (1, SERVE_PROMPT, XLSTM_D), f32, False),
+        ("xlstm logits step", (1, 1, XLSTM_D), f32, False),
+        ("whisper logits encoder", (1, WHISPER_FRAMES, WHISPER_D), f32,
+         False),
+        ("whisper logits decoder", (1, len(WHISPER_SOT), WHISPER_D), f32,
+         False),
+        ("whisper logits step", (1, 1, WHISPER_D), f32, False),
+        ("pixtral logits prefill", (1, PIXTRAL_PATCHES, PIXTRAL_D), f32,
+         False),
+        ("pixtral logits step", (1, 1, PIXTRAL_D), f32, False)]
+
+
+def _tpm_flash():
+    """Phase 35's flash launches, bf16, with every head (the one-device
+    run) and a rank's half: (path, (b, h, hkv, s, d), causal).
+    qwen3-moe's 32 heads over 4 KV heads in a step and a prefill; jamba's
+    64 over 8 in a prefill; whisper's 8 heads, non-causal in the encoder
+    (a step's 384 frames, 2 x 1,408 in serving) and causal in the decoder
+    (a step, the 4-token prompt); pixtral's 32 over 8 in a prefill of 2 x
+    1,024 patches.  The float32 logits readings run without flash."""
+    return [
+        ("qwen3-moe train", (TRAIN_BATCH, 32, 4, TRAIN_SEQ, 128), True),
+        ("qwen3-moe prefill", (1, 32, 4, SERVE_PROMPT, 128), True),
+        ("jamba prefill", (1, 64, 8, JAMBA_PROMPT, 128), True),
+        ("whisper encoder train", (WHISPER_BATCH, 8, 8, WHISPER_SEQ, 64),
+         False),
+        ("whisper encoder serve", (WIDE_REQUESTS, 8, 8, WHISPER_FRAMES, 64),
+         False),
+        ("whisper decoder train", (WHISPER_BATCH, 8, 8, WHISPER_SEQ, 64),
+         True),
+        ("whisper decoder prefill", (WIDE_REQUESTS, 8, 8, len(WHISPER_SOT),
+                                     64), True),
+        ("pixtral prefill", (WIDE_REQUESTS, 32, 8, PIXTRAL_PATCHES, 128),
+         True)]
+
+
+def check_tp_model_sites(dev) -> None:
+    """Phase 3, the kernels at the shapes that phase 35 gives them, on a
+    rank (8 of 16 workers, half the heads) and in the one-device runs it
+    is held to: ``maxpool.fwd`` bitwise against its plain version for
+    each subset of its optional outputs at every site of
+    :func:`_tpm_sites`, on randn partials and on partials with forced
+    ties, +-0, +-inf and NaNs; ``maxpool.ties_bwd`` bitwise against its
+    plain version and ``g * (h == max)`` where a backward runs; flash
+    within :func:`_check_flash`'s limit at every case of
+    :func:`_tpm_flash`; ``noisy`` and ``maxpool.decode`` bitwise at
+    whisper's channel site in a tick of 2 rows (the whole 16-worker stack,
+    which a channel site gathers)."""
+    seed = 70
+    for path, rows, dtype, train in _tpm_sites():
+        for n in (QWEN_WORKERS // TP_RANKS, QWEN_WORKERS):
+            shape = (n,) + rows
+            cols = math.prod(rows)
+            cases = {"randn": _train_site_input(dev, cols, seed, n=n,
+                                                dtype=dtype),
+                     "ties": _train_site_input(dev, cols, seed + 1,
+                                               ties=True, n=n, dtype=dtype)}
+            seed += 2
+            _check_fwd_subsets(cases, shape, f"tp {path} {dtype}")
+            if train:
+                for what, h in cases.items():
+                    _check_ties_bwd(dev, h.view(shape), seed,
+                                    f"tp {path} {what}")
+                print(f"maxpool.ties_bwd at tp {path} {shape}: bitwise "
+                      f"equal to plain and to g * (h == max)", flush=True)
+            del cases
+    for path, (b, h, hkv, seq, d), causal in _tpm_flash():
+        for ways in (1, TP_RANKS):
+            q, k, v = _flash_case(dev, b, h // ways, hkv // ways, seq, d,
+                                  seed=b + h // ways + seq)
+            _check_flash(fa_ops.flash_attention(q, k, v, causal),
+                         fa_ref.flash_attention(q, k, v, causal),
+                         f"{tuple(q.shape)} Hkv {hkv // ways} bf16 "
+                         f"causal={causal} (tp {path})")
+    for name, launch, plain, *_, shape in _kernel_cases(
+            dev, 1, WIDE_REQUESTS * WHISPER_D, 8, seed=68, n=QWEN_WORKERS,
+            dtype=torch.bfloat16, p_miss=(SERVE_P_MISS,)):
+        if name in ("ocs_contention.noisy", "maxpool.decode"):
+            _check_equal(name, launch, plain, dict(bits=8, shape=shape,
+                                                   path="tp whisper tick"))
+            print(f"{name} at the tp whisper tick {shape}: bitwise equal to "
+                  f"plain", flush=True)
 
 
 def check_moe_site(dev, row) -> dict:
@@ -4633,6 +4788,630 @@ def run_tp_phase(dev, phase18) -> dict:
                        for name in ("train", "serve")})
 
 
+# ---------------------------------------------------------------------------
+# the MoE, recurrent and encoder-decoder models over a (1 data x 2 model)
+# mesh
+# ---------------------------------------------------------------------------
+
+TPM_TRAINED = (QWEN3, XLSTM, WHISPER)
+TPM_SERVED = (QWEN3, XLSTM, JAMBA, WHISPER, PIXTRAL)
+
+
+def _on(mesh):
+    """The mesh context of a rank's run; none for the one-device run."""
+    return (sharding.use_mesh(mesh) if mesh is not None
+            else contextlib.nullcontext())
+
+
+def _tpm_train_run(arch, dev, steps=None, moe_layers=TPM_MOE_LAYERS):
+    """``launch/train``'s run of phase 35 for ``arch``: qwen3-moe cut to
+    ``moe_layers``, xlstm to one period, whisper whole; fusion max,
+    flash; every step logged, no checkpoints."""
+    if arch == QWEN3:
+        argv = ["--layers", str(moe_layers), "--steps",
+                str(TPM_MOE_STEPS), "--batch", str(TRAIN_BATCH), "--seq",
+                str(TRAIN_SEQ)]
+    elif arch == XLSTM:
+        argv = ["--layers", str(get_config(XLSTM).period), "--steps",
+                str(TPM_XLSTM_STEPS), "--batch", str(TPM_XLSTM_BATCH),
+                "--seq", str(TRAIN_SEQ)]
+    else:
+        argv = ["--steps", str(TPM_WHISPER_STEPS), "--batch",
+                str(WHISPER_BATCH), "--seq", str(WHISPER_SEQ)]
+    run = launch_train.setup(launch_train.parse_args(
+        ["--arch", arch, "--fusion", "max", "--use-flash", "--seed", "0",
+         "--device", dev.type] + argv))
+    run.tcfg = dataclasses.replace(run.tcfg, log_every=1, ckpt_dir=None,
+                                   steps=steps or run.tcfg.steps)
+    return run
+
+
+def _tpm_train(arch, dev, mesh, steps=None, moe_layers=TPM_MOE_LAYERS
+               ) -> dict:
+    """Phase 35's train steps of ``arch`` on one device (``mesh`` None) or
+    on this rank's blocks of ``mesh``: losses, gradient norms (gathered),
+    router aux, launches, wall, collective bytes."""
+    run = _tpm_train_run(arch, dev, steps, moe_layers)
+    shd, values = None, run.values
+    if mesh is not None:
+        axes = run.m.axes()
+        shd = sharding.tree_shardings_for_values(axes, run.values, mesh)
+        values = sharding.shard_values(run.values, axes, mesh)
+    run.values = None
+    _release(f"{arch} train values placed")
+    with _on(mesh), comm.recording() as rec:
+        res, counts, wall = _counted(lambda: trainer.train(
+            run.m.loss, values, run.opt, run.data, run.tcfg,
+            shardings=shd))
+    out = dict(losses=[r["loss"] for r in res.history],
+               grad_norms=[r["grad_norm"] for r in res.history],
+               aux=[r.get("aux") for r in res.history], counts=counts,
+               wall=wall, bytes=comm.summarize(rec),
+               step_s=[r["step_time_s"] for r in res.history])
+    del res, values, run
+    _release(f"{arch} train done")
+    return out
+
+
+def _tpm_model(arch, dtype=torch.bfloat16):
+    """Phase 35's serving model of ``arch`` (fusion max, flash); float32
+    without flash for the logits readings."""
+    if arch == QWEN3:
+        cfg = get_config(QWEN3, n_layers=TPM_MOE_LAYERS)
+    elif arch == XLSTM:
+        cfg = get_config(XLSTM)
+        cfg = cfg.with_(n_layers=cfg.period)
+    elif arch == JAMBA:
+        cfg = get_config(JAMBA)
+        cfg = cfg.with_(n_layers=cfg.period, n_experts=JAMBA_EXPERTS)
+    elif arch == PIXTRAL:
+        cfg = get_config(PIXTRAL, n_layers=TPM_PIXTRAL_LAYERS)
+    else:
+        cfg = get_config(arch)
+    cfg = cfg.with_(tp_fusion="max", use_flash=True)
+    if dtype != cfg.dtype:
+        cfg = cfg.with_(dtype=dtype, param_dtype=dtype, use_flash=False)
+    return M.build(cfg)
+
+
+def _tpm_values(m, dev, mesh):
+    """The seed-0 values on one device, or this rank's blocks of them:
+    the ranks draw the whole tree one after another (two whole jamba
+    periods do not fit the card beside each other), each keeping its
+    blocks."""
+    if mesh is None:
+        return m.init(torch.Generator(device=dev).manual_seed(0))
+    mine = None
+    for r in range(comm.world_size()):
+        if r == comm.rank():
+            whole = m.init(torch.Generator(device=dev).manual_seed(0))
+            mine = sharding.shard_values(whole, m.axes(), mesh)
+            del whole
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return mine
+
+
+def _tpm_requests(arch, vocab) -> list:
+    """Phase 8's first 4 requests for qwen3-moe, its first 2 for xlstm,
+    phase 27's 2 for jamba."""
+    if arch == JAMBA:
+        return poisson_requests(WIDE_REQUESTS, 1.0, vocab,
+                                prompt_len=JAMBA_PROMPT,
+                                max_new_tokens=WIDE_NEW, seed=0)
+    reqs = poisson_requests(SERVE_REQUESTS, SERVE_RATE, vocab,
+                            prompt_len=SERVE_PROMPT,
+                            max_new_tokens=SERVE_NEW, seed=0)
+    return reqs[:TP_REQUESTS if arch == QWEN3 else WIDE_REQUESTS]
+
+
+def _tpm_engine(m, values, dev, reqs, fault=None) -> dict:
+    """The engine under OCS p 0.05 (and ``fault``): every field of every
+    completion, launches, wall, ticks."""
+    slots = SERVE_SLOTS if m.cfg.name == QWEN3 else WIDE_REQUESTS
+    max_seq = 2 * JAMBA_PROMPT if m.cfg.name == JAMBA else SERVE_MAX_SEQ
+    eng = se.ServeEngine(m, values, se.ServeConfig(
+        batch_slots=slots, max_seq=max_seq, eos_id=-1,
+        protocol=_ocs(SERVE_P_MISS), fault=fault), device=dev)
+    se.reset_dispatch_counts()
+    outs, counts, wall = _counted(lambda: eng.run(reqs))
+    return dict(result={rid: dataclasses.astuple(c)
+                        for rid, c in sorted(outs.items())},
+                counts=counts, wall=wall,
+                ticks=se.dispatch_counts()["tick"])
+
+
+def _tpm_frontend_batch(arch, dev, rows, dtype=torch.bfloat16) -> dict:
+    """Whisper's frames and start-of-transcript prompt, or pixtral's
+    patch features, from a seed."""
+    cfg = get_config(arch)
+    gen = torch.Generator(device="cpu").manual_seed(35)
+    seq = WHISPER_FRAMES if arch == WHISPER else PIXTRAL_PATCHES
+    batch = {"feats": torch.randn((WIDE_REQUESTS, seq, cfg.frontend_dim),
+                                  generator=gen)[:rows].to(dtype).to(dev)}
+    if arch == WHISPER:
+        batch["tokens"] = torch.tensor([WHISPER_SOT] * rows,
+                                       dtype=torch.int32, device=dev)
+    return batch
+
+
+def _tpm_model_api(m, values, dev) -> dict:
+    """Whisper's or pixtral's 2 requests through ``prefill`` and
+    ``TPM_NEW - 1`` greedy ``decode_step_channel`` ticks under OCS p 0.05:
+    tokens, the channel accounting, launches, wall."""
+    batch = _tpm_frontend_batch(m.cfg.name, dev, WIDE_REQUESTS)
+    finite = {"ok": torch.ones((), dtype=torch.bool, device=dev)}
+    (toks, _, _, chan), counts, wall = _counted(lambda: _greedy_ticks(
+        m, values, batch, TPM_NEW - 1, _ocs(SERVE_P_MISS), 0, finite))
+    assert bool(finite["ok"]), f"{m.cfg.name}: a logit is not finite"
+    return dict(result=(toks.tolist(), chan), counts=counts, wall=wall,
+                ticks=TPM_NEW - 1)
+
+
+def _tpm_logits(arch, m, values, dev) -> torch.Tensor:
+    """The float32 logits of a one-row prefill and of two greedy
+    ``decode_step``s after it."""
+    if arch in (WHISPER, PIXTRAL):
+        batch = _tpm_frontend_batch(arch, dev, 1, torch.float32)
+    else:
+        prompt = _tpm_requests(arch, m.cfg.vocab_size)[0].prompt
+        batch = {"tokens": torch.as_tensor(np.asarray(prompt, np.int32),
+                                           device=dev)[None]}
+    start = batch["tokens" if "tokens" in batch else "feats"].shape[1]
+    logits, cache = m.prefill(values, batch, max_seq=start + 2)
+    seq = [logits]
+    pos = torch.full((1,), start, dtype=torch.int32, device=dev)
+    for t in range(2):
+        tok = logits.argmax(-1)[:, None].to(torch.int32)
+        logits, cache = m.decode_step(values, tok, pos + t, cache)
+        seq.append(logits)
+    return torch.cat(seq).float().cpu()
+
+
+def _tpm_mamba_grad(m, values, dev) -> dict:
+    """jamba's reading of the backward: the loss of the first request's
+    prompt against itself shifted, and the float32 norm of its gradient
+    over the mamba layers' input-norm scales, which only the mamba
+    mixer's input gradient reaches (replicated leaves, whole on every
+    rank; the weight gradients of a 16 B-parameter period would not fit
+    the card twice)."""
+    prompt = _tpm_requests(JAMBA, m.cfg.vocab_size)[0].prompt
+    tok = torch.as_tensor(np.asarray(prompt, np.int32), device=dev)[None]
+    batch = {"tokens": tok, "targets": torch.roll(tok, -1, 1)}
+    live = tree.map(lambda t: t, values)
+    leaves = []
+    for i, (mixer, _) in enumerate(m.cfg.layer_plan()):
+        if mixer == "mamba":
+            norm = live["blocks"][f"pos{i}"]["norm1"]
+            norm["scale"] = norm["scale"].detach().requires_grad_(True)
+            leaves.append(norm["scale"])
+    with torch.enable_grad():
+        loss = m.loss(live, batch)[0]
+        grads = torch.autograd.grad(loss, leaves)
+    norm = torch.sqrt(sum(torch.sum(g.float().square()) for g in grads))
+    return dict(loss=float(loss.detach()), grad_norm=float(norm))
+
+
+def _tpm_serve(arch, dev, mesh) -> dict:
+    """Phase 35's serving of ``arch`` on one device or on this rank's
+    blocks: the engine (qwen3-moe, xlstm and, under ``retry(2)``, xlstm
+    again, jamba) or the model API (whisper, pixtral), with the collective
+    bytes; jamba's gradient reading; the float32 logits (not jamba's: a
+    float32 period is 65 GB)."""
+    m = _tpm_model(arch)
+    values = _tpm_values(m, dev, mesh)
+    out = {}
+    with _on(mesh), comm.recording() as rec:
+        if arch in (WHISPER, PIXTRAL):
+            out["serve"] = _tpm_model_api(m, values, dev)
+        else:
+            out["serve"] = _tpm_engine(
+                m, values, dev, _tpm_requests(arch, m.cfg.vocab_size))
+    out["serve"]["bytes"] = comm.summarize(rec)
+    if arch == XLSTM:
+        fm = faults.FaultModel.burst(policy=faults.DegradePolicy.retry(2),
+                                     **SERVE_FAULT).with_dropout(
+                                         *SERVE_DROPOUT)
+        with _on(mesh):
+            out["retry"] = _tpm_engine(
+                m, values, dev, _tpm_requests(arch, m.cfg.vocab_size), fm)
+    if arch == JAMBA:
+        with _on(mesh):
+            out["grad"] = _tpm_mamba_grad(m, values, dev)
+            if mesh is not None:
+                sound = mamba_mod.fusion
+                mamba_mod.fusion = _FusionWithout(None)
+                try:
+                    out["control"] = _tpm_mamba_grad(m, values, dev)
+                finally:
+                    mamba_mod.fusion = sound
+    del values
+    _release(f"{arch} served")
+    if arch != JAMBA:
+        m32 = _tpm_model(arch, torch.float32)
+        values = _tpm_values(m32, dev, mesh)
+        with _on(mesh):
+            out["logits"] = _tpm_logits(arch, m32, values, dev)
+        del values
+        _release(f"{arch} float32 logits")
+    return out
+
+
+# the probes of :func:`_tpm_products` that each model's serving runs
+TPM_PROBES = {QWEN3: ("decode_attn qwen3-moe", "moe_experts"),
+              XLSTM: ("mlstm_v",),
+              JAMBA: ("decode_attn jamba", "mamba_in", "moe_experts"),
+              WHISPER: ("decode_attn whisper", "whisper plain"),
+              PIXTRAL: ("decode_attn pixtral",)}
+
+
+def _tpm_products(dev, mesh) -> dict:
+    """Whether each product phase 35 splits is, on this rank's block,
+    bitwise the block of the one-device product in bf16: a tick's decode
+    attention over the rank's heads (16 draws) at qwen3-moe's, jamba's,
+    whisper's (self and cross) and pixtral's heads and cache lengths; the
+    experts' products over 64 of 128 (a prefill's and a tick's slots);
+    the workers' products over 8 of 16 (mamba's in-projection at a
+    tick, the mLSTM value projection at a prefill); and whisper's "plain"
+    out-projection, whose rank halves are added in bf16 by the
+    all-reduce."""
+    axis = sharding.mesh_axis(mesh, "model")
+    gen = torch.Generator(device=dev).manual_seed(35)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    out = {}
+    for name, arch, slots, seq in (
+            ("qwen3-moe", QWEN3, SERVE_SLOTS, SERVE_MAX_SEQ),
+            ("jamba", JAMBA, WIDE_REQUESTS, 2 * JAMBA_PROMPT),
+            ("whisper self", WHISPER, WIDE_REQUESTS,
+             len(WHISPER_SOT) + TPM_NEW),
+            ("whisper cross", WHISPER, WIDE_REQUESTS, WHISPER_FRAMES),
+            ("pixtral", PIXTRAL, WIDE_REQUESTS, PIXTRAL_PATCHES + TPM_NEW)):
+        cfg = get_config(arch).with_(dtype=torch.bfloat16)
+        h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+        valid = torch.ones((slots, 1, seq), dtype=torch.bool, device=dev)
+        same = True
+        for _ in range(16):
+            q = rnd(slots, 1, h, hd)
+            k, v = (rnd(slots, seq, hkv, hd) for _ in range(2))
+            whole = attention._sdpa(cfg, q, k, v, valid)
+            got = attention._sdpa(cfg, sharding.split_dim(q, axis, 2).clone(),
+                                  sharding.split_dim(k, axis, 2),
+                                  sharding.split_dim(v, axis, 2), valid)
+            same = same and _bitwise_equal(
+                got, sharding.split_dim(whole, axis, 2))
+        out[f"decode_attn {name}"] = same
+    moe = get_config(QWEN3)
+    for what, rows in (("tick", SERVE_SLOTS), ("prefill", SERVE_PROMPT)):
+        cap = max(1, math.ceil(rows * moe.experts_per_token
+                               / moe.n_experts * moe.capacity_factor))
+        buf = rnd(moe.n_experts, cap, moe.d_model)
+        w = rnd(moe.n_experts, moe.d_model, moe.moe_d_ff)
+        out[f"moe_experts@{what}"] = _bitwise_equal(
+            torch.bmm(sharding.split_dim(buf, axis),
+                      sharding.split_dim(w, axis)),
+            sharding.split_dim(torch.bmm(buf, w), axis))
+    jb, xl = get_config(JAMBA), get_config(XLSTM)
+    for name, rows, d, cols in (
+            ("mamba_in@tick", WIDE_REQUESTS, jb.d_model,
+             2 * jb.d_inner // jb.n_workers),
+            ("mlstm_v@prefill", SERVE_PROMPT, xl.d_inner,
+             xl.d_inner // xl.n_workers)):
+        x, w = rnd(1, rows, d), rnd(QWEN_WORKERS, d, cols)
+        out[name] = _bitwise_equal(
+            torch.matmul(x, sharding.split_dim(w, axis)),
+            sharding.split_dim(torch.matmul(x, w), axis))
+    a, w = rnd(WIDE_REQUESTS, 8 * 64), rnd(8 * 64, WHISPER_D)
+    halves = [torch.matmul(sharding.split_dim(a, ax, 1),
+                           sharding.split_dim(w, ax, 0))
+              for ax in (sharding.Axis("model", 2, i, None) for i in (0, 1))]
+    out["whisper plain out-projection"] = _bitwise_equal(
+        halves[0] + halves[1], torch.matmul(a, w))
+    return out
+
+
+class _FusionWithout:
+    """``models.fusion`` whose ``copy_in`` leaves its first ``skip``
+    tensors (all for ``None``) outside the model group's *f* copy: phase
+    35's control faults of the mLSTM (q and k) and of mamba (its input)."""
+
+    def __init__(self, skip):
+        self.skip = skip
+
+    def __getattr__(self, name):
+        return getattr(fusion, name)
+
+    def copy_in(self, axis, *tensors):
+        k = len(tensors) if self.skip is None else self.skip
+        return tensors[:k] + fusion.copy_in(axis, *tensors[k:])
+
+
+def _qkv_kv_x_outside(cfg, p, x, kv_x, heads):
+    """Phase 35's control fault of the cross-attention:
+    ``attention._qkv`` with the encoder's output outside the *f* copy."""
+    d = cfg.dtype
+    x = heads.copy(x)
+    kv_x = x if kv_x is None else kv_x
+    q = attention._proj(x, p["wq"].to(d))
+    k = attention._proj(kv_x, heads.copy(p["wk"]).to(d))
+    v = attention._proj(kv_x, heads.copy(p["wv"]).to(d))
+    if "bq" in p:
+        q = q + p["bq"].to(d)
+        k = k + heads.copy(p["bk"]).to(d)
+        v = v + heads.copy(p["bv"]).to(d)
+    return q, k, v
+
+
+# each trained family's control fault: (owner, attribute, replacement)
+TPM_CONTROLS = {
+    QWEN3: (moe_mod._Slots, "copy", lambda self, x: x),
+    XLSTM: (ssm_mod, "fusion", _FusionWithout(2)),
+    WHISPER: (attention, "_qkv", _qkv_kv_x_outside)}
+
+
+def _tpm_rank() -> dict:
+    """Phase 35's task on each gloo rank: the trainers, their control
+    faults (one step each) and the serving of every model on this rank's
+    blocks of a (1 x ``TP_RANKS``) mesh.  The rank loads the library the
+    parent built and builds nothing."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    built = kernels.BUILD_DIR / f"libreprotorch_{kernels._source_hash()}.so"
+    assert built.exists(), "the parent process did not build the kernels"
+    kernels.library()
+    return _tpm_rank_on(torch.device("cuda"))
+
+
+def _tpm_rank_on(dev) -> dict:
+    mesh = launch_mesh.make_mesh(1, TP_RANKS)
+    out = {"coord": mesh.coord()}
+    for arch in TPM_TRAINED:
+        out[arch] = {"train": _tpm_train(arch, dev, mesh)}
+        owner, attr, fault = TPM_CONTROLS[arch]
+        sound = getattr(owner, attr)
+        setattr(owner, attr, fault)
+        try:
+            ctl = _tpm_train(arch, dev, mesh, steps=1)
+        finally:
+            setattr(owner, attr, sound)
+        out[arch]["control"] = {k: ctl[k] for k in ("losses", "grad_norms")}
+    for arch in TPM_SERVED:
+        out.setdefault(arch, {}).update(_tpm_serve(arch, dev, mesh))
+    out["products"] = _tpm_products(dev, mesh)
+    out["peak"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def _tpm_want(arch, what, ticks) -> dict:
+    """The launches of phase 35's ``what`` (``train`` a run, ``serve``)
+    on one device and on each rank: a rank runs every site of the model
+    on its block (flash over its heads, ``maxpool.fwd`` over its
+    workers, the channel kernels over the gathered stack)."""
+    want = {k: 0 for k in kernels.KERNELS}
+    if what == "train":
+        steps = {QWEN3: TPM_MOE_STEPS, XLSTM: TPM_XLSTM_STEPS,
+                 WHISPER: TPM_WHISPER_STEPS}[arch]
+        sites = {QWEN3: TPM_MOE_LAYERS, XLSTM: 3,
+                 WHISPER: 2 * WHISPER_LAYERS}[arch]
+        flash = {QWEN3: TPM_MOE_LAYERS, XLSTM: 0,
+                 WHISPER: 2 * WHISPER_LAYERS}[arch]
+        want.update({"flash_attention.fwd": flash * steps,
+                     "maxpool.fwd": sites * steps,
+                     "maxpool.ties_bwd": sites * steps})
+        return want
+    reqs = {QWEN3: TP_REQUESTS}.get(arch, WIDE_REQUESTS)
+    if arch == QWEN3:
+        want.update({"flash_attention.fwd": TPM_MOE_LAYERS * reqs,
+                     "maxpool.fwd": TPM_MOE_LAYERS * (reqs + ticks)})
+    elif arch == XLSTM:
+        want["maxpool.fwd"] = 3 * (reqs + ticks)
+    elif arch == JAMBA:
+        # 7 mamba sites and the attention's a tick, the 4 mlp sites too in
+        # a prefill; the mlp sites' channel kernels a tick
+        want.update({"flash_attention.fwd": reqs,
+                     "maxpool.fwd": 12 * reqs + 8 * ticks,
+                     "ocs_contention.noisy": 4 * ticks,
+                     "maxpool.decode": 4 * ticks})
+    elif arch == WHISPER:
+        # one prefill of both rows: flash at the 6 encoder and 6 decoder
+        # layers, the 12 mlp sites; a tick the 6 decoder mlp channel sites
+        want.update({"flash_attention.fwd": 2 * WHISPER_LAYERS,
+                     "maxpool.fwd": 2 * WHISPER_LAYERS,
+                     "ocs_contention.noisy": WHISPER_LAYERS * ticks,
+                     "maxpool.decode": WHISPER_LAYERS * ticks})
+    else:
+        # one prefill: flash and the attention and mlp sites a layer; a
+        # tick the attention sites and the mlp channel sites
+        want.update({"flash_attention.fwd": TPM_PIXTRAL_LAYERS,
+                     "maxpool.fwd": TPM_PIXTRAL_LAYERS * (2 + ticks),
+                     "ocs_contention.noisy": TPM_PIXTRAL_LAYERS * ticks,
+                     "maxpool.decode": TPM_PIXTRAL_LAYERS * ticks})
+    return want
+
+
+def _tpm_loss_held(got: float, want: float) -> bool:
+    """Phase 35's step-1 loss: within ``TP_LOSS_ATOL_FIRST`` of one
+    device's, or within ``TP_LOSS_RTOL`` of it relative.  The random
+    full-width tied embeddings give xlstm and whisper losses of 740 and
+    390 (qwen3-moe's is 12), at which a split product that rounds otherwise
+    (whisper's plain out-projection, added from two bf16 halves; GEMMs
+    over half the columns) moves the loss by more than 1e-4: by 6.6e-6
+    and 2.5e-5 of it, and jamba's bf16 reading by 7.8e-5 (NVIDIA H100
+    80GB HBM3, 700 W; PERF.md §6)."""
+    gap = abs(got - want)
+    return gap <= TP_LOSS_ATOL_FIRST or gap <= TP_LOSS_RTOL * abs(want)
+
+
+def _per(summary: dict, n: int) -> dict:
+    return {k: {"calls": v["calls"] / n, "bytes": v["bytes"] / n}
+            for k, v in summary.items()}
+
+
+def run_tp_models_phase(dev) -> dict:
+    """Phase 35: the MoE, recurrent and encoder-decoder models over a (1
+    data x ``TP_RANKS`` model) mesh of gloo ranks sharing cuda:0, each
+    against a one-device run of the same cut in this process (see the
+    constants' comment): step 1's loss as :func:`_tpm_loss_held` and
+    its gradient norm within ``TP_GRAD_NORM_RTOL`` relative (a control
+    fault a family, one input outside the *f* copy, must fail the norm's
+    limit; jamba's reading is the gradient of its mamba layers' norm
+    scales), later losses within ``TP_LOSS_RTOL``; served tokens, slots
+    and bits equal (retry ticks and degraded tokens too), or, as in
+    phase 34, a split product of that model named not bitwise on the
+    card (:func:`_tpm_products`); the float32 logits of a prefill and 2
+    decode steps within ``TP_LOGITS_RTOL`` of their largest magnitude;
+    launches a rank equal to one device's and to the model's sites.
+    Every reading is printed before any is held to its limit."""
+    _release("tp models phase start")
+    one = {}
+    for arch in TPM_TRAINED:
+        one[arch] = {"train": _tpm_train(arch, dev, None)}
+    for arch in TPM_SERVED:
+        one.setdefault(arch, {}).update(_tpm_serve(arch, dev, None))
+    _release("tp models phase spawn")
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = pathlib.Path(tempfile.mkdtemp(dir=ROOT / "build"))
+    try:
+        t0 = time.perf_counter()
+        got = comm.spawn(_tpm_rank, TP_RANKS, workdir=work / "gloo",
+                         timeout=TPM_TIMEOUT, threads=2)
+        spawn_wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    assert [o["coord"] for o in got] == [(0, r) for r in range(TP_RANKS)]
+
+    checks = []          # (what, ok) held after every reading is printed
+    for arch in TPM_TRAINED:
+        want = one[arch]["train"]
+        print(f"tpm {arch} one device: train {len(want['losses'])} steps in "
+              f"{want['wall']:.3f} s wall, losses {want['losses']}, "
+              f"gradient norms {want['grad_norms']}, aux {want['aux']}; "
+              f"launches {want['counts']}", flush=True)
+        checks.append((f"{arch} one-device train launches",
+                       want["counts"] == _tpm_want(arch, "train", 0)))
+        for r, o in enumerate(got):
+            t, c = o[arch]["train"], o[arch]["control"]
+            first = abs(t["losses"][0] - want["losses"][0])
+            loss = _rel_gaps(t["losses"][1:], want["losses"][1:])
+            gn = _rel_gaps(t["grad_norms"], want["grad_norms"])
+            ctl = _rel_gaps(c["grad_norms"], want["grad_norms"][:1])[0]
+            steps = len(t["losses"])
+            print(f"tpm {arch} rank {r}/{TP_RANKS}: train {steps} steps in "
+                  f"{t['wall']:.3f} s wall (step host times "
+                  f"{[round(x, 4) for x in t['step_s']]}), losses "
+                  f"{t['losses']} (step 1 {first:.4g} off, later relative "
+                  f"gaps {loss}), gradient norms {t['grad_norms']} (relative "
+                  f"gaps {gn}), aux {t['aux']}; launches {t['counts']}; "
+                  f"collectives a step {_per(t['bytes'], steps)}; control "
+                  f"(one input outside the f copy): step-1 gradient norm "
+                  f"{c['grad_norms'][0]} ({ctl:.4g} off)", flush=True)
+            checks += [
+                (f"{arch} rank {r} train launches",
+                 t["counts"] == want["counts"]),
+                (f"{arch} rank {r} step-1 loss",
+                 _tpm_loss_held(t["losses"][0], want["losses"][0])),
+                (f"{arch} rank {r} later losses",
+                 max(loss, default=0.0) <= TP_LOSS_RTOL),
+                (f"{arch} rank {r} step-1 gradient norm",
+                 gn[0] <= TP_GRAD_NORM_RTOL),
+                (f"{arch} rank {r} control fails the norm's limit",
+                 ctl > TP_GRAD_NORM_RTOL)]
+    same = {}
+    for arch in TPM_SERVED:
+        want = one[arch]
+        kinds = ("serve", "retry") if arch == XLSTM else ("serve",)
+        for kind in kinds:
+            w = want[kind]
+            print(f"tpm {arch} one device ({kind}): {w['ticks']} ticks in "
+                  f"{w['wall']:.3f} s wall, launches {w['counts']}; result "
+                  f"{str(w['result'])[:300]}", flush=True)
+            checks.append((f"{arch} one-device {kind} launches",
+                           w["counts"] == _tpm_want(arch, "serve",
+                                                    w["ticks"])))
+            if kind == "retry":
+                checks.append((f"{arch} retry ticks were driven", any(
+                    c[-1] > 0 for c in w["result"].values())))
+            for r, o in enumerate(got):
+                g = o[arch][kind]
+                equal = g["result"] == w["result"]
+                same[(arch, kind, r)] = equal
+                bytes_ = _per(g["bytes"], g["ticks"]) if "bytes" in g else {}
+                print(f"tpm {arch} rank {r}/{TP_RANKS} ({kind}): "
+                      f"{g['ticks']} ticks in {g['wall']:.3f} s wall, "
+                      f"launches {g['counts']}; collectives a tick "
+                      f"(prefills included) {bytes_}; equal to the "
+                      f"one-device run: {equal}", flush=True)
+                if not equal:
+                    print(f"  rank {str(g['result'])[:300]}", flush=True)
+                checks.append((f"{arch} rank {r} {kind} launches",
+                               g["counts"] == w["counts"]
+                               and g["ticks"] == w["ticks"]))
+        if "logits" in want:
+            errs = [_logits_rel_err(o[arch]["logits"], want["logits"])
+                    for o in got]
+            print(f"tpm {arch}: float32 prefill and 2 decode steps' logits "
+                  f"{[f'{e:.4g}' for e in errs]} of max|logit| "
+                  f"{float(want['logits'].abs().max()):.4g}", flush=True)
+            checks += [(f"{arch} rank {r} logits", e <= TP_LOGITS_RTOL)
+                       for r, e in enumerate(errs)]
+        if "grad" in want:
+            gw = want["grad"]
+            for r, o in enumerate(got):
+                gap = _rel_gaps([o[arch]["grad"]["grad_norm"]],
+                                [gw["grad_norm"]])[0]
+                ctl = _rel_gaps([o[arch]["control"]["grad_norm"]],
+                                [gw["grad_norm"]])[0]
+                print(f"tpm {arch} rank {r}/{TP_RANKS}: the mamba layers' "
+                      f"norm scales' gradient norm {o[arch]['grad']} against "
+                      f"one "
+                      f"device's {gw} ({gap:.4g} off); control (mamba's "
+                      f"input outside the f copy) {o[arch]['control']} "
+                      f"({ctl:.4g} off)", flush=True)
+                checks += [
+                    (f"{arch} rank {r} loss",
+                     _tpm_loss_held(o[arch]["grad"]["loss"], gw["loss"])),
+                    (f"{arch} rank {r} gradient norm",
+                     gap <= TP_GRAD_NORM_RTOL),
+                    (f"{arch} rank {r} control fails the norm's limit",
+                     ctl > TP_GRAD_NORM_RTOL)]
+    broken = sorted({k for o in got for k, ok in o["products"].items()
+                     if not ok})
+    print(f"tpm: {TP_RANKS} gloo ranks on cuda:0, spawn to join "
+          f"{spawn_wall:.3f} s; peak device memory by rank "
+          f"{[o['peak'] for o in got]} bytes; split products not bitwise "
+          f"the one-device block on the card: {broken}", flush=True)
+    differ = sorted({k[:2] for k, ok in same.items() if not ok})
+    for arch, kind in differ:
+        # phase 34's branch: a served result may part from the one-device
+        # run only where a split product of that model rounds otherwise,
+        # with its float32 logits held
+        named = [k for k in broken if any(k.startswith(p)
+                                          for p in TPM_PROBES[arch])]
+        print(f"tpm: {arch} ({kind}) served otherwise than the one-device "
+              f"run; its split products not bitwise: {named}", flush=True)
+        checks.append((f"{arch} {kind}: a split product of it rounds "
+                       f"otherwise", bool(named)))
+    failed = [what for what, ok in checks if not ok]
+    assert not failed, failed
+    print(f"tpm: every limit held ({len(checks)} checks)", flush=True)
+    summed = {what: {k: 0 for k in kernels.KERNELS}
+              for what in ("train", "serve")}
+    for o in got:
+        for arch, kind in ([(a, "train") for a in TPM_TRAINED]
+                           + [(a, k) for a in TPM_SERVED
+                              for k in ("serve", "retry") if k in o[a]]):
+            for k, v in o[arch][kind]["counts"].items():
+                summed["train" if kind == "train" else "serve"][k] += v
+    return dict(counts=summed, spawn_wall=spawn_wall,
+                walls={arch: {kind: [o[arch][kind]["wall"] for o in got]
+                              for kind in ("train", "serve", "retry")
+                              if kind in got[0][arch]}
+                       for arch in dict.fromkeys(TPM_TRAINED + TPM_SERVED)})
+
+
 def _timed(fn, *args):
     """Call one phase; keep its wall seconds for the closing summary."""
     t0 = time.perf_counter()
@@ -4704,6 +5483,7 @@ def main() -> int:
     _timed(check_encdec_against_cpu, dev)
     ranks = _timed(run_ranks_phase, dev, curves, swept, dp)
     tp = _timed(run_tp_phase, dev, train)
+    tpm = _timed(run_tp_models_phase, dev)
 
     line = []
     keep = ("shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
@@ -4784,7 +5564,9 @@ def main() -> int:
                    "ranks_sweep": ranks["counts"]["sweep"][name],
                    "ranks_dp": ranks["counts"]["dp"][name],
                    "tp_train": tp["counts"]["train"][name],
-                   "tp_serve": tp["counts"]["serve"][name]}
+                   "tp_serve": tp["counts"]["serve"][name],
+                   "tp_models_train": tpm["counts"]["train"][name],
+                   "tp_models_serve": tpm["counts"]["serve"][name]}
         line.append(dict(rec, launches=sum(by_path.values()),
                          launches_by_path=by_path))
     print(f"run_curves wall seconds: {wall}", flush=True)
@@ -4862,6 +5644,9 @@ def main() -> int:
     print(f"tp: (1 x {TP_RANKS}) mesh of gloo ranks on cuda:0, walls by "
           f"rank {tp['walls']}, tokens bitwise the one-device run: "
           f"{tp['same_tokens']}, spawn to join {tp['spawn_wall']:.3f} s; "
+          f"{smi}", flush=True)
+    print(f"tp models: (1 x {TP_RANKS}) mesh of gloo ranks on cuda:0, walls "
+          f"by rank {tpm['walls']}, spawn to join {tpm['spawn_wall']:.3f} s; "
           f"{smi}", flush=True)
     print(f"phase wall seconds: {_PHASE_SECONDS}", flush=True)
     print(json.dumps({"kernels": line}))

@@ -59,6 +59,25 @@ def worker_axis(cfg, n_local: int):
     return sharding.split_of("worker", n_local, cfg.n_workers)
 
 
+def local_workers(cfg) -> int:
+    """The workers a rank holds of a leaf split on ``"worker"`` under the
+    active mesh: ``cfg.n_workers`` over the model axis where it divides
+    them (:func:`sharding.sharding_for_shape`'s rule), else all of them."""
+    axis = sharding.logical_axis("worker")
+    if axis is None or cfg.n_workers % axis.size:
+        return cfg.n_workers
+    return cfg.n_workers // axis.size
+
+
+def copy_in(axis, *tensors):
+    """``tensors`` behind the model group's *f* copy where ``axis`` splits
+    the workers (their gradients, each rank's share, add up over the
+    group); as they are for no axis."""
+    if axis is None:
+        return tensors
+    return tuple(comm.copy_to_group(t, axis.group) for t in tensors)
+
+
 def _reduce_over(cfg, p: dict, partial: torch.Tensor, axis):
     mode = cfg.tp_fusion
     if mode == "concat":

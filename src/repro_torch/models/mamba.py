@@ -15,6 +15,11 @@ odd/even recursion :func:`_assoc_scan` follows pair for pair.  No kernel
 backs either: the JAX package has none.
 
 Decode keeps (the conv window, the SSM state) in the cache: O(1) per token.
+
+Under a mesh whose model axis splits the workers, a rank holds its
+workers' block of every leaf (``A_log`` and ``D`` too) and of the
+``conv`` and ``h`` caches, and runs the mixer on them; the input enters
+the in-projection behind the model group's *f* copy.
 """
 
 from __future__ import annotations
@@ -198,6 +203,7 @@ def _out(cfg, p, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
 def _in_proj(cfg, p, x: torch.Tensor):
     """x (B, S, d) -> (xraw, z), each (N, B, S, C)."""
     b, s, e = x.shape
+    (x,) = fusion.copy_in(fusion.worker_axis(cfg, p["w_in"].shape[0]), x)
     xi = torch.matmul(x.reshape(1, b * s, e), p["w_in"].to(cfg.dtype))
     return xi.reshape(-1, b, s, xi.shape[-1]).chunk(2, dim=-1)
 
@@ -218,8 +224,10 @@ def mamba_full(cfg, p: dict, x: torch.Tensor, return_cache: bool = False):
 
 
 def init_cache(cfg, batch: int, dtype, device=None) -> dict:
-    n = cfg.n_workers
-    dl = cfg.d_inner // n
+    """The conv window and the SSM state of the active mesh's share of
+    the workers (all of them without one)."""
+    n = fusion.local_workers(cfg)
+    dl = cfg.d_inner // cfg.n_workers
     return {
         "conv": torch.zeros((n, batch, cfg.conv_width - 1, dl), dtype=dtype,
                             device=device),

@@ -31,10 +31,13 @@ is a vocabulary-parallel log-sum-exp over the model group, each data
 rank's rows summed over the global token count and added over the data
 group, so every rank returns the whole loss; ``prefill`` and the decode
 steps gather the logits (and a prefill's cache) over both axes, so every
-rank samples the same token from the same key.  The dense decoder stack
-runs so; a MoE, recurrent, encoder-decoder or patch/audio config under a
-mesh axis above 1 raises ``NotImplementedError`` (ROADMAP queue 1 item 19b
-part 2).
+rank samples the same token from the same key.  Every config runs so: the
+MoE experts, the mLSTM and mamba workers (and their states), the heads of
+self- and cross-attention, the workers and the vocabulary are split over
+the model axis where it divides them; the router, the sLSTM and the
+frontend's projection run whole on every rank.  A cache's rows are
+split and gathered along each leaf's own batch axis
+(:func:`cache_rows`).
 """
 
 from __future__ import annotations
@@ -87,22 +90,6 @@ def axes(cfg: ModelConfig) -> dict:
                                               cfg.encoder_layer_plan())
         p["encoder_norm"] = layers.norm_axes(cfg)
     return p
-
-
-def _check_mesh(cfg) -> None:
-    """Refuse what the mesh paths do not cover yet."""
-    mesh = sharding.active_mesh()
-    if mesh is None or mesh.devices.size == 1:
-        return
-    plan = tuple(cfg.layer_plan()) + (tuple(cfg.encoder_layer_plan())
-                                      if cfg.encoder_decoder else ())
-    if (cfg.encoder_decoder or cfg.frontend != "token"
-            or any(m not in transformer.ATTENTION or f == "moe"
-                   for m, f in plan)):
-        raise NotImplementedError(
-            f"{cfg.name} under a {mesh.shape} mesh: the MoE, recurrent, "
-            f"encoder-decoder and frontend configs over a mesh are ROADMAP "
-            f"queue 1 item 19b part 2")
 
 
 def _whole_logits(cfg, logits: torch.Tensor, rows) -> torch.Tensor:
@@ -241,7 +228,6 @@ def _batch_rows(batch) -> int:
 
 def loss_fn(cfg, v, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Training loss ``nll + router_aux_weight * aux`` and its metrics."""
-    _check_mesh(cfg)
     with sharding.split_batch(_batch_rows(batch)) as rows:
         batch = tree.map(lambda t: sharding.split_dim(t, rows), batch)
         x, aux = forward(cfg, v, batch)
@@ -257,7 +243,6 @@ def loss_fn(cfg, v, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
 def prefill(cfg, v, batch, max_seq: Optional[int] = None
             ) -> Tuple[torch.Tensor, dict]:
     """Returns (last-position logits (B,V), decode cache)."""
-    _check_mesh(cfg)
     with sharding.split_batch(_batch_rows(batch)) as rows:
         batch = tree.map(lambda t: sharding.split_dim(t, rows), batch)
         enc_out = _enc_out(cfg, v, batch)
@@ -269,9 +254,10 @@ def prefill(cfg, v, batch, max_seq: Optional[int] = None
         x = layers.norm_apply(cfg, v["final_norm"], x)
         logits = layers.unembed_apply(cfg, _head(v), v["embed"], x[:, -1:])
         if rows is not None:
-            # the stacked caches' rows (axis 1) of every data block
-            cache = tree.map(lambda t: comm.gather_from_group(
-                t, rows.group, 1, sum_grads=True), cache)
+            # the stacked caches' rows of every data block
+            cache = tree.map(lambda t, axis: comm.gather_from_group(
+                t, rows.group, axis, sum_grads=True), cache,
+                cache_rows(cfg, cache))
         return _whole_logits(cfg, logits[:, 0], rows), cache
 
 
@@ -294,9 +280,8 @@ def decode_step(cfg, v, token: torch.Tensor, positions: torch.Tensor,
                 cache: dict) -> Tuple[torch.Tensor, dict]:
     """token: (B,1) int; positions: (B,) current write index.  Under a
     data split each rank writes the cache rows of its block."""
-    _check_mesh(cfg)
     with sharding.split_batch(token.shape[0]) as rows:
-        token, pos, part = _decode_rows(token, positions, cache, rows)
+        token, pos, part = _decode_rows(cfg, token, positions, cache, rows)
         x = _embed_token(cfg, v, token, pos, part)
         x, _, _ = transformer.stack_step(cfg, v["blocks"], x, pos,
                                          part, cfg.layer_plan())
@@ -305,7 +290,7 @@ def decode_step(cfg, v, token: torch.Tensor, positions: torch.Tensor,
         return _whole_logits(cfg, logits, rows), cache
 
 
-def _decode_rows(token, positions, cache, rows):
+def _decode_rows(cfg, token, positions, cache, rows):
     """A decode step's token, positions and cache rows of this rank's
     data block (the cache's as views, so the step writes into ``cache``);
     all of them without a data split."""
@@ -313,7 +298,8 @@ def _decode_rows(token, positions, cache, rows):
         return token, positions, cache
     return (sharding.split_dim(token, rows),
             sharding.split_dim(positions, rows),
-            tree.map(lambda t: sharding.split_dim(t, rows, 1), cache))
+            tree.map(lambda t, axis: sharding.split_dim(t, rows, axis),
+                     cache, cache_rows(cfg, cache)))
 
 
 def decode_step_channel(cfg, v, token: torch.Tensor, positions: torch.Tensor,
@@ -326,9 +312,8 @@ def decode_step_channel(cfg, v, token: torch.Tensor, positions: torch.Tensor,
     fusions stay on the ideal ``tp_fusion``.  Returns ``(logits, cache,
     chan)``, ``chan`` the summed channel-accounting dict over the tick's
     :func:`channel_sites` aggregate calls."""
-    _check_mesh(cfg)
     with sharding.split_batch(token.shape[0]) as rows:
-        token, pos, part = _decode_rows(token, positions, cache, rows)
+        token, pos, part = _decode_rows(cfg, token, positions, cache, rows)
         x = _embed_token(cfg, v, token, pos, part)
         x, _, _, chan = transformer.stack_step(
             cfg, v["blocks"], x, pos, part, cfg.layer_plan(),
@@ -362,6 +347,11 @@ def cache_init(cfg, batch: int, max_seq: int, device=None,
     return transformer.stack_cache_init(
         cfg, cfg.layer_plan(), cfg.n_periods, batch, max_seq, cfg.dtype,
         device, cross_len)
+
+
+def cache_rows(cfg, cache: dict) -> dict:
+    """The batch axis of each leaf of a stacked decode cache."""
+    return transformer.cache_rows(cfg.layer_plan(), cache)
 
 
 def min_prompt(cfg) -> int:

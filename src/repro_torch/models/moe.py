@@ -19,6 +19,18 @@ through the inverse map, and the ``k`` rows of a token are added by a
 loop over ``k`` in ascending expert order — the order in which the JAX
 package's sequential scatter-add on the CPU adds them — never through
 atomics (``index_add_``, ``scatter_add_``, ``gather``'s own backward).
+
+Under a mesh whose model axis splits the experts (``w_up``/``w_gate``/
+``w_down`` hold ``E/R`` of them), every rank routes the whole tokens with
+the replicated router, builds only its experts' slots of the ``(E, B*cap,
+d)`` buffer from the tokens behind the model group's *f* copy, and runs
+its experts' products; the slot outputs are gathered over the group in
+rank order (the backward keeps the rank's block, unsummed: what consumes
+them is replicated) and the one-device combine runs on every rank, so the
+MoE output is the one-rank run's wherever the per-expert products are.
+Under a data axis the load-balancing loss's expert means and counts are
+summed over the data group first, so every rank holds the whole batch's
+loss.
 """
 
 from __future__ import annotations
@@ -30,6 +42,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers, mlp
+from repro_torch.parallel import comm
+from repro_torch.parallel import sharding
 
 
 def moe_init(cfg, gen: torch.Generator) -> dict:
@@ -206,11 +220,66 @@ def _experts(cfg, p: dict, buf: torch.Tensor) -> torch.Tensor:
 
 def _aux(cfg, probs: torch.Tensor, e_flat: torch.Tensor) -> torch.Tensor:
     """Switch load balancing: ``E * sum_e f_e * P_e``, ``f_e`` the share
-    of entries routed to expert e (capacity drops included)."""
-    me = torch.mean(probs, dim=(0, 1))
+    of entries routed to expert e (capacity drops included), over the
+    whole batch where the data axis splits its rows."""
     counts = torch.bincount(e_flat.reshape(-1), minlength=cfg.n_experts)
-    dispatch_frac = counts.float() * (1.0 / e_flat.numel())
+    rows = sharding.batch_axis()
+    if rows is None:
+        me = torch.mean(probs, dim=(0, 1))
+        entries = e_flat.numel()
+    else:
+        b, s, _ = probs.shape
+        me = comm.reduce_from_group(torch.sum(probs, dim=(0, 1)),
+                                    rows.group) / (b * s * rows.size)
+        counts = comm.all_reduce(counts, "sum", rows.group)
+        entries = e_flat.numel() * rows.size
+    dispatch_frac = counts.float() * (1.0 / entries)
     return cfg.n_experts * torch.sum(dispatch_frac * me)
+
+
+class _Slots:
+    """The expert buffer slots a rank builds: those of its experts, the
+    block ``[lo, hi)`` of the ``E*B*cap`` slots (all of them where the
+    mesh does not split the experts)."""
+
+    def __init__(self, cfg, p: dict, per_expert: int):
+        e = cfg.n_experts
+        local = p["w_up"].shape[0]
+        ways = sharding.logical_axis("experts")
+        if ways is not None and e % ways.size:
+            raise ValueError(f"{e} experts over a {ways.size}-way "
+                             f"{ways.name} axis")
+        self.axis = sharding.split_of("experts", local, e)
+        first = 0 if self.axis is None else self.axis.index * local
+        self.lo, self.hi = first * per_expert, (first + local) * per_expert
+        self.shape = (local, per_expert)
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """The dispatch's input behind the model group's *f* copy where
+        the experts are split: each rank's slots give its share of the
+        tokens' gradient."""
+        if self.axis is None:
+            return x
+        return comm.copy_to_group(x, self.axis.group)
+
+    def dispatch(self, rows: torch.Tensor, slot_src: torch.Tensor,
+                 src_slot: torch.Tensor) -> torch.Tensor:
+        """The rank's slots (E_local, B*cap, d) taken from ``rows`` by
+        ``slot_src`` (a slot's row) whose rows go to ``src_slot`` (a row's
+        slots)."""
+        if self.axis is None:
+            buf = _Route.apply(rows, slot_src, src_slot)
+        else:
+            mine = (src_slot >= self.lo) & (src_slot < self.hi)
+            back = torch.where(mine, src_slot - self.lo, self.hi - self.lo)
+            buf = _Route.apply(rows, slot_src[self.lo:self.hi], back)
+        return buf.view(*self.shape, rows.shape[-1])
+
+    def gather(self, out_buf: torch.Tensor) -> torch.Tensor:
+        """Every expert's slot outputs (E, B*cap, d) from the rank's."""
+        if self.axis is None:
+            return out_buf
+        return comm.gather_from_group(out_buf, self.axis.group, 0)
 
 
 def _finish(cfg, p: dict, x: torch.Tensor, y: torch.Tensor, probs,
@@ -247,9 +316,11 @@ def moe_apply_sort_scatter(cfg, p: dict, x: torch.Tensor
 
     # dispatch: (B*S*k, d) entries -> (E, B*cap, d); the k copies of a
     # token add up in the repeat's backward (a reduction)
-    xk = x.to(dt).reshape(b * s, 1, d).expand(b * s, k, d).reshape(-1, d)
-    buf = _Route.apply(xk, slot_entry, entry_slot)
-    out_buf = _experts(cfg, p, buf.view(cfg.n_experts, b * cap, d))
+    slots = _Slots(cfg, p, b * cap)
+    xk = slots.copy(x.to(dt)).reshape(b * s, 1, d).expand(
+        b * s, k, d).reshape(-1, d)
+    buf = slots.dispatch(xk, slot_entry, entry_slot)
+    out_buf = slots.gather(_experts(cfg, p, buf))
 
     # combine: each entry's slot output, weighted, added over k in order
     vals = _Route.apply(out_buf.reshape(-1, d), entry_slot, slot_entry)
@@ -280,8 +351,10 @@ def moe_apply_gather(cfg, p: dict, x: torch.Tensor
 
     # dispatch: a gather of token rows; a token's k slots add up in the
     # backward in ascending expert order
-    buf = _Route.apply(x.to(dt).reshape(b * s, d), slot_token, entry_slot)
-    out_buf = _experts(cfg, p, buf.view(cfg.n_experts, b * cap, d))
+    slots = _Slots(cfg, p, b * cap)
+    buf = slots.dispatch(slots.copy(x.to(dt)).reshape(b * s, d),
+                         slot_token, entry_slot)
+    out_buf = slots.gather(_experts(cfg, p, buf))
     out_buf = out_buf.reshape(-1, d) * w_slot.to(dt)
 
     vals = _Route.apply(out_buf, entry_slot, slot_entry)

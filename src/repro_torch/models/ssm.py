@@ -14,16 +14,26 @@ The time recurrences are Python loops over the sequence in the JAX
 the JAX package has none); mLSTM's loop keeps only what depends on the
 carried memory (:func:`_mlstm_scan`).  Decode carries (C, n, m) / (h, c, n, m) in the
 cache: O(1) per token.
+
+Under a mesh whose model axis splits the workers, a rank holds its
+workers' ``w_v`` and ``w_down`` and their rows of the memory ``C``; ``n``
+and ``m`` stay whole on every rank (the JAX package's
+``MLSTM_CACHE_AXES``).  Its read-out is its workers' share, so q, k, the
+gates, the value projection's input and the output gate's z enter the
+split work behind the model group's *f* copy, and the replicated
+``w_up``/``w_q``/``w_k``/``w_gates`` get their whole gradients from the
+group's sum.  The sLSTM runs whole on every rank.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models import fusion, layers
+from repro_torch.parallel import sharding
 
 NEG_INIT = -1e9          # the stabiliser m's start: exp(m) is 0
 
@@ -110,8 +120,12 @@ def _mlstm_scan(q, k, v, i_raw, f_raw, state):
     return y, (c_mat, n_vec, m)
 
 
-def mlstm_state_init(cfg, batch: int, device=None) -> Tuple:
-    n, _, h, dh, dhl = _mlstm_dims(cfg)
+def mlstm_state_init(cfg, batch: int, device=None,
+                     n_local: Optional[int] = None) -> Tuple:
+    """(C, n, m) for ``batch`` rows; C holds ``n_local`` workers (the
+    active mesh's share of them for ``None``)."""
+    _, _, h, dh, dhl = _mlstm_dims(cfg)
+    n = fusion.local_workers(cfg) if n_local is None else n_local
     f32 = torch.float32
     return (torch.zeros((n, batch, h, dhl, dh), dtype=f32, device=device),
             torch.zeros((batch, h, dh), dtype=f32, device=device),
@@ -120,29 +134,33 @@ def mlstm_state_init(cfg, batch: int, device=None) -> Tuple:
 
 def _mlstm_core(cfg, p, x, state):
     d = cfg.dtype
-    n, di, h, dh, dhl = _mlstm_dims(cfg)
+    n_all, di, h, dh, dhl = _mlstm_dims(cfg)
+    n = p["w_v"].shape[0]                          # this rank's workers
+    axis = fusion.worker_axis(cfg, n)
     b, s, _ = x.shape
     up = torch.matmul(x, p["w_up"].to(d))                  # (B, S, 2di)
     xt, z = up.chunk(2, dim=-1)
     q = torch.einsum("bsd,dhk->bshk", xt, p["w_q"].to(d)).float()
     k = (torch.einsum("bsd,dhk->bshk", xt, p["w_k"].to(d))
          * (dh ** -0.5)).float()
-    v = torch.einsum("bsd,ndhk->nbshk", xt, p["w_v"].to(d)).float()
     gates = (torch.matmul(xt, p["w_gates"].to(d))
              + p["b_gates"].to(d)).float()                 # (B, S, 2H)
+    q, k, gates, xv, z = fusion.copy_in(axis, q, k, gates, xt, z)
+    v = torch.einsum("bsd,ndhk->nbshk", xv, p["w_v"].to(d)).float()
     i_raw, f_raw = gates.chunk(2, dim=-1)
     y, state = _mlstm_scan(q, k, v, i_raw, f_raw, state)
     y = y.reshape(n, b, s, h * dhl).to(d)
-    # the output gate: z grouped to match the worker-split feature layout
-    zg = z.reshape(b, s, h, n, dhl).permute(3, 0, 1, 2, 4).reshape(
-        n, b, s, h * dhl)
+    # the output gate: z grouped to match the worker-split feature layout,
+    # this rank's workers of it
+    zg = z.reshape(b, s, h, n_all, dhl).permute(3, 0, 1, 2, 4)
+    zg = sharding.split_dim(zg, axis).reshape(n, b, s, h * dhl)
     y = y * F.silu(zg)
     partial = fusion.worker_partial(y, p["w_down"].to(d))
     return fusion.worker_reduce(cfg, p, partial), state
 
 
 def mlstm_full(cfg, p: dict, x: torch.Tensor, return_cache: bool = False):
-    state = mlstm_state_init(cfg, x.shape[0], x.device)
+    state = mlstm_state_init(cfg, x.shape[0], x.device, p["w_v"].shape[0])
     out, state = _mlstm_core(cfg, p, x, state)
     return (out, state) if return_cache else out
 

@@ -28,27 +28,31 @@ ATTENTION = ("attn", "attn_nocausal")
 
 class Recurrent(NamedTuple):
     """A mixer whose cache is a recurrent state: its parameters, its
-    full-sequence and one-token forwards, its state for a batch, and the
-    fewest prompt tokens from which a prefill builds that state."""
+    full-sequence and one-token forwards, its state for a batch (the
+    active mesh's share of the workers), the fewest prompt tokens from
+    which a prefill builds that state, and the batch axis of each of the
+    state's tensors (a tree of the state's structure)."""
     init: Callable
     full: Callable
     step: Callable
     state_init: Callable        # (cfg, batch, dtype, device) -> state
     min_prompt: Callable        # cfg -> int
+    rows: Any
 
 
 RECURRENT = {
     # a prefill caches the prompt's last conv_width - 1 conv inputs
     "mamba": Recurrent(mamba.mamba_init, mamba.mamba_full, mamba.mamba_step,
-                       mamba.init_cache, lambda cfg: cfg.conv_width - 1),
+                       mamba.init_cache, lambda cfg: cfg.conv_width - 1,
+                       {"conv": 1, "h": 1}),
     "mlstm": Recurrent(
         ssm.mlstm_init, ssm.mlstm_full, ssm.mlstm_step,
         lambda cfg, batch, dtype, device: ssm.mlstm_state_init(
-            cfg, batch, device), lambda cfg: 1),
+            cfg, batch, device), lambda cfg: 1, (1, 0, 0)),
     "slstm": Recurrent(
         ssm.slstm_init, ssm.slstm_full, ssm.slstm_step,
         lambda cfg, batch, dtype, device: ssm.slstm_state_init(
-            cfg, batch, device), lambda cfg: 1),
+            cfg, batch, device), lambda cfg: 1, (0, 0, 0, 0)),
 }
 
 
@@ -348,6 +352,23 @@ def stack_cache_init(cfg, plan, n_periods: int, batch: int, max_seq: int,
            for i, (mixer, _) in enumerate(plan)}
     return tree.map(
         lambda v: v[None].repeat((n_periods,) + (1,) * v.ndim), one)
+
+
+def cache_rows(plan, cache: dict) -> dict:
+    """The batch axis of every leaf of a stacked cache (a tree of its
+    structure): axis 1 of an attention cache, past the period axis, and
+    of a recurrent state's whole tensors; axis 2 of the worker-leading
+    ones (mLSTM's memory, mamba's conv window and state)."""
+    out = {}
+    for i, (mixer, _) in enumerate(plan):
+        c = cache[f"pos{i}"]
+        state = (RECURRENT[mixer].rows if mixer in RECURRENT
+                 else tree.map(lambda t: 0, c["self"]))
+        axes = {"self": tree.map(lambda r: r + 1, state)}
+        if "cross" in c:
+            axes["cross"] = tree.map(lambda t: 1, c["cross"])
+        out[f"pos{i}"] = axes
+    return out
 
 
 def min_prompt(cfg, plan) -> int:

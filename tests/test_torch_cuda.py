@@ -297,6 +297,72 @@ def test_maxpool_fwd_outputs_and_ties_bwd_match_plain(cuda_device, n, e,
     _same_nan_as_nan(MPR.ties_bwd(mask, gc, n, 1), got)
 
 
+# the max sites of the MoE, recurrent and encoder-decoder models over a (1
+# x 2) mesh, a rank's 8 of 16 workers: (rows x width, dtype) of
+# qwen3-moe's attention site in a step and a tick of 8, xlstm's mLSTM
+# site in a step of 2 x 256 and a tick of 2, jamba's in a 64-token prefill
+# and a tick of 2, whisper's mlp site in a step and in a prefill of 2 x
+# 1,408 frames, pixtral's in a prefill of 2 x 1,024 patches; float32 at a
+# one-row prefill of each logits reading
+_TP_MODEL_SITES = [(8 * 256 * 2048, "bfloat16"), (8 * 2048, "bfloat16"),
+                   (2 * 256 * 768, "bfloat16"), (2 * 768, "bfloat16"),
+                   (64 * 8192, "bfloat16"), (2 * 8192, "bfloat16"),
+                   (8 * 384 * 512, "bfloat16"), (2 * 1408 * 512, "bfloat16"),
+                   (2 * 1024 * 5120, "bfloat16"), (256 * 2048, "float32"),
+                   (1408 * 512, "float32"), (1024 * 5120, "float32")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,dtype", _TP_MODEL_SITES)
+def test_tp_model_sites_match_plain(cuda_device, e, dtype):
+    """At each site a rank of the (1 x 2) mesh gives ``maxpool.fwd`` (8
+    of 16 workers): every subset of its optional outputs bitwise its
+    plain version on partials with forced ties, -0.0 beside +0.0 and a
+    NaN; ``maxpool.ties_bwd`` from the kernel's mask bitwise its plain
+    version (NaN as NaN)."""
+    n = 8
+    gen = torch.Generator().manual_seed(e)
+    h = torch.randint(-4, 3, (n, e), generator=gen) / 2.0
+    h[:, 1::7] = -1.0
+    h[n // 2, 1::7], h[n - 1, 1::7] = -0.0, 0.0
+    h[3, 4::64] = float("nan")
+    h = h.to(_DT[dtype][0])
+    hc = h.to(cuda_device)
+    for winner in (False, True):
+        for ties in (False, True):
+            got = MPO.maxpool_fwd(hc, 0, winner=winner, ties=ties)
+            want = MPR.maxpool_fwd(h, 0, winner=winner, ties=ties)
+            for a, b in zip(got, want):
+                assert (a is None) == (b is None)
+                if a is not None:
+                    _same(b, a)
+    mask = MPO.maxpool_ties(hc, 0)[1]
+    g = torch.randn((e,), generator=gen).to(h.dtype)
+    got = MPO.maxpool_ties_bwd(mask, g.to(cuda_device), n, 0)
+    _same_nan_as_nan(MPR.ties_bwd(mask.cpu(), g, n, 0), got)
+
+
+# flash over a rank's half of the heads: (batch, heads, KV heads, S,
+# causal, head dim) of qwen3-moe's step, jamba's prefill, whisper's
+# encoder (a step, a serving prefill) and 4-token decoder prompt,
+# pixtral's prefill
+_TP_FLASH = [(8, 16, 2, 256, True, 128), (1, 32, 4, 64, True, 128),
+             (8, 4, 4, 384, False, 64), (2, 4, 4, 1408, False, 64),
+             (2, 4, 4, 4, True, 64), (2, 16, 4, 1024, True, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,s,causal,d", _TP_FLASH)
+def test_flash_over_a_ranks_heads_matches_plain(cuda_device, b, h, hkv, s,
+                                                causal, d):
+    gen = torch.Generator().manual_seed(b * h + s)
+    q, k, v = (torch.randn(shape, generator=gen).to(torch.bfloat16)
+               .to(cuda_device)
+               for shape in ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+    _assert_flash_close(FO.flash_attention(q, k, v, causal),
+                        FR.flash_attention(q, k, v, causal))
+
+
 # the fused kernel's cases: (lanes, workers, real workers, elements, the
 # features' dtype (and p_keep's), bits, id sub-slots past the real ones,
 # p_miss per lane, per worker, rounds)

@@ -266,25 +266,17 @@ def _serve_on_ranks(mesh) -> dict:
         return {c: _serve(mine, m, *c) for c in SERVE_CASES}
 
 
-REFUSED = ("qwen3-moe-30b-a3b", "xlstm-125m", "jamba-1.5-large-398b",
-           "whisper-base")
-
-
 def _refusals(mesh) -> dict:
-    out = {}
-    for arch in REFUSED:
-        cfg = get_reduced(arch)
-        m = M.build(cfg)
-        batch = {"tokens": torch.zeros((2, 8), dtype=torch.int32),
-                 "targets": torch.zeros((2, 8), dtype=torch.int32),
-                 "feats": torch.zeros((2, 8, cfg.frontend_dim or cfg.d_model))}
-        with sh.use_mesh(mesh):
-            try:
-                m.loss(m.init(torch.Generator().manual_seed(0)), batch)
-                out[arch] = None
-            except NotImplementedError as e:
-                out[arch] = str(e)
-    return out
+    """What a model axis still refuses: experts that it does not
+    divide."""
+    cfg = get_reduced("qwen3-moe-30b-a3b", n_experts=3)
+    m = M.build(cfg)
+    with sh.use_mesh(mesh):
+        try:
+            m.loss(m.init(torch.Generator().manual_seed(0)), _torch_batch())
+        except ValueError as e:
+            return {"experts": str(e)}
+    return {"experts": None}
 
 
 def _rank_task(shape, inits, ckpt_dir, jax_dir) -> dict:
@@ -663,11 +655,13 @@ def test_checkpoint_index_holds_each_leafs_axes(tmp_path):
     assert all(index["axes"][k] == list(a) for k, a in flat.items())
 
 
-def test_moe_recurrent_and_encdec_refuse_a_model_axis(ranks):
+def test_what_a_mesh_still_refuses(ranks):
+    """Every arch runs under a model axis (``tests/test_torch_tp_models.py``);
+    a mesh of the wrong size and experts that the model axis does not
+    divide are refused."""
     for out in ranks["got"][(1, 2)]:
-        for arch, msg in out["refused"].items():
-            assert msg is not None and "19b part 2" in msg, arch
         assert "needs 4 ranks" in out["bad_mesh"]
+        assert out["refused"]["experts"] == "3 experts over a 2-way model axis"
 
 
 def test_global_norm_needs_the_leaf_shardings():
