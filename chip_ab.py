@@ -33,6 +33,11 @@ tie-routed backward alone where it has one, and of ``torch.max(dim=0)``.
 fedocs-cifar width, its 10-step profile, serving qwen1.5-0.5b at full
 width, its 10-tick profile) and prints their lines.
 
+``--serve``: each turn a fresh process that runs the checkout's own
+``chip_smoke.py`` phases 8 and 11 (serving qwen1.5-0.5b at full width,
+16 requests, prefills included, and its 10-tick profile) and prints
+their lines: the host cost of a change to the serving path's wrappers.
+
 ``--ops`` needs no GPU: for each checkout, a fresh process runs the card
 path on ``meta`` tensors (the kernel wrappers' operand checks off, each
 launch counted) under a ``TorchDispatchMode`` that counts every other
@@ -241,13 +246,31 @@ def run_paths(root: pathlib.Path) -> None:
     C.profile_serving(dev, C.run_serving(dev))
 
 
+def run_serve(root: pathlib.Path) -> None:
+    """One turn of --serve, in this process: ``root``'s own phases 8 and
+    11."""
+    import torch
+
+    sys.path.insert(0, str(root))
+    import chip_smoke as C  # noqa: E402
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    C.kernels.library()
+    C.profile_serving(dev, C.run_serving(dev))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", type=pathlib.Path)
     ap.add_argument("--flash", action="store_true")
     ap.add_argument("--kernels", action="store_true")
     ap.add_argument("--paths", action="store_true")
+    ap.add_argument("--serve", action="store_true")
     ap.add_argument("--one-turn", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--serve-turn", action="store_true",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--ops", action="store_true")
     ap.add_argument("--kernel-turn", action="store_true",
                     help=argparse.SUPPRESS)
@@ -272,6 +295,9 @@ def main() -> int:
     if args.one_turn:
         run_paths(args.other.resolve())
         return 0
+    if args.serve_turn:
+        run_serve(args.other.resolve())
+        return 0
     if args.kernel_turn:
         kernel_turn(args.other.resolve())
         return 0
@@ -290,11 +316,13 @@ def main() -> int:
             for line in out.splitlines():
                 if line.startswith("kernel-ab"):
                     print(f"[{name}] {line}", flush=True)
-    if args.paths:
+    for flag, turn in (("paths", "--one-turn"), ("serve", "--serve-turn")):
+        if not getattr(args, flag):
+            continue
         keep = ("wall", "profile", "launches", "tokens per second")
         for name, root in turns:
             out = subprocess.run(
-                [sys.executable, __file__, str(root), "--one-turn"],
+                [sys.executable, __file__, str(root), turn],
                 capture_output=True, text=True, check=True).stdout
             for line in out.splitlines():
                 if any(k in line for k in keep):

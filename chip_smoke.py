@@ -258,7 +258,24 @@ Phases, in order; any failed check raises and the script exits non-zero:
     family (the MoE dispatch input, mLSTM q and k, mamba's input,
     whisper's encoder output outside the *f* copy) must fail the
     gradient norm's limit;
-36. print one ``{"kernels": [...]}`` line and, last, the device line.
+36. hold the dry-run (``repro_torch.launch.dryrun``: one rank's step
+    traced on fake tensors over a fake process group) to the card
+    (:func:`run_dryrun_phase`): fake-CUDA traces of a reduced config's
+    train, prefill and decode steps count the FLOPs and collectives of
+    the same traces on fake CPU tensors; the production cells
+    qwen1.5-0.5b and qwen3-moe-30b-a3b ``train_4k`` on the (16, 16) mesh
+    traced at full size on fake CUDA tensors and their records printed;
+    the (1 x 2) traces of phase 34's step and float32 prefill + 2 decode
+    steps and of phase 35's three trained cuts give, op for op, the
+    calls and bytes that the gloo ranks recorded there; the dry-run's
+    argument bytes of phase 18's 8 x 256 AdamW step equal the bytes the
+    caching allocator was asked for before a real step, and
+    ``memory_allocated()`` within its rounding (512 bytes a request, and
+    a remainder of up to 1 MiB it leaves unsplit in a large block); its
+    peak, t_compute and t_memory are printed beside the card's
+    ``max_memory_allocated()`` and a step's device busy time; the fake
+    traces run in a pool of processes;
+37. print one ``{"kernels": [...]}`` line and, last, the device line.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -293,6 +310,7 @@ from repro_torch import faults, kernels, tree  # noqa: E402
 from repro_torch import random as jr  # noqa: E402
 from repro_torch.configs import fedocs_cifar  # noqa: E402
 from repro_torch.configs import get_config, get_reduced  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.core import ocs, vertical  # noqa: E402
 from repro_torch.data import pipeline, vertical_data  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
@@ -303,6 +321,8 @@ from repro_torch.kernels.ocs_contention import ops as ct_ops  # noqa: E402
 from repro_torch.kernels.ocs_contention import ref as ct_ref  # noqa: E402
 from repro_torch.kernels.ocs_quant import ops as q_ops  # noqa: E402
 from repro_torch.kernels.ocs_quant import ref as q_ref  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import hlo_analysis  # noqa: E402
 from repro_torch.launch import mesh as launch_mesh  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
@@ -4390,13 +4410,18 @@ def run_ranks_phase(dev, curves, swept, dp) -> dict:
 # the dense LM stack over a (1 data x 2 model) mesh
 # ---------------------------------------------------------------------------
 
+def _tp_train_args(dev):
+    """Phase 18's flags (``launch/train``)."""
+    return launch_train.parse_args([
+        "--arch", QWEN, "--steps", str(TRAIN_STEPS), "--batch",
+        str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--seed", "0",
+        "--device", dev.type])
+
+
 def _tp_train_run(dev):
     """Phase 18's run (its batches and its 6-step schedule), cut to
     ``TP_STEPS`` steps, every step logged, no checkpoints."""
-    run = launch_train.setup(launch_train.parse_args([
-        "--arch", QWEN, "--steps", str(TRAIN_STEPS), "--batch",
-        str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--seed", "0",
-        "--device", dev.type]))
+    run = launch_train.setup(_tp_train_args(dev))
     run.tcfg = dataclasses.replace(run.tcfg, steps=TP_STEPS, log_every=1,
                                    ckpt_dir=None)
     return run
@@ -4624,8 +4649,9 @@ def _tp_rank() -> dict:
     m32, whole = _tp_serve_model(dev, torch.float32)
     blocks = sharding.shard_values(whole, m32.axes(), mesh)
     del whole
-    with sharding.use_mesh(mesh):
+    with sharding.use_mesh(mesh), comm.recording() as rec:
         out["logits"] = _tp_logits(m32, blocks, reqs, dev)
+    out["logits_bytes"] = comm.summarize(rec)
     out["products"] = _tp_products(dev, mesh)
     out["sites"] = _tp_sites(dev, mesh)
     out["peak"] = torch.cuda.max_memory_allocated()
@@ -4785,7 +4811,9 @@ def run_tp_phase(dev, phase18) -> dict:
                      for k in kernels.KERNELS} for name in ("train", "serve")}
     return dict(counts=summed, same_tokens=same, spawn_wall=spawn_wall,
                 walls={name: [o[name]["wall"] for o in got]
-                       for name in ("train", "serve")})
+                       for name in ("train", "serve")},
+                bytes={"train": [o["train"]["bytes"] for o in got],
+                       "logits": [o["logits_bytes"] for o in got]})
 
 
 # ---------------------------------------------------------------------------
@@ -4807,6 +4835,14 @@ def _tpm_train_run(arch, dev, steps=None, moe_layers=TPM_MOE_LAYERS):
     """``launch/train``'s run of phase 35 for ``arch``: qwen3-moe cut to
     ``moe_layers``, xlstm to one period, whisper whole; fusion max,
     flash; every step logged, no checkpoints."""
+    run = launch_train.setup(_tpm_train_args(arch, dev, moe_layers))
+    run.tcfg = dataclasses.replace(run.tcfg, log_every=1, ckpt_dir=None,
+                                   steps=steps or run.tcfg.steps)
+    return run
+
+
+def _tpm_train_args(arch, dev, moe_layers=TPM_MOE_LAYERS):
+    """Phase 35's ``launch/train`` flags for ``arch``."""
     if arch == QWEN3:
         argv = ["--layers", str(moe_layers), "--steps",
                 str(TPM_MOE_STEPS), "--batch", str(TRAIN_BATCH), "--seq",
@@ -4818,12 +4854,9 @@ def _tpm_train_run(arch, dev, steps=None, moe_layers=TPM_MOE_LAYERS):
     else:
         argv = ["--steps", str(TPM_WHISPER_STEPS), "--batch",
                 str(WHISPER_BATCH), "--seq", str(WHISPER_SEQ)]
-    run = launch_train.setup(launch_train.parse_args(
+    return launch_train.parse_args(
         ["--arch", arch, "--fusion", "max", "--use-flash", "--seed", "0",
-         "--device", dev.type] + argv))
-    run.tcfg = dataclasses.replace(run.tcfg, log_every=1, ckpt_dir=None,
-                                   steps=steps or run.tcfg.steps)
-    return run
+         "--device", dev.type] + argv)
 
 
 def _tpm_train(arch, dev, mesh, steps=None, moe_layers=TPM_MOE_LAYERS
@@ -5409,7 +5442,267 @@ def run_tp_models_phase(dev) -> dict:
                 walls={arch: {kind: [o[arch][kind]["wall"] for o in got]
                               for kind in ("train", "serve", "retry")
                               if kind in got[0][arch]}
-                       for arch in dict.fromkeys(TPM_TRAINED + TPM_SERVED)})
+                       for arch in dict.fromkeys(TPM_TRAINED + TPM_SERVED)},
+                bytes={arch: [o[arch]["train"]["bytes"] for o in got]
+                       for arch in TPM_TRAINED})
+
+
+# ---------------------------------------------------------------------------
+# phase 36: the dry-run held to the card
+# ---------------------------------------------------------------------------
+
+# a reduced config's cells, traced on fake CUDA and fake CPU tensors on a
+# fake (2 x 4) mesh
+DRY_ARCH, DRY_MESH = "glm4-9b", (2, 4)
+DRY_SHAPES = (ShapeConfig("t", "train", 16, 8),
+              ShapeConfig("p", "prefill", 32, 4),
+              ShapeConfig("d", "decode", 32, 8))
+# production cells traced at full size on the (16, 16) mesh
+DRY_CELLS = ((QWEN, "train_4k"), (QWEN3, "train_4k"))
+DRY_DEVICE = "cuda"     # the device of the fake tensors the card is held to
+# the caching allocator rounds a request up to 512 bytes, and may hand a
+# request of more than 1 MiB a block up to 1 MiB larger (a remainder it
+# does not split off)
+ALLOC_ROUND, ALLOC_SPLIT = 512, 2**20
+
+
+def _dry_trace(cfg, shape, mesh_shape, device, rules=None, inputs=None):
+    """:func:`dryrun.trace` of ``cfg``'s step at ``shape`` on rank 0 of a
+    fake ``(data, model)`` world, ``rules`` by default ``rules_for``'s."""
+    data, model = mesh_shape
+    with dryrun.fake_world(data * model):
+        mesh = launch_mesh.make_mesh(data, model)
+        if rules is None:
+            rules = launch_mesh.rules_for(shape.name, shape.global_batch,
+                                          mesh)
+        return dryrun.trace(dryrun.build_step, cfg, shape, mesh, rules, 1,
+                            device, inputs)
+
+
+def _dry_job(job):
+    """One fake trace of phase 36, in a pool worker: ``("cell", arch,
+    shape_name, device)`` -> ``run_cell``'s record, or ``("trace", cfg,
+    shape, mesh_shape, device, rules, inputs)`` -> its counts."""
+    if job[0] == "cell":
+        _, arch, shape_name, device = job
+        return dryrun.run_cell(arch, shape_name, False, device=device,
+                               extrapolate=False)
+    got = _dry_trace(*job[1:])
+    return {k: got[k] for k in ("flops", "hbm_bytes", "records", "peak",
+                                "argument_bytes_by_device", "trace_s")}
+
+
+def _summed(*summaries, times: int = 1) -> dict:
+    """``comm.summarize`` records added, and repeated ``times``."""
+    out: dict = {}
+    for summ in summaries:
+        for k, v in summ.items():
+            cur = out.setdefault(k, {"calls": 0, "bytes": 0})
+            cur["calls"] += v["calls"] * times
+            cur["bytes"] += v["bytes"] * times
+    return dict(sorted(out.items()))
+
+
+def _launch_step(args):
+    """The config, the first batch (on the CPU) and a train step's
+    ``ShapeConfig`` of ``launch/train``'s flags ``args``."""
+    cfg = launch_train.config(args)
+    batch = pipeline.batch_for_step(launch_train.data_config(args, cfg), 0,
+                                    device=torch.device("cpu"))
+    rows, seq = tree.leaves(batch)[0].shape[:2]
+    return cfg, batch, ShapeConfig("launch", "train", seq, rows)
+
+
+def _dry_jobs() -> dict:
+    """Every fake trace of phase 36, by name: (a) the reduced cells on
+    both devices and the production cells; (b) phase 34's step and
+    float32 prefill + 2 decode steps and phase 35's trained cuts on a
+    (1 x ``TP_RANKS``) mesh (``use_mesh(mesh)``'s default rules, as
+    there); (c) phase 18's step on one device."""
+    cpu, dev = torch.device("cpu"), DRY_DEVICE
+    rules = sharding.DEFAULT_RULES
+    mesh = (1, TP_RANKS)
+    cfg = get_reduced(DRY_ARCH, n_workers=4, tp_fusion="max", use_flash=True)
+    jobs = {("reduced", shape.kind, d): ("trace", cfg, shape, DRY_MESH, d,
+                                         None, None)
+            for shape in DRY_SHAPES for d in ("cpu", dev)}
+    jobs.update({("cell", arch): ("cell", arch, name, dev)
+                 for arch, name in DRY_CELLS})
+    runs = {QWEN: (_tp_train_args(cpu), TP_STEPS)}
+    for arch in TPM_TRAINED:
+        args = _tpm_train_args(arch, cpu)
+        runs[arch] = (args, args.steps)
+    for arch, (args, steps) in runs.items():
+        cfg, batch, shape = _launch_step(args)
+        jobs[("rank", arch, steps)] = ("trace", cfg, shape, mesh, dev,
+                                       rules, batch)
+    cfg32 = get_config(QWEN, use_flash=True, tp_fusion="max").with_(
+        dtype=torch.float32, param_dtype=torch.float32)
+    jobs[("logits", "prefill")] = (
+        "trace", cfg32, ShapeConfig("p", "prefill", SERVE_PROMPT, 1), mesh,
+        dev, rules, None)
+    jobs[("logits", "decode")] = (
+        "trace", cfg32, ShapeConfig("d", "decode", SERVE_PROMPT + 2, 1),
+        mesh, dev, rules, None)
+    cfg, batch, shape = _launch_step(_tp_train_args(cpu))
+    jobs[("memory",)] = ("trace", cfg, shape, (1, 1), dev, rules, batch)
+    return jobs
+
+
+def _dry_ranks(done, tp, tpm, checks) -> None:
+    """36(b): the fake (1 x ``TP_RANKS``) rank's collectives against what
+    each gloo rank recorded in phases 34-35."""
+    recorded = {QWEN: tp["bytes"]["train"], **tpm["bytes"]}
+    for key, got in done.items():
+        if key[0] != "rank":
+            continue
+        _, arch, steps = key
+        want = _summed(comm.summarize(got["records"]), times=steps)
+        for r, real in enumerate(recorded[arch]):
+            print(f"dry-run (1 x {TP_RANKS}) {arch} train step x {steps}: "
+                  f"fake {want}; gloo rank {r} recorded {real}", flush=True)
+            checks.append((f"{arch} train collectives rank {r}",
+                           _summed(real) == want))
+    once = comm.summarize(done[("logits", "decode")]["records"])
+    want = _summed(comm.summarize(done[("logits", "prefill")]["records"]),
+                   once, once)
+    for r, real in enumerate(tp["bytes"]["logits"]):
+        print(f"dry-run (1 x {TP_RANKS}) {QWEN} float32 prefill + 2 decode "
+              f"steps: fake {want}; gloo rank {r} recorded {real}",
+              flush=True)
+        checks.append((f"logits collectives rank {r}", _summed(real) == want))
+
+
+def _dry_memory_on_card(dev) -> dict:
+    """36(c), the card's side: phase 18's 8 x 256 AdamW step's arguments
+    (values, AdamW state, batch) made with nothing else allocated, the
+    bytes they take (requested and allocated), then 3 steps: the peak
+    above the arguments' start, each step's stream ms (CUDA events, the
+    host's gaps included) and one step's device busy ms (profiler)."""
+    cfg, batch, _ = _launch_step(_tp_train_args(dev))
+    _release("dry-run memory reading")
+
+    def stats():
+        st = torch.cuda.memory_stats()
+        return (st["requested_bytes.all.current"],
+                st["allocated_bytes.all.current"])
+
+    base = stats()
+    m = M.build(cfg)
+    values = m.init(torch.Generator(device=dev).manual_seed(0))
+    opt = optimizers.adamw(schedules.constant(1e-4))
+    state = opt.init(values)
+    batch = tree.map(lambda t: t.to(dev), batch)
+    sizes = [t.numel() * t.element_size()
+             for t in tree.leaves((values, state, batch)) if t.is_cuda]
+    requested, allocated = (a - b for a, b in zip(stats(), base))
+    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(m.loss, opt)
+    ms = []
+    for _ in range(3):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        values, state, _ = step(values, state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated() - base[1]
+    busy_s, _ = _busy(lambda: step(values, state, batch))
+    del values, state, batch
+    _release("dry-run memory reading done")
+    return dict(requested=requested, allocated=allocated, sizes=sizes,
+                peak=peak, stream_ms=ms, busy_ms=1e3 * busy_s)
+
+
+def _dry_memory(fake, card, checks) -> dict:
+    """36(c): the dry-run's argument bytes and peak against the card's."""
+    fake_args = fake["argument_bytes_by_device"]["cuda"]
+    fake_peak = fake["peak"]["cuda"]["Total"]
+    terms = hlo_analysis.roofline_terms(fake["flops"], fake["hbm_bytes"], 0)
+    slack = sum(-n % ALLOC_ROUND + (ALLOC_SPLIT if n > ALLOC_SPLIT else 0)
+                for n in card["sizes"])
+    out = dict(fake_args=fake_args, requested=card["requested"],
+               allocated=card["allocated"], tensors=len(card["sizes"]),
+               fake_peak=fake_peak, real_peak=card["peak"],
+               peak_ratio=fake_peak / card["peak"],
+               stream_ms=card["stream_ms"], busy_ms=card["busy_ms"],
+               t_compute_ms=1e3 * terms["t_compute_s"],
+               t_memory_ms=1e3 * terms["t_memory_s"])
+    print(f"dry-run memory, {QWEN} {TRAIN_BATCH} x {TRAIN_SEQ} AdamW step: "
+          f"argument bytes fake {fake_args} / requested "
+          f"{card['requested']} / memory_allocated {card['allocated']} "
+          f"({out['tensors']} tensors on the card; the allocator's rounding "
+          f"allows {slack} above the requests); peak fake {fake_peak} / "
+          f"max_memory_allocated {card['peak']} (ratio "
+          f"{out['peak_ratio']:.4f}); t_compute {out['t_compute_ms']:.3f} "
+          f"ms, t_memory {out['t_memory_ms']:.3f} ms (H100 SXM peaks) beside "
+          f"a step's device busy {card['busy_ms']:.3f} ms and stream ms "
+          f"{card['stream_ms']}", flush=True)
+    checks.append(("argument bytes requested", card["requested"] == fake_args))
+    checks.append(("argument bytes allocated",
+                   0 <= card["allocated"] - fake_args <= slack))
+    return out
+
+
+def run_dryrun_phase(dev, tp, tpm) -> dict:
+    """Phase 36: the dry-run held to the card (see the module doc).  The
+    fake traces run in a pool of processes (each a fake world of its own,
+    destroyed as its trace ends) while this process measures phase 18's
+    step on the card.  Every reading is printed before any is held to
+    its limit."""
+    import concurrent.futures
+    import multiprocessing
+    checks = []
+    jobs = _dry_jobs()
+    workers = max(1, min(len(jobs), (os.cpu_count() or 2) - 1))
+    with concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        pending = {key: pool.submit(_dry_job, job)
+                   for key, job in jobs.items()}
+        card = _dry_memory_on_card(dev)
+        done = {key: f.result() for key, f in pending.items()}
+    out = {"cells": {}, "trace_s": {str(k): round(v["trace_s"], 1)
+                                    for k, v in done.items()
+                                    if "trace_s" in v}}
+    for shape in DRY_SHAPES:
+        got = {d: done[("reduced", shape.kind, d)]
+               for d in ("cpu", DRY_DEVICE)}
+        summ = {d: comm.summarize(g["records"]) for d, g in got.items()}
+        print(f"dry-run reduced {DRY_ARCH} {shape.kind} on a fake "
+              f"{DRY_MESH} mesh, fake {DRY_DEVICE} / fake cpu: flops "
+              f"{got[DRY_DEVICE]['flops']} / {got['cpu']['flops']}, hbm "
+              f"bytes {got[DRY_DEVICE]['hbm_bytes']} / "
+              f"{got['cpu']['hbm_bytes']}, collectives {summ[DRY_DEVICE]} / "
+              f"{summ['cpu']}", flush=True)
+        checks.append((f"{shape.kind} fake {DRY_DEVICE} == fake cpu",
+                       got[DRY_DEVICE]["flops"] == got["cpu"]["flops"]
+                       and got[DRY_DEVICE]["records"]
+                       == got["cpu"]["records"]))
+    for arch, shape_name in DRY_CELLS:
+        rec = done[("cell", arch)]
+        path = ROOT / "chiprun_out" / f"dryrun_{arch}__{shape_name}.json"
+        path.parent.mkdir(exist_ok=True)
+        path.write_text(json.dumps(rec, indent=1))
+        keep = ("status", "error", "trace", "lower_s", "fsdp",
+                "flops_per_dev", "hbm_bytes_per_dev", "roofline",
+                "useful_flops_ratio")
+        brief = {k: rec[k] for k in keep if k in rec}
+        if rec["status"] == "ok":
+            brief["collectives"] = {k: rec["collectives"][k] for k in (
+                "counts", "payload_bytes", "link_bytes_per_dev")}
+            brief["memory"] = {k: rec["memory"][k] for k in (
+                "argument_size_in_bytes", "peak_bytes")}
+        out["cells"][arch] = brief
+        print(f"dry-run production cell {arch} {shape_name} (16 x 16, fake "
+              f"{DRY_DEVICE}): {json.dumps(brief)}", flush=True)
+        checks.append((f"{arch} {shape_name} record", rec["status"] == "ok"))
+    _dry_ranks(done, tp, tpm, checks)
+    out["memory"] = _dry_memory(done[("memory",)], card, checks)
+    print(f"dry-run trace seconds by job (pool of {workers}): "
+          f"{out['trace_s']}", flush=True)
+    failed = [what for what, ok in checks if not ok]
+    assert not failed, failed
+    return out
 
 
 def _timed(fn, *args):
@@ -5484,6 +5777,7 @@ def main() -> int:
     ranks = _timed(run_ranks_phase, dev, curves, swept, dp)
     tp = _timed(run_tp_phase, dev, train)
     tpm = _timed(run_tp_models_phase, dev)
+    dry = _timed(run_dryrun_phase, dev, tp, tpm)
 
     line = []
     keep = ("shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
@@ -5648,6 +5942,13 @@ def main() -> int:
     print(f"tp models: (1 x {TP_RANKS}) mesh of gloo ranks on cuda:0, walls "
           f"by rank {tpm['walls']}, spawn to join {tpm['spawn_wall']:.3f} s; "
           f"{smi}", flush=True)
+    mem = dry["memory"]
+    print(f"dry-run: fake argument bytes {mem['fake_args']} against "
+          f"{mem['requested']} requested, {mem['allocated']} allocated; fake "
+          f"peak {mem['fake_peak']} against {mem['real_peak']} "
+          f"({mem['peak_ratio']:.4f}); t_compute {mem['t_compute_ms']:.3f} "
+          f"ms, t_memory {mem['t_memory_ms']:.3f} ms against "
+          f"{mem['busy_ms']:.3f} device busy ms a step; {smi}", flush=True)
     print(f"phase wall seconds: {_PHASE_SECONDS}", flush=True)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

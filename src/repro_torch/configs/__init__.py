@@ -5,7 +5,8 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeConfig,
+                                      shape_applicable)
 
 _MODULES = {
     "glm4-9b": "glm4_9b",
@@ -37,4 +38,5 @@ def get_reduced(arch_id: str, **overrides) -> ModelConfig:
     return _module(arch_id).reduced(**overrides)
 
 
-__all__ = ["ModelConfig", "ARCH_IDS", "get_config", "get_reduced"]
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "ARCH_IDS", "get_config",
+           "get_reduced", "shape_applicable"]

@@ -11,7 +11,9 @@ The port builds every plan the JAX package builds: the ``attn``,
 ``attn_nocausal``, ``mamba``, ``mlstm`` and ``slstm`` mixers with an
 ``mlp``, ``moe`` or no (``none``) FFN, the encoder-decoder and the
 patch/audio frontends.  ``param_count`` is the JAX package's arithmetic on
-the fields.
+the fields.  :class:`ShapeConfig`, :data:`SHAPES` and
+:func:`shape_applicable` are the JAX package's four input shapes of the
+dry-run and their rule.
 """
 
 from __future__ import annotations
@@ -223,3 +225,31 @@ def _param_count(c: ModelConfig, active_only: bool) -> int:
         # decoder cross-attention (one per decoder layer)
         total += c.n_layers * _attn_params(c)
     return total
+
+
+# ---------------------------------------------------------------------------
+# input shapes (four a config, the dry-run's cells)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str            # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """``long_500k`` only for the sub-quadratic archs."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, ("full-attention arch: 500k decode needs sub-quadratic "
+                       "attention (see DESIGN.md §5)")
+    return True, ""

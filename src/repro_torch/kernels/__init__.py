@@ -3,7 +3,10 @@
 Each kernel package (``ocs_quant``, ``maxpool``, ``ocs_contention``,
 ``flash_attention``) holds ``ops.py``, the wrapper the port calls, and
 ``ref.py``, the kernel's plain PyTorch version.  A wrapper runs the plain version only for a tensor on the
-CPU; for a CUDA tensor it launches the kernel or raises.
+CPU; for a CUDA tensor it launches the kernel or raises.  The wrappers of
+``flash_attention.fwd``, ``maxpool.fwd`` and ``maxpool.ties_bwd`` send a
+fake tensor (the dry-run's trace) through a ``torch.library`` custom op
+whose fake impl gives the kernel's outputs alone.
 
 The CUDA C++ sources live in ``csrc/``.  :func:`library` compiles them at
 first use with ``nvcc`` for ``sm_90a`` (one ``nvcc -c`` per source, all
@@ -182,14 +185,21 @@ def launch(name: str, fn: str, device: torch.device, *args) -> None:
     _LAUNCHES[name] += 1
 
 
-def check_operands(*tensors: torch.Tensor) -> None:
-    """A kernel's tensors lie on one CUDA device and are contiguous."""
+def check_cuda(*tensors: torch.Tensor) -> None:
+    """A kernel's tensors lie on one CUDA device (a fake one too: a custom
+    op's fake impl stands for the kernel in a trace)."""
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"a kernel takes CUDA tensors, got {dev}")
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"tensors on {t.device} and {dev}")
+
+
+def check_operands(*tensors: torch.Tensor) -> None:
+    """A kernel's tensors lie on one CUDA device and are contiguous."""
+    check_cuda(*tensors)
+    for t in tensors:
         if not t.is_contiguous():
             raise ValueError("the kernels take contiguous tensors")
 

@@ -7,17 +7,26 @@ kernel asserts on (``Sq % min(block_q, Sq)``, the same for Sk); the CUDA
 kernel's own tile is its choice.  It is an ``autograd.Function`` whose
 backward recomputes through the plain version (``ref.py``), as the JAX
 ``ops.py`` does.  A CPU tensor runs the plain version; a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises.  A fake tensor (the dry-run's trace,
+either device) goes through the custom op ``repro_torch::flash_fwd``,
+whose fake impl gives the kernel's output alone, shape, type and
+strides, and whose FLOP formula counts the kernel's work: ``4 B H D`` a
+(query, key) pair of the tiles it visits (:func:`flops`).  Real tensors
+take the direct path: a custom op's dispatch costs a first call in each
+process seconds of imports.
 """
 
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch import kernels
 from repro_torch.kernels.flash_attention import ref
 
 HEAD_DIMS = (16, 32, 64, 128)
+TILE = 64           # the kernel's query rows a block and keys a KV tile
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
@@ -37,17 +46,24 @@ def _check_shapes(q, k, v, block_q: int, block_k: int) -> None:
                          f"blocks {bq} and {bk}")
 
 
-def _forward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   causal: bool) -> torch.Tensor:
-    """Launch the forward kernel on CUDA tensors (no autograd)."""
-    b, h, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
+def _check_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """What the kernel takes: its head dims and types, on the card."""
+    d = q.shape[-1]
     if d not in HEAD_DIMS:
         raise ValueError(f"the flash kernel takes head_dim {HEAD_DIMS}, "
                          f"got {d}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v of one type of {_DTYPES}, got {q.dtype} "
                          f"{k.dtype} {v.dtype}")
+    kernels.check_cuda(q, k, v)
+
+
+def _forward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool) -> torch.Tensor:
+    """Launch the forward kernel on CUDA tensors (no autograd)."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    _check_kernel(q, k, v)
     # the tensor-core design reads q, k, v through TMA, which takes
     # 16-byte aligned rows: a view that starts off that grid is copied
     q, k, v = (t.contiguous() if t.data_ptr() % 16 == 0 else t.clone(
@@ -62,11 +78,49 @@ def _forward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+@torch.library.custom_op("repro_torch::flash_fwd", mutates_args=(),
+                         device_types="cpu")
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool) -> torch.Tensor:
+    """The forward: the plain version on the CPU, the kernel on CUDA."""
+    return ref.flash_attention(q, k, v, causal).contiguous()
+
+
+@flash_fwd.register_kernel("cuda")
+def _(q, k, v, causal):
+    return _forward_kernel(q, k, v, causal)
+
+
+@flash_fwd.register_fake
+def _(q, k, v, causal):
+    return q.new_empty(q.shape)
+
+
+def flops(b: int, h: int, sq: int, sk: int, d: int, causal: bool) -> int:
+    """The kernel's multiply-adds, twice (QK^T and PV): ``4 B H D`` for
+    each (query, key) pair of the tiles it visits.  A causal block of
+    query rows ``[q0, q0 + 64)`` visits the key tiles up to its own."""
+    pairs = 0
+    for q0 in range(0, sq, TILE):
+        keys = min(sk, q0 + TILE) if causal else sk
+        pairs += min(TILE, sq - q0) * keys
+    return 4 * b * h * d * pairs
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_fwd)
+def _flash_flops(q_shape, k_shape, v_shape, causal, *args, out_shape=None,
+                 **kwargs) -> int:
+    b, h, sq, d = q_shape
+    return flops(b, h, sq, k_shape[2], d, causal)
+
+
 class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal):
         ctx.causal = causal
         ctx.save_for_backward(q, k, v)
+        if is_fake(q):
+            return flash_fwd(q, k, v, causal)
         if q.device.type == "cpu":
             return ref.flash_attention(q, k, v, causal)
         return _forward_kernel(q, k, v, causal)
@@ -86,4 +140,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     block_k: int = 128) -> torch.Tensor:
     """q: (B, H, Sq, D); k/v: (B, Hkv, Sk, D) -> (B, H, Sq, D)."""
     _check_shapes(q, k, v, block_q, block_k)
+    if q.device.type != "cpu":
+        _check_kernel(q, k, v)
     return _Flash.apply(q, k, v, bool(causal))

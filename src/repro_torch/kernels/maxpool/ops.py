@@ -4,15 +4,20 @@ Each takes the plain version (``ref.py``) for a tensor on the CPU and
 launches the CUDA kernel for a tensor on the card.  The pooled axis is
 ``dim``; the axes before it are a batch (the p_miss lanes) and the axes
 after it are the pooled elements, so the kernels see a ``(B, N, E)``
-layout.
+layout.  The two that a model's train, prefill and decode steps reach,
+``maxpool.fwd`` and ``maxpool.ties_bwd``, take a fake tensor (the
+dry-run's trace, either device) through a custom op
+(``repro_torch::maxpool_fwd``, ``repro_torch::maxpool_ties_bwd``) whose
+fake impl gives their outputs alone, shapes, types and strides.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Optional
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch import kernels
 from repro_torch.kernels.maxpool import ref
@@ -25,32 +30,66 @@ _FWD_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.uint8,
 _BWD_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
+def _fwd_shapes(h: torch.Tensor, dim: int, winner: bool, ties: bool):
+    """(shape, dtype) of each output the forward writes, in order."""
+    out = h.shape[:dim] + h.shape[dim + 1:]
+    words = h.shape[:dim] + (ref.tie_words(h.shape[dim]),) + h.shape[dim + 1:]
+    return ([(out, h.dtype)] + [(out, torch.int32)] * winner
+            + [(words, torch.uint16)] * ties)
+
+
+@torch.library.custom_op("repro_torch::maxpool_fwd", mutates_args=(),
+                         device_types="cpu")
+def _fwd(h: torch.Tensor, dim: int, winner: bool,
+         ties: bool) -> List[torch.Tensor]:
+    res = ref.maxpool_fwd(h, dim, winner=winner, ties=ties)
+    return [t.contiguous() for t in res if t is not None]
+
+
+def _check_fwd(h: torch.Tensor) -> None:
+    if h.dtype not in _FWD_DTYPES:
+        raise ValueError(f"maxpool kernel takes {_FWD_DTYPES}, got {h.dtype}")
+    kernels.check_cuda(h)
+
+
+@_fwd.register_kernel("cuda")
+def _fwd_kernel(h, dim, winner, ties):
+    _check_fwd(h)
+    h = h.contiguous()
+    res = [torch.empty(shape, dtype=dt, device=h.device)
+           for shape, dt in _fwd_shapes(h, dim, winner, ties)]
+    kernels.check_operands(h, *res)
+    it = iter(res[1:])
+    kernels.launch("maxpool.fwd", "maxpool_fwd", h.device, h.data_ptr(),
+                   res[0].data_ptr(),
+                   next(it).data_ptr() if winner else None,
+                   next(it).data_ptr() if ties else None,
+                   math.prod(h.shape[:dim]), h.shape[dim],
+                   math.prod(h.shape[dim + 1:]), kernels.KIND[h.dtype])
+    return res
+
+
+@_fwd.register_fake
+def _(h, dim, winner, ties):
+    return [h.new_empty(shape, dtype=dt)
+            for shape, dt in _fwd_shapes(h, dim, winner, ties)]
+
+
 def maxpool_fwd(h: torch.Tensor, dim: int = 0, *, winner: bool = True,
                 ties: bool = False) -> ref.PoolFwd:
     """h -> the pooled max over ``dim`` and, where asked, the first argmax
     (int32) and the tie mask (``ceil(n / 16)`` uint16 words in place of
     ``dim``; see ``ref.maxpool_ties``), in one launch that writes only
     those."""
-    if h.device.type == "cpu":
-        return ref.maxpool_fwd(h, dim, winner=winner, ties=ties)
-    if h.dtype not in _FWD_DTYPES:
-        raise ValueError(f"maxpool kernel takes {_FWD_DTYPES}, got {h.dtype}")
     dim = dim % h.ndim
-    h = h.contiguous()
-    n = h.shape[dim]
-    out_shape = h.shape[:dim] + h.shape[dim + 1:]
-    res = ref.PoolFwd(
-        torch.empty(out_shape, dtype=h.dtype, device=h.device),
-        torch.empty(out_shape, dtype=torch.int32, device=h.device)
-        if winner else None,
-        torch.empty(h.shape[:dim] + (ref.tie_words(n),) + h.shape[dim + 1:],
-                    dtype=torch.uint16, device=h.device) if ties else None)
-    kernels.check_operands(h, *(t for t in res if t is not None))
-    kernels.launch("maxpool.fwd", "maxpool_fwd", h.device, h.data_ptr(),
-                   *(None if t is None else t.data_ptr() for t in res),
-                   math.prod(h.shape[:dim]), n, math.prod(h.shape[dim + 1:]),
-                   kernels.KIND[h.dtype])
-    return res
+    if is_fake(h):
+        got = iter(_fwd(h, dim, winner, ties))
+    elif h.device.type == "cpu":
+        return ref.maxpool_fwd(h, dim, winner=winner, ties=ties)
+    else:
+        got = iter(_fwd_kernel(h, dim, winner, ties))
+    return ref.PoolFwd(next(got), next(got) if winner else None,
+                       next(got) if ties else None)
 
 
 def maxpool_fused(h: torch.Tensor, dim: int = 0):
@@ -169,19 +208,27 @@ def maxpool_winner_bwd(winner: torch.Tensor, g: torch.Tensor, n: int,
     return out
 
 
-def maxpool_ties_bwd(ties: torch.Tensor, g: torch.Tensor, n: int,
-                     dim: int = 0) -> torch.Tensor:
-    """(tie mask, g) -> gradient with a new worker axis ``dim`` of size
-    ``n``: g in the tied rows, ``g * 0`` elsewhere (see ``ref.ties_bwd``)."""
-    if g.device.type == "cpu":
-        return ref.ties_bwd(ties, g, n, dim)
+@torch.library.custom_op("repro_torch::maxpool_ties_bwd", mutates_args=(),
+                         device_types="cpu")
+def _ties_bwd(ties: torch.Tensor, g: torch.Tensor, n: int,
+              dim: int) -> torch.Tensor:
+    return ref.ties_bwd(ties, g, n, dim).contiguous()
+
+
+def _check_ties_bwd(ties: torch.Tensor, g: torch.Tensor, n: int,
+                    dim: int) -> None:
     if g.dtype not in _BWD_DTYPES:
         raise ValueError(f"ties bwd takes {_BWD_DTYPES}, got {g.dtype}")
-    dim = dim % (g.ndim + 1)
     words = g.shape[:dim] + (ref.tie_words(n),) + g.shape[dim:]
     if ties.dtype != torch.uint16 or ties.shape != words:
         raise ValueError(f"ties must be uint16 of shape {tuple(words)}, got "
                          f"{ties.dtype} {tuple(ties.shape)}")
+    kernels.check_cuda(ties, g)
+
+
+@_ties_bwd.register_kernel("cuda")
+def _ties_bwd_kernel(ties, g, n, dim):
+    _check_ties_bwd(ties, g, n, dim)
     g, ties = g.contiguous(), ties.contiguous()
     out = torch.empty(g.shape[:dim] + (n,) + g.shape[dim:], dtype=g.dtype,
                       device=g.device)
@@ -191,3 +238,20 @@ def maxpool_ties_bwd(ties: torch.Tensor, g: torch.Tensor, n: int,
                    math.prod(g.shape[:dim]), n, math.prod(g.shape[dim:]),
                    kernels.KIND[g.dtype])
     return out
+
+
+@_ties_bwd.register_fake
+def _(ties, g, n, dim):
+    return g.new_empty(g.shape[:dim] + (n,) + g.shape[dim:])
+
+
+def maxpool_ties_bwd(ties: torch.Tensor, g: torch.Tensor, n: int,
+                     dim: int = 0) -> torch.Tensor:
+    """(tie mask, g) -> gradient with a new worker axis ``dim`` of size
+    ``n``: g in the tied rows, ``g * 0`` elsewhere (see ``ref.ties_bwd``)."""
+    dim = dim % (g.ndim + 1)
+    if is_fake(g):
+        return _ties_bwd(ties, g, n, dim)
+    if g.device.type == "cpu":
+        return ref.ties_bwd(ties, g, n, dim)
+    return _ties_bwd_kernel(ties, g, n, dim)

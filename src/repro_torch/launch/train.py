@@ -60,9 +60,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def setup(args: argparse.Namespace) -> types.SimpleNamespace:
-    """The run the flags describe: model, initial values, optimizer, data
-    and trainer config (``launch`` runs it)."""
+def config(args: argparse.Namespace):
+    """The model config the flags describe."""
     get = get_reduced if args.smoke else get_config
     cfg = get(args.arch, tp_fusion=args.fusion, use_flash=args.use_flash)
     if args.layers:
@@ -71,14 +70,26 @@ def setup(args: argparse.Namespace) -> types.SimpleNamespace:
                 f"--layers {args.layers}: {args.arch} has a layer plan with "
                 f"a period of {cfg.period}; cut to a multiple of it")
         cfg = cfg.with_(n_layers=args.layers)
+    return cfg
+
+
+def data_config(args: argparse.Namespace, cfg) -> pipeline.PipelineConfig:
+    """The batches the flags describe."""
+    return pipeline.for_model(cfg, batch=args.batch, seq_len=args.seq,
+                              seed=args.seed)
+
+
+def setup(args: argparse.Namespace) -> types.SimpleNamespace:
+    """The run the flags describe: model, initial values, optimizer, data
+    and trainer config (``launch`` runs it)."""
+    cfg = config(args)
     m = M.build(cfg)
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("the launcher trains on cuda by default and no "
                            "GPU is visible; pass --device cpu")
     values = m.init(torch.Generator(device=dev).manual_seed(args.seed))
-    pcfg = pipeline.for_model(cfg, batch=args.batch, seq_len=args.seq,
-                              seed=args.seed)
+    pcfg = data_config(args, cfg)
     opt = optimizers.adamw(
         schedules.for_arch(args.arch, args.lr, args.steps),
         weight_decay=0.01)

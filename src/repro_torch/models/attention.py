@@ -95,6 +95,14 @@ def attn_axes(cfg) -> dict:
     return p
 
 
+# the KV cache's logical axes: the rows over the data axis, the sequence
+# over ``kv_seq`` (long-context decode), the KV heads whole
+CACHE_AXES = {
+    "k": ("batch", "kv_seq", None, None),
+    "v": ("batch", "kv_seq", None, None),
+}
+
+
 def init_cache(cfg, batch: int, max_seq: int, dtype, device=None) -> dict:
     shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim_)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),

@@ -223,6 +223,12 @@ def mamba_full(cfg, p: dict, x: torch.Tensor, return_cache: bool = False):
     return out
 
 
+MAMBA_CACHE_AXES = {
+    "conv": ("worker", "batch", None, "ff_local"),
+    "h": ("worker", "batch", "ff_local", "state"),
+}
+
+
 def init_cache(cfg, batch: int, dtype, device=None) -> dict:
     """The conv window and the SSM state of the active mesh's share of
     the workers (all of them without one)."""

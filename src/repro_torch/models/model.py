@@ -21,8 +21,9 @@ The decode functions update the cache in place (an attention layer's KV
 rows, a recurrent layer's state) and return it; an encoder-decoder's
 cross cache holds the encoder's keys and values from the prefill.
 ``axes()`` is the parameters' logical axes, the tree of the JAX package's
-``split_tree(init(...))[1]``; ``input_specs`` and ``cache_axes`` come with
-the dry-run (ROADMAP queue 1, item 19c).
+``split_tree(init(...))[1]``; ``cache_axes`` is the same of a decode
+cache, and ``input_specs`` gives every input of a dry-run cell as a meta
+tensor (shape and type, nothing allocated) with its logical axes.
 
 Under a mesh (``repro_torch.parallel.sharding.use_mesh``) the entry
 points take this rank's blocks of the parameters and the whole batch,
@@ -49,7 +50,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch import tree
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import layers, transformer
 from repro_torch.parallel import comm
 from repro_torch.parallel import sharding
@@ -226,6 +227,25 @@ def _batch_rows(batch) -> int:
     return tree.leaves(batch)[0].shape[0]
 
 
+def _entry(fn):
+    """A model entry point ``fn(cfg, v, batch_or_token, ...)`` under
+    ``sharding.fsdp_scope(v)``: the parameters that the leaf shardings
+    split over the fsdp axis are gathered where they are used, the stacked
+    ones a period at a time (``transformer._periods``) and the others
+    (embedding, norms, head) as the call starts, under the batch split of
+    the call's rows (the leading axis of its first input)."""
+    @functools.wraps(fn)
+    def entry(cfg, v, *args, **kwargs):
+        with sharding.fsdp_scope(v):
+            with sharding.split_batch(_batch_rows(args[0])):
+                v = {k: sub if k in ("blocks", "encoder")
+                     else tree.map(sharding.fsdp_whole, sub)
+                     for k, sub in v.items()}
+            return fn(cfg, v, *args, **kwargs)
+    return entry
+
+
+@_entry
 def loss_fn(cfg, v, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Training loss ``nll + router_aux_weight * aux`` and its metrics."""
     with sharding.split_batch(_batch_rows(batch)) as rows:
@@ -240,6 +260,7 @@ def loss_fn(cfg, v, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     return loss, {"nll": nll, "aux": aux, "loss": loss}
 
 
+@_entry
 def prefill(cfg, v, batch, max_seq: Optional[int] = None
             ) -> Tuple[torch.Tensor, dict]:
     """Returns (last-position logits (B,V), decode cache)."""
@@ -276,6 +297,7 @@ def _embed_token(cfg, v, token: torch.Tensor, positions: torch.Tensor,
     return x
 
 
+@_entry
 def decode_step(cfg, v, token: torch.Tensor, positions: torch.Tensor,
                 cache: dict) -> Tuple[torch.Tensor, dict]:
     """token: (B,1) int; positions: (B,) current write index.  Under a
@@ -302,6 +324,7 @@ def _decode_rows(cfg, token, positions, cache, rows):
                      cache, cache_rows(cfg, cache)))
 
 
+@_entry
 def decode_step_channel(cfg, v, token: torch.Tensor, positions: torch.Tensor,
                         cache: dict, protocol, rng: torch.Tensor
                         ) -> Tuple[torch.Tensor, dict, dict]:
@@ -349,6 +372,44 @@ def cache_init(cfg, batch: int, max_seq: int, device=None,
         device, cross_len)
 
 
+def cache_axes(cfg) -> dict:
+    """The logical axes of every leaf of :func:`cache_init`'s cache."""
+    return transformer.stack_cache_axes(cfg, cfg.layer_plan(),
+                                        cfg.encoder_decoder)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig
+                ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """(specs, logical axes) of every model input of a dry-run cell: the
+    specs are meta tensors of the global shapes and types."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def spec(dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    specs: Dict[str, Any] = {}
+    axes: Dict[str, Any] = {}
+    if shape.kind == "decode":
+        specs["token"], axes["token"] = spec((b, 1)), ("batch", None)
+        specs["positions"], axes["positions"] = spec((b,)), ("batch",)
+        specs["cache"] = cache_init(
+            cfg, b, s, device="meta",
+            cross_len=s if cfg.encoder_decoder else 0)
+        axes["cache"] = cache_axes(cfg)
+        return specs, axes
+    if shape.kind not in ("train", "prefill"):
+        raise ValueError(shape.kind)
+    seq = min(WHISPER_DECODER_LEN, s) if cfg.encoder_decoder else s
+    if cfg.encoder_decoder or cfg.frontend != "token":
+        specs["feats"] = spec((b, s, cfg.frontend_dim), torch.bfloat16)
+        axes["feats"] = ("batch", "seq", None)
+    if cfg.encoder_decoder or cfg.frontend == "token":
+        specs["tokens"], axes["tokens"] = spec((b, seq)), ("batch", "seq")
+    if shape.kind == "train":
+        specs["targets"], axes["targets"] = spec((b, seq)), ("batch", "seq")
+    return specs, axes
+
+
 def cache_rows(cfg, cache: dict) -> dict:
     """The batch axis of each leaf of a stacked decode cache."""
     return transformer.cache_rows(cfg.layer_plan(), cache)
@@ -378,6 +439,8 @@ def build(cfg: ModelConfig) -> types.SimpleNamespace:
         decode_step_channel=functools.partial(decode_step_channel, cfg),
         channel_sites=functools.partial(channel_sites, cfg),
         cache_init=functools.partial(cache_init, cfg),
+        cache_axes=functools.partial(cache_axes, cfg),
+        input_specs=functools.partial(input_specs, cfg),
         min_prompt=functools.partial(min_prompt, cfg),
         recurrent_leaves=functools.partial(recurrent_leaves, cfg),
     )

@@ -222,7 +222,13 @@ def _aux(cfg, probs: torch.Tensor, e_flat: torch.Tensor) -> torch.Tensor:
     """Switch load balancing: ``E * sum_e f_e * P_e``, ``f_e`` the share
     of entries routed to expert e (capacity drops included), over the
     whole batch where the data axis splits its rows."""
-    counts = torch.bincount(e_flat.reshape(-1), minlength=cfg.n_experts)
+    # bincount's integers, from a scatter of ones into the experts' counts:
+    # its output's shape does not depend on the data, so a fake-tensor
+    # trace (the dry-run) runs it
+    e = e_flat.reshape(-1).long()
+    counts = torch.zeros(cfg.n_experts, dtype=torch.int64,
+                         device=e.device).scatter_add_(0, e,
+                                                       torch.ones_like(e))
     rows = sharding.batch_axis()
     if rows is None:
         me = torch.mean(probs, dim=(0, 1))

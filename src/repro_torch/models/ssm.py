@@ -120,6 +120,11 @@ def _mlstm_scan(q, k, v, i_raw, f_raw, state):
     return y, (c_mat, n_vec, m)
 
 
+# (C, n, m): C worker-leading, its rows on axis 1
+MLSTM_CACHE_AXES = (("worker", "batch", None, None, None),
+                    ("batch", None, None), ("batch", None))
+
+
 def mlstm_state_init(cfg, batch: int, device=None,
                      n_local: Optional[int] = None) -> Tuple:
     """(C, n, m) for ``batch`` rows; C holds ``n_local`` workers (the
@@ -188,6 +193,10 @@ def slstm_init(cfg, gen: torch.Generator) -> dict:
 def slstm_axes(cfg) -> dict:
     """:func:`slstm_init`'s logical axes."""
     return {"w": (None, None), "r": (None, None, None), "b": (None,)}
+
+
+SLSTM_CACHE_AXES = (("batch", None), ("batch", None),
+                    ("batch", None), ("batch", None))
 
 
 def slstm_state_init(cfg, batch: int, device=None) -> Tuple:

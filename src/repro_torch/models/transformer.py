@@ -22,6 +22,7 @@ import torch
 from repro_torch import random as jr
 from repro_torch import tree
 from repro_torch.models import attention, fusion, layers, mamba, mlp, moe, ssm
+from repro_torch.parallel import sharding
 
 ATTENTION = ("attn", "attn_nocausal")
 
@@ -59,6 +60,10 @@ RECURRENT = {
 # each recurrent mixer's logical parameter axes
 RECURRENT_AXES = {"mamba": mamba.mamba_axes, "mlstm": ssm.mlstm_axes,
                   "slstm": ssm.slstm_axes}
+# and the logical axes of its state
+RECURRENT_CACHE_AXES = {"mamba": mamba.MAMBA_CACHE_AXES,
+                        "mlstm": ssm.MLSTM_CACHE_AXES,
+                        "slstm": ssm.SLSTM_CACHE_AXES}
 
 
 def _zero(x: torch.Tensor) -> torch.Tensor:
@@ -149,6 +154,15 @@ def block_cache_init(cfg, mixer: str, batch: int, max_seq: int, dtype,
     return c
 
 
+def block_cache_axes(cfg, mixer: str, has_cross: bool) -> dict:
+    """:func:`block_cache_init`'s logical axes."""
+    c = {"self": dict(attention.CACHE_AXES) if mixer in ATTENTION
+         else RECURRENT_CACHE_AXES[mixer]}
+    if has_cross:
+        c["cross"] = dict(attention.CACHE_AXES)
+    return c
+
+
 def block_step(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
                cache: dict, mixer: str, ffn: str, protocol=None, rng=None):
     """Decode step. x: (B,1,d). Returns (x, cache, aux).
@@ -217,22 +231,29 @@ def block_prefill(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _period(stacked, i: int):
-    """Period ``i`` of a stacked tree (views: writes land in the stack)."""
-    return tree.map(lambda v: v[i], stacked)
+    """Period ``i`` of a stacked tree (views: writes land in the stack);
+    a parameter leaf split over the fsdp axis gathered
+    (``sharding.fsdp_period``)."""
+    return tree.map(lambda v: sharding.fsdp_period(v, v[i]), stacked)
 
 
 def _n_periods(values) -> int:
     return tree.leaves(values)[0].shape[0]
 
 
-def _periods(stacked) -> list:
-    """Every period of a stacked tree, as views from one ``unbind`` per
-    leaf: its backward stacks the periods' gradients once, where an index
-    per period (:func:`_period`) writes a zero gradient of the whole stack
-    for every period and autograd adds them up."""
-    per_leaf = [v.unbind(0) for v in tree.leaves(stacked)]
-    return [tree.unflatten(stacked, [views[i] for views in per_leaf])
-            for i in range(_n_periods(stacked))]
+def _periods(stacked):
+    """Every period of a stacked tree, in order, as views from one
+    ``unbind`` per leaf: its backward stacks the periods' gradients once,
+    where an index per period (:func:`_period`) writes a zero gradient of
+    the whole stack for every period and autograd adds them up.  A
+    parameter leaf split over the fsdp axis is gathered as its period is
+    taken (``sharding.fsdp_period``)."""
+    leaves = tree.leaves(stacked)
+    per_leaf = [v.unbind(0) for v in leaves]
+    for i in range(_n_periods(stacked)):
+        yield tree.unflatten(stacked, [
+            sharding.fsdp_period(leaf, views[i])
+            for leaf, views in zip(leaves, per_leaf)])
 
 
 def stack_init(cfg, gen: torch.Generator, plan, n_periods: int,
@@ -352,6 +373,19 @@ def stack_cache_init(cfg, plan, n_periods: int, batch: int, max_seq: int,
            for i, (mixer, _) in enumerate(plan)}
     return tree.map(
         lambda v: v[None].repeat((n_periods,) + (1,) * v.ndim), one)
+
+
+def stack_cache_axes(cfg, plan, has_cross: bool) -> dict:
+    """:func:`stack_cache_init`'s logical axes: each block's, behind the
+    period axis ``"layers"``."""
+    def stacked(ax):
+        if isinstance(ax, dict):
+            return {k: stacked(v) for k, v in ax.items()}
+        if all(a is None or isinstance(a, str) for a in ax):
+            return ("layers",) + ax
+        return tuple(stacked(a) for a in ax)
+    return {f"pos{i}": stacked(block_cache_axes(cfg, mixer, has_cross))
+            for i, (mixer, _) in enumerate(plan)}
 
 
 def cache_rows(plan, cache: dict) -> dict:

@@ -16,6 +16,16 @@ rank's blocks and ``repro_torch.parallel.sharding.use_leaf_shardings``
 names their shardings: the global norm adds a split leaf's squares over
 the model group and counts a replicated leaf once, so every rank clips by
 the norm of the whole tree.
+
+ZeRO and FSDP (``sharding.use_leaf_shardings(..., state=)``, the
+placements of the dry-run): where the optimizer state's shardings split a
+leaf over the fsdp axis, AdamW updates this rank's block of master, m and
+v from its block of the gradient, and gathers the new parameter blocks
+over the fsdp group (ZeRO: the parameter is whole on the rank) or keeps
+them (FSDP: the parameter and its gradient are blocks too).  The norm is
+the whole tree's, from the whole gradients (an FSDP gradient gathered a
+leaf at a time), so the step is bitwise the unsplit step: AdamW is
+elementwise.
 """
 
 from __future__ import annotations
@@ -46,7 +56,7 @@ def global_norm(grads, lane_dims: int = 0) -> torch.Tensor:
     if split is not None:
         return _split_norm(grads, *split)
     total = None
-    for x in tree.leaves(grads):
+    for x in _whole_leaves(grads):
         sq = torch.square(x.float())
         if lane_dims and sq.is_cuda:
             runs = sq.reshape((-1,) + sq.shape[lane_dims:])
@@ -56,6 +66,29 @@ def global_norm(grads, lane_dims: int = 0) -> torch.Tensor:
             s = _sum_from(sq, lane_dims)
         total = s if total is None else total + s
     return torch.sqrt(total)
+
+
+def _fsdp_dims(n: int) -> list:
+    """Per parameter leaf, the dim that the fsdp axis splits under the
+    named leaf shardings (FSDP), else ``None``."""
+    shd = sharding.leaf_shardings()
+    if shd is None or sharding.active_mesh() is None:
+        return [None] * n
+    return [sharding.fsdp_dim(s.spec) for s in shd]
+
+
+def _gather_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The whole of this rank's block ``x`` along ``dim`` of the fsdp
+    axis."""
+    return comm.gather_from_group(x, sharding.fsdp_axis().group, dim)
+
+
+def _whole_leaves(grads):
+    """The gradient leaves in order, an FSDP block gathered whole as it is
+    taken."""
+    leaves = tree.leaves(grads)
+    for x, d in zip(leaves, _fsdp_dims(len(leaves))):
+        yield x if d is None else _gather_dim(x, d)
 
 
 def _model_split(grads, lane_dims: int):
@@ -81,7 +114,7 @@ def _split_norm(grads, axis, split) -> torch.Tensor:
     """The whole tree's norm from this rank's blocks: the split leaves'
     squares summed over the model group, the replicated ones once."""
     parts = {True: None, False: None}
-    for x, is_split in zip(tree.leaves(grads), split):
+    for x, is_split in zip(_whole_leaves(grads), split):
         s = torch.sum(torch.square(x.float()))
         parts[is_split] = s if parts[is_split] is None else \
             parts[is_split] + s
@@ -113,6 +146,21 @@ def _clip_scale(grads, max_norm: float, lane_dims: int):
 def clip_by_global_norm(grads, max_norm: float, lane_dims: int = 0):
     clip, gn = _clip_scale(grads, max_norm, lane_dims)
     return tree.map(clip, grads), gn
+
+
+def _zero_dims(n: int) -> list:
+    """Per parameter leaf, the dim of its optimizer state that ZeRO splits
+    over the fsdp axis while the parameter is whole on the rank (the
+    state's shardings named with ``use_leaf_shardings(..., state=)``),
+    else ``None``: the rank updates that block and gathers the
+    parameter."""
+    state = sharding.state_shardings()
+    if state is None or sharding.active_mesh() is None:
+        return [None] * n
+    if len(state) != n:
+        raise ValueError(f"{len(state)} state shardings for {n} parameters")
+    return [None if p is not None else sharding.fsdp_dim(s.spec)
+            for p, s in zip(_fsdp_dims(n), state)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,10 +204,15 @@ def adamw(lr_fn: Callable, b1: float = 0.9, b2: float = 0.95,
                              stepf)).to(dev)
         b2t = (1 - torch.pow(torch.tensor(b2, dtype=torch.float32),
                              stepf)).to(dev)
-        for g, m, v, master, p in zip(
+        leaves = tree.leaves(params)
+        zero = _zero_dims(len(leaves))
+        for g, m, v, master, p, zd in zip(
                 tree.leaves(grads), tree.leaves(state["m"]),
                 tree.leaves(state["v"]), tree.leaves(state["master"]),
-                tree.leaves(params)):
+                leaves, zero):
+            if zd is not None:
+                # ZeRO: this rank's block of the whole gradient
+                g = sharding.split_dim(g, sharding.fsdp_axis(), zd)
             g = (clip(g) if clip is not None else g).float()
             if m.dtype == torch.float32:
                 m_new = m.mul_(b1).add_(g * (1 - b1))
@@ -175,7 +228,10 @@ def adamw(lr_fn: Callable, b1: float = 0.9, b2: float = 0.95,
             if m_new is not m:
                 m.copy_(m_new)
                 v.copy_(v_new)
-            p.copy_(master)
+            if zd is None:
+                p.copy_(master)
+            else:
+                p.copy_(_gather_dim(master.to(p.dtype), zd))
         stats["lr"] = lr
         return params, state, stats
 

@@ -14,8 +14,14 @@ autograd-aware pair of Megatron's tensor parallelism:
 :func:`copy_to_group` (identity forward, ``SUM`` backward: *f*) and
 :func:`reduce_from_group` (``SUM`` forward, identity backward: *g*);
 :func:`gather_from_group` concatenates every rank's tensor in rank order.
-Each collective adds one entry (op, dtype, bytes this rank sends into it)
-to the lists that :func:`recording` opens.
+:func:`reduce_scatter` and :func:`sum_ordered` add every rank's tensor in
+rank order, whatever the tensors' layout (an ``all_to_all`` and a local
+sum, then for the latter an ``all_gather``: the bytes of a ring
+all-reduce): the data-axis gradient sum of the train step, so that a
+leaf's sum is the same bits whether it is summed whole or block by block
+(ZeRO and FSDP).  :func:`gather_block` is FSDP's gather of a parameter
+block.  Each collective adds one entry (op, dtype, bytes this rank sends
+into it, the group's size) to the lists that :func:`recording` opens.
 
 Nothing here falls back: a rank that is missing or fails raises in its
 collective at the process group's timeout, and :func:`spawn` kills the
@@ -35,6 +41,7 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+import torch.utils.weak
 
 # every packed tensor starts on this many bytes, so a gathered segment can
 # be viewed as its type in place
@@ -114,7 +121,7 @@ def all_gather(tensors: Optional[Sequence[torch.Tensor]], group=None, *,
         spec_list = _specs(tensors)
         buf = _pack(tensors)
     outs = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
-    _note("all_gather", torch.uint8, buf.numel())
+    _note("all_gather", torch.uint8, buf.numel(), len(outs))
     dist.all_gather(outs, buf, group=group)
     return [_unpack(o, spec_list) for o in outs]
 
@@ -130,8 +137,9 @@ _RECORDS: List[list] = []
 def recording():
     """A list that every collective of this process appends one dict to
     while the context is open: ``op`` (``all_gather``, ``all_reduce.max``,
-    ...), ``dtype`` (what travels) and ``bytes`` (what this rank puts in;
-    an ``all_gather``'s packed buffer)."""
+    ``all_to_all``, ...), ``dtype`` (what travels), ``bytes`` (what this
+    rank puts in; an ``all_gather``'s packed buffer) and ``group`` (the
+    ranks of the collective)."""
     rec: list = []
     _RECORDS.append(rec)
     try:
@@ -140,10 +148,10 @@ def recording():
         _RECORDS.remove(rec)
 
 
-def _note(op: str, dtype: torch.dtype, nbytes: int) -> None:
+def _note(op: str, dtype: torch.dtype, nbytes: int, group: int) -> None:
     for rec in _RECORDS:
         rec.append({"op": op, "dtype": str(dtype).replace("torch.", ""),
-                    "bytes": int(nbytes)})
+                    "bytes": int(nbytes), "group": int(group)})
 
 
 def summarize(rec: list) -> dict:
@@ -170,9 +178,48 @@ def all_reduce(x: torch.Tensor, op: str, group=None) -> torch.Tensor:
     (uint16 as int32); a backend that refuses any other type raises."""
     wide = _WIDEN.get(x.dtype, x.dtype)
     y = x.detach().to(wide).clone()
-    _note(f"all_reduce.{op}", wide, y.numel() * y.element_size())
+    _note(f"all_reduce.{op}", wide, y.numel() * y.element_size(),
+          dist.get_world_size(group))
     dist.all_reduce(y, op=_OPS[op], group=group)
     return y.to(x.dtype)
+
+
+def _gather_whole(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order."""
+    return torch.cat([p[0] for p in all_gather([x], group)], dim=dim)
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum over ``group`` of every
+    rank's ``x``, whose ``dim`` the group's size divides.  The ranks'
+    blocks meet in one ``all_to_all`` and are added here in rank order,
+    so each element's sum is the same bits however the tensor is laid
+    out or cut."""
+    n = dist.get_world_size(group)
+    rows = x.detach().movedim(dim, 0).contiguous()
+    if rows.shape[0] % n:
+        raise ValueError(f"{rows.shape[0]} rows over {n} ranks")
+    got = torch.empty_like(rows)
+    _note("all_to_all", rows.dtype, rows.numel() * rows.element_size(), n)
+    dist.all_to_all_single(got, rows, group=group)
+    parts = got.chunk(n)
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return total.movedim(0, dim).contiguous()
+
+
+def sum_ordered(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group`` of every rank's ``x``, added in rank order
+    (:func:`reduce_scatter` of the flat tensor, then an ``all_gather``):
+    the same bits for an element whatever else travels with it."""
+    n = dist.get_world_size(group)
+    flat = x.detach().reshape(-1)
+    pad = -flat.numel() % n
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    whole = _gather_whole(reduce_scatter(flat, group), group, 0)
+    return whole[:x.numel()].view(x.shape)
 
 
 class _Copy(torch.autograd.Function):
@@ -209,8 +256,7 @@ class _Gather(torch.autograd.Function):
     def forward(ctx, x, group, dim, sum_grads):
         ctx.group, ctx.dim, ctx.sum_grads = group, dim, sum_grads
         ctx.size = x.shape[dim]
-        parts = all_gather([x], group)
-        return torch.cat([p[0] for p in parts], dim=dim)
+        return _gather_whole(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):
@@ -239,6 +285,72 @@ def gather_from_group(x: torch.Tensor, group, dim: int = 0,
     slice; with ``sum_grads`` (consumers that differ by rank) the slices
     are summed over the group first."""
     return _Gather.apply(x, group, dim % x.ndim, sum_grads)
+
+
+# ---------------------------------------------------------------------------
+# FSDP: a parameter block gathered where it is used
+# ---------------------------------------------------------------------------
+
+
+# each gathered parameter -> (its block, group, dim), for the saved-tensor
+# hooks of :func:`regather_saved`
+_GATHERED = torch.utils.weak.WeakIdKeyDictionary()
+
+
+class _GatherBlock(torch.autograd.Function):
+    """A parameter's block gathered over its FSDP group.  Backward: this
+    rank's block of the cotangent summed over the group where it splits
+    the batch (``rows_summed``), or that block alone where no group splits
+    the batch (every rank's cotangent is the whole one)."""
+
+    @staticmethod
+    def forward(ctx, block, group, dim, rows_summed):
+        ctx.group, ctx.dim, ctx.rows_summed = group, dim, rows_summed
+        whole = _gather_whole(block, group, dim)
+        _GATHERED[whole] = (block.detach(), group, dim)
+        return whole
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.rows_summed:
+            return reduce_scatter(g, ctx.group, ctx.dim), None, None, None
+        size = g.shape[ctx.dim] // dist.get_world_size(ctx.group)
+        at = dist.get_rank(ctx.group) * size
+        return g.narrow(ctx.dim, at, size), None, None, None
+
+
+def gather_block(block: torch.Tensor, group, dim: int,
+                 rows_summed: bool) -> torch.Tensor:
+    """The whole parameter of which ``block`` is this rank's block along
+    ``dim`` over ``group`` (rank order).  Its gradient is this rank's
+    block of the whole one, summed over ``group`` where that group splits
+    the batch (``rows_summed``): the data-summed gradient, as
+    ``train_step.value_and_grad`` gives an unsplit leaf."""
+    return _GatherBlock.apply(block, group, dim, rows_summed)
+
+
+def _pack_saved(t: torch.Tensor):
+    whole = t if t in _GATHERED else t._base
+    if whole is None or whole not in _GATHERED:
+        return t
+    return (_GATHERED[whole], t.shape, t.stride(), t.storage_offset())
+
+
+def _unpack_saved(packed):
+    if isinstance(packed, torch.Tensor):
+        return packed
+    (block, group, dim), shape, stride, offset = packed
+    return _gather_whole(block, group, dim).as_strided(shape, stride,
+                                                       offset)
+
+
+def regather_saved():
+    """Saved-tensor hooks under which what autograd saves of a gathered
+    parameter (the parameter or a view of it) is kept as its block and
+    gathered again when the backward reads it: a forward holds no
+    parameter it has gathered beyond its use."""
+    return torch.autograd.graph.saved_tensors_hooks(_pack_saved,
+                                                    _unpack_saved)
 
 
 # ---------------------------------------------------------------------------

@@ -147,7 +147,9 @@ class _MeshCtx(threading.local):
         self.mesh = None
         self.rules: dict = DEFAULT_RULES
         self.leaf_shardings = None
+        self.state_shardings = None
         self.batch_axis = None
+        self.fsdp = None
 
 
 _CTX = _MeshCtx()
@@ -174,29 +176,39 @@ def active_rules() -> dict:
 
 
 @contextlib.contextmanager
-def use_leaf_shardings(shardings):
+def use_leaf_shardings(shardings, state=None):
     """Name the shardings of the parameter leaves (a flat list in leaf
     order) for the optimizer's global norm: a leaf split over the model
     axis adds its blocks' squares over the model group, a replicated leaf
-    counts once."""
-    prev = _CTX.leaf_shardings
-    _CTX.leaf_shardings = shardings
+    counts once.  A leaf split over the fsdp axis is gathered where the
+    model uses it (:func:`fsdp_scope`).  ``state``, the shardings of the
+    optimizer state's leaves of each parameter (in the same order), names
+    those that ZeRO splits over the fsdp axis: the optimizer updates this
+    rank's block of them (``optim/optimizers.py``)."""
+    prev = _CTX.leaf_shardings, _CTX.state_shardings
+    _CTX.leaf_shardings, _CTX.state_shardings = shardings, state
     try:
         yield
     finally:
-        _CTX.leaf_shardings = prev
+        _CTX.leaf_shardings, _CTX.state_shardings = prev
 
 
 def leaf_shardings():
     return _CTX.leaf_shardings
 
 
+def state_shardings():
+    return _CTX.state_shardings
+
+
 @dataclasses.dataclass(frozen=True)
 class Axis:
-    """One mesh axis as this rank sees it: its size, this rank's index on
-    it and the process group of the ranks that differ only there."""
+    """One mesh axis as this rank sees it, or several taken together: its
+    size, this rank's index on it and the process group of the ranks that
+    differ only there.  ``name`` is the axis's name, or a tuple of the
+    names it combines."""
 
-    name: str
+    name: Any
     size: int
     index: int
     group: Any
@@ -216,20 +228,31 @@ def mesh_axis(mesh, name: str) -> Optional[Axis]:
 def logical_axis(logical: str) -> Optional[Axis]:
     """The active mesh's axis that ``logical`` maps to under the active
     rules, where it spans more than one rank; ``None`` outside a mesh,
-    for an unmapped axis, or a size-1 one.  A logical axis that maps to
-    several mesh axes of more than one rank is not taken by the model
-    functions (the pod axis)."""
+    for an unmapped axis, or a size-1 one.  A logical axis over several
+    mesh axes of more than one rank (``batch`` over ``("pod", "data")``)
+    is one combined axis: its size is theirs multiplied, its index the
+    row-major one over them (the order in which JAX splits a dim over
+    several axes), its group the mesh's group of their plane."""
     mesh = _CTX.mesh
     if mesh is None:
         return None
     entry = resolve_axes((logical,), mesh, _CTX.rules)[0]
-    axes = [a for a in (mesh_axis(mesh, nm) for nm in _entry_names(entry))
+    return mesh_axes(mesh, _entry_names(entry))
+
+
+def mesh_axes(mesh, names: Sequence[str]) -> Optional[Axis]:
+    """The axis over ``mesh``'s axes ``names`` that span more than one
+    rank, combined where there are several; ``None`` where none does."""
+    axes = [a for a in (mesh_axis(mesh, nm) for nm in names)
             if a is not None]
-    if len(axes) > 1:
-        raise NotImplementedError(
-            f"logical axis {logical!r} over {len(axes)} mesh axes of more "
-            f"than one rank")
-    return axes[0] if axes else None
+    if len(axes) < 2:
+        return axes[0] if axes else None
+    wide = tuple(a.name for a in axes)
+    group = mesh.group(wide)
+    if group is None:
+        raise ValueError(f"the mesh has no group over {wide}")
+    size, index = _index_on(mesh, wide)
+    return Axis(wide, size, index, group)
 
 
 def split_of(logical: str, local: int, whole: int) -> Optional[Axis]:
@@ -294,6 +317,13 @@ def _index_on(mesh, names: Tuple[str, ...]) -> Tuple[int, int]:
     return ways, index
 
 
+def block_shape(shape, spec: Spec, mesh) -> Tuple[int, ...]:
+    """The shape of a rank's block of a leaf of ``shape`` under ``spec``."""
+    sizes = mesh_axis_sizes(mesh)
+    return tuple(d // math.prod(sizes[nm] for nm in _entry_names(e))
+                 for d, e in zip(shape, spec))
+
+
 def block(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     """This rank's block of the whole tensor ``x`` under ``spec`` (a
     view)."""
@@ -319,23 +349,27 @@ def shard_values(values, axes, mesh, rules: dict = DEFAULT_RULES):
 
 def gather_leaves(blocks: Sequence[torch.Tensor], specs: Sequence[Spec],
                   mesh) -> list:
-    """The whole leaves of ``blocks`` (one spec each): for each mesh axis
-    of more than one rank, one rank-ordered ``all_gather`` of every block
-    it splits, concatenated along that dim.  Every rank of the mesh calls
-    it with the same leaves."""
+    """The whole leaves of ``blocks`` (one spec each): for each spec entry
+    that splits a dim over ranks (one mesh axis, or several taken together
+    as :func:`mesh_axes` combines them), one rank-ordered ``all_gather``
+    of every block that it splits, concatenated along that dim.  Every
+    rank of the mesh calls it with the same leaves."""
     out = list(blocks)
-    for name in mesh.axis_names:
-        ax = mesh_axis(mesh, name)
+    entries = []
+    for sp in specs:
+        for entry in sp:
+            names = _entry_names(entry)
+            if names and names not in entries:
+                entries.append(names)
+    # one mesh axis before the combined ones, each in the mesh's order
+    entries.sort(key=lambda names: (len(names), [mesh.axis_names.index(nm)
+                                                 for nm in names]))
+    for names in entries:
+        ax = mesh_axes(mesh, names)
         if ax is None:
             continue
         at = [(i, d) for i, sp in enumerate(specs)
-              for d, entry in enumerate(sp) if name in _entry_names(entry)]
-        for entry_len in {len(_entry_names(specs[i][d])) for i, d in at}:
-            if entry_len > 1:
-                raise NotImplementedError(
-                    "gathering a dim split over several mesh axes")
-        if not at:
-            continue
+              for d, entry in enumerate(sp) if _entry_names(entry) == names]
         parts = comm.all_gather([out[i] for i, _ in at], ax.group)
         for j, (i, d) in enumerate(at):
             out[i] = torch.cat([p[j] for p in parts], dim=d)
@@ -365,7 +399,8 @@ def replicated(mesh, ndim: int) -> NamedSharding:
 
 # ---------------------------------------------------------------------------
 # ZeRO-1 optimizer-state axes: the fsdp axis on the largest unsharded and
-# divisible dim of each parameter (the dry-run's, ROADMAP queue 1 item 19c)
+# divisible dim of each parameter (the dry-run's placements of the AdamW
+# state, and of the parameters under FSDP: launch/dryrun.place)
 # ---------------------------------------------------------------------------
 
 def _resolves_unsharded(ax, mesh_names, rules) -> bool:
@@ -411,3 +446,83 @@ def zero_axes_tree(axes_tree, values_tree, mesh,
     return map_axes(lambda ax, v: zero_axes(ax, tuple(v.shape), fsdp_size,
                                             names, rules),
                     axes_tree, values_tree)
+
+
+# ---------------------------------------------------------------------------
+# ZeRO and FSDP: leaves split over the fsdp axis
+# ---------------------------------------------------------------------------
+
+def fsdp_axis() -> Optional[Axis]:
+    """The active mesh's fsdp axis (``("pod", "data")`` combined on the
+    multi-pod mesh), where it spans more than one rank."""
+    return logical_axis("fsdp")
+
+
+def fsdp_dim(spec: Spec) -> Optional[int]:
+    """The dim of a leaf's spec that the active mesh's fsdp axis splits;
+    ``None`` where none does, or where that axis is one rank."""
+    if fsdp_axis() is None:
+        return None
+    names = _entry_names(resolve_axes(("fsdp",), _CTX.mesh, _CTX.rules)[0])
+    for d, entry in enumerate(spec):
+        if _entry_names(entry) == names:
+            return d
+    return None
+
+
+@contextlib.contextmanager
+def fsdp_scope(values):
+    """Around a model entry point called with the parameter tree
+    ``values``: the leaves that the leaf shardings (:func:`use_leaf_shardings`)
+    split over the fsdp axis are gathered where the model takes them
+    (:func:`fsdp_whole`, :func:`fsdp_period`), and what autograd saves of
+    a gathered leaf is kept as its block and gathered again in the
+    backward (``comm.regather_saved``)."""
+    shd = _CTX.leaf_shardings
+    axis = fsdp_axis() if _CTX.mesh is not None else None
+    dims = {}
+    if axis is not None and shd is not None and _CTX.fsdp is None:
+        leaves = tree.leaves(values)
+        dims = {id(leaf): fsdp_dim(s.spec) for leaf, s in zip(leaves, shd)
+                if fsdp_dim(s.spec) is not None}
+        if dims and len(shd) != len(leaves):
+            raise ValueError(f"{len(shd)} leaf shardings for {len(leaves)} "
+                             f"parameters")
+    if not dims:
+        yield
+        return
+    _CTX.fsdp = (dims, axis)
+    try:
+        with comm.regather_saved():
+            yield
+    finally:
+        _CTX.fsdp = None
+
+
+def _gather(block: torch.Tensor, dim: int, axis: Axis) -> torch.Tensor:
+    rows = _CTX.batch_axis
+    if rows is not None and rows.name != axis.name:
+        raise NotImplementedError(
+            f"FSDP over {axis.name} with the batch split over {rows.name}")
+    return comm.gather_block(block, axis.group, dim, rows is not None)
+
+
+def fsdp_whole(leaf: torch.Tensor) -> torch.Tensor:
+    """The whole of a parameter leaf that :func:`fsdp_scope` names split
+    over the fsdp axis; the leaf itself otherwise."""
+    if _CTX.fsdp is None or id(leaf) not in _CTX.fsdp[0]:
+        return leaf
+    dims, axis = _CTX.fsdp
+    return _gather(leaf, dims[id(leaf)], axis)
+
+
+def fsdp_period(stacked: torch.Tensor, view: torch.Tensor) -> torch.Tensor:
+    """The whole of ``view``, a period of the stacked parameter leaf
+    ``stacked`` (its index on the period axis), where :func:`fsdp_scope`
+    names ``stacked`` split over the fsdp axis; ``view`` otherwise."""
+    if _CTX.fsdp is None or id(stacked) not in _CTX.fsdp[0]:
+        return view
+    dims, axis = _CTX.fsdp
+    if dims[id(stacked)] == 0:
+        raise NotImplementedError("FSDP over the period axis")
+    return _gather(view, dims[id(stacked)] - 1, axis)

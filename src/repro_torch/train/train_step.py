@@ -9,8 +9,14 @@ lane its own gradient, and reports ``metrics["loss_mean"]`` per lane.
 
 Under a mesh whose data axis splits the batch (the model's entry points
 split it where the axis divides its rows), each rank differentiates its
-rows' share of the loss and the gradients are summed over the data group
-(one all-reduce a dtype), as GSPMD reduces the JAX package's.
+rows' share of the loss and the gradients are summed over the data group,
+as GSPMD reduces the JAX package's: one sum a dtype, each element's ranks
+added in rank order (``comm.sum_ordered``), so that a leaf's sum is the
+same bits whole or in FSDP's blocks.  An FSDP leaf (split over the fsdp
+axis by the named leaf shardings) comes out of the backward as this
+rank's block of its data-summed gradient (``comm.gather_block``); the
+optimizer updates the blocks that ZeRO and FSDP give a rank
+(``optim/optimizers.py``).
 """
 
 from __future__ import annotations
@@ -55,7 +61,12 @@ def value_and_grad(loss_fn: Callable, values, batch, rng=None,
     rows = (None if sharding.active_mesh() is None
             else sharding.batch_split(tree.leaves(batch)[0].shape[0]))
     if rows is not None:
-        grads = sum_over(grads, rows.group)
+        # an FSDP leaf's gradient comes summed (comm.gather_block)
+        shd = sharding.leaf_shardings()
+        at = [i for i in range(len(grads)) if shd is None
+              or sharding.fsdp_dim(shd[i].spec) is None]
+        for i, g in zip(at, sum_over([grads[i] for i in at], rows.group)):
+            grads[i] = g
     # a carried state (the fault path's FaultState) passes through
     metrics = {k: v.detach() if isinstance(v, torch.Tensor)
                else v.map(torch.Tensor.detach)
@@ -64,13 +75,14 @@ def value_and_grad(loss_fn: Callable, values, batch, rng=None,
 
 
 def sum_over(tensors, group) -> list:
-    """Each tensor summed over ``group``: one all-reduce for each dtype,
-    of the tensors of that dtype flattened into one buffer."""
+    """Each tensor summed over ``group``: one rank-ordered sum
+    (``comm.sum_ordered``) for each dtype, of the tensors of that dtype
+    flattened into one buffer."""
     out = list(tensors)
     for dt in dict.fromkeys(t.dtype for t in tensors):
         at = [i for i, t in enumerate(tensors) if t.dtype == dt]
-        flat = comm.all_reduce(torch.cat([tensors[i].reshape(-1)
-                                          for i in at]), "sum", group)
+        flat = comm.sum_ordered(torch.cat([tensors[i].reshape(-1)
+                                           for i in at]), group)
         for i, part in zip(at, flat.split([tensors[i].numel()
                                            for i in at])):
             out[i] = part.view(tensors[i].shape)

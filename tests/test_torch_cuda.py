@@ -1351,3 +1351,80 @@ def test_encdec_plans_card_match_cpu(cuda_device, arch):
         want = _greedy(m, cpu_values, batch, 8, proto, "cpu")
         got = _greedy(m, gpu_values, batch, 8, proto, cuda_device)
         assert torch.equal(got, want), (proto, got, want)
+
+
+# ---------------------------------------------------------------------------
+# the dry-run's fake impls and fake-CUDA traces
+# ---------------------------------------------------------------------------
+
+def _layout(ts):
+    return [(tuple(t.shape), t.dtype, t.stride()) for t in ts]
+
+
+def _fake_outputs(fn, *args):
+    """``fn``'s outputs on fake copies of the CUDA tensors ``args``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    mode = FakeTensorMode()
+    fakes = [mode.from_tensor(a) if isinstance(a, torch.Tensor) else a
+             for a in args]
+    with mode:
+        return fn(*fakes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,s,d,causal",
+                         [(1, 16, 16, 256, 64, True),
+                          (2, 8, 2, 384, 128, False)])
+def test_flash_fake_impl_is_the_kernels_layout(cuda_device, b, h, hkv, s,
+                                               d, causal):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q = torch.randn((b, h, s, d), generator=gen, device=cuda_device,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((b, hkv, s, d), generator=gen, device=cuda_device,
+                        dtype=torch.bfloat16) for _ in range(2))
+    real = FO.flash_fwd(q, k, v, causal)
+    fake = _fake_outputs(FO.flash_fwd, q, k, v, causal)
+    assert _layout([real]) == _layout([fake])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dim", [((16, 8, 256, 64), 0),
+                                       ((2, 33, 100), 1)])
+@pytest.mark.parametrize("winner,ties", [(True, False), (False, True),
+                                         (True, True)])
+def test_maxpool_fake_impls_are_the_kernels_layout(cuda_device, shape, dim,
+                                                   winner, ties):
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    h = torch.randn(shape, generator=gen, device=cuda_device,
+                    dtype=torch.bfloat16)
+    real = MPO._fwd(h, dim, winner, ties)
+    fake = _fake_outputs(MPO._fwd, h, dim, winner, ties)
+    assert _layout(real) == _layout(fake)
+    if ties:
+        g = torch.randn(real[0].shape, generator=gen, device=cuda_device,
+                        dtype=torch.bfloat16)
+        n = shape[dim]
+        got = MPO._ties_bwd(real[-1], g, n, dim)
+        want = _fake_outputs(MPO._ties_bwd, real[-1], g, n, dim)
+        assert _layout([got]) == _layout([want])
+
+
+@pytest.mark.cuda
+def test_dryrun_fake_cuda_counts_the_fake_cpu_counts(cuda_device):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as tmesh
+    cfg = get_reduced("glm4-9b", n_workers=4, tp_fusion="max",
+                      use_flash=True)
+    for shape in (ShapeConfig("t", "train", 16, 8),
+                  ShapeConfig("p", "prefill", 32, 4),
+                  ShapeConfig("d", "decode", 32, 8)):
+        got = {}
+        for dev in ("cpu", "cuda"):
+            with dryrun.fake_world(8):
+                mesh = tmesh.make_mesh(2, 4)
+                rules = tmesh.rules_for(shape.name, shape.global_batch, mesh)
+                got[dev] = dryrun.trace(dryrun.build_step, cfg, shape, mesh,
+                                        rules, 1, dev)
+        assert got["cuda"]["flops"] == got["cpu"]["flops"] > 0
+        assert got["cuda"]["records"] == got["cpu"]["records"]
