@@ -89,7 +89,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
     serving config under faults on the card and on the CPU and compare;
 16. run ``run_sweep`` over ``benchmarks/bench_sweep.py``'s full grid (the
     14 registry scenarios and N 4/16/64 x bits 8/16 x p_miss 0/.01/.05/.1
-    x channels 1/4, K = 64, 8 rounds) and ``benchmarks/bench_comm.py``'s
+    x channels 1/4, K = 64, 4 rounds) and ``benchmarks/bench_comm.py``'s
     two sweeps with launch counts (``ocs_contention.noisy`` and
     ``maxpool.decode`` once per (bits, id_bits) sub-group, the standalone
     ``ocs_quant.encode`` once per clean bits group, ``winner_bwd`` and
@@ -150,7 +150,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
     1e-3, and the same served tokens;
 25. run ``launch/train`` at the full xlstm-125m width and depth (12
     layers, 3 mLSTM : 1 sLSTM, d_model 768, 4 heads, d_inner 1536, 16
-    workers), bf16, ``--fusion max``, ``XLSTM_BATCH`` x 256 tokens, 3
+    workers), bf16, ``--fusion max``, ``XLSTM_BATCH`` x 256 tokens, 2
     steps, counted (``maxpool.fwd`` and ``maxpool.ties_bwd`` 9 each a
     step: the mLSTM sites; nothing else), every loss finite, the peak
     device memory; a second run bitwise the first; then profile a step;
@@ -275,7 +275,27 @@ Phases, in order; any failed check raises and the script exits non-zero:
     peak, t_compute and t_memory are printed beside the card's
     ``max_memory_allocated()`` and a step's device busy time; the fake
     traces run in a pool of processes;
-37. print one ``{"kernels": [...]}`` line and, last, the device line.
+37. run the analysis on the card (:func:`run_analysis_phase`): ``python -m
+    repro_torch.analysis --device cuda`` in process (the lint, and each
+    of the nine registered entries traced on fake CUDA tensors and run
+    once on real ones under ``set_sync_debug_mode("error")``), each
+    contract's findings, op-stream length, launches and sync verdict
+    printed; every entry's fake-CUDA stream (the CLI's own trace) equal,
+    op for op but for the device and the port's declared device branches
+    (``registry.DEVICE_BRANCHES``), to its fake-CPU stream and holding
+    the custom ops of its kernels, which its real run launches; every
+    real run sync-free; phase 18's 8 x 256 step with ``remat=True``
+    ("full" and "dots") bitwise ``remat=False`` in loss and gradients,
+    flash and ``maxpool.fwd`` launched twice a layer and ``ties_bwd`` as
+    without remat, each step's ``max_memory_allocated()`` and device ms
+    printed; ``launch/train``'s default config for phase 18's flags
+    (remat "full", as every full-width config) for ``TP_STEPS`` steps,
+    its losses and gradient norms bitwise phase 18's and its launches
+    exactly the remat step's;
+38. run the seven examples (``repro_torch.examples``) at a shortened
+    count on the card (:func:`run_examples_phase`), their lines and wall
+    seconds printed;
+39. print one ``{"kernels": [...]}`` line and, last, the device line.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -389,7 +409,7 @@ MOE_LAYERS, MOE_STEPS, MOE_D = 4, 3, 2048
 # the experts cut 16 -> 4
 XLSTM, JAMBA = "xlstm-125m", "jamba-1.5-large-398b"
 XLSTM_PARAMS = 141_331_968
-XLSTM_BATCH, XLSTM_STEPS, XLSTM_D = 5, 3, 768
+XLSTM_BATCH, XLSTM_STEPS, XLSTM_D = 5, 2, 768
 JAMBA_EXPERTS, JAMBA_D, JAMBA_PROMPT = 4, 8192, 64
 # the encoder-decoder slice: whisper-base at full width and depth (6 + 6
 # layers, d_model 512, 8 heads of 64, 16 workers) trains on 8 x 384 frames
@@ -415,8 +435,11 @@ WIDE_ARCHS = (LLAMA4, "glm4-9b", "minicpm-2b", "qwen2.5-32b")
 WIDE_REQUESTS, WIDE_PROMPT, WIDE_NEW = 2, 64, 4
 # the channel trainer hook at the fedocs-cifar width
 HOOK_STEPS, HOOK_BATCH = 8, 64
-# the sweep: benchmarks/bench_sweep.py's full grid, K 64, 8 rounds
-SWEEP_K, SWEEP_ROUNDS = 64, 8
+# the sweep: benchmarks/bench_sweep.py's full grid, K 64, 4 rounds (its CPU
+# reference takes ~5 s a round)
+SWEEP_K, SWEEP_ROUNDS = 64, 4
+# the decode ticks a profiled window holds (after 10 timed unprofiled)
+PROFILED_TICKS = 5
 # the DP curves: benchmarks/bench_curves.py's _DP_SHARDS and _DP_K_FRAC
 DP_SHARDS, DP_K_FRAC = 2, 1 / 8
 # phase 33: gloo ranks sharing cuda:0 and their process groups' timeout
@@ -490,7 +513,7 @@ REPLACES = {
         "src/repro/kernels/flash_attention/flash_attention.py:32"}
 
 
-def _time_ms(fn, iters: int = 200) -> float:
+def _time_ms(fn, iters: int = 100) -> float:
     """Mean time per call of ``fn`` called back to back, between two CUDA
     events: for launches this small it is the host's issue rate."""
     for _ in range(5):
@@ -506,7 +529,7 @@ def _time_ms(fn, iters: int = 200) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def _device_ms(fn, iters: int = 50, symbol=None, flush=None):
+def _device_ms(fn, iters: int = 20, symbol=None, flush=None):
     """(ms, source, own_ms): the device time per call of ``fn``, the summed
     duration of every kernel and memory operation it runs on the card, from
     a profiled window of ``iters`` calls (source ``"profiler"``), and of
@@ -810,7 +833,7 @@ def _record(name, launch, plain, nbytes, ops, lib, extra, err,
     base = _base(name)
     call_ms, src_k, ms = _device_ms(launch, symbol=SYMBOLS[base],
                                     flush=flush)
-    plain_ms, src_p, _ = _device_ms(plain, iters=10 if ops > 1e10 else 50,
+    plain_ms, src_p, _ = _device_ms(plain, iters=10 if ops > 1e10 else 20,
                                     flush=flush)
     lib_ms, src_l, _ = _device_ms(lib, flush=flush) if lib is not None \
         else (None, None, None)
@@ -849,7 +872,7 @@ def check_kernels(dev) -> dict:
     0.05; the winner bwd is not on serving).
     Then the fused contention's other cases (:func:`check_noisy_cases`)
     and flash attention (:func:`check_flash`)."""
-    rows = {}
+    rows, t0 = {}, time.perf_counter()
 
     def row(name, launch, plain, nbytes, ops, lib, extra, flush=None):
         err = _check_equal(name, launch, plain, extra)
@@ -877,20 +900,30 @@ def check_kernels(dev) -> dict:
             rows[(name, "serve")] = row(name, launch, plain, nbytes, ops, lib,
                                         dict(bits=8, shape=shape,
                                              dtype="bfloat16"))
-    rows.update(check_sweep_kernels(dev, row))
-    rows.update(check_train_maxpool(dev, row))
-    check_tp_sites(dev)
-    check_tp_model_sites(dev)
-    rows.update(check_moe_site(dev, row))
-    rows.update(check_recurrent_sites(dev, row))
-    check_decode_outputs(dev)
-    check_noisy_cases(dev)
-    check_fault_cases(dev)
-    rows[("flash_attention.fwd", "serve")] = check_flash(dev)
-    rows[("flash_attention.fwd", "moe")] = check_flash_gqa128(dev)
-    rows[("flash_attention.fwd", "jamba")] = check_flash_jamba(dev)
-    rows.update(check_encdec_sites(dev, row))
-    rows[("flash_attention.fwd", "encdec")] = check_flash_encdec(dev)
+    print(f"check_kernels: the channel kernels' rows in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+    def part(fn, *args):
+        t = time.perf_counter()
+        got = fn(*args)
+        print(f"check_kernels: {fn.__name__} in "
+              f"{time.perf_counter() - t:.3f} s", flush=True)
+        return got
+
+    rows.update(part(check_sweep_kernels, dev, row))
+    rows.update(part(check_train_maxpool, dev, row))
+    part(check_tp_sites, dev)
+    part(check_tp_model_sites, dev)
+    rows.update(part(check_moe_site, dev, row))
+    rows.update(part(check_recurrent_sites, dev, row))
+    part(check_decode_outputs, dev)
+    part(check_noisy_cases, dev)
+    part(check_fault_cases, dev)
+    rows[("flash_attention.fwd", "serve")] = part(check_flash, dev)
+    rows[("flash_attention.fwd", "moe")] = part(check_flash_gqa128, dev)
+    rows[("flash_attention.fwd", "jamba")] = part(check_flash_jamba, dev)
+    rows.update(part(check_encdec_sites, dev, row))
+    rows[("flash_attention.fwd", "encdec")] = part(check_flash_encdec, dev)
     return rows
 
 
@@ -907,7 +940,8 @@ def sweep_grid():
 def check_sweep_kernels(dev, row) -> dict:
     """Phase 3, the sweep's kernels at its largest groups, bitwise and
     timed: ``ocs_quant.encode`` over the clean bits-16 group (its
-    scenarios x 8 rounds lanes of the grid's 64 padded workers x K 64),
+    scenarios x ``SWEEP_ROUNDS`` lanes of the grid's 64 padded workers x
+    K 64),
     ``ocs_contention.noisy`` and ``maxpool.decode`` over the noisy bits-16
     sub-group of 64 workers (id_bits 6; per-worker ``p_keep``)."""
     cells = sweep_grid()
@@ -1364,8 +1398,7 @@ def profile_main_path(dev) -> None:
     tc.run_curves(ccfg, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         tc.run_curves(ccfg, device=dev)
         torch.cuda.synchronize()
     by_name, launches = {}, 0
@@ -1577,9 +1610,10 @@ def check_serving_against_cpu(dev) -> None:
 
 def _profile_ticks(tick, what: str, table: str) -> dict:
     """Where a decode tick's time goes: ``tick(0)`` warm, ticks 1-10 timed
-    unprofiled, then 11-20 under torch.profiler, the device side alone
-    (device busy time, idle share, launches a tick, time by kernel; the
-    table goes to ``<table>`` in the output directory)."""
+    unprofiled, then ``PROFILED_TICKS`` more under torch.profiler, the
+    device side alone (device busy time a tick, idle share, launches a
+    tick, time by kernel; the table goes to ``<table>`` in the output
+    directory)."""
     tick(0)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -1590,7 +1624,7 @@ def _profile_ticks(tick, what: str, table: str) -> dict:
     wall = time.perf_counter() - t0
     per_tick = {k: v / 10 for k, v in kernels.launch_counts().items() if v}
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for t in range(11, 21):
+        for t in range(11, 11 + PROFILED_TICKS):
             tick(t)
         torch.cuda.synchronize()
     by_name, launches = {}, 0
@@ -1598,24 +1632,28 @@ def _profile_ticks(tick, what: str, table: str) -> dict:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
             launches += 1
-    device_s = sum(by_name.values()) / 1e6
-    int64_s = sum(us for name, us in by_name.items()
-                  if "<long" in name or "Functor<long" in name) / 1e6
+    # the profiled window's device time, scaled to the timed window's 10
+    # ticks
+    scale = 10 / PROFILED_TICKS
+    device_s = scale * sum(by_name.values()) / 1e6
+    int64_s = scale * sum(us for name, us in by_name.items()
+                          if "<long" in name or "Functor<long" in name) / 1e6
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / table).write_text(prof.key_averages().table(
         sort_by="self_device_time_total", row_limit=60))
-    print(f"profile, 10 decode ticks of {what}: wall {wall:.4f} s "
+    print(f"profile, 10 decode ticks of {what} ({PROFILED_TICKS} more "
+          f"profiled, device times scaled to 10): wall {wall:.4f} s "
           f"unprofiled ({100 * wall:.2f} ms per tick), device busy "
           f"{device_s:.4f} s, idle share {1 - device_s / wall:.3f}; "
-          f"{launches} device kernels and copies ({launches / 10:.0f} "
-          f"launches per tick); int64 elementwise kernels {int64_s:.4f} s "
-          f"of the device time; the port's kernel launches per tick "
-          f"{per_tick}", flush=True)
+          f"{scale * launches:.0f} device kernels and copies "
+          f"({launches / PROFILED_TICKS:.0f} launches per tick); int64 "
+          f"elementwise kernels {int64_s:.4f} s of the device time; the "
+          f"port's kernel launches per tick {per_tick}", flush=True)
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"  {us / 1e3:10.3f} ms  {name[:100]}", flush=True)
+        print(f"  {scale * us / 1e3:10.3f} ms  {name[:100]}", flush=True)
     return dict(wall_ms=100 * wall, device_ms=100 * device_s,
-                idle=1 - device_s / wall, launches=launches / 10)
+                idle=1 - device_s / wall, launches=launches / PROFILED_TICKS)
 
 
 def profile_serving(dev, serve, table="profile_serve.txt") -> dict:
@@ -1754,8 +1792,7 @@ def profile_scheduled(dev) -> dict:
         walls[name].append(time.perf_counter() - t0)
     out = {}
     for name, sch in scheds.items():
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             tc.run_scheduled_curves(ccfg, sch, device=dev)
             torch.cuda.synchronize()
         device_s = sum(e.device_time_total for e in prof.events()
@@ -1936,8 +1973,9 @@ def run_faulty_serving(dev, serve):
 def profile_faulty_serving(dev, serve) -> dict:
     """Phase 14, profile: 10 decode ticks at the full width with the 8
     slots filled, under phase 14's fault model with ``stale`` (the chains
-    stepped and the policy applied every tick), timed unprofiled, then 10
-    more profiled: wall, device busy, launches per tick and idle share,
+    stepped and the policy applied every tick), timed unprofiled, then
+    ``PROFILED_TICKS`` more profiled: wall, device busy, launches per tick
+    and idle share,
     beside phase 11's channel tick."""
     fm = faults.FaultModel.burst(policy=faults.DegradePolicy.stale(),
                                  **SERVE_FAULT).with_dropout(*SERVE_DROPOUT)
@@ -1953,15 +1991,19 @@ def profile_faulty_serving(dev, serve) -> dict:
     flags = [eng._tick(proto, t, fm)[3] for t in range(1, 11)]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    busy, launches = _busy(lambda: [eng._tick(proto, t, fm)
-                                    for t in range(11, 21)])
+    busy, launches = _busy(lambda: [eng._tick(proto, t, fm) for t in
+                                    range(11, 11 + PROFILED_TICKS)])
+    # the profiled window's device time, scaled to the timed window's 10
+    # ticks
+    busy *= 10 / PROFILED_TICKS
     print(f"profile, 10 faulty decode ticks at the full width (stale, "
-          f"{sum(not ok for ok, _ in flags)} outage ticks of the 10 timed): "
+          f"{sum(not ok for ok, _ in flags)} outage ticks of the 10 timed; "
+          f"{PROFILED_TICKS} more profiled, device time scaled to 10): "
           f"wall {wall:.4f} s unprofiled ({100 * wall:.2f} ms per tick), "
           f"device busy {busy:.4f} s, idle share {1 - busy / wall:.3f}; "
-          f"{launches} device kernels and copies ({launches / 10:.0f} per "
-          f"tick)", flush=True)
-    return dict(wall=wall, device_s=busy, per_tick=launches / 10,
+          f"{launches / PROFILED_TICKS:.0f} device kernels and copies per "
+          f"tick", flush=True)
+    return dict(wall=wall, device_s=busy, per_tick=launches / PROFILED_TICKS,
                 idle=1 - busy / wall)
 
 
@@ -2633,6 +2675,17 @@ def _preempt(ckpt_dir: str, step: int) -> None:
     pathlib.Path(ckpt_dir, "latest").write_text(str(step))
 
 
+def _without_remat(run):
+    """``launch_train.setup``'s ``run`` with ``remat=False``.  The full
+    configs keep the JAX default ``remat=True``; the train phases before
+    phase 37 measure the step without the recompute (their launch counts
+    and peaks are each step's forward once), and phase 37 holds the
+    default, remat, to it."""
+    run.cfg = run.cfg.with_(remat=False)
+    run.m = M.build(run.cfg)
+    return run
+
+
 def _train_run(ckpt_dir, steps=TRAIN_STEPS):
     """``launch/train``'s run at the full qwen1.5-0.5b width (fusion
     ``max``, flash), every step logged, a checkpoint every 3 steps."""
@@ -2640,7 +2693,7 @@ def _train_run(ckpt_dir, steps=TRAIN_STEPS):
             str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--seed", "0"]
     if ckpt_dir is not None:
         argv += ["--ckpt-dir", ckpt_dir]
-    run = launch_train.setup(launch_train.parse_args(argv))
+    run = _without_remat(launch_train.setup(launch_train.parse_args(argv)))
     run.tcfg = dataclasses.replace(run.tcfg, ckpt_every=TRAIN_CKPT_EVERY,
                                    log_every=1)
     return run
@@ -2778,16 +2831,16 @@ def _categorize(name: str) -> str:
 
 
 def _profile_steps(run, n: int, table: str,
-                   activities=(ProfilerActivity.CPU, ProfilerActivity.CUDA)):
+                   activities=(ProfilerActivity.CUDA,)):
     """``n`` train steps of ``run`` (the trainer's step function, its
     carries donated, batches from the pipeline; ``run.values`` is updated
     in place) timed unprofiled after a warm-up step, then ``n``
     more under torch.profiler: (values, opt state, wall seconds of the
     unprofiled steps, device ms a step by kernel class, by kernel, device
     launches).  The profiler table goes to ``<table>`` in the output
-    directory.  ``activities=(ProfilerActivity.CUDA,)`` records the device
-    side alone, for a step of ~10^5 launches, where the host side's events
-    take the profiler minutes to parse."""
+    directory.  The default, ``(ProfilerActivity.CUDA,)``, records the
+    device side alone: the host side's events take the profiler seconds to
+    parse for a step of ~10^4 launches, and minutes for one of ~10^5."""
     step_fn = make_train_step(run.m.loss, run.opt)
     values, opt = run.values, run.opt.init(run.values)
     values, opt, _ = step_fn(values, opt, run.data(0))
@@ -2981,8 +3034,7 @@ def run_hook_phase(dev) -> dict:
     loss, init, opt, data, tcfg = _hook(vcfg, HOOK_BATCH, dev, 5)
     _, _, prof_wall = _counted(
         lambda: trainer.train(loss, init, opt, data, tcfg))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         trainer.train(loss, init, opt, data, tcfg)
         torch.cuda.synchronize()
     dev_ev = [e for e in prof.events()
@@ -3067,10 +3119,10 @@ def _moe_train_run(steps=MOE_STEPS):
     """``launch/train``'s run at the full qwen3-moe-30b-a3b width, the
     depth cut to ``MOE_LAYERS`` (``--layers``), fusion ``max``, flash,
     every step logged."""
-    run = launch_train.setup(launch_train.parse_args([
+    run = _without_remat(launch_train.setup(launch_train.parse_args([
         "--arch", QWEN3, "--layers", str(MOE_LAYERS), "--steps", str(steps),
         "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--seed",
-        "0"]))
+        "0"])))
     cfg = run.cfg
     assert (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_,
             cfg.n_experts, cfg.experts_per_token, cfg.n_workers,
@@ -3394,9 +3446,9 @@ def check_recurrent_sites(dev, row) -> dict:
 def _xlstm_train_run(steps=XLSTM_STEPS):
     """``launch/train``'s run at the full xlstm-125m width and depth,
     fusion ``max``, every step logged."""
-    run = launch_train.setup(launch_train.parse_args([
+    run = _without_remat(launch_train.setup(launch_train.parse_args([
         "--arch", XLSTM, "--steps", str(steps), "--batch", str(XLSTM_BATCH),
-        "--seq", str(TRAIN_SEQ), "--seed", "0"]))
+        "--seq", str(TRAIN_SEQ), "--seed", "0"])))
     cfg = run.cfg
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_inner,
             cfg.n_workers, cfg.tp_fusion, cfg.dtype, cfg.tie_embeddings) \
@@ -3427,9 +3479,9 @@ def run_xlstm_train_phase(dev) -> dict:
     """Phase 25: ``launch/train`` at the full xlstm-125m width and depth
     (12 layers, 3 mLSTM : 1 sLSTM, d_model 768, 4 heads, d_inner 1536, 16
     workers; bf16, random weights from seed 0, ``--fusion max``),
-    ``XLSTM_BATCH`` x 256 tokens, 3 steps, counted (``maxpool.fwd`` and
-    ``ties_bwd`` 9 each a step, nothing else), every loss finite, the
-    peak device memory; a second run bitwise the first; then one step
+    ``XLSTM_BATCH`` x 256 tokens, ``XLSTM_STEPS`` steps, counted
+    (``maxpool.fwd`` and ``ties_bwd`` 9 each a step, nothing else), every
+    loss finite, the peak device memory; a second run bitwise the first; then one step
     profiled, the device side alone (wall, device busy, idle share,
     kernels a step)."""
     _release("xlstm train phase start")
@@ -3845,7 +3897,7 @@ def _whisper_train_run(ckpt_dir, steps=WHISPER_STEPS):
             "--use-flash", "--seed", "0"]
     if ckpt_dir is not None:
         argv += ["--ckpt-dir", ckpt_dir]
-    run = launch_train.setup(launch_train.parse_args(argv))
+    run = _without_remat(launch_train.setup(launch_train.parse_args(argv)))
     cfg = run.cfg
     assert (cfg.n_layers, cfg.n_encoder_layers, cfg.d_model, cfg.n_heads,
             cfg.head_dim_, cfg.n_workers, cfg.vocab_size, cfg.frontend_dim,
@@ -4072,10 +4124,10 @@ def _pixtral_train_run(steps=PIXTRAL_TRAIN_STEPS):
     """``launch/train``'s run at the full pixtral-12b width, the depth cut
     to ``PIXTRAL_TRAIN_LAYERS`` (``--layers``), fusion ``max``, flash,
     8 x 256 patches of 1,024 features, every step logged."""
-    run = launch_train.setup(launch_train.parse_args([
+    run = _without_remat(launch_train.setup(launch_train.parse_args([
         "--arch", PIXTRAL, "--layers", str(PIXTRAL_TRAIN_LAYERS), "--steps",
         str(steps), "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
-        "--seed", "0"]))
+        "--seed", "0"])))
     run.tcfg = dataclasses.replace(run.tcfg, log_every=1)
     return run
 
@@ -4421,7 +4473,7 @@ def _tp_train_args(dev):
 def _tp_train_run(dev):
     """Phase 18's run (its batches and its 6-step schedule), cut to
     ``TP_STEPS`` steps, every step logged, no checkpoints."""
-    run = launch_train.setup(_tp_train_args(dev))
+    run = _without_remat(launch_train.setup(_tp_train_args(dev)))
     run.tcfg = dataclasses.replace(run.tcfg, steps=TP_STEPS, log_every=1,
                                    ckpt_dir=None)
     return run
@@ -4835,7 +4887,8 @@ def _tpm_train_run(arch, dev, steps=None, moe_layers=TPM_MOE_LAYERS):
     """``launch/train``'s run of phase 35 for ``arch``: qwen3-moe cut to
     ``moe_layers``, xlstm to one period, whisper whole; fusion max,
     flash; every step logged, no checkpoints."""
-    run = launch_train.setup(_tpm_train_args(arch, dev, moe_layers))
+    run = _without_remat(launch_train.setup(_tpm_train_args(arch, dev,
+                                                            moe_layers)))
     run.tcfg = dataclasses.replace(run.tcfg, log_every=1, ckpt_dir=None,
                                    steps=steps or run.tcfg.steps)
     return run
@@ -4901,7 +4954,7 @@ def _tpm_model(arch, dtype=torch.bfloat16):
         cfg = get_config(PIXTRAL, n_layers=TPM_PIXTRAL_LAYERS)
     else:
         cfg = get_config(arch)
-    cfg = cfg.with_(tp_fusion="max", use_flash=True)
+    cfg = cfg.with_(tp_fusion="max", use_flash=True, remat=False)
     if dtype != cfg.dtype:
         cfg = cfg.with_(dtype=dtype, param_dtype=dtype, use_flash=False)
     return M.build(cfg)
@@ -5504,9 +5557,10 @@ def _summed(*summaries, times: int = 1) -> dict:
 
 
 def _launch_step(args):
-    """The config, the first batch (on the CPU) and a train step's
-    ``ShapeConfig`` of ``launch/train``'s flags ``args``."""
-    cfg = launch_train.config(args)
+    """The config (``remat=False``, as :func:`_without_remat`), the first
+    batch (on the CPU) and a train step's ``ShapeConfig`` of
+    ``launch/train``'s flags ``args``."""
+    cfg = launch_train.config(args).with_(remat=False)
     batch = pipeline.batch_for_step(launch_train.data_config(args, cfg), 0,
                                     device=torch.device("cpu"))
     rows, seq = tree.leaves(batch)[0].shape[:2]
@@ -5657,8 +5711,11 @@ def run_dryrun_phase(dev, tp, tpm) -> dict:
     workers = max(1, min(len(jobs), (os.cpu_count() or 2) - 1))
     with concurrent.futures.ProcessPoolExecutor(
             workers, mp_context=multiprocessing.get_context("spawn")) as pool:
-        pending = {key: pool.submit(_dry_job, job)
-                   for key, job in jobs.items()}
+        # the longest traces first (the xlstm rank's time loops, then the
+        # production cells), so that none starts in the pool's last wave
+        order = sorted(jobs, key=lambda k: (k[:2] != ("rank", XLSTM),
+                                            k[0] != "cell"))
+        pending = {key: pool.submit(_dry_job, jobs[key]) for key in order}
         card = _dry_memory_on_card(dev)
         done = {key: f.result() for key, f in pending.items()}
     out = {"cells": {}, "trace_s": {str(k): round(v["trace_s"], 1)
@@ -5705,11 +5762,209 @@ def run_dryrun_phase(dev, tp, tpm) -> dict:
     return out
 
 
+ANALYSIS_JSON = "chiprun_out/analysis_cuda.json"
+REMAT_POLICIES = ("full", "dots")
+EXAMPLE_RUNS = {
+    "quickstart": ["--steps", "3"],
+    "patch_classification": ["--steps", "3", "--method", "all"],
+    "reconstruction": ["--steps", "3"],
+    "train_curves": ["--steps", "3"],
+    "scenario_sweep": ["--rounds", "1"],
+    "lm_train": ["--steps", "3"],
+    "serve_demo": ["--train-steps", "3", "--requests", "4", "--max-new",
+                   "4"],
+}
+# the kernels the examples reach: the max laws (quickstart, lm_train), the
+# channel (train_curves, serve_demo, scenario_sweep, patch_classification)
+# and the sweep's clean core's encode
+EXAMPLE_KERNELS = ("ocs_quant.encode", "maxpool.fwd", "maxpool.decode",
+                   "maxpool.winner_bwd", "maxpool.ties_bwd",
+                   "ocs_contention.noisy")
+
+
+def _remat_want(remat: bool, steps: int = 1) -> dict:
+    """Phase 18's launches a step, where ``remat`` adds the recompute of
+    each period's forward: flash and ``maxpool.fwd`` twice, ``ties_bwd``
+    (backward only) once."""
+    fwd = 2 if remat else 1
+    want = {k: 0 for k in kernels.KERNELS}
+    want.update({"flash_attention.fwd": fwd * QWEN_LAYERS * steps,
+                 "maxpool.fwd": fwd * 2 * QWEN_LAYERS * steps,
+                 "maxpool.ties_bwd": 2 * QWEN_LAYERS * steps})
+    return want
+
+
+def _remat_steps(dev) -> dict:
+    """Phase 18's 8 x 256 step (loss and gradients) with and without
+    remat: bitwise, each one's launches exactly :func:`_remat_want`'s,
+    and each one's peak and device ms."""
+    from repro_torch.train.train_step import value_and_grad
+    cfg0, batch, _ = _launch_step(_tp_train_args(dev))
+    batch = tree.map(lambda t: t.to(dev), batch)
+    out, first = {}, None
+    for remat, policy in ((False, "full"),) + tuple(
+            (True, p) for p in REMAT_POLICIES):
+        cfg = cfg0.with_(remat=remat, remat_policy=policy)
+        m = M.build(cfg)
+        values = m.init(torch.Generator(device=dev).manual_seed(0))
+        _release(f"remat={remat} {policy}")
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        loss, _, grads = value_and_grad(m.loss, values, batch)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        busy_s, _ = _busy(lambda: value_and_grad(m.loss, values, batch))
+        key = f"remat={remat} {policy}" if remat else "remat=False"
+        if first is None:
+            first = (loss, grads)
+            same = True
+        else:
+            same = torch.equal(loss, first[0]) and all(
+                torch.equal(a, b) for a, b in zip(tree.leaves(grads),
+                                                  tree.leaves(first[1])))
+        out[key] = dict(loss=float(loss), peak_bytes=peak,
+                        device_ms=1e3 * busy_s, bitwise=same,
+                        counts=counts,
+                        counts_held=counts == _remat_want(remat))
+        print(f"remat: {key}: loss {float(loss)!r}, peak above the values "
+              f"{peak} bytes ({peak / 2**30:.3f} GiB), device "
+              f"{1e3 * busy_s:.3f} ms, bitwise remat=False: {same}; "
+              f"launches {counts}", flush=True)
+        del values, grads, loss
+    del first
+    _release("remat done")
+    return out
+
+
+def _remat_trainer(dev, phase18) -> dict:
+    """``launch/train``'s default config for phase 18's flags (remat on,
+    as every full-width config) cut to ``TP_STEPS`` steps of phase 18's
+    schedule: its losses and gradient norms bitwise phase 18's (no remat)
+    and its launches exactly :func:`_remat_want`'s."""
+    run = launch_train.setup(_tp_train_args(dev))
+    assert run.cfg.remat and run.cfg.remat_policy == "full", run.cfg
+    run.tcfg = dataclasses.replace(run.tcfg, steps=TP_STEPS, log_every=1,
+                                   ckpt_dir=None)
+    torch.cuda.reset_peak_memory_stats()
+    res, counts, wall = _counted(lambda: launch_train.launch(run))
+    peak = torch.cuda.max_memory_allocated()
+    del run
+    losses = [r["loss"] for r in res.history]
+    grad_norms = [r["grad_norm"] for r in res.history]
+    del res
+    _release("remat trainer done")
+    out = dict(counts=counts, wall=wall, peak=peak, losses=losses,
+               grad_norms=grad_norms,
+               counts_held=counts == _remat_want(True, TP_STEPS),
+               bitwise=(losses == phase18["losses"][:TP_STEPS]
+                        and grad_norms == phase18["grad_norms"][:TP_STEPS]))
+    print(f"remat trainer ({QWEN} default config, remat full): {TP_STEPS} "
+          f"steps in {wall:.3f} s wall; losses {losses}, gradient norms "
+          f"{grad_norms}, bitwise phase 18's: {out['bitwise']}; peak device "
+          f"memory {peak} bytes ({peak / 2**30:.2f} GiB); launches {counts}",
+          flush=True)
+    return out
+
+
+def run_analysis_phase(dev, phase18) -> dict:
+    """Phase 37: the port's analysis on the card (see the module doc)."""
+    from repro_torch.analysis import registry as an_registry
+    from repro_torch.analysis.contracts import stream_differences
+    from repro_torch.analysis.__main__ import main as analysis_main
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    info = {}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = analysis_main(["--root", str(ROOT), "--device", "cuda", "--json",
+                        str(ROOT / ANALYSIS_JSON)], info=info)
+    counts = kernels.launch_counts()
+    wall = time.perf_counter() - t0
+    for name, got in info.items():
+        print(f"analysis {name}: {got['findings']} findings, "
+              f"{got['stream_ops']} ops in the fake-CUDA stream "
+              f"({got['copies']} copies), custom ops {got['custom_ops']}, "
+              f"launches {got['launches']}, real run sync-free under "
+              f"set_sync_debug_mode('error'): {got['sync_free']}",
+              flush=True)
+    print(f"analysis: exit {rc} in {wall:.3f} s; launches {counts}",
+          flush=True)
+    checks = [("exit 0", rc == 0)]
+    for c in an_registry.CONTRACTS:
+        got = info[c.name]
+        cpu, cuda = an_registry.trace_entry(c, "cpu"), got["trace"]
+        diff = stream_differences(cpu.stream, cuda.stream,
+                                  an_registry.DEVICE_BRANCHES)
+        agree = cpu.error is None and cuda.error is None and not diff
+        if diff:
+            print(f"analysis {c.name}: the streams part at {diff[:3]}",
+                  flush=True)
+        held = {an_registry.CUSTOM_OPS[k] for k in c.kernels} <= {
+            op.name for op in cuda.stream}
+        launched = all((got["launches"] or {}).get(k, 0) > 0
+                       for k in c.kernels)
+        print(f"analysis {c.name}: fake-CPU {len(cpu.stream)} ops, "
+              f"fake-CUDA {len(cuda.stream)} ops, agree {agree}, custom "
+              f"ops held {held}, kernels launched {launched}", flush=True)
+        checks += [(f"{c.name} streams agree", agree),
+                   (f"{c.name} custom ops", held),
+                   (f"{c.name} launched", launched),
+                   (f"{c.name} runs sync-free", got["sync_free"] is True)]
+        del got["trace"]
+    remat = _remat_steps(dev)
+    trainer_run = _remat_trainer(dev, phase18)
+    # the remat path's launches: each step's counted call and the trainer
+    # (the device-ms windows are timing, as a kernel's comparison is)
+    remat_counts = {k: trainer_run["counts"][k] + sum(
+        r["counts"][k] for r in remat.values()) for k in kernels.KERNELS}
+    checks += [(f"{k} bitwise", r["bitwise"]) for k, r in remat.items()]
+    checks += [(f"{k} launches", r["counts_held"]) for k, r in remat.items()]
+    checks += [("remat trainer bitwise phase 18", trainer_run["bitwise"]),
+               ("remat trainer launches", trainer_run["counts_held"])]
+    failed = [what for what, ok in checks if not ok]
+    assert not failed, failed
+    for k in ("ocs_contention.noisy", "maxpool.decode",
+              "maxpool.winner_bwd"):
+        assert counts[k] > 0, (k, counts)
+    return dict(counts=counts, remat_counts=remat_counts, remat=remat,
+                trainer=trainer_run, info=info, wall=wall)
+
+
+def run_examples_phase(dev) -> dict:
+    """Phase 38: each example's ``main`` on the card at a shortened
+    count; its lines are printed by the example, its wall seconds here."""
+    import importlib
+    walls = {}
+    kernels.reset_launch_counts()
+    ckpt = ROOT / "build" / "examples_ckpt"
+    for name, argv in EXAMPLE_RUNS.items():
+        argv = argv + ["--device", dev.type]
+        if name == "lm_train":
+            shutil.rmtree(ckpt, ignore_errors=True)
+            argv += ["--ckpt-dir", str(ckpt)]
+        print(f"== example {name} {' '.join(argv)}", flush=True)
+        t0 = time.perf_counter()
+        importlib.import_module(f"repro_torch.examples.{name}").main(argv)
+        torch.cuda.synchronize()
+        walls[name] = round(time.perf_counter() - t0, 3)
+        print(f"== example {name}: {walls[name]} s", flush=True)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    counts = kernels.launch_counts()
+    missing = [k for k in EXAMPLE_KERNELS if counts[k] == 0]
+    assert not missing, (missing, counts)
+    print(f"examples wall seconds {walls}; launches {counts}", flush=True)
+    _release("examples done")
+    return dict(counts=counts, walls=walls)
+
+
 def _timed(fn, *args):
     """Call one phase; keep its wall seconds for the closing summary."""
     t0 = time.perf_counter()
     out = fn(*args)
     _PHASE_SECONDS[fn.__name__] = round(time.perf_counter() - t0, 3)
+    print(f"phase {fn.__name__}: {_PHASE_SECONDS[fn.__name__]} s",
+          flush=True)
     return out
 
 
@@ -5778,6 +6033,8 @@ def main() -> int:
     tp = _timed(run_tp_phase, dev, train)
     tpm = _timed(run_tp_models_phase, dev)
     dry = _timed(run_dryrun_phase, dev, tp, tpm)
+    analysis = _timed(run_analysis_phase, dev, train)
+    examples = _timed(run_examples_phase, dev)
 
     line = []
     keep = ("shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
@@ -5860,7 +6117,10 @@ def main() -> int:
                    "tp_train": tp["counts"]["train"][name],
                    "tp_serve": tp["counts"]["serve"][name],
                    "tp_models_train": tpm["counts"]["train"][name],
-                   "tp_models_serve": tpm["counts"]["serve"][name]}
+                   "tp_models_serve": tpm["counts"]["serve"][name],
+                   "analysis": analysis["counts"][name],
+                   "remat": analysis["remat_counts"][name],
+                   "examples": examples["counts"][name]}
         line.append(dict(rec, launches=sum(by_path.values()),
                          launches_by_path=by_path))
     print(f"run_curves wall seconds: {wall}", flush=True)
@@ -5949,6 +6209,9 @@ def main() -> int:
           f"({mem['peak_ratio']:.4f}); t_compute {mem['t_compute_ms']:.3f} "
           f"ms, t_memory {mem['t_memory_ms']:.3f} ms against "
           f"{mem['busy_ms']:.3f} device busy ms a step; {smi}", flush=True)
+    print(f"analysis: {analysis['wall']:.3f} s in process, remat "
+          f"{analysis['remat']}; examples wall seconds "
+          f"{examples['walls']}; {smi}", flush=True)
     print(f"phase wall seconds: {_PHASE_SECONDS}", flush=True)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -79,8 +79,9 @@ class ModelConfig:
     # execution
     n_workers: int = 1                # worker count of the fusion sites
     scan_layers: bool = True          # kept for field parity: the port
-    remat: bool = True                #   loops over layers and keeps no
-    #   activations beyond what autograd needs
+    #   loops over the periods in Python
+    remat: bool = True                # recompute each period's forward in
+    #   the backward (transformer.stack_full)
     use_flash: bool = False           # the flash-attention kernel path
     mamba_assoc_scan: bool = False
     loss_chunk: int = 512

@@ -254,7 +254,8 @@ def step_chains(model: FaultModel, state: FaultState, rng: torch.Tensor
     key per lane, folded with each tag)."""
     n = state.bad.shape[-1]
     # both side streams in one fold_in and one draw (the same bits as two)
-    u = _tagged_uniform(rng, (_CHAIN_TAG, _DROP_TAG), n)
+    u = _tagged_uniform(rng, range(_CHAIN_TAG, _DROP_TAG + 1,
+                                   _DROP_TAG - _CHAIN_TAG), n)
     u_s, u_d = u[..., 0, :], u[..., 1, :]
     new_bad = torch.where(state.bad, u_s >= model.p_bg, u_s < model.p_gb)
     new_offline = torch.where(state.offline, u_d >= model.p_recover,
@@ -262,10 +263,13 @@ def step_chains(model: FaultModel, state: FaultState, rng: torch.Tensor
     return new_bad, new_offline
 
 
-def _tagged_uniform(rng: torch.Tensor, tags, n: int) -> torch.Tensor:
+def _tagged_uniform(rng: torch.Tensor, tags: range, n: int) -> torch.Tensor:
     """``uniform(fold_in(rng, tag), (n,))`` for each tag, stacked on the
-    axis before the last: ``rng (..., 2)`` -> ``(..., len(tags), n)``."""
-    data = torch.tensor(tags, dtype=torch.int64, device=rng.device)
+    axis before the last: ``rng (..., 2)`` -> ``(..., len(tags), n)``.
+    The tags are a ``range``, made on the key's device by one ``arange``
+    (no host copy)."""
+    data = torch.arange(tags.start, tags.stop, tags.step, dtype=torch.int64,
+                        device=rng.device)
     return jr.uniform(jr.fold_in(rng.unsqueeze(-2), data), (n,),
                       torch.float32)
 

@@ -3,10 +3,10 @@
 Each kernel package (``ocs_quant``, ``maxpool``, ``ocs_contention``,
 ``flash_attention``) holds ``ops.py``, the wrapper the port calls, and
 ``ref.py``, the kernel's plain PyTorch version.  A wrapper runs the plain version only for a tensor on the
-CPU; for a CUDA tensor it launches the kernel or raises.  The wrappers of
-``flash_attention.fwd``, ``maxpool.fwd`` and ``maxpool.ties_bwd`` send a
-fake tensor (the dry-run's trace) through a ``torch.library`` custom op
-whose fake impl gives the kernel's outputs alone.
+CPU; for a CUDA tensor it launches the kernel or raises.  Every wrapper
+sends a fake tensor (a trace: the dry-run's, the analysis's) through a
+``torch.library`` custom op (``repro_torch::<name>``) whose fake impl
+gives the kernel's outputs alone.
 
 The CUDA C++ sources live in ``csrc/``.  :func:`library` compiles them at
 first use with ``nvcc`` for ``sm_90a`` (one ``nvcc -c`` per source, all

@@ -4,11 +4,12 @@ Each takes the plain version (``ref.py``) for a tensor on the CPU and
 launches the CUDA kernel for a tensor on the card.  The pooled axis is
 ``dim``; the axes before it are a batch (the p_miss lanes) and the axes
 after it are the pooled elements, so the kernels see a ``(B, N, E)``
-layout.  The two that a model's train, prefill and decode steps reach,
-``maxpool.fwd`` and ``maxpool.ties_bwd``, take a fake tensor (the
-dry-run's trace, either device) through a custom op
-(``repro_torch::maxpool_fwd``, ``repro_torch::maxpool_ties_bwd``) whose
-fake impl gives their outputs alone, shapes, types and strides.
+layout.  Each takes a fake tensor (a trace, either device) through a
+custom op (``repro_torch::maxpool_fwd``, ``maxpool_ties_bwd``,
+``maxpool_decode``, ``maxpool_winner_bwd``) whose fake impl gives its
+outputs alone, shapes, types and strides; real tensors take the direct
+path, since a custom op's first call in a process costs seconds of
+imports.
 """
 
 from __future__ import annotations
@@ -104,23 +105,11 @@ def maxpool_ties(h: torch.Tensor, dim: int = 0):
     return out.pooled, out.ties
 
 
-def maxpool_decode(codes: torch.Tensor, bits: int, dtype: torch.dtype, *,
-                   mask: Optional[torch.Tensor] = None,
-                   winner: Optional[torch.Tensor] = None, dim: int = 1,
-                   max_code: bool = False, argmax: bool = False,
-                   correct: bool = False,
-                   out: Optional[ref.PoolDecode] = None) -> ref.PoolDecode:
-    """D-bit codes, or the float features whose codes the kernel forms as
-    it loads them -> their pooled max over ``dim`` decoded to ``dtype``, in
-    one launch: ``pooled`` always, ``max_code``/``argmax``/``correct`` only
-    where asked (see ``ref.maxpool_decode``).  Codes of at most 16 bits, as
-    the code kernels.  The fields of ``out`` that are not None are
-    contiguous tensors of the output's shape that the kernel writes in
-    place of new ones."""
-    if codes.device.type == "cpu":
-        return ref.maxpool_decode(codes, bits, dtype, mask=mask,
-                                  winner=winner, dim=dim, max_code=max_code,
-                                  argmax=argmax, correct=correct, out=out)
+def _check_decode(codes: torch.Tensor, bits: int, dtype: torch.dtype,
+                  mask: Optional[torch.Tensor], winner: Optional[torch.Tensor],
+                  dim: int, correct: bool):
+    """What the decode kernel takes; returns the contiguous operands, the
+    mask's lane stride and the pooled layout."""
     if dtype not in _BWD_DTYPES:
         raise ValueError(f"maxpool decode writes {_BWD_DTYPES}, got {dtype}")
     floats = codes.is_floating_point()
@@ -138,8 +127,6 @@ def maxpool_decode(codes: torch.Tensor, bits: int, dtype: torch.dtype, *,
     if correct and winner is None:
         raise ValueError("correct compares the winner's code: pass winner")
     batch, n, e, out_shape = ref.pool_layout(codes, dim)
-    codes = codes.contiguous()
-    operands = [codes]
     mask_stride = 0
     if mask is not None:
         if mask.dtype != torch.bool:
@@ -149,13 +136,22 @@ def maxpool_decode(codes: torch.Tensor, bits: int, dtype: torch.dtype, *,
         ref.check_mask(mask, batch, n)
         mask = mask.contiguous()
         mask_stride = 0 if mask.ndim == 1 else n
-        operands.append(mask)
     if winner is not None:
         if winner.dtype != torch.int32 or winner.shape != out_shape:
             raise ValueError(f"winner must be int32 of shape {out_shape}, "
                              f"got {winner.dtype} {tuple(winner.shape)}")
         winner = winner.contiguous()
-        operands.append(winner)
+    return (codes.contiguous(), mask, mask_stride, winner,
+            (batch, n, e, out_shape))
+
+
+def _decode_kernel(codes, bits, dtype, mask, winner, dim, max_code, argmax,
+                   correct, out: Optional[ref.PoolDecode]) -> ref.PoolDecode:
+    """One launch of the decode kernel on CUDA tensors, writing the fields
+    of ``out`` that are not None."""
+    codes, mask, mask_stride, winner, (batch, n, e, out_shape) = \
+        _check_decode(codes, bits, dtype, mask, winner, dim, correct)
+    operands = [t for t in (codes, mask, winner) if t is not None]
     given = out if out is not None else ref.PoolDecode(None, None, None,
                                                        None)
     wants = (True, max_code, argmax, correct)
@@ -185,18 +181,88 @@ def maxpool_decode(codes: torch.Tensor, bits: int, dtype: torch.dtype, *,
     return res
 
 
-def maxpool_winner_bwd(winner: torch.Tensor, g: torch.Tensor, n: int,
-                       dim: int = 0) -> torch.Tensor:
-    """(winner int32, g) -> gradient with a new worker axis ``dim`` of
-    size ``n``: g in the winner's row, ``g * 0`` elsewhere (see ``ref``)."""
-    if g.device.type == "cpu":
-        return ref.maxpool_winner_bwd(winner, g, n, dim)
+@torch.library.custom_op("repro_torch::maxpool_decode", mutates_args=(),
+                         device_types="cpu")
+def _decode(codes: torch.Tensor, bits: int, dtype: torch.dtype,
+            mask: Optional[torch.Tensor], winner: Optional[torch.Tensor],
+            dim: int, max_code: bool, argmax: bool,
+            correct: bool) -> List[torch.Tensor]:
+    res = ref.maxpool_decode(codes, bits, dtype, mask=mask, winner=winner,
+                             dim=dim, max_code=max_code, argmax=argmax,
+                             correct=correct)
+    return [t.contiguous() for t in res if t is not None]
+
+
+@_decode.register_kernel("cuda")
+def _(codes, bits, dtype, mask, winner, dim, max_code, argmax, correct):
+    return [t for t in _decode_kernel(codes, bits, dtype, mask, winner, dim,
+                                      max_code, argmax, correct, None)
+            if t is not None]
+
+
+@_decode.register_fake
+def _(codes, bits, dtype, mask, winner, dim, max_code, argmax, correct):
+    if codes.device.type != "cpu":
+        _check_decode(codes, bits, dtype, mask, winner, dim, correct)
+    elif correct and winner is None:
+        raise ValueError("correct compares the winner's code: pass winner")
+    out_shape = ref.pool_layout(codes, dim)[3]
+    kinds = ([dtype] + [code_dtype(bits)] * max_code + [torch.int32] * argmax
+             + [torch.bool] * correct)
+    return [codes.new_empty(out_shape, dtype=dt) for dt in kinds]
+
+
+def maxpool_decode(codes: torch.Tensor, bits: int, dtype: torch.dtype, *,
+                   mask: Optional[torch.Tensor] = None,
+                   winner: Optional[torch.Tensor] = None, dim: int = 1,
+                   max_code: bool = False, argmax: bool = False,
+                   correct: bool = False,
+                   out: Optional[ref.PoolDecode] = None) -> ref.PoolDecode:
+    """D-bit codes, or the float features whose codes the kernel forms as
+    it loads them -> their pooled max over ``dim`` decoded to ``dtype``, in
+    one launch: ``pooled`` always, ``max_code``/``argmax``/``correct`` only
+    where asked (see ``ref.maxpool_decode``).  Codes of at most 16 bits, as
+    the code kernels.  The fields of ``out`` that are not None are
+    contiguous tensors of the output's shape that the kernel writes in
+    place of new ones (on a fake tensor, the custom op's outputs are
+    copied into them)."""
+    if is_fake(codes):
+        if mask is not None:
+            mask = torch.as_tensor(mask, device=codes.device)
+        got = iter(_decode(codes, bits, dtype, mask, winner, dim % codes.ndim,
+                           max_code, argmax, correct))
+        res = ref.PoolDecode(*(next(got) if want else None for want in
+                               (True, max_code, argmax, correct)))
+        if out is None:
+            return res
+        return ref.PoolDecode(*(a if o is None or a is None else o.copy_(a)
+                                for a, o in zip(res, out)))
+    if codes.device.type == "cpu":
+        return ref.maxpool_decode(codes, bits, dtype, mask=mask,
+                                  winner=winner, dim=dim, max_code=max_code,
+                                  argmax=argmax, correct=correct, out=out)
+    return _decode_kernel(codes, bits, dtype, mask, winner, dim, max_code,
+                          argmax, correct, out)
+
+
+def _check_winner_bwd(winner: torch.Tensor, g: torch.Tensor) -> None:
     if g.dtype not in _BWD_DTYPES:
         raise ValueError(f"winner bwd takes {_BWD_DTYPES}, got {g.dtype}")
     if winner.dtype != torch.int32 or winner.shape != g.shape:
         raise ValueError(f"winner must be int32 of g's shape {g.shape}, got "
                          f"{winner.dtype} {winner.shape}")
-    dim = dim % (g.ndim + 1)
+
+
+@torch.library.custom_op("repro_torch::maxpool_winner_bwd", mutates_args=(),
+                         device_types="cpu")
+def _winner_bwd(winner: torch.Tensor, g: torch.Tensor, n: int,
+                dim: int) -> torch.Tensor:
+    return ref.maxpool_winner_bwd(winner, g, n, dim).contiguous()
+
+
+@_winner_bwd.register_kernel("cuda")
+def _winner_bwd_kernel(winner, g, n, dim):
+    _check_winner_bwd(winner, g)
     g, winner = g.contiguous(), winner.contiguous()
     out = torch.empty(g.shape[:dim] + (n,) + g.shape[dim:], dtype=g.dtype,
                       device=g.device)
@@ -206,6 +272,25 @@ def maxpool_winner_bwd(winner: torch.Tensor, g: torch.Tensor, n: int,
                    math.prod(g.shape[:dim]), n, math.prod(g.shape[dim:]),
                    kernels.KIND[g.dtype])
     return out
+
+
+@_winner_bwd.register_fake
+def _(winner, g, n, dim):
+    if g.device.type != "cpu":
+        _check_winner_bwd(winner, g)
+    return g.new_empty(g.shape[:dim] + (n,) + g.shape[dim:])
+
+
+def maxpool_winner_bwd(winner: torch.Tensor, g: torch.Tensor, n: int,
+                       dim: int = 0) -> torch.Tensor:
+    """(winner int32, g) -> gradient with a new worker axis ``dim`` of
+    size ``n``: g in the winner's row, ``g * 0`` elsewhere (see ``ref``)."""
+    dim = dim % (g.ndim + 1)
+    if is_fake(g):
+        return _winner_bwd(winner, g, n, dim)
+    if g.device.type == "cpu":
+        return ref.maxpool_winner_bwd(winner, g, n, dim)
+    return _winner_bwd_kernel(winner, g, n, dim)
 
 
 @torch.library.custom_op("repro_torch::maxpool_ties_bwd", mutates_args=(),

@@ -3,14 +3,17 @@
 ``encode``/``decode`` take the plain version (``ref.py``) for a tensor on
 the CPU and launch the CUDA kernel for a tensor on the card.  The kernel
 covers D <= 16 (``uint8``/``uint16`` codes), which are the codes the TPU
-kernel covers; a wider code on the card raises.  ``quantize_st`` is
-``decode(encode(x))`` with a straight-through gradient, the JAX package's
-``custom_vjp`` of the same name.
+kernel covers; a wider code on the card raises.  A fake tensor (a trace,
+either device) goes through the custom ops ``repro_torch::ocs_encode`` and
+``repro_torch::ocs_decode``, whose fake impls give the outputs alone.
+``quantize_st`` is ``decode(encode(x))`` with a straight-through gradient,
+the JAX package's ``custom_vjp`` of the same name.
 """
 
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch import kernels
 from repro_torch.kernels.ocs_quant import ref
@@ -28,10 +31,21 @@ def _check_bits(bits: int, dtype: torch.dtype) -> None:
             f"{MAX_KERNEL_BITS} bits (uint8/uint16)")
 
 
-def encode(x: torch.Tensor, bits: int) -> torch.Tensor:
-    """Float tensor -> D-bit monotone codes of the same shape."""
-    if x.device.type == "cpu":
-        return ref.encode(x, bits)
+def _check_decode(code: torch.Tensor, bits: int, dtype: torch.dtype):
+    _check_bits(bits, dtype)
+    if code.dtype != ref.code_dtype(bits):
+        raise ValueError(f"{bits}-bit codes are {ref.code_dtype(bits)}, "
+                         f"got {code.dtype}")
+
+
+@torch.library.custom_op("repro_torch::ocs_encode", mutates_args=(),
+                         device_types="cpu")
+def _encode(x: torch.Tensor, bits: int) -> torch.Tensor:
+    return ref.encode(x, bits)
+
+
+@_encode.register_kernel("cuda")
+def _encode_kernel(x, bits):
     _check_bits(bits, x.dtype)
     x = x.contiguous()
     out = torch.empty(x.shape, dtype=ref.code_dtype(bits), device=x.device)
@@ -42,14 +56,34 @@ def encode(x: torch.Tensor, bits: int) -> torch.Tensor:
     return out
 
 
-def decode(code: torch.Tensor, bits: int, dtype: torch.dtype) -> torch.Tensor:
-    """D-bit codes -> the lowest float of each bucket (lowest -> -inf)."""
-    if code.device.type == "cpu":
-        return ref.decode(code, bits, dtype)
-    _check_bits(bits, dtype)
-    if code.dtype != ref.code_dtype(bits):
-        raise ValueError(f"{bits}-bit codes are {ref.code_dtype(bits)}, "
-                         f"got {code.dtype}")
+@_encode.register_fake
+def _(x, bits):
+    if x.device.type == "cpu":
+        ref.width(x.dtype)
+    else:
+        _check_bits(bits, x.dtype)
+    return x.new_empty(x.shape, dtype=ref.code_dtype(bits))
+
+
+def encode(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """Float tensor -> D-bit monotone codes of the same shape."""
+    if is_fake(x):
+        return _encode(x, bits)
+    if x.device.type == "cpu":
+        return ref.encode(x, bits)
+    return _encode_kernel(x, bits)
+
+
+@torch.library.custom_op("repro_torch::ocs_decode", mutates_args=(),
+                         device_types="cpu")
+def _decode(code: torch.Tensor, bits: int,
+            dtype: torch.dtype) -> torch.Tensor:
+    return ref.decode(code, bits, dtype)
+
+
+@_decode.register_kernel("cuda")
+def _decode_kernel(code, bits, dtype):
+    _check_decode(code, bits, dtype)
     code = code.contiguous()
     out = torch.empty(code.shape, dtype=dtype, device=code.device)
     kernels.check_operands(code, out)
@@ -57,6 +91,22 @@ def decode(code: torch.Tensor, bits: int, dtype: torch.dtype) -> torch.Tensor:
                    code.data_ptr(), out.data_ptr(), code.numel(),
                    code.element_size(), kernels.KIND[dtype], bits)
     return out
+
+
+@_decode.register_fake
+def _(code, bits, dtype):
+    if code.device.type != "cpu":
+        _check_decode(code, bits, dtype)
+    return code.new_empty(code.shape, dtype=dtype)
+
+
+def decode(code: torch.Tensor, bits: int, dtype: torch.dtype) -> torch.Tensor:
+    """D-bit codes -> the lowest float of each bucket (lowest -> -inf)."""
+    if is_fake(code):
+        return _decode(code, bits, dtype)
+    if code.device.type == "cpu":
+        return ref.decode(code, bits, dtype)
+    return _decode_kernel(code, bits, dtype)
 
 
 class _QuantizeST(torch.autograd.Function):

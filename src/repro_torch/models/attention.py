@@ -188,11 +188,11 @@ def _sdpa(cfg, q, k, v, mask) -> torch.Tensor:
         scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float())
     else:
         scores = torch.einsum("bskgd,btkd->bkgst", qg, k).to(sdt)
-    scores = scores * torch.tensor(hd ** -0.5, dtype=sdt, device=q.device)
+    scores = scores * torch.full((), hd ** -0.5, dtype=sdt, device=q.device)
     if mask is not None:
-        fill = torch.tensor(NEG_INF, dtype=torch.float32).to(sdt)
-        scores = torch.where(mask[:, None, None], scores,
-                             fill.to(q.device))
+        fill = torch.full((), NEG_INF, dtype=torch.float32,
+                          device=q.device).to(sdt)
+        scores = torch.where(mask[:, None, None], scores, fill)
     smax = torch.amax(scores, dim=-1, keepdim=True).detach()
     unnorm = torch.exp((scores - smax).to(sdt))
     denom = torch.sum(unnorm.float(), dim=-1, keepdim=True)

@@ -231,7 +231,7 @@ def _entry(fn):
     """A model entry point ``fn(cfg, v, batch_or_token, ...)`` under
     ``sharding.fsdp_scope(v)``: the parameters that the leaf shardings
     split over the fsdp axis are gathered where they are used, the stacked
-    ones a period at a time (``transformer._periods``) and the others
+    ones a period at a time (``transformer.stack_full``) and the others
     (embedding, norms, head) as the call starts, under the batch split of
     the call's rows (the leading axis of its first input)."""
     @functools.wraps(fn)

@@ -15,9 +15,13 @@ values (``cache["cross"]``), which the prefill writes and decoding reads.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, List, NamedTuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch import random as jr
 from repro_torch import tree
@@ -241,21 +245,6 @@ def _n_periods(values) -> int:
     return tree.leaves(values)[0].shape[0]
 
 
-def _periods(stacked):
-    """Every period of a stacked tree, in order, as views from one
-    ``unbind`` per leaf: its backward stacks the periods' gradients once,
-    where an index per period (:func:`_period`) writes a zero gradient of
-    the whole stack for every period and autograd adds them up.  A
-    parameter leaf split over the fsdp axis is gathered as its period is
-    taken (``sharding.fsdp_period``)."""
-    leaves = tree.leaves(stacked)
-    per_leaf = [v.unbind(0) for v in leaves]
-    for i in range(_n_periods(stacked)):
-        yield tree.unflatten(stacked, [
-            sharding.fsdp_period(leaf, views[i])
-            for leaf, views in zip(leaves, per_leaf)])
-
-
 def stack_init(cfg, gen: torch.Generator, plan, n_periods: int,
                cross: bool = False) -> dict:
     """The stacked tree, its periods drawn from ``gen`` one after another.
@@ -295,16 +284,64 @@ def stack_axes(cfg, plan, cross: bool = False) -> dict:
             for i, (mixer, ffn) in enumerate(plan)}
 
 
+# the matmul outputs that remat_policy="dots" keeps, as JAX's
+# dots_saveable keeps dot_general's
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def stack_full(cfg, values: dict, x: torch.Tensor, positions: torch.Tensor,
                plan, enc_out=None):
     """values: the stacked tree; x: (B,S,d); ``enc_out`` the encoder's
-    output for the cross-attentions. Returns (x, aux)."""
+    output for the cross-attentions. Returns (x, aux).
+
+    With ``cfg.remat`` (and autograd recording) each period's body runs
+    under ``torch.utils.checkpoint``, as the JAX package wraps its scan
+    body in ``jax.checkpoint``: the backward recomputes the period's
+    forward, everything (``remat_policy="full"``) or all but the matmul
+    outputs (``"dots"``).  The period's parameters are gathered inside
+    the body (``sharding.fsdp_period``) under the forward's mesh scope, so
+    under FSDP the recompute gathers them again."""
     aux = _zero(x)
-    for pp in _periods(values):
-        for i, (mixer, ffn) in enumerate(plan):
-            x, a = block_full(cfg, pp[f"pos{i}"], x, positions, mixer, ffn,
-                              enc_out)
-            aux = aux + a
+    leaves = tree.leaves(values)
+    # the recompute runs in the backward, after the model entry's mesh
+    # scopes (batch split, FSDP) closed: it reinstates the forward's
+    scope = sharding.context()
+
+    def period(x, aux, *views):
+        with sharding.restored(scope):
+            pp = tree.unflatten(values, [sharding.fsdp_period(leaf, view)
+                                         for leaf, view in zip(leaves, views)])
+            for i, (mixer, ffn) in enumerate(plan):
+                x, a = block_full(cfg, pp[f"pos{i}"], x, positions, mixer,
+                                  ffn, enc_out)
+                aux = aux + a
+        return x, aux
+
+    if cfg.remat and torch.is_grad_enabled():
+        # every draw in a period takes an explicit threefry key
+        # (repro_torch.random), none torch's global generator, so the
+        # recompute draws the same bits without preserve_rng_state
+        run = functools.partial(
+            checkpoint, use_reentrant=False, preserve_rng_state=False,
+            context_fn=(functools.partial(create_selective_checkpoint_contexts,
+                                          _dots_saveable)
+                        if cfg.remat_policy == "dots" else noop_context_fn))
+    else:
+        def run(f, *args):
+            return f(*args)
+    # the periods as views from one unbind per leaf: its backward stacks
+    # the periods' gradients once, where an index per period (_period)
+    # writes a zero gradient of the whole stack for every period and
+    # autograd adds them up
+    per_leaf = [v.unbind(0) for v in leaves]
+    for i in range(_n_periods(values)):
+        x, aux = run(period, x, aux, *(views[i] for views in per_leaf))
     return x, aux
 
 

@@ -163,6 +163,13 @@ def _zero_dims(n: int) -> list:
             for p, s in zip(_fsdp_dims(n), state)]
 
 
+def _step_counter(params) -> torch.Tensor:
+    """The int32 step counter, on the parameters' device: the update
+    advances it in place."""
+    return torch.zeros((), dtype=torch.int32,
+                       device=tree.leaves(params)[0].device)
+
+
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable
@@ -182,7 +189,7 @@ def adamw(lr_fn: Callable, b1: float = 0.9, b2: float = 0.95,
 
     def init(params):
         return {
-            "step": torch.zeros((), dtype=torch.int32),
+            "step": _step_counter(params),
             "master": tree.map(lambda p: p.detach().float().clone(), params),
             "m": tree.map(lambda p: torch.zeros(p.shape, dtype=moment_dtype,
                                                 device=p.device), params),
@@ -196,14 +203,14 @@ def adamw(lr_fn: Callable, b1: float = 0.9, b2: float = 0.95,
         if max_grad_norm is not None:
             clip, stats["grad_norm"] = _clip_scale(grads, max_grad_norm,
                                                    lane_dims)
-        state["step"] = state["step"] + 1
+        state["step"].add_(1)
         dev = tree.leaves(params)[0].device
+        # the schedule and the bias corrections on the counter's device:
+        # no host value enters the step
         stepf = state["step"].to(torch.float32)
         lr = lr_fn(stepf).to(dev)
-        b1t = (1 - torch.pow(torch.tensor(b1, dtype=torch.float32),
-                             stepf)).to(dev)
-        b2t = (1 - torch.pow(torch.tensor(b2, dtype=torch.float32),
-                             stepf)).to(dev)
+        b1t = (1 - torch.full_like(stepf, b1).pow(stepf)).to(dev)
+        b2t = (1 - torch.full_like(stepf, b2).pow(stepf)).to(dev)
         leaves = tree.leaves(params)
         zero = _zero_dims(len(leaves))
         for g, m, v, master, p, zd in zip(
@@ -242,7 +249,7 @@ def sgd(lr_fn: Callable, momentum: float = 0.9,
         max_grad_norm: Optional[float] = None,
         lane_dims: int = 0) -> Optimizer:
     def init(params):
-        return {"step": torch.zeros((), dtype=torch.int32),
+        return {"step": _step_counter(params),
                 "mom": tree.map(lambda p: torch.zeros(
                     p.shape, dtype=torch.float32, device=p.device), params)}
 
@@ -252,7 +259,7 @@ def sgd(lr_fn: Callable, momentum: float = 0.9,
         if max_grad_norm is not None:
             clip, stats["grad_norm"] = _clip_scale(grads, max_grad_norm,
                                                    lane_dims)
-        state["step"] = state["step"] + 1
+        state["step"].add_(1)
         lr = lr_fn(state["step"].to(torch.float32)).to(
             tree.leaves(params)[0].device)
         for g, mo, p in zip(tree.leaves(grads), tree.leaves(state["mom"]),

@@ -13,7 +13,7 @@ def _f32(step) -> torch.Tensor:
 
 
 def constant(lr: float):
-    return lambda step: torch.tensor(lr, dtype=torch.float32)
+    return lambda step: torch.full_like(_f32(step), lr)
 
 
 def linear_warmup_cosine(lr: float, warmup: int, total: int,
@@ -40,7 +40,7 @@ def wsd(lr: float, warmup: int, stable: int, decay: int,
             1 + torch.cos(math.pi * t)))
         return torch.where(step < warmup, warm,
                            torch.where(step < warmup + stable,
-                                       torch.tensor(lr, dtype=torch.float32),
+                                       torch.full_like(step, lr),
                                        dec))
     return f
 

@@ -153,6 +153,29 @@ class _MeshCtx(threading.local):
 
 
 _CTX = _MeshCtx()
+_CTX_FIELDS = ("mesh", "rules", "leaf_shardings", "state_shardings",
+               "batch_axis", "fsdp")
+
+
+def context() -> tuple:
+    """The mesh context as it stands: the mesh and its rules, the leaf
+    shardings, the batch split and the FSDP scope."""
+    return tuple(getattr(_CTX, k) for k in _CTX_FIELDS)
+
+
+@contextlib.contextmanager
+def restored(state: tuple):
+    """The mesh context :func:`context` read, reinstated: a recompute that
+    runs in the backward, after the forward's scopes closed
+    (``torch.utils.checkpoint``), splits and gathers as its forward did."""
+    prev = context()
+    for k, v in zip(_CTX_FIELDS, state):
+        setattr(_CTX, k, v)
+    try:
+        yield
+    finally:
+        for k, v in zip(_CTX_FIELDS, prev):
+            setattr(_CTX, k, v)
 
 
 @contextlib.contextmanager

@@ -93,8 +93,9 @@ def fold_in(key: torch.Tensor, data: IntLike) -> torch.Tensor:
     if isinstance(data, torch.Tensor):
         d = data.to(device=key.device, dtype=torch.int64) & _MASK
     else:
-        d = torch.tensor(int(data) & _MASK, dtype=torch.int64,
-                         device=key.device)
+        # a fill on the key's device: no host copy
+        d = torch.full((), int(data) & _MASK, dtype=torch.int64,
+                       device=key.device)
     zero = torch.zeros_like(d)
     b1, b2 = threefry2x32(k1, k2, zero, d)
     return torch.stack(torch.broadcast_tensors(b1, b2), dim=-1)

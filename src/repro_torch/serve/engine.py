@@ -251,6 +251,21 @@ class ServeEngine:
         copy.  ``flags`` is None without ``fault``, else ``(ok,
         retrying)``: whether some worker was online, and whether the tick
         was held for a retry."""
+        # the tick's one host read: the tokens, positions, slots and flags
+        host = self._tick_device(protocol, tick, fault).cpu().numpy() \
+            .astype(np.int64)
+        chan = protocol is not None
+        slots = int(host[2 * self.B]) if chan else 0
+        flags = None if fault is None else (bool(host[2 * self.B + 1]),
+                                            bool(host[2 * self.B + 2]))
+        return host[:self.B], host[self.B:2 * self.B], slots, flags
+
+    def _tick_device(self, protocol: Optional[Protocol], tick: int,
+                     fault=None) -> torch.Tensor:
+        """The tick's device part: decode, pick, advance the slots' state
+        on the device, and return ``[tokens (B), positions (B), slots (1)
+        where a protocol is given, flags (2) where a fault is]`` as one
+        int32 tensor on the device, which :meth:`_tick` reads back."""
         held = None
         if fault is not None and fault.policy.kind == "retry":
             held = [t.clone() for t in self._recurrent]
@@ -291,11 +306,7 @@ class ServeEngine:
             parts.append(chan_slots.to(torch.int32))
         if flags is not None:
             parts.append(flags)
-        host = torch.cat(parts).cpu().numpy().astype(np.int64)
-        slots = int(host[2 * self.B]) if chan_slots is not None else 0
-        flags = None if fault is None else (bool(host[2 * self.B + 1]),
-                                            bool(host[2 * self.B + 2]))
-        return host[:self.B], host[self.B:2 * self.B], slots, flags
+        return torch.cat(parts)
 
     def _degrade(self, fault, nxt, new_positions, online, new_bad,
                  new_offline):

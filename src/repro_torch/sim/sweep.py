@@ -152,6 +152,21 @@ def _ceil_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a + b - 1) // b
 
 
+def _noisy_core(h: torch.Tensor, mask: torch.Tensor, id_bits: int,
+                keys: torch.Tensor, p_miss: torch.Tensor,
+                n_channels: torch.Tensor, *, bits: int, max_id_bits: int,
+                max_rounds: int, backend: str):
+    """The noisy engine's core over one ``(bits, id_bits)`` group's lanes:
+    ``h (L, N_max, K)``, ``mask``/``p_miss (L, N_max)``, ``keys (L, 2)``,
+    ``n_channels (L,)`` -> (the core's ``NoisyOCSResult``, the OFDMA
+    latency slots (L,)).  One ``ocs_contention.noisy`` and one
+    ``maxpool.decode`` launch on the card."""
+    res = ocs.ocs_maxpool_noisy_core(
+        h, mask, id_bits, keys, p_miss, bits=bits, max_id_bits=max_id_bits,
+        max_rounds=max_rounds, backend=backend)
+    return res, _ceil_div(res.contention_slots, n_channels)
+
+
 def _placed(core, sel: np.ndarray, n_devices: int, rounds: int, dev
             ) -> Dict[str, torch.Tensor]:
     """Run ``core`` on this rank's block of the scenarios ``sel`` and
@@ -284,14 +299,12 @@ def run_sweep(scenarios: Sequence[Scenario], *,
 
                 def noisy_core(part):
                     _DISPATCH_COUNTS["noisy"] += 1
-                    res = ocs.ocs_maxpool_noisy_core(
+                    return _noisy_core(
                         h_dev[part].reshape(-1, n_max, k_elems),
                         lanes(mask, part), ib, keys[part].reshape(-1, 2),
-                        lanes(p_miss, part), bits=bits,
-                        max_id_bits=max_id_bits, max_rounds=max_rounds,
-                        backend=backend)
-                    return res, _ceil_div(res.contention_slots,
-                                          lanes(n_channels, part))
+                        lanes(p_miss, part), lanes(n_channels, part),
+                        bits=bits, max_id_bits=max_id_bits,
+                        max_rounds=max_rounds, backend=backend)
                 noisy.put(sub, _placed(noisy_core, sub, n_dev, rounds, dev))
 
     out = SweepResult(scenarios=scenarios, k_elems=k_elems, rounds=rounds,

@@ -484,6 +484,25 @@ def run_curves(ccfg: Optional[CurveConfig] = None, *, device=None,
 # the scheduled engine: a BitsSchedule picks each step's depth
 # ---------------------------------------------------------------------------
 
+def _make_sched_step(per_cand, schedule: BitsSchedule):
+    """One scheduled step: ``sched_step(idx, vals, opts, batch, chan,
+    state) -> (vals, opts, metrics, state, next index, telemetry)``, the
+    train step of depth ``schedule.candidates[idx]`` (``per_cand``, one
+    :func:`_make_steps` each) and the schedule's update from the noisy
+    lanes' telemetry, all on the device; the caller reads the next index
+    back."""
+
+    def sched_step(idx, vals, opts, batch, chan, state):
+        vals, opts, met = per_cand[idx][3](vals, opts, batch, chan)
+        # the noisy lanes' means, as the JAX package's jnp.mean
+        telemetry = {k: mean_f32(met["chan_" + k])
+                     for k in ("collision_frac", "rounds", "correct_frac")}
+        state, nxt = schedule.update(state, telemetry)
+        return vals, opts, met, state, nxt, telemetry
+
+    return sched_step
+
+
 def run_scheduled_curves(ccfg: CurveConfig, schedule: BitsSchedule, *,
                          device=None, init_params: Optional[dict] = None
                          ) -> ScheduledCurveResult:
@@ -510,6 +529,7 @@ def run_scheduled_curves(ccfg: CurveConfig, schedule: BitsSchedule, *,
     slot = {s: i for i, s in enumerate(logged)}
 
     per_cand = [_make_steps(ccfg, b) for b in schedule.candidates]
+    sched_step = _make_sched_step(per_cand, schedule)
     k_data, lane_keys = _stream_keys(
         ccfg, schedule.candidates[schedule.init_index], dev)
     # the model is depth-independent: one train state serves every depth
@@ -526,11 +546,8 @@ def run_scheduled_curves(ccfg: CurveConfig, schedule: BitsSchedule, *,
         b_idx = _batch_indices(k_data, s, ccfg.batch, ccfg.n_train).long()
         batch = (views[:, b_idx], labels[b_idx])
         chan = (_fold_lanes(lane_keys, s), p_dev)
-        vals, opts, met = per_cand[idx][3](vals, opts, batch, chan)
-        # the noisy lanes' means, as the JAX package's jnp.mean
-        telemetry = {k: mean_f32(met["chan_" + k])
-                     for k in ("collision_frac", "rounds", "correct_frac")}
-        state, nxt = schedule.update(state, telemetry)
+        vals, opts, met, state, nxt, telemetry = sched_step(
+            idx, vals, opts, batch, chan, state)
         if s in slot:
             buf[:, slot[s]] = met["loss_mean"]
             coll_buf[slot[s]] = telemetry["collision_frac"]
@@ -670,6 +687,42 @@ def _make_dp_loss(ccfg: CurveConfig, bits: int):
     return vcfg, noisy, dp_loss
 
 
+def _make_dp_step(dp_loss, opt, compress: CompressedAllReduce, blk: int,
+                  held: int, ranks: int, group=None):
+    """One step of the (lane, rank) stack: ``dp_step(vals, opts, errs,
+    views, labels, keys, p) -> (vals, opts, errs, loss, acct)``.  The
+    lanes' parameters (``blk`` lanes) are repeated for each of the
+    ``held`` DP ranks this device holds, every (lane, rank) row's
+    gradient is sparsified with its own error memory ``errs (blk, held,
+    ...)``, ``compress.reduce`` sums them over the ranks (over ``group``
+    too where the DP axis lies on ranks) and AdamW applies the sum divided
+    by ``ranks``."""
+    stack = blk * held
+
+    def per_rank(x):
+        """A lane-stacked leaf repeated for each held rank: (blk * held,
+        ...)."""
+        return x[:, None].expand((blk, held) + x.shape[1:]).reshape(
+            (stack,) + x.shape[1:])
+
+    def dp_step(vals, opts, errs, views, labels, keys, p):
+        leaves = [per_rank(x).detach().requires_grad_(True)
+                  for x in tree.leaves(vals)]
+        with torch.enable_grad():
+            loss, _ = dp_loss(tree.unflatten(vals, leaves), views, labels,
+                              keys, p)
+            grads = torch.autograd.grad(loss.sum(), leaves)
+        grads = tree.unflatten(vals, [
+            g.reshape((blk, held) + g.shape[1:]) for g in grads])
+        reduced, errs, acct = compress.reduce(grads, errs, rank_dim=1,
+                                              group=group)
+        reduced = tree.map(lambda g: g / ranks, reduced)
+        vals, opts, _ = opt.update(reduced, opts, vals)
+        return vals, opts, errs, loss, acct
+
+    return dp_step
+
+
 def run_curves_dp(ccfg: CurveConfig, compress: CompressedAllReduce, *,
                   device=None, init_params: Optional[dict] = None,
                   n_devices: Optional[int] = None) -> DPCurveResult:
@@ -731,16 +784,12 @@ def run_curves_dp(ccfg: CurveConfig, compress: CompressedAllReduce, *,
     params_out = []
     pay_step = dense_step = 0
 
-    def per_rank(x):
-        """A lane-stacked leaf repeated for each held rank: (blk * held,
-        ...)."""
-        return x[:, None].expand((blk, held) + x.shape[1:]).reshape(
-            (stack,) + x.shape[1:])
-
     def train_block(bits, vcfg, noisy, dp_loss, params0) -> dict:
         """This device's lanes x DP ranks of one ``bits`` value, trained
         and evaluated."""
         opt = _optimizer(ccfg)
+        dp_step = _make_dp_step(dp_loss, opt, compress, blk, held, ranks,
+                                group)
         k_data, lane_keys = _stream_keys(ccfg, bits, dev)
         lane_keys = lane_keys[torch.from_numpy(rows).to(dev)]
         vals, opts = _init_stack(params0, opt, blk)
@@ -763,18 +812,8 @@ def run_curves_dp(ccfg: CurveConfig, compress: CompressedAllReduce, *,
                                                ).reshape(stack, shard_b)
             keys = jr.fold_in(_fold_lanes(lane_keys, s)[:, None],
                               rank_ids).reshape(stack, 2)
-            leaves = [per_rank(x).detach().requires_grad_(True)
-                      for x in tree.leaves(vals)]
-            with torch.enable_grad():
-                loss, _ = dp_loss(tree.unflatten(vals, leaves), bviews,
-                                  blabels, keys, p_stack)
-                grads = torch.autograd.grad(loss.sum(), leaves)
-            grads = tree.unflatten(vals, [
-                g.reshape((blk, held) + g.shape[1:]) for g in grads])
-            reduced, errs, acct = compress.reduce(grads, errs, rank_dim=1,
-                                                  group=group)
-            reduced = tree.map(lambda g: g / ranks, reduced)
-            vals, opts, _ = opt.update(reduced, opts, vals)
+            vals, opts, errs, loss, acct = dp_step(
+                vals, opts, errs, bviews, blabels, keys, p_stack)
             pay_run += acct.payload_bits
             if s in slot:
                 losses = loss.detach().reshape(blk, held)

@@ -183,8 +183,12 @@ def _train(loss_fn, init_values, optimizer, data_fn, tcfg, shardings,
     shd = (None if shardings is None
            else carry_shardings(shardings, carry_state()))
 
+    saved = None            # the step of the newest checkpoint written
+
     def save(step):
+        nonlocal saved
         checkpointer.save(tcfg.ckpt_dir, step, carry_state(), shardings=shd)
+        saved = step
 
     if tcfg.ckpt_dir and tcfg.resume:
         step = checkpointer.latest_step(tcfg.ckpt_dir)
@@ -252,7 +256,8 @@ def _train(loss_fn, init_values, optimizer, data_fn, tcfg, shardings,
                 and (step + 1) % tcfg.ckpt_every == 0):
             save(step + 1)
 
-    if tcfg.ckpt_dir:
+    # the final carry, unless the last step's checkpoint already holds it
+    if tcfg.ckpt_dir and saved != tcfg.steps:
         save(tcfg.steps)
     return TrainResult(values=values, opt_state=opt_state, history=history,
                        substituted_steps=substituted, straggler_flags=flagged,

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import kernels
 from repro_torch import random as jr
 from repro_torch import tree
 from repro_torch.configs import get_reduced
@@ -1428,3 +1429,99 @@ def test_dryrun_fake_cuda_counts_the_fake_cpu_counts(cuda_device):
                                         rules, 1, dev)
         assert got["cuda"]["flops"] == got["cpu"]["flops"] > 0
         assert got["cuda"]["records"] == got["cpu"]["records"]
+
+
+# -- the analysis on the card ----------------------------------------------
+
+def _analysis_names():
+    from repro_torch.analysis import registry
+    return registry.contract_names()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", _analysis_names())
+def test_analysis_entry_runs_sync_free(cuda_device, name):
+    """Each registered entry on real CUDA tensors completes under
+    ``set_sync_debug_mode("error")`` and launches its kernels; its
+    fake-CUDA op stream is its fake-CPU stream but for the device and the
+    port's documented device branches."""
+    from repro_torch.analysis import contracts, registry
+    contract = registry.get_contract(name)
+    entry = contract.build()
+    args = contracts.map_tensors(lambda t: t.to(cuda_device),
+                                 entry.argsf(0.05))
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        entry.fn(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert all(counts[k] > 0 for k in contract.kernels), counts
+    cpu = registry.trace_entry(contract, "cpu", entry)
+    cuda = registry.trace_entry(contract, "cuda", entry)
+    assert cpu.error is None and cuda.error is None
+    assert contracts.stream_differences(cpu.stream, cuda.stream,
+                                        registry.DEVICE_BRANCHES) == []
+
+
+@pytest.mark.cuda
+def test_analysis_cli_on_the_card(tmp_path):
+    import pathlib
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only there")
+    from repro_torch.analysis.__main__ import main
+    root = pathlib.Path(__file__).resolve().parents[1]
+    assert main(["--root", str(root), "--device", "cuda", "--json",
+                 str(tmp_path / "r.json")]) == 0
+
+
+@pytest.mark.cuda
+def test_channel_custom_ops_on_fake_cuda(cuda_device):
+    """The channel kernels' six wrappers take fake CUDA tensors through
+    their custom ops, with the kernels' output layout."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.analysis.contracts import OpRecorder
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    h = torch.randn((3, 4, 256), generator=gen, device=cuda_device)
+    mask = torch.tensor([True, True, False, True], device=cuda_device)
+    rng = jr.split(jr.PRNGKey(0, device=cuda_device), 3)
+    p = torch.full((3, 1, 1), 0.9, device=cuda_device)
+    win = torch.randint(0, 4, (3, 256), generator=gen, device=cuda_device,
+                        dtype=torch.int32)
+    word = CR.contention_words(h, 8, 2)
+    heard = CR.draw_heard_packed(rng, p, 4, 256, n_slots=10, max_rounds=3)
+    calls = {
+        "ocs_encode": (lambda h: QO.encode(h, 8), (h,)),
+        "ocs_decode": (lambda c: QO.decode(c, 8, torch.bfloat16),
+                       (QO.encode(h, 8),)),
+        "maxpool_decode": (lambda h, m, w: MPO.maxpool_decode(
+            h, 8, torch.float32, mask=m, winner=w, max_code=True,
+            argmax=True, correct=True), (h, mask, win)),
+        "maxpool_winner_bwd": (lambda w, g: MPO.maxpool_winner_bwd(
+            w, g, 4, 1), (win, h[:, 0].contiguous())),
+        "ocs_noisy": (lambda h, m, r, q: CO.noisy_contention(
+            h, m, 8, 2, r, q, n_slots=10, max_rounds=3), (h, mask, rng, p)),
+        "ocs_contend": (lambda w, d, m: CO.contend(
+            w, d, m, 10, n_slots=10, max_rounds=3), (word, heard, mask)),
+    }
+
+    def flat(x):
+        return [x] if isinstance(x, torch.Tensor) else [
+            t for t in x if t is not None]
+
+    for op, (fn, args) in calls.items():
+        kernels.reset_launch_counts()
+        real = flat(fn(*args))
+        assert sum(kernels.launch_counts().values()) == 1, op
+        mode = FakeTensorMode()
+        fakes = [mode.from_tensor(a) for a in args]
+        with mode, OpRecorder() as rec:
+            fake = flat(fn(*fakes))
+        assert [o.name for o in rec.stream if o.name.startswith(
+            "repro_torch.")] == [f"repro_torch.{op}.default"], op
+        assert [(tuple(t.shape), t.dtype) for t in real] == \
+            [(tuple(t.shape), t.dtype) for t in fake], op
+        assert all(t.device.type == "cuda" for t in fake), op

@@ -678,3 +678,75 @@ def test_flash_wrapper_contract():
     m = torch.empty((1, 4, 128, 48), device="meta")
     with pytest.raises(ValueError, match="head_dim"):
         FO.flash_attention(m, m, m)
+
+
+# -- the custom ops a fake tensor takes -------------------------------------
+
+def _fake_cases():
+    """(name, wrapper call on (h, operands)) of each kernel whose wrapper
+    takes a fake tensor through its custom op."""
+    def contend(h, o):
+        word = CR.contention_words(h, 8, 2)
+        heard = CR.draw_heard_packed(o["rng"], o["p"], 4, 16, n_slots=10,
+                                     max_rounds=3)
+        return CO.contend(word, heard, o["mask"], 10, n_slots=10,
+                          max_rounds=3)
+
+    return {
+        "ocs_encode": lambda h, o: QO.encode(h, 8),
+        "ocs_decode": lambda h, o: QO.decode(QO.encode(h, 12), 12,
+                                             torch.bfloat16),
+        "maxpool_decode": lambda h, o: MPO.maxpool_decode(
+            h, 8, torch.float32, mask=o["mask"], winner=o["win"],
+            max_code=True, argmax=True, correct=True),
+        "maxpool_decode_codes": lambda h, o: MPO.maxpool_decode(
+            QO.encode(h, 8), 8, torch.float16, dim=1, max_code=True),
+        "maxpool_decode_out": lambda h, o: MPO.maxpool_decode(
+            h, 8, torch.float32, argmax=True, out=MPR.PoolDecode(
+                torch.empty((3, 16)), None,
+                torch.empty((3, 16), dtype=torch.int32), None)),
+        "maxpool_winner_bwd": lambda h, o: MPO.maxpool_winner_bwd(
+            o["win"], h[:, 0], 4, 1),
+        "ocs_noisy": lambda h, o: CO.noisy_contention(
+            h, o["mask"], 8, 2, o["rng"], o["p"], n_slots=10, max_rounds=3),
+        "ocs_noisy_out": lambda h, o: CO.noisy_contention(
+            h, o["mask"], 8, 2, o["rng"], o["p"], n_slots=10, max_rounds=3,
+            out=torch.empty((3, 16), dtype=torch.int32)),
+        "ocs_contend": contend,
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_fake_cases()))
+def test_custom_op_fake_outputs_match_the_plain_version(case):
+    """On fake tensors each wrapper runs its ``repro_torch::`` custom op,
+    whose fake impl gives the plain version's outputs: shapes, dtypes and
+    strides.  A real CPU tensor takes the plain version directly."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.analysis.contracts import OpRecorder
+    fn = _fake_cases()[case]
+    h = torch.randn((3, 4, 16), generator=torch.Generator().manual_seed(0))
+    ops = {"mask": torch.tensor([True, True, False, True]),
+           "rng": jr.split(jr.PRNGKey(0), 3),
+           "p": torch.full((3, 1, 1), 0.9),
+           "win": torch.randint(0, 4, (3, 16), dtype=torch.int32,
+                                generator=torch.Generator().manual_seed(1))}
+
+    def meta(x):
+        if isinstance(x, torch.Tensor):
+            return (tuple(x.shape), x.dtype, x.stride())
+        return None if x is None else [meta(t) for t in x]
+
+    want = fn(h, ops)
+    mode = FakeTensorMode()
+    with mode:
+        fh = mode.from_tensor(h)
+        fo = {k: mode.from_tensor(v) for k, v in ops.items()}
+        with OpRecorder() as rec:
+            got = fn(fh, fo)
+    assert meta(got) == meta(want)
+    op = "repro_torch." + case.replace("_codes", "").replace("_out", "")
+    assert any(o.name.startswith(op + ".") for o in rec.stream)
+    # a real CPU tensor takes the plain version, not the custom op
+    with OpRecorder() as rec:
+        fn(h, ops)
+    assert not any(o.name.startswith("repro_torch.") for o in rec.stream)

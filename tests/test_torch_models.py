@@ -569,3 +569,94 @@ def test_moe_decode_steps(moe_plan, p_miss):
         pos = pos + 1
     for a, b in zip(tree.leaves(cache_t), jax.tree.leaves(cache_j)):
         _close(a, b)
+
+
+# ---------------------------------------------------------------------------
+# remat: transformer.stack_full under torch.utils.checkpoint
+# ---------------------------------------------------------------------------
+
+def _lm_batch(vocab, b=2, s=8, seed=3):
+    rng = np.random.default_rng(seed)
+    return {k: rng.integers(0, vocab, (b, s)).astype(np.int32)
+            for k in ("tokens", "targets")}
+
+
+@pytest.mark.parametrize("arch,overrides", [
+    (ARCH, dict(tp_fusion="max", n_workers=4)),
+    ("qwen3-moe-30b-a3b", dict(tp_fusion="max")),
+    ("xlstm-125m", {})], ids=["qwen1.5", "qwen3-moe", "xlstm"])
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_remat_is_bitwise_the_step_without_it(arch, overrides, policy):
+    """Each period recomputed in the backward gives the loss and every
+    gradient of the run that keeps its activations, bit for bit: the
+    recompute runs the same ops on the same inputs."""
+    from repro_torch.train.train_step import value_and_grad
+    got = {}
+    for remat in (False, True):
+        cfg = get_reduced(arch, remat=remat, remat_policy=policy,
+                          **overrides)
+        tm = TM.build(cfg)
+        tv = tm.init(torch.Generator().manual_seed(0))
+        batch = {k: torch.from_numpy(v).long() for k, v in
+                 _lm_batch(cfg.vocab_size).items()}
+        got[remat] = value_and_grad(tm.loss, tv, batch)
+    (l0, _, g0), (l1, _, g1) = got[False], got[True]
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(a, b)
+               for a, b in zip(tree.leaves(g0), tree.leaves(g1)))
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_remat_matches_jax_value_and_grad(reduced, policy):
+    """The port's remat step against ``jax.value_and_grad`` of the JAX
+    config with ``remat=True`` (``jax.checkpoint`` around the scan body):
+    the loss within ``FLOAT_TOL``, the gradients within ``FLOAT_TOL`` of
+    their leaf's largest magnitude (the packages reduce in other
+    orders)."""
+    from repro_torch.train.train_step import value_and_grad
+    jcfg, _, jv, tv = reduced
+    jcfg = jcfg.with_(remat=True, remat_policy=policy)
+    tcfg = get_reduced(ARCH, remat=True, remat_policy=policy)
+    batch = _lm_batch(tcfg.vocab_size)
+    want_loss, want = jax.value_and_grad(
+        lambda v: JM.loss_fn(jcfg, v, {k: jnp.asarray(x) for k, x in
+                                       batch.items()})[0])(jv)
+    got_loss, _, got = value_and_grad(
+        TM.build(tcfg).loss, tv,
+        {k: torch.from_numpy(x) for k, x in batch.items()})
+    _close(got_loss, want_loss, what="loss")
+    want = _to_torch(want)
+    for a, b in zip(tree.leaves(got), tree.leaves(want)):
+        scale = float(b.abs().max()) or 1.0
+        _close(a / scale, b / scale, what="gradient")
+
+
+@pytest.mark.parametrize("fsdp", [False, True], ids=["zero", "fsdp"])
+def test_remat_lowers_the_reduced_cells_fake_peak(fsdp, monkeypatch):
+    """The reduced glm4 train cell on a fake (2 x 4) mesh, with ZeRO or
+    with FSDP forced: with remat the backward holds a period's
+    activations at a time, so the traced peak falls; under FSDP the
+    recompute runs under the forward's mesh scope and gathers the
+    period's parameters again, where without remat the backward gathers
+    what autograd saved of them: as many all-gathers."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as tmesh
+    if fsdp:
+        monkeypatch.setattr(dryrun, "FSDP_PARAM_BYTES", 0)
+    shape = ShapeConfig("t", "train", 16, 8)
+    got = {}
+    for remat in (False, True):
+        cfg = get_reduced("glm4-9b", n_workers=4, tp_fusion="max",
+                          n_layers=4, remat=remat)
+        with dryrun.fake_world(8):
+            mesh = tmesh.make_mesh(2, 4)
+            rules = tmesh.rules_for(shape.name, shape.global_batch, mesh)
+            got[remat] = dryrun.trace(dryrun.build_step, cfg, shape, mesh,
+                                      rules, 1, "cpu")
+    assert got[True]["info"]["fsdp"] == fsdp
+    peaks = {k: g["peak"]["cpu"]["Total"] for k, g in got.items()}
+    assert peaks[True] < peaks[False], peaks
+    gathers = {k: g["coll"].counts.get("all-gather", 0)
+               for k, g in got.items()}
+    assert gathers[True] == gathers[False] > 0, gathers

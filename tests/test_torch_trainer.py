@@ -453,6 +453,28 @@ def test_resume_equals_uninterrupted_bitwise(lm, tmp_path):
     assert (tmp_path / "step_0000000006" / "COMMIT").exists()
 
 
+def test_final_checkpoint_is_written_once(lm, tmp_path, monkeypatch):
+    """A run whose last step falls on ``ckpt_every`` writes that step's
+    checkpoint once, not again as the final carry; a run whose last step
+    does not still ends with its final carry."""
+    _, _, tm, tv, _, tpc = lm
+    written = []
+    save = trainer.checkpointer.save
+    monkeypatch.setattr(trainer.checkpointer, "save",
+                        lambda d, step, *a, **k: (written.append(step),
+                                                  save(d, step, *a, **k))[1])
+    trainer.train(tm.loss, tv, _topt(6), _tdata(tpc),
+                  TrainerConfig(steps=6, ckpt_dir=str(tmp_path / "a"),
+                                ckpt_every=3, log_every=1))
+    assert written == [3, 6]
+    written.clear()
+    trainer.train(tm.loss, tv, _topt(5), _tdata(tpc),
+                  TrainerConfig(steps=5, ckpt_dir=str(tmp_path / "b"),
+                                ckpt_every=3, log_every=1))
+    assert written == [3, 5]
+    assert (tmp_path / "b" / "step_0000000005" / "COMMIT").exists()
+
+
 # the full training carry of tests/test_faults.py: burst chains, dropout
 # mask, stale cache, compressed steps
 _FVCFG = dict(n_workers=3, input_dim=6, encoder_dims=(8,), embed_dim=4,
