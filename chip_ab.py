@@ -35,7 +35,7 @@ width, its 10-tick profile) and prints their lines.
 
 ``--serve``: each turn a fresh process that runs the checkout's own
 ``chip_smoke.py`` phases 8 and 11 (serving qwen1.5-0.5b at full width,
-16 requests, prefills included, and its 10-tick profile) and prints
+8 requests, prefills included, and its 10-tick profile) and prints
 their lines: the host cost of a change to the serving path's wrappers.
 
 ``--ops`` needs no GPU: for each checkout, a fresh process runs the card

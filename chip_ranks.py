@@ -35,7 +35,29 @@ qwen3-moe-30b-a3b cut to 4 of 48 layers on (1 x 4), 32 of 128 experts a
 card, and on (2 x 2), where the router's load-balancing loss sums its
 expert means and counts over the data axis and must equal the whole
 batch's; xlstm-125m's first period and whisper-base on (1 x 4) and (2 x
-2).  The exit code is 1 if a check fails.  It imports nothing of JAX.
+2).
+
+Then the split placements of state and the pipeline (``--parts
+long_context pipeline`` runs these alone): jamba-1.5-large's
+``chip_smoke.py`` phase-27 period (4 of 16 experts, bf16) on (4 x 1)
+under ``launch.mesh.rules_for("long_500k")``, with a 64-token prompt and
+8 greedy ticks under OCS p 0.05, into a 524,288-position KV cache (each
+card holds its 131,072-position block, 0.5 GiB of KV; the prompt and the
+ticks lie in card 0's block) and into a 128-position boundary cache
+(32 positions a card: the keys lie in three cards' blocks), each held
+to every rank's own one-card run of the whole cache.  The float32
+weights of the period do not fit a card, so the bf16 logits are held:
+their largest difference over their largest magnitude within
+:data:`LONG_LOGITS_RTOL`, which the boundary run's control fault (card
+1 keeps its own block's softmax denominators, ``chip_smoke.py`` phase
+39's) must exceed.  Tokens and channel slots are printed: the split
+softmax sums float32 partial products over the cards, so it is not
+bitwise the whole cache's bf16 product, and the logits' limit is the
+check.  Then ``parallel/pipeline.gpipe`` over the four NCCL ranks, one
+stage a card, forward and gradient against ``sequential_reference`` on
+each card.
+
+The exit code is 1 if a check fails.  It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -58,6 +80,7 @@ from repro_torch.launch import mesh as launch_mesh  # noqa: E402
 from repro_torch.optim.compressed_allreduce import (  # noqa: E402
     CompressedAllReduce)
 from repro_torch.parallel import comm  # noqa: E402
+from repro_torch.parallel import pipeline  # noqa: E402
 from repro_torch.parallel import sharding  # noqa: E402
 
 LM_MESHES = ((1, 4), (2, 2), (4, 1))
@@ -232,7 +255,171 @@ def model_meshes(rank: int, world: int, dev) -> int:
     return failed
 
 
-def main() -> int:
+# the long-context cut: jamba's period, a cache of long_500k's length
+LONG_CACHE, LONG_TICKS = 524288, 8
+# 32 positions a card of four: a 64-token prompt and its ticks lie in the
+# blocks of cards 0-2
+LONG_BOUNDARY_CACHE = 128
+# the split decode's bf16 logits against the one-card run's: the largest
+# |difference| over the largest |logit|.  On four H100s the sound long run
+# read 0.01786 (about 3 bf16 steps at its largest logit, 5.25), the sound
+# boundary run 0, and the boundary run's control fault 0.2418; the limit
+# sits between, ~3x above the one and ~5x below the other.
+LONG_LOGITS_RTOL = 0.05
+# the pipeline: 4 stages of tanh(x @ w + b), 8 microbatches of 64 x 1024
+PIPE_MICRO, PIPE_ROWS, PIPE_WIDTH = 8, 64, 1024
+# the pipeline's forward against the sequential one on the same card, and
+# each stage's weight gradient: the same kernels on the same shapes, so a
+# few float32 roundings at most (tests/test_torch_shard.py's limits)
+PIPE_ATOL, PIPE_GRAD_ATOL = 1e-5, 1e-4
+
+
+def _long_ticks(m, values, prompt, dev, max_seq) -> dict:
+    """A prefill of ``prompt`` into a ``max_seq``-position cache and
+    ``LONG_TICKS`` greedy ``decode_step_channel`` ticks under OCS p 0.05:
+    tokens, channel slots, the logits (float, on the CPU), the cache's
+    bytes and the wall seconds."""
+    cs._sync(dev)
+    t0 = time.perf_counter()
+    tokens = torch.as_tensor(np.asarray(prompt, np.int32), device=dev)[None]
+    logits, cache = m.prefill(values, {"tokens": tokens}, max_seq=max_seq)
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in cs.tree.leaves(cache))
+    proto = cs._ocs(cs.SERVE_P_MISS)
+    pos = torch.full((1,), len(prompt), dtype=torch.int32, device=dev)
+    toks, slots, seq = [], [], [logits]
+    for t in range(LONG_TICKS):
+        tok = logits.argmax(-1)[:, None].to(torch.int32)
+        logits, cache, chan = m.decode_step_channel(
+            values, tok, pos + t, cache, proto, cs.jr.PRNGKey(t, dev))
+        toks.append(tok)
+        slots.append(chan["contention_slots"])
+        seq.append(logits)
+    cs._sync(dev)
+    wall = time.perf_counter() - t0
+    return dict(tokens=torch.cat(toks, 1).cpu(),
+                slots=[int(x) for x in slots],
+                logits=torch.stack(seq).float().cpu(), cache_bytes=nbytes,
+                wall=wall, max_seq=max_seq)
+
+
+def _long_run(m, values, prompt, dev, mesh, rules, cache) -> dict:
+    """``_long_ticks`` into a ``cache``-position cache on one card and over
+    the mesh (its collectives a tick under ``"bytes"``)."""
+    one = _long_ticks(m, values, prompt, dev, cache)
+    cs._sync(dev)
+    dist.barrier()
+    with sharding.use_mesh(mesh, rules), comm.recording() as rec:
+        got = _long_ticks(m, sharding.shard_values(values, m.axes(), mesh,
+                                                   rules), prompt, dev, cache)
+    got["bytes"] = cs._per(comm.summarize(rec), LONG_TICKS)
+    return {"one": one, "mesh": got}
+
+
+def long_context(rank: int, world: int, dev, m=None, prompt=None) -> int:
+    """Jamba's period on a (``world`` x 1) mesh under the long-context
+    rules against this rank's one-card run of the whole cache, at the
+    long and the boundary cache, and the boundary run's control fault
+    (``m`` and ``prompt`` stand in for the full-width model and phase
+    27's first prompt); the number of failed checks."""
+    if m is None:
+        m = cs._tpm_model(cs.JAMBA)
+        prompt = cs._tpm_requests(cs.JAMBA, m.cfg.vocab_size)[0].prompt
+    block = LONG_BOUNDARY_CACHE // world
+    assert block < len(prompt) <= LONG_BOUNDARY_CACHE - LONG_TICKS, \
+        "the boundary run's keys must lie in more than one card's block"
+    values = m.init(torch.Generator(device=dev).manual_seed(0))
+    mesh = launch_mesh.make_mesh(world, 1)
+    rules = launch_mesh.rules_for("long_500k", 1, mesh)
+    runs = {name: _long_run(m, values, prompt, dev, mesh, rules, cache)
+            for name, cache in (("long", LONG_CACHE),
+                                ("boundary", LONG_BOUNDARY_CACHE))}
+    sound = cs.attention._seq_sum
+    cs.attention._seq_sum = cs._split_denominators
+    try:
+        with sharding.use_mesh(mesh, rules):
+            control = _long_ticks(m, sharding.shard_values(
+                values, m.axes(), mesh, rules), prompt, dev,
+                LONG_BOUNDARY_CACHE)
+    finally:
+        cs.attention._seq_sum = sound
+    errs = {name: cs._logits_rel_err(r["mesh"]["logits"], r["one"]["logits"])
+            for name, r in runs.items()}
+    ctl = cs._logits_rel_err(control["logits"],
+                             runs["boundary"]["one"]["logits"])
+    for name, r in runs.items():
+        one, got = r["one"], r["mesh"]
+        print(f"rank {rank}/{world} long context {m.cfg.name} {name} (4 x "
+              f"1, kv_seq over the data axis, a {one['max_seq']}-position "
+              f"cache, a {len(prompt)}-token prompt): one card "
+              f"{one['wall']:.3f} s, cache {one['cache_bytes']} bytes; mesh "
+              f"{got['wall']:.3f} s, cache {got['cache_bytes']} bytes a card "
+              f"({got['cache_bytes'] / one['cache_bytes']:.4f}), collectives "
+              f"{got['bytes']} a tick (prefill included); tokens "
+              f"{got['tokens'].tolist()} against {one['tokens'].tolist()}, "
+              f"channel slots {got['slots']} against {one['slots']}; bf16 "
+              f"logits {errs[name]:.4g} of max|logit| "
+              f"{float(one['logits'].abs().max()):.4g} (limit "
+              f"{LONG_LOGITS_RTOL})", flush=True)
+    print(f"rank {rank}/{world} long context control (card 1 keeps its own "
+          f"block's softmax denominators, boundary cache): bf16 logits "
+          f"{ctl:.4g} of max|logit|, tokens {control['tokens'].tolist()}",
+          flush=True)
+    failed = sum(not e <= LONG_LOGITS_RTOL for e in errs.values())
+    return failed + int(not ctl > LONG_LOGITS_RTOL)
+
+
+def _stage(p, x):
+    return torch.tanh(x @ p["w"] + p["b"])
+
+
+def pipeline_stages(rank: int, world: int, dev) -> int:
+    """``gpipe`` over the world's ranks, one stage a rank, against
+    ``sequential_reference`` on this rank's device: the forward, and the
+    gradient of ``sum(y ** 2)`` w.r.t. the stacked weights (each rank
+    holds its own stage's slice of it, zero elsewhere); the number of
+    failed checks."""
+    gen = torch.Generator().manual_seed(23)
+    w = (torch.randn((world, PIPE_WIDTH, PIPE_WIDTH), generator=gen)
+         * PIPE_WIDTH ** -0.5).to(dev)
+    b = (torch.randn((world, PIPE_WIDTH), generator=gen) * 0.1).to(dev)
+    x = torch.randn((PIPE_MICRO, PIPE_ROWS, PIPE_WIDTH), generator=gen).to(dev)
+    ref_w = w.clone().requires_grad_(True)
+    want = pipeline.sequential_reference(_stage, {"w": ref_w, "b": b}, x)
+    (want ** 2).sum().backward()
+    pipe_w = w.clone().requires_grad_(True)
+    cs._sync(dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    got = pipeline.gpipe(_stage)({"w": pipe_w, "b": b}, x)
+    (got ** 2).sum().backward()
+    cs._sync(dev)
+    wall = time.perf_counter() - t0
+    err = float((got - want).detach().abs().max())
+    grad_err = float((pipe_w.grad[rank] - ref_w.grad[rank]).abs().max())
+    others = float(torch.cat([pipe_w.grad[:rank],
+                              pipe_w.grad[rank + 1:]]).abs().max())
+    same = cs._bitwise_equal(got.detach(), want.detach())
+    print(f"rank {rank}/{world} gpipe {world} stages x {PIPE_MICRO} "
+          f"microbatches of {PIPE_ROWS} x {PIPE_WIDTH}: {wall:.3f} s "
+          f"forward and backward; forward {err:.4g} off the sequential "
+          f"reference (bitwise {same}), its stage's "
+          f"weight gradient {grad_err:.4g} off, the other stages' {others}",
+          flush=True)
+    return int(not (err <= PIPE_ATOL and grad_err <= PIPE_GRAD_ATOL
+                    and others == 0.0))
+
+
+PARTS = ("engines", "lm_meshes", "model_meshes", "long_context", "pipeline")
+
+
+def main(argv=None) -> int:
+    args = sys.argv[1:] if argv is None else argv
+    parts = PARTS
+    if args:
+        if args[0] != "--parts" or not set(args[1:]) <= set(PARTS):
+            raise SystemExit(f"usage: chip_ranks.py [--parts {' '.join(PARTS)}]")
+        parts = tuple(args[1:])
     torch.backends.cuda.matmul.allow_tf32 = False
     dist.init_process_group("nccl")
     torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
@@ -241,6 +428,25 @@ def main() -> int:
         kernels.library()
     dist.barrier()
     kernels.library()
+    dev = torch.device("cuda")
+    differing = 0
+    if "engines" in parts:
+        differing += engines(rank, world)
+    for name, fn in (("lm_meshes", lambda: lm_meshes(rank, world)),
+                     ("model_meshes", lambda: model_meshes(rank, world, dev)),
+                     ("long_context", lambda: long_context(rank, world, dev)),
+                     ("pipeline", lambda: pipeline_stages(rank, world, dev))):
+        if name in parts:
+            dist.barrier()
+            differing += fn()
+    dist.barrier()
+    dist.destroy_process_group()
+    return 1 if differing else 0
+
+
+def engines(rank: int, world: int) -> int:
+    """The channel engines' placements against the one-rank run; the
+    number of differing fields."""
     car = CompressedAllReduce.topk(cs.DP_K_FRAC)
     runs = {
         "curves": lambda n: cs.tc.run_curves(
@@ -268,13 +474,7 @@ def main() -> int:
                   f"{name} n_devices={n}: {wall:.3f} s, noisy {noisy}, "
                   + ("bitwise the one-rank run" if not diff
                      else f"DIFFERS in {diff[:6]}"), flush=True)
-    dist.barrier()
-    differing += lm_meshes(rank, world)
-    dist.barrier()
-    differing += model_meshes(rank, world, torch.device("cuda"))
-    dist.barrier()
-    dist.destroy_process_group()
-    return 1 if differing else 0
+    return differing
 
 
 if __name__ == "__main__":

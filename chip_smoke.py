@@ -2,6 +2,12 @@
 plain versions.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --contend 11    # beside 11 processes that spin
+
+``--contend N`` runs the same phases beside ``N`` processes that spin on
+the host's CPUs for the run's length (stopped on exit): the run of a host
+slower on host work, the card's work unchanged, to see how far the
+script's wall stays under its limit there.
 
 Phases, in order; any failed check raises and the script exits non-zero:
 
@@ -57,7 +63,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
    time by kernel; the table goes to ``chiprun_out/``);
 8. serve ``qwen1.5-0.5b`` at its full width (bf16, random weights from a
    seed, flash prefill) with ``Protocol.ocs(bits=8, p_miss=0.05)`` in every
-   decode tick: 16 Poisson requests of 256-token prompts for 32 tokens
+   decode tick: 8 Poisson requests of 256-token prompts for 16 tokens
    over 8 slots, launch counts set to 0 just before and read just after;
    flash must launch once per layer per request, the fused contention
    and ``maxpool.decode`` once per layer per tick (``ocs_quant.encode``,
@@ -94,7 +100,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
     ``maxpool.decode`` once per (bits, id_bits) sub-group, the standalone
     ``ocs_quant.encode`` once per clean bits group, ``winner_bwd`` and
     flash never), every field of both engines and both latencies bitwise
-    against the same sweeps on the CPU (plain versions), and the rows;
+    against the same sweeps on the CPU (plain versions; run in the
+    background pool from the end of phase 3 on), and the rows;
 17. run ``run_curves_dp`` at the fedocs-cifar width with 2 DP ranks and
     ``CompressedAllReduce.topk(1/8)`` (``benchmarks/bench_curves.py``'s
     DP settings) with launch counts (the fused contention and
@@ -274,7 +281,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
     a remainder of up to 1 MiB it leaves unsplit in a large block); its
     peak, t_compute and t_memory are printed beside the card's
     ``max_memory_allocated()`` and a step's device busy time; the fake
-    traces run in a pool of processes;
+    traces run in the background pool (two processes, started as phase 3
+    ends) while the card's phases run;
 37. run the analysis on the card (:func:`run_analysis_phase`): ``python -m
     repro_torch.analysis --device cuda`` in process (the lint, and each
     of the nine registered entries traced on fake CUDA tensors and run
@@ -295,13 +303,37 @@ Phases, in order; any failed check raises and the script exits non-zero:
 38. run the seven examples (``repro_torch.examples``) at a shortened
     count on the card (:func:`run_examples_phase`), their lines and wall
     seconds printed;
-39. print one ``{"kernels": [...]}`` line and, last, the device line.
+39. run the split placements of state over a (2 data x 1 model) mesh of
+    two gloo ranks sharing the card (:func:`run_split_phase`), each
+    against a one-device run in this process: (a) qwen1.5-0.5b whole
+    under ``rules_for("long_500k")``, each rank holding its ``kv_seq``
+    block of every KV cache (the split-softmax decode): phase 8's first
+    request into a 512-position cache for 32 ticks under OCS p 0.05 (the
+    writes cross into rank 1's block) and into a 131,072-position cache
+    (6 GiB a rank) for 8 ticks, each rank's cache bytes, ms a tick and
+    collective bytes a tick printed; (b) phase 34's traffic with each
+    rank holding its rows of the engine's cache; both held by phase 34's
+    rules (tokens, channel slots and bits equal, else the split product
+    named, ``_split_products``; the float32 logits of a prefill and 4
+    decode steps over the split cache, and of two rows over the rows
+    split, within ``TP_LOGITS_RTOL`` of their largest magnitude, which a
+    control fault must exceed: rank 1's softmax denominators unreduced,
+    one worker's partial lost); each rank's cache half the one device's;
+    launches per rank; (c) phase 18's trainer with AdamW's master weights
+    and moments split over the data axis (ZeRO; every rank takes the
+    whole batch) to a step-2 checkpoint, relaunched from it to step 3:
+    losses and gradient norms bitwise phase 18's, master/m/v bytes a rank
+    half of one device's, launches phase 18's a step, and the step-2
+    checkpoint restored on one device and trained a step bitwise phase
+    18's third step and the ranks' step-3 checkpoint;
+40. print one ``{"kernels": [...]}`` line and, last, the device line.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import datetime
@@ -328,6 +360,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # the port itself: a copy of this script alone fails here
 from repro_torch import faults, kernels, tree  # noqa: E402
 from repro_torch import random as jr  # noqa: E402
+from repro_torch.checkpoint import checkpointer  # noqa: E402
 from repro_torch.configs import fedocs_cifar  # noqa: E402
 from repro_torch.configs import get_config, get_reduced  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
@@ -382,11 +415,12 @@ SM_CLOCK_HZ = 1.98e9           # set from nvidia-smi's clocks.max.sm
 LANES, N, B, K, ROUNDS = 4, 4, 64, 64, 3
 EVAL_ROWS = 512                # CurveConfig.n_val
 # serving: qwen1.5-0.5b (24 layers, d_model 1024, 16 heads of 64, 16
-# workers), 8 slots, 16 Poisson requests of 256-token prompts, 32 tokens
+# workers), 8 slots, 8 Poisson requests of 256-token prompts, 16 tokens
+# (a depth that keeps the whole script well inside its time limit)
 QWEN = "qwen1.5-0.5b"
 QWEN_LAYERS, QWEN_D, QWEN_HEADS, QWEN_WORKERS = 24, 1024, 16, 16
-SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_PROMPT, SERVE_NEW = 8, 512, 256, 32
-SERVE_REQUESTS, SERVE_RATE, SERVE_P_MISS = 16, 0.5, 0.05
+SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_PROMPT, SERVE_NEW = 8, 512, 256, 16
+SERVE_REQUESTS, SERVE_RATE, SERVE_P_MISS = 8, 0.5, 0.05
 # the LM trainer: launch/train at the full width, batch 8 x 256 tokens (the
 # serving prompt length), 6 steps, a checkpoint every 3
 QWEN_PARAMS = 463_987_712
@@ -480,6 +514,23 @@ TP_GRAD_NORM_RTOL, TP_LOGITS_RTOL = 1e-3, 1e-5
 TPM_MOE_LAYERS, TPM_MOE_STEPS, TPM_XLSTM_BATCH, TPM_XLSTM_STEPS = 2, 3, 2, 2
 TPM_WHISPER_STEPS, TPM_PIXTRAL_LAYERS, TPM_NEW = 2, 4, 8
 TPM_TIMEOUT = 300.0
+# phase 39: split placements of state over a (2 data x 1 model) mesh of
+# gloo ranks sharing cuda:0.  (a) qwen1.5-0.5b whole under
+# rules_for("long_500k"): each KV cache split over kv_seq; phase 8's first
+# request (a 256-token prompt) into a 512-position cache (256 positions a
+# rank) for 32 greedy ticks under OCS p 0.05, so that the writes cross
+# into rank 1's block; the long run into a 131,072-position cache (6 GiB
+# a rank) for 8 ticks; the float32 logits of a prefill and 4 decode steps.
+# (b) phase 34's traffic on the rank's rows of the cache (the default
+# rules).  (c) phase 18's trainer with AdamW's master weights and moments
+# split over the data axis (ZeRO), every rank taking the whole batch, to a
+# step-2 checkpoint and relaunched from it to step 3.  The ranks'
+# process-group timeout (the join deadline is twice that).
+SPLIT_RANKS, SPLIT_TIMEOUT = 2, 300.0
+SPLIT_CACHE, SPLIT_TICKS, SPLIT_LOGIT_STEPS = 512, 32, 4
+SPLIT_LONG_CACHE, SPLIT_LONG_TICKS = 131072, 8
+ZERO_CKPT_STEP = 2
+ZERO_RULES = dict(sharding.DEFAULT_RULES, batch=None)
 SOURCES = {"ocs_quant.encode": "ocs_quant.cu",
            "ocs_quant.decode": "ocs_quant.cu", "maxpool.fwd": "maxpool.cu",
            "maxpool.decode": "maxpool.cu", "maxpool.winner_bwd": "maxpool.cu",
@@ -529,6 +580,32 @@ def _time_ms(fn, iters: int = 100) -> float:
     return start.elapsed_time(stop) / iters
 
 
+# one event the profiler recorded on the card: its name, its duration in
+# microseconds and its start (ns)
+CardEvent = collections.namedtuple("CardEvent", "name us start")
+
+
+def _card_events(prof) -> list:
+    """The card's events of a profiled window, in the order recorded,
+    read from the profiler's kineto results: ``prof.events()`` builds an
+    event object and a tree for each, ~15x slower, tens of seconds for a
+    window of ~10^5 launches."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [CardEvent(e.name(), e.duration_ns() / 1e3, e.start_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda]
+
+
+def _kernel_table(by_name: dict, per: str, rows: int = 60) -> str:
+    """A profile's table: each kernel's device milliseconds ``per`` step
+    or tick (``by_name``), largest first, and its share of the total."""
+    total = sum(by_name.values()) or 1.0
+    lines = [f"{'ms ' + per:>14}  {'share':>6}  kernel"]
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:rows]:
+        lines.append(f"{ms:14.6f}  {ms / total:6.3f}  {name}")
+    return "\n".join(lines) + "\n"
+
+
 def _device_ms(fn, iters: int = 20, symbol=None, flush=None):
     """(ms, source, own_ms): the device time per call of ``fn``, the summed
     duration of every kernel and memory operation it runs on the card, from
@@ -552,10 +629,9 @@ def _device_ms(fn, iters: int = 20, symbol=None, flush=None):
                     flush[0]()
                 fn()
             torch.cuda.synchronize()
-        dev = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and (flush is None or e.name not in flush[1])]
-        total_us = sum(e.device_time_total for e in dev)
+        dev = [e for e in _card_events(prof)
+               if flush is None or e.name not in flush[1]]
+        total_us = sum(e.us for e in dev)
         if total_us:
             break
     if total_us == 0:
@@ -563,12 +639,71 @@ def _device_ms(fn, iters: int = 20, symbol=None, flush=None):
               flush=True)
         ms = _time_ms(fn)
         return ms, "events", ms
-    own_us = [e.device_time_total for e in dev
-              if symbol is not None and symbol in e.name]
+    own_us = [e.us for e in dev if symbol is not None and symbol in e.name]
     calls = len(own_us) or iters
     if calls != iters:
         print(f"profiler recorded {calls} of {iters} calls", flush=True)
     return total_us / calls / 1e3, "profiler", sum(own_us) / calls / 1e3
+
+
+# the kernel that parts the windows of one profiled session
+# (torch.cuda._sleep's spin_kernel), the clock cycles it spins, and the
+# markers that pad a session at each end: the profiler can drop a
+# session's first or last few device events
+MARK_KERNEL, MARK_CYCLES, MARK_PAD = "spin_kernel", 1000, 3
+
+
+def _device_ms_many(calls, flush=None) -> list:
+    """:func:`_device_ms` of each ``(fn, iters, symbol)`` of ``calls`` from
+    one profiled session: the windows of ``iters`` calls of each fn are
+    parted by a marker kernel (``MARK_KERNEL``), the session padded with
+    ``MARK_PAD`` more at each end, and the device events between two
+    markers, in the card's order, are a window's (the empty stretches
+    between the pads dropped).  Where the profiler dropped a marker
+    between two windows, each window is timed alone by
+    :func:`_device_ms`, and so is a window without device time."""
+    for fn, _, _ in calls:
+        for _ in range(3):
+            fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(MARK_PAD):
+            torch.cuda._sleep(MARK_CYCLES)
+        for fn, iters, _ in calls:
+            torch.cuda._sleep(MARK_CYCLES)
+            for _ in range(iters):
+                if flush is not None:
+                    flush[0]()
+                fn()
+        for _ in range(MARK_PAD + 1):
+            torch.cuda._sleep(MARK_CYCLES)
+        torch.cuda.synchronize()
+    dev = sorted(_card_events(prof), key=lambda e: e.start)
+    windows, cur = [], None
+    for e in dev:
+        if MARK_KERNEL in e.name:
+            if cur:
+                windows.append(cur)
+            cur = []
+        elif cur is not None and (flush is None or e.name not in flush[1]):
+            cur.append(e)
+    if len(windows) != len(calls):
+        print(f"profiler recorded {len(windows)} of {len(calls)} windows; "
+              "timing each alone", flush=True)
+        windows = [[] for _ in calls]
+    out = []
+    for (fn, iters, symbol), evs in zip(calls, windows):
+        total_us = sum(e.us for e in evs)
+        if total_us == 0:
+            out.append(_device_ms(fn, iters, symbol, flush))
+            continue
+        own_us = [e.us for e in evs
+                  if symbol is not None and symbol in e.name]
+        n = len(own_us) or iters
+        if n != iters:
+            print(f"profiler recorded {n} of {iters} calls", flush=True)
+        out.append((total_us / n / 1e3, "profiler", sum(own_us) / n / 1e3))
+    return out
 
 
 def _bound(nbytes: float, ops: float, ops_per_s: float):
@@ -812,8 +947,7 @@ def _l2_flush(dev):
             for _ in range(3):
                 call()
             torch.cuda.synchronize()
-        names = {e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA}
+        names = {e.name for e in _card_events(prof)}
         if names:
             break
     assert names, "the profiler saw none of the L2 flush's kernels"
@@ -831,12 +965,13 @@ def _record(name, launch, plain, nbytes, ops, lib, extra, err,
     With ``flush`` (:func:`_l2_flush`) each timed call starts with the L2
     evicted (``"l2": "flushed"`` in the record)."""
     base = _base(name)
-    call_ms, src_k, ms = _device_ms(launch, symbol=SYMBOLS[base],
-                                    flush=flush)
-    plain_ms, src_p, _ = _device_ms(plain, iters=10 if ops > 1e10 else 20,
-                                    flush=flush)
-    lib_ms, src_l, _ = _device_ms(lib, flush=flush) if lib is not None \
-        else (None, None, None)
+    calls = [(launch, 20, SYMBOLS[base]),
+             (plain, 10 if ops > 1e10 else 20, None)]
+    if lib is not None:
+        calls.append((lib, 20, None))
+    got = _device_ms_many(calls, flush=flush)
+    (call_ms, src_k, ms), (plain_ms, src_p, _) = got[:2]
+    lib_ms, src_l, _ = got[2] if lib is not None else (None, None, None)
     if flush is not None:
         extra = dict(extra, l2="flushed")
     if base == "ocs_contention.noisy":
@@ -1402,18 +1537,17 @@ def profile_main_path(dev) -> None:
         tc.run_curves(ccfg, device=dev)
         torch.cuda.synchronize()
     by_name, launches = {}, 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
-            launches += 1
+    for e in _card_events(prof):
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.us
+        launches += 1
     device_s = sum(by_name.values()) / 1e6
     # int64 elementwise kernels: the threefry draws (sensing, batches)
     int64_s = sum(us for name, us in by_name.items()
                   if "<long" in name or "Functor<long" in name) / 1e6
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "profile_main.txt").write_text(prof.key_averages().table(
-        sort_by="self_device_time_total", row_limit=60))
+    (out / "profile_main.txt").write_text(_kernel_table(
+        {k: v / 1e3 for k, v in by_name.items()}, "a run"))
     print(f"profile, 10 steps + eval at bits=8: wall {wall:.4f} s "
           f"unprofiled, device busy {device_s:.4f} s, idle share "
           f"{1 - device_s / wall:.3f}; {launches} device kernels and "
@@ -1480,7 +1614,7 @@ def run_serving(dev):
     """Phase 8: the serving main path at the full qwen1.5-0.5b width (bf16,
     random weights from seed 0, flash prefill), OCS at p_miss 0.05 for all
     16 workers in every decode tick: 16 Poisson requests (rate 0.5 a tick)
-    of 256-token prompts for 32 tokens each over 8 slots, launch counts set
+    of 256-token prompts for 16 tokens each over 8 slots, launch counts set
     to 0 just before and read just after."""
     cfg = get_config(QWEN, use_flash=True)
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_workers) == \
@@ -1628,10 +1762,9 @@ def _profile_ticks(tick, what: str, table: str) -> dict:
             tick(t)
         torch.cuda.synchronize()
     by_name, launches = {}, 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
-            launches += 1
+    for e in _card_events(prof):
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.us
+        launches += 1
     # the profiled window's device time, scaled to the timed window's 10
     # ticks
     scale = 10 / PROFILED_TICKS
@@ -1640,8 +1773,9 @@ def _profile_ticks(tick, what: str, table: str) -> dict:
                           if "<long" in name or "Functor<long" in name) / 1e6
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / table).write_text(prof.key_averages().table(
-        sort_by="self_device_time_total", row_limit=60))
+    (out / table).write_text(_kernel_table(
+        {k: v / (1e3 * PROFILED_TICKS) for k, v in by_name.items()},
+        "a tick"))
     print(f"profile, 10 decode ticks of {what} ({PROFILED_TICKS} more "
           f"profiled, device times scaled to 10): wall {wall:.4f} s "
           f"unprofiled ({100 * wall:.2f} ms per tick), device busy "
@@ -1795,9 +1929,7 @@ def profile_scheduled(dev) -> dict:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             tc.run_scheduled_curves(ccfg, sch, device=dev)
             torch.cuda.synchronize()
-        device_s = sum(e.device_time_total for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA
-                       ) / 1e6
+        device_s = sum(e.us for e in _card_events(prof)) / 1e6
         wall = float(np.mean(walls[name]))
         out[name] = dict(walls=walls[name], device_s=device_s,
                          idle=1 - device_s / wall)
@@ -1813,9 +1945,8 @@ def _busy(fn):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    dev_ev = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    return sum(e.device_time_total for e in dev_ev) / 1e6, len(dev_ev)
+    dev_ev = _card_events(prof)
+    return sum(e.us for e in dev_ev) / 1e6, len(dev_ev)
 
 
 def profile_fault_curves(dev) -> dict:
@@ -1902,7 +2033,7 @@ def run_fault_curves_phase(dev, curves):
 
 def run_faulty_serving(dev, serve):
     """Phase 14: phase 8's traffic (qwen1.5-0.5b full width, 16 Poisson
-    requests of 256-token prompts, 32 tokens each, 8 slots, OCS bits 8 at
+    requests of 256-token prompts, 16 tokens each, 8 slots, OCS bits 8 at
     p_miss 0.05) under ``FaultModel.burst(4, 16, p_miss_bad=0.5,
     p_miss_good=0.01).with_dropout(0.9, 0.1)``, with ``retry(2)`` and with
     ``stale``: launch counts (contention and ``maxpool.decode`` once per
@@ -2147,18 +2278,30 @@ def _assert_sweep_counts(counts, cells, clean: bool, noisy: bool, what):
     assert counts == want, (what, counts, want)
 
 
-def run_sweep_phase(dev) -> dict:
+def cpu_sweeps() -> tuple:
+    """Phase 16's CPU reference: the full grid's sweep on the CPU, its
+    wall seconds, and ``bench_comm.py``'s two sweeps there.  It needs no
+    card, so it runs in the background pool (:func:`_background`) while
+    the earlier phases use the card."""
+    t0 = time.perf_counter()
+    cpu = sweep.run_sweep(sweep_grid(), k_elems=SWEEP_K, rounds=SWEEP_ROUNDS,
+                          device="cpu")
+    return cpu, time.perf_counter() - t0, _bench_comm_sweeps("cpu")
+
+
+def run_sweep_phase(dev, cpu_ref) -> dict:
     """Phase 16: ``run_sweep`` over ``bench_sweep.py``'s full grid and
     ``bench_comm.py``'s two sweeps on the card, counted, and held bitwise
-    against the same sweeps on the CPU."""
+    against the same sweeps on the CPU (``cpu_ref``, the future of
+    :func:`cpu_sweeps` in the background pool)."""
     cells = sweep_grid()
     res, counts, wall = _counted(lambda: sweep.run_sweep(
         cells, k_elems=SWEEP_K, rounds=SWEEP_ROUNDS, device=dev))
     _assert_sweep_counts(counts, cells, True, True, "grid")
     t0 = time.perf_counter()
-    cpu = sweep.run_sweep(cells, k_elems=SWEEP_K, rounds=SWEEP_ROUNDS,
-                          device="cpu")
-    cpu_wall = time.perf_counter() - t0
+    cpu, cpu_wall, (cclean, cnoisy, crows) = cpu_ref.result()
+    print(f"run_sweep: waited {time.perf_counter() - t0:.3f} s for the CPU "
+          "reference of the background pool", flush=True)
     _same_sweep(res, cpu, "grid")
     rows = results.to_rows(results.summarize(res))
     assert rows == results.to_rows(results.summarize(cpu))
@@ -2176,7 +2319,6 @@ def run_sweep_phase(dev) -> dict:
     want.update({"ocs_quant.encode": 1, "ocs_contention.noisy": 1,
                  "maxpool.decode": 1})
     assert bcounts == want, bcounts
-    cclean, cnoisy, crows = _bench_comm_sweeps("cpu")
     _same_sweep(bclean, cclean, "bench_comm clean")
     _same_sweep(bnoisy, cnoisy, "bench_comm noisy")
     assert [r.split(",", 2)[::2] for r in brows] == \
@@ -2855,17 +2997,15 @@ def _profile_steps(run, n: int, table: str,
             values, opt, _ = step_fn(values, opt, run.data(s))
         torch.cuda.synchronize()
     by_class, by_name, launches = {}, {}, 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            c = _categorize(e.name)
-            ms = e.device_time_total / (n * 1e3)
-            by_class[c] = by_class.get(c, 0.0) + ms
-            by_name[e.name] = by_name.get(e.name, 0.0) + ms
-            launches += 1
+    for e in _card_events(prof):
+        c = _categorize(e.name)
+        ms = e.us / (n * 1e3)
+        by_class[c] = by_class.get(c, 0.0) + ms
+        by_name[e.name] = by_name.get(e.name, 0.0) + ms
+        launches += 1
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / table).write_text(prof.key_averages().table(
-        sort_by="self_device_time_total", row_limit=60))
+    (out / table).write_text(_kernel_table(by_name, "a step"))
     return values, opt, wall, by_class, by_name, launches
 
 
@@ -3037,9 +3177,8 @@ def run_hook_phase(dev) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         trainer.train(loss, init, opt, data, tcfg)
         torch.cuda.synchronize()
-    dev_ev = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.device_time_total for e in dev_ev) / 1e6
+    dev_ev = _card_events(prof)
+    busy = sum(e.us for e in dev_ev) / 1e6
     int64 = [e for e in dev_ev if "<long" in e.name]
     res = dict(wall_ms=prof_wall * 200, device_ms=busy * 200,
                idle=1 - busy / prof_wall, kernels=len(dev_ev) / 5,
@@ -3218,7 +3357,7 @@ def run_moe_train_phase(dev) -> dict:
 
 def run_moe_serving(dev) -> dict:
     """Phase 22: serve phase 8's traffic (16 Poisson requests of 256-token
-    prompts for 32 tokens over 8 slots) with qwen3-moe-30b-a3b at its full
+    prompts for 16 tokens over 8 slots) with qwen3-moe-30b-a3b at its full
     width, 4 layers, ``tp_fusion="max"``, flash prefill, under
     ``Protocol.ocs(bits=8, p_miss=0.05)``: an all-MoE plan has no channel
     site, so the engine bills 0 channel slots and 0 uplink bits.  Counted:
@@ -3533,7 +3672,7 @@ def run_xlstm_train_phase(dev) -> dict:
 
 def run_xlstm_serving(dev) -> dict:
     """Phase 26: serve phase 8's traffic (16 Poisson requests of 256-token
-    prompts for 32 tokens over 8 slots) with xlstm-125m at its full width
+    prompts for 16 tokens over 8 slots) with xlstm-125m at its full width
     and depth, ``tp_fusion="max"``, under ``Protocol.ocs(bits=8,
     p_miss=0.05)``: no mlp site, so 0 channel slots and 0 uplink bits;
     counted (``maxpool.fwd`` 9 per prefill and 9 per tick, the mLSTM
@@ -5698,26 +5837,29 @@ def _dry_memory(fake, card, checks) -> dict:
     return out
 
 
-def run_dryrun_phase(dev, tp, tpm) -> dict:
-    """Phase 36: the dry-run held to the card (see the module doc).  The
-    fake traces run in a pool of processes (each a fake world of its own,
-    destroyed as its trace ends) while this process measures phase 18's
-    step on the card.  Every reading is printed before any is held to
-    its limit."""
-    import concurrent.futures
-    import multiprocessing
-    checks = []
+def submit_dry_jobs(pool) -> dict:
+    """Phase 36's fake traces (:func:`_dry_jobs`), submitted to the
+    background pool, the longest first (the xlstm rank's time loops, then
+    the production cells); their futures by name."""
     jobs = _dry_jobs()
-    workers = max(1, min(len(jobs), (os.cpu_count() or 2) - 1))
-    with concurrent.futures.ProcessPoolExecutor(
-            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
-        # the longest traces first (the xlstm rank's time loops, then the
-        # production cells), so that none starts in the pool's last wave
-        order = sorted(jobs, key=lambda k: (k[:2] != ("rank", XLSTM),
-                                            k[0] != "cell"))
-        pending = {key: pool.submit(_dry_job, jobs[key]) for key in order}
-        card = _dry_memory_on_card(dev)
-        done = {key: f.result() for key, f in pending.items()}
+    order = sorted(jobs, key=lambda k: (k[:2] != ("rank", XLSTM),
+                                        k[0] != "cell"))
+    return {key: pool.submit(_dry_job, jobs[key]) for key in order}
+
+
+def run_dryrun_phase(dev, tp, tpm, pending) -> dict:
+    """Phase 36: the dry-run held to the card (see the module doc).  The
+    fake traces (``pending``, :func:`submit_dry_jobs`' futures) run in
+    the background pool's processes, each a fake world of its own,
+    destroyed as its trace ends, while the earlier phases use the card;
+    this process measures phase 18's step on the card.  Every reading is
+    printed before any is held to its limit."""
+    checks = []
+    card = _dry_memory_on_card(dev)
+    t0 = time.perf_counter()
+    done = {key: f.result() for key, f in pending.items()}
+    print(f"dry-run: waited {time.perf_counter() - t0:.3f} s for the fake "
+          "traces of the background pool", flush=True)
     out = {"cells": {}, "trace_s": {str(k): round(v["trace_s"], 1)
                                     for k, v in done.items()
                                     if "trace_s" in v}}
@@ -5755,8 +5897,8 @@ def run_dryrun_phase(dev, tp, tpm) -> dict:
         checks.append((f"{arch} {shape_name} record", rec["status"] == "ok"))
     _dry_ranks(done, tp, tpm, checks)
     out["memory"] = _dry_memory(done[("memory",)], card, checks)
-    print(f"dry-run trace seconds by job (pool of {workers}): "
-          f"{out['trace_s']}", flush=True)
+    print(f"dry-run trace seconds by job (background pool of "
+          f"{BACKGROUND_WORKERS}): {out['trace_s']}", flush=True)
     failed = [what for what, ok in checks if not ok]
     assert not failed, failed
     return out
@@ -5958,6 +6100,483 @@ def run_examples_phase(dev) -> dict:
     return dict(counts=counts, walls=walls)
 
 
+# ---------------------------------------------------------------------------
+# split placements of state over a (2 data x 1 model) mesh
+# ---------------------------------------------------------------------------
+
+def _split_requests(vocab, new: int) -> list:
+    """Phase 8's first request (a 256-token prompt) for ``new`` tokens: a
+    prefill's token and ``new - 1`` ticks."""
+    req = poisson_requests(1, SERVE_RATE, vocab, prompt_len=SERVE_PROMPT,
+                           max_new_tokens=new, seed=0)[0]
+    return [se.Request(rid=0, prompt=req.prompt, max_new_tokens=new)]
+
+
+def _split_serve(m, values, dev, reqs, slots, max_seq) -> dict:
+    """The engine under OCS p 0.05 on ``reqs``: {rid: (tokens, channel
+    slots, uplink bits)}, launches, wall, ticks, the bytes of its cache
+    (this rank's block under a mesh) and the collectives by op a tick."""
+    eng = se.ServeEngine(m, values, se.ServeConfig(
+        batch_slots=slots, max_seq=max_seq, eos_id=-1,
+        protocol=_ocs(SERVE_P_MISS)), device=dev)
+    se.reset_dispatch_counts()
+    with comm.recording() as rec:
+        outs, counts, wall = _counted(lambda: eng.run(reqs))
+    ticks = se.dispatch_counts()["tick"]
+    cache = sum(t.numel() * t.element_size() for t in tree.leaves(eng.cache))
+    del eng
+    return dict(result={rid: (c.tokens, c.channel_slots, c.uplink_bits)
+                        for rid, c in sorted(outs.items())},
+                counts=counts, wall=wall, ticks=ticks, cache_bytes=cache,
+                bytes=_per(comm.summarize(rec), ticks))
+
+
+def _split_logits(m, values, prompts, dev, max_seq, steps) -> torch.Tensor:
+    """The float32 prefill's last logits of ``prompts`` (rows) and those
+    of ``steps`` greedy ``decode_step``s after it."""
+    tokens = torch.as_tensor(np.stack(prompts).astype(np.int32), device=dev)
+    logits, cache = m.prefill(values, {"tokens": tokens}, max_seq=max_seq)
+    seq = [logits]
+    pos = torch.full((tokens.shape[0],), tokens.shape[1], dtype=torch.int32,
+                     device=dev)
+    for t in range(steps):
+        tok = logits.argmax(-1)[:, None].to(torch.int32)
+        logits, cache = m.decode_step(values, tok, pos + t, cache)
+        seq.append(logits)
+    return torch.stack(seq).float().cpu()
+
+
+def _split_want(requests: int, ticks: int) -> dict:
+    """A rank's launches serving ``requests`` prefills and ``ticks`` ticks
+    of qwen1.5 whole (phase 34's rule on one device)."""
+    want = {k: 0 for k in kernels.KERNELS}
+    want.update({
+        "flash_attention.fwd": QWEN_LAYERS * requests,
+        "maxpool.fwd": 2 * QWEN_LAYERS * requests + QWEN_LAYERS * ticks,
+        "ocs_contention.noisy": QWEN_LAYERS * ticks,
+        "maxpool.decode": QWEN_LAYERS * ticks})
+    return want
+
+
+def _split_denominators(x, seq):
+    """39(a)'s control fault: rank 1 keeps its own block's softmax
+    denominators (the collective still runs, so the ranks stay in step)."""
+    total = comm.all_reduce(x, "sum", seq.group)
+    return x if seq.index == 1 else total
+
+
+def _split_products(dev, mesh, rules) -> dict:
+    """Whether the products each split changes are, on this rank, bitwise
+    the one-device product, by split (``"kv_seq"``, ``"rows"``): a tick's
+    attention over this rank's block of a 512-position cache combined
+    over the ``kv_seq`` group (the split softmax) against the whole
+    cache's; and over this rank's rows of a tick's slots against the
+    whole product's rows, the q projection, the MLP's up and down
+    projections over the workers, the attention out-projection's worker
+    partials, the unembedding and the tick's attention (16 draws each
+    attention)."""
+    gen = torch.Generator(device=dev).manual_seed(39)
+    cfg = get_config(QWEN)
+    d, n, f, hd = QWEN_D, QWEN_WORKERS, 2816, QWEN_D // QWEN_HEADS
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    out = {"kv_seq": {}, "rows": {}}
+    with sharding.use_mesh(mesh, rules):
+        seq, offset = sharding.kv_seq_block(SPLIT_CACHE // SPLIT_RANKS)
+        same = True
+        for _ in range(16):
+            q = rnd(1, 1, QWEN_HEADS, hd, dtype=cfg.dtype)
+            k, v = (rnd(1, SPLIT_CACHE, QWEN_HEADS, hd, dtype=cfg.dtype)
+                    for _ in range(2))
+            valid = (torch.arange(SPLIT_CACHE, device=dev)[None, :]
+                     <= SERVE_PROMPT + 3)[:, None, :]
+            whole = attention._sdpa(cfg, q, k, v, valid)
+            mine = slice(offset, offset + SPLIT_CACHE // SPLIT_RANKS)
+            got = attention._sdpa(cfg, q, k[:, mine], v[:, mine],
+                                  valid[..., mine], seq)
+            same = same and _bitwise_equal(got, whole)
+        out["kv_seq"]["split_softmax@tick"] = same
+    rows = sharding.mesh_axis(mesh, "data")
+    b = SERVE_SLOTS
+    x = rnd(1, b, d)
+    cases = {"q_proj": (x[0], rnd(d, d), 0),
+             "mlp_up": (x, rnd(n, d, f // n), 1),
+             "mlp_down": (rnd(n, b, f // n), rnd(n, f // n, d), 1),
+             "attn_out": (rnd(n, b, d // n), rnd(n, d // n, d), 1),
+             "unembed": (x[0], rnd(151936, d).T, 0)}
+    for name, (a, w, dim) in cases.items():
+        whole = torch.matmul(a, w)
+        got = torch.matmul(sharding.split_dim(a, rows, dim), w)
+        out["rows"][f"{name}@tick"] = _bitwise_equal(
+            got, sharding.split_dim(whole, rows, dim))
+    pos = torch.arange(b, device=dev) + SERVE_PROMPT
+    valid = (torch.arange(SERVE_MAX_SEQ, device=dev)[None, :]
+             <= pos[:, None])[:, None, :]
+    same = True
+    for _ in range(16):
+        q = rnd(b, 1, QWEN_HEADS, hd, dtype=cfg.dtype)
+        k, v = (rnd(b, SERVE_MAX_SEQ, QWEN_HEADS, hd, dtype=cfg.dtype)
+                for _ in range(2))
+        whole = attention._sdpa(cfg, q, k, v, valid)
+        got = attention._sdpa(cfg, *(sharding.split_dim(t, rows)
+                                     for t in (q, k, v, valid)))
+        same = same and _bitwise_equal(got, sharding.split_dim(whole, rows))
+    out["rows"]["decode_attn@tick"] = same
+    return out
+
+
+def _tick_rows_probe(m, values, dev, mesh) -> bool:
+    """Whether a decode step over this rank's rows of the slots, on one
+    device, is bitwise the rows' block of the step over all of them (the
+    bf16 model, the slots' prompts prefilled, one greedy step)."""
+    rows = sharding.mesh_axis(mesh, "data")
+    reqs = poisson_requests(SERVE_REQUESTS, SERVE_RATE, m.cfg.vocab_size,
+                            prompt_len=SERVE_PROMPT, max_new_tokens=1,
+                            seed=0)[:SERVE_SLOTS]
+    tokens = torch.as_tensor(np.stack([r.prompt for r in reqs]).astype(
+        np.int32), device=dev)
+
+    def step(t):
+        logits, cache = m.prefill(values, {"tokens": t},
+                                  max_seq=SERVE_PROMPT + 1)
+        pos = torch.full((t.shape[0],), SERVE_PROMPT, dtype=torch.int32,
+                         device=dev)
+        return m.decode_step(values, logits.argmax(-1)[:, None].to(
+            torch.int32), pos, cache)[0]
+
+    return _bitwise_equal(step(sharding.split_dim(tokens, rows)),
+                          sharding.split_dim(step(tokens), rows))
+
+
+def _split_cache_rank(dev, mesh) -> dict:
+    """39(a) and (b) on this rank: the kv_seq split under the long-context
+    rules (the boundary and long runs, the float32 logits and their
+    control), then the rows split under the default rules (phase 34's
+    traffic, the float32 logits of two rows)."""
+    rules = launch_mesh.rules_for("long_500k", 1, mesh)
+    out = {}
+    m, whole = _tp_serve_model(dev)
+    values = sharding.shard_values(whole, m.axes(), mesh, rules)
+    del whole
+    with sharding.use_mesh(mesh, rules):
+        out["boundary"] = _split_serve(
+            m, values, dev, _split_requests(m.cfg.vocab_size,
+                                            SPLIT_TICKS + 1), 1,
+            SPLIT_CACHE)
+        out["long"] = _split_serve(
+            m, values, dev, _split_requests(m.cfg.vocab_size,
+                                            SPLIT_LONG_TICKS + 1), 1,
+            SPLIT_LONG_CACHE)
+    _release("split cache kv_seq runs done")
+    with sharding.use_mesh(mesh):
+        reqs = poisson_requests(SERVE_REQUESTS, SERVE_RATE,
+                                m.cfg.vocab_size, prompt_len=SERVE_PROMPT,
+                                max_new_tokens=SERVE_NEW,
+                                seed=0)[:TP_REQUESTS]
+        out["rows"] = _split_serve(m, values, dev, reqs, SERVE_SLOTS,
+                                   SERVE_MAX_SEQ)
+    out["tick_rows"] = _tick_rows_probe(m, values, dev, mesh)
+    del values
+    _release("split cache rows run done")
+    m32, whole = _tp_serve_model(dev, torch.float32)
+    values = sharding.shard_values(whole, m32.axes(), mesh, rules)
+    del whole
+    prompt = [_split_requests(m32.cfg.vocab_size, 1)[0].prompt]
+    with sharding.use_mesh(mesh, rules), comm.recording() as rec:
+        out["logits"] = _split_logits(m32, values, prompt, dev, SPLIT_CACHE,
+                                      SPLIT_LOGIT_STEPS)
+    out["logits_bytes"] = comm.summarize(rec)
+    sound = attention._seq_sum
+    attention._seq_sum = _split_denominators
+    try:
+        with sharding.use_mesh(mesh, rules):
+            out["control"] = _split_logits(m32, values, prompt, dev,
+                                           SPLIT_CACHE, SPLIT_LOGIT_STEPS)
+    finally:
+        attention._seq_sum = sound
+    with sharding.use_mesh(mesh):
+        out["rows_logits"] = _split_logits(
+            m32, values, [r.prompt for r in reqs[:SPLIT_RANKS]], dev,
+            SERVE_MAX_SEQ, 2)
+    del values
+    out["products"] = _split_products(dev, mesh, rules)
+    out["products"]["rows"]["decode_step@tick"] = out.pop("tick_rows")
+    _release("split cache logits done")
+    return out
+
+
+def _zero_run(dev, ckpt_dir, steps):
+    """Phase 18's run (its batches and schedule, ``remat=False``) for
+    ``steps`` steps, every step logged, its checkpoint in ``ckpt_dir``
+    (none but the final carry)."""
+    run = _tp_train_run(dev)
+    run.tcfg = dataclasses.replace(run.tcfg, steps=steps,
+                                   ckpt_dir=str(ckpt_dir),
+                                   ckpt_every=TRAIN_CKPT_EVERY)
+    return run
+
+
+def _zero_rank(dev, mesh, ckpt_dir) -> dict:
+    """39(c) on this rank: phase 18's trainer with AdamW's master weights
+    and moments split over the data axis (ZeRO), every rank taking the
+    whole batch (``ZERO_RULES``), to its step-2 checkpoint; then
+    relaunched from it to step 3."""
+    out = {}
+    for steps in (ZERO_CKPT_STEP, TP_STEPS):
+        run = _zero_run(dev, ckpt_dir, steps)
+        pl = sharding.placement(run.m.axes(), run.values, mesh, ZERO_RULES)
+        values = sharding.shard_values(run.values, pl.axes, mesh, ZERO_RULES)
+        run.values = None
+        with sharding.use_mesh(mesh, ZERO_RULES), comm.recording() as rec:
+            res, counts, wall = _counted(lambda: trainer.train(
+                run.m.loss, values, run.opt, run.data, run.tcfg,
+                shardings=pl))
+        state = res.opt_state
+        out[steps] = dict(
+            rows=_rows(res.history), counts=counts, wall=wall,
+            bytes=comm.summarize(rec),
+            state_bytes=sum(t.numel() * t.element_size() for k in
+                            ("master", "m", "v")
+                            for t in tree.leaves(state[k])))
+        del res, state, values, run
+        _release(f"zero run to step {steps} done")
+    return out
+
+
+def _split_rank(ckpt_dir) -> dict:
+    """Phase 39's task on each gloo rank (a (2 x 1) mesh): 39(a)-(c).  The
+    rank loads the library the parent built and builds nothing."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    built = kernels.BUILD_DIR / f"libreprotorch_{kernels._source_hash()}.so"
+    assert built.exists(), "the parent process did not build the kernels"
+    kernels.library()
+    return _split_rank_on(torch.device("cuda"), ckpt_dir)
+
+
+def _split_rank_on(dev, ckpt_dir) -> dict:
+    mesh = launch_mesh.make_mesh(SPLIT_RANKS, 1)
+    out = {"coord": mesh.coord()}
+    out.update(_split_cache_rank(dev, mesh))
+    out["zero"] = _zero_rank(dev, mesh, ckpt_dir)
+    out["peak"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def _zero_continued(dev, ckpt_dir, phase18) -> dict:
+    """39(c) on one device: the ZeRO run's step-2 checkpoint restored with
+    no mesh and trained one step (phase 18's third), against phase 18's
+    third step and the ranks' step-3 checkpoint, bitwise."""
+    run = _tp_train_run(dev)
+    template = {"values": run.values, "opt": run.opt.init(run.values)}
+    carry, step, _ = checkpointer.restore(str(ckpt_dir), ZERO_CKPT_STEP,
+                                          template=template)
+    del template
+    run.values = None
+    _release("zero checkpoint restored on one device")
+    values, opt, metrics = make_train_step(run.m.loss, run.opt)(
+        carry["values"], carry["opt"], run.data(step))
+    got = dict(loss=float(metrics["loss"]),
+               grad_norm=float(metrics["grad_norm"]))
+    final, _, _ = checkpointer.restore(str(ckpt_dir), TP_STEPS,
+                                       template={"values": values,
+                                                 "opt": opt})
+    got["same_carry"] = (_same_tree(values, final["values"])
+                         and _same_tree(opt, final["opt"]))
+    got["want"] = dict(loss=phase18["losses"][ZERO_CKPT_STEP],
+                       grad_norm=phase18["grad_norms"][ZERO_CKPT_STEP])
+    del carry, values, opt, final, run
+    _release("zero continuation done")
+    return got
+
+
+def run_split_phase(dev, phase18) -> dict:
+    """Phase 39: split placements of state over a (``SPLIT_RANKS`` data x
+    1 model) mesh of gloo ranks sharing cuda:0, against one-device runs in
+    this process (see the module doc).  Every reading is printed before
+    any is held to its limit."""
+    _release("split phase start")
+    m, values = _tp_serve_model(dev)
+    one = {}
+    for name, new, max_seq in (("boundary", SPLIT_TICKS + 1, SPLIT_CACHE),
+                               ("long", SPLIT_LONG_TICKS + 1,
+                                SPLIT_LONG_CACHE)):
+        one[name] = _split_serve(m, values, dev,
+                                 _split_requests(m.cfg.vocab_size, new), 1,
+                                 max_seq)
+        _release(f"split one-device {name} run done")
+    reqs = poisson_requests(SERVE_REQUESTS, SERVE_RATE, m.cfg.vocab_size,
+                            prompt_len=SERVE_PROMPT, max_new_tokens=SERVE_NEW,
+                            seed=0)[:TP_REQUESTS]
+    one["rows"] = _split_serve(m, values, dev, reqs, SERVE_SLOTS,
+                               SERVE_MAX_SEQ)
+    del values
+    m32, values = _tp_serve_model(dev, torch.float32)
+    prompt = [_split_requests(m32.cfg.vocab_size, 1)[0].prompt]
+    rows_prompts = [r.prompt for r in reqs[:SPLIT_RANKS]]
+    one_logits = _split_logits(m32, values, prompt, dev, SPLIT_CACHE,
+                               SPLIT_LOGIT_STEPS)
+    one_rows = _split_logits(m32, values, rows_prompts, dev, SERVE_MAX_SEQ,
+                             2)
+    ctl_rows = _split_logits(m32, _lost_partial(values), rows_prompts, dev,
+                             SERVE_MAX_SEQ, 2)
+    del values
+    _release("split phase spawn")
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = pathlib.Path(tempfile.mkdtemp(dir=ROOT / "build"))
+    ckpt_dir = work / "zero_ckpt"
+    try:
+        t0 = time.perf_counter()
+        got = comm.spawn(_split_rank, SPLIT_RANKS, (str(ckpt_dir),),
+                         workdir=work / "gloo", timeout=SPLIT_TIMEOUT,
+                         threads=2)
+        spawn_wall = time.perf_counter() - t0
+        ckpt_gib = sum(f.stat().st_size for f in ckpt_dir.rglob("*")
+                       if f.is_file()) / 2**30
+        cont = _zero_continued(dev, ckpt_dir, phase18)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    assert [o["coord"] for o in got] == [(r, 0) for r in range(SPLIT_RANKS)]
+
+    checks, same = [], {}
+    for name in ("boundary", "long", "rows"):
+        w = one[name]
+        print(f"split one device: {name} {w['wall']:.3f} s wall, "
+              f"{w['ticks']} ticks ({1e3 * w['wall'] / w['ticks']:.3f} ms a "
+              f"tick, prefills included), cache {w['cache_bytes']} bytes, "
+              f"launches {w['counts']}", flush=True)
+        same[name] = all(o[name]["result"] == w["result"] for o in got)
+    errs = [_logits_rel_err(o["logits"], one_logits) for o in got]
+    ctl_errs = [_logits_rel_err(o["control"], one_logits) for o in got]
+    row_errs = [_logits_rel_err(o["rows_logits"], one_rows) for o in got]
+    ctl_row = _logits_rel_err(ctl_rows, one_rows)
+    for r, o in enumerate(got):
+        for name in ("boundary", "long", "rows"):
+            g, w = o[name], one[name]
+            differ = [rid for rid in w["result"]
+                      if g["result"].get(rid) != w["result"][rid]]
+            print(f"split rank {r}/{SPLIT_RANKS} {name}: {g['wall']:.3f} s "
+                  f"wall, {g['ticks']} ticks "
+                  f"({1e3 * g['wall'] / g['ticks']:.3f} ms a tick, prefills "
+                  f"included), cache {g['cache_bytes']} bytes "
+                  f"({g['cache_bytes'] / w['cache_bytes']:.4f} of one "
+                  f"device's), launches {g['counts']}, collectives a tick "
+                  f"{g['bytes']}; requests differing from the one-device "
+                  f"run {differ}", flush=True)
+            for rid in differ[:2]:
+                print(f"  request {rid}: rank {g['result'][rid][1:]} first "
+                      f"tokens {g['result'][rid][0][:6]}, one device "
+                      f"{w['result'][rid][1:]} {w['result'][rid][0][:6]}",
+                      flush=True)
+        print(f"split rank {r}/{SPLIT_RANKS}: float32 logits of a prefill "
+              f"and {SPLIT_LOGIT_STEPS} decode steps over the kv_seq split "
+              f"{errs[r]:.4g} of max|logit| "
+              f"{float(one_logits.abs().max()):.4g} (collectives "
+              f"{o['logits_bytes']}); control (rank 1's denominators "
+              f"unreduced) {ctl_errs[r]:.4g}; two rows over the rows split "
+              f"{row_errs[r]:.4g}; products bitwise the one-device product "
+              f"{o['products']}; peak device memory {o['peak']} bytes",
+              flush=True)
+        z = o["zero"]
+        rows = z[ZERO_CKPT_STEP]["rows"] + z[TP_STEPS]["rows"]
+        print(f"split rank {r}/{SPLIT_RANKS} zero: steps "
+              f"{[x['step'] for x in rows]} losses "
+              f"{[x['loss'] for x in rows]} against phase 18's "
+              f"{phase18['losses'][:TP_STEPS]}, gradient norms "
+              f"{[x['grad_norm'] for x in rows]} against "
+              f"{phase18['grad_norms'][:TP_STEPS]}; master/m/v bytes a rank "
+              f"{z[TP_STEPS]['state_bytes']} (one device "
+              f"{12 * QWEN_PARAMS}); walls {z[ZERO_CKPT_STEP]['wall']:.3f} "
+              f"s to the checkpoint, {z[TP_STEPS]['wall']:.3f} s relaunched "
+              f"(checkpoints included); launches "
+              f"{z[ZERO_CKPT_STEP]['counts']} / {z[TP_STEPS]['counts']}; "
+              f"collectives {z[ZERO_CKPT_STEP]['bytes']} / "
+              f"{z[TP_STEPS]['bytes']}", flush=True)
+    print(f"split: rows logits control (worker 0's last MLP partial lost, "
+          f"one device) {ctl_row:.4g}; zero checkpoint {ckpt_gib:.2f} GiB "
+          f"on disk (steps {ZERO_CKPT_STEP} and {TP_STEPS}); restored on "
+          f"one device, step {ZERO_CKPT_STEP + 1}: loss {cont['loss']} / "
+          f"gradient norm {cont['grad_norm']} against phase 18's "
+          f"{cont['want']}, carry bitwise the ranks' step-{TP_STEPS} "
+          f"checkpoint {cont['same_carry']}; {SPLIT_RANKS} gloo ranks on "
+          f"cuda:0, spawn to join {spawn_wall:.3f} s", flush=True)
+
+    want_rows = _rows_of(phase18, TP_STEPS)
+    for r, o in enumerate(got):
+        for name, reqs_n in (("boundary", 1), ("long", 1),
+                             ("rows", TP_REQUESTS)):
+            g, w = o[name], one[name]
+            checks += [
+                (f"rank {r} {name} ticks", g["ticks"] == w["ticks"]),
+                (f"rank {r} {name} launches",
+                 g["counts"] == _split_want(reqs_n, g["ticks"])),
+                (f"rank {r} {name} cache bytes",
+                 g["cache_bytes"] * SPLIT_RANKS == w["cache_bytes"])]
+        z = o["zero"]
+        rows = z[ZERO_CKPT_STEP]["rows"] + z[TP_STEPS]["rows"]
+        train_want = {k: 0 for k in kernels.KERNELS}
+        for steps, key in ((ZERO_CKPT_STEP, ZERO_CKPT_STEP),
+                           (TP_STEPS - ZERO_CKPT_STEP, TP_STEPS)):
+            train_want.update({
+                "flash_attention.fwd": QWEN_LAYERS * steps,
+                "maxpool.fwd": 2 * QWEN_LAYERS * steps,
+                "maxpool.ties_bwd": 2 * QWEN_LAYERS * steps})
+            checks.append((f"rank {r} zero launches to step {key}",
+                           z[key]["counts"] == train_want))
+        checks += [
+            (f"rank {r} logits", errs[r] <= TP_LOGITS_RTOL),
+            (f"rank {r} logits control", ctl_errs[r] > TP_LOGITS_RTOL),
+            (f"rank {r} rows logits", row_errs[r] <= TP_LOGITS_RTOL),
+            (f"rank {r} zero bitwise phase 18",
+             [(x["step"], x["loss"], x["grad_norm"]) for x in rows]
+             == want_rows),
+            (f"rank {r} zero state halved",
+             z[TP_STEPS]["state_bytes"] * SPLIT_RANKS == 12 * QWEN_PARAMS)]
+    checks += [("rows logits control", ctl_row > TP_LOGITS_RTOL),
+               ("zero restored on one device",
+                cont["loss"] == cont["want"]["loss"]
+                and cont["grad_norm"] == cont["want"]["grad_norm"]
+                and cont["same_carry"])]
+    for name, ok in same.items():
+        if ok:
+            print(f"split: {name}: every rank's tokens, channel slots and "
+                  f"uplink bits equal the one-device run's", flush=True)
+            continue
+        split = "rows" if name == "rows" else "kv_seq"
+        broken = sorted({k for o in got
+                         for k, v in o["products"][split].items() if not v})
+        print(f"split: {name}: the tokens or channel slots differ from "
+              f"the one-device run; the {split} split's products not "
+              f"bitwise on the card: {broken}", flush=True)
+        checks.append((f"{name} differs with a split product named",
+                       bool(broken)))
+    failed = [what for what, ok in checks if not ok]
+    assert not failed, failed
+    summed = {name: {k: sum(o[name]["counts"][k] for o in got)
+                     for k in kernels.KERNELS}
+              for name in ("boundary", "long", "rows")}
+    summed["zero"] = {k: sum(o["zero"][s]["counts"][k] for o in got
+                             for s in (ZERO_CKPT_STEP, TP_STEPS))
+                      for k in kernels.KERNELS}
+    return dict(counts=summed, same=same, spawn_wall=spawn_wall,
+                walls={name: [o[name]["wall"] for o in got]
+                       for name in ("boundary", "long", "rows")},
+                one_walls={name: one[name]["wall"] for name in one},
+                ticks={name: one[name]["ticks"] for name in one},
+                cache_bytes={name: [o[name]["cache_bytes"] for o in got]
+                             for name in ("boundary", "long", "rows")},
+                zero_walls=[[o["zero"][s]["wall"]
+                             for s in (ZERO_CKPT_STEP, TP_STEPS)]
+                            for o in got])
+
+
+def _rows_of(phase18, steps) -> list:
+    """(step, loss, gradient norm) of phase 18's first ``steps`` steps."""
+    return [(i, phase18["losses"][i], phase18["grad_norms"][i])
+            for i in range(steps)]
+
+
 def _timed(fn, *args):
     """Call one phase; keep its wall seconds for the closing summary."""
     t0 = time.perf_counter()
@@ -5968,10 +6587,64 @@ def _timed(fn, *args):
     return out
 
 
-def main() -> int:
+# the background pool: phase 16's CPU reference and phase 36's fake
+# traces need no card, so they run in these processes while the card's
+# phases do
+BACKGROUND_WORKERS = 2
+
+
+@contextlib.contextmanager
+def _background():
+    """A pool of ``BACKGROUND_WORKERS`` processes (``spawn``), shut down on
+    exit; where a phase failed, its workers are killed."""
+    import concurrent.futures
+    import multiprocessing
+    pool = concurrent.futures.ProcessPoolExecutor(
+        BACKGROUND_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    ok = False
+    try:
+        yield pool
+        ok = True
+    finally:
+        procs = list((pool._processes or {}).values())
+        pool.shutdown(wait=ok, cancel_futures=True)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+
+
+@contextlib.contextmanager
+def _contenders(n: int):
+    """``n`` processes that spin on the host's CPUs until the context ends
+    (``--contend``)."""
+    procs = [subprocess.Popen([sys.executable, "-c", "while True: pass"])
+             for _ in range(n)]
+    try:
+        yield
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+
+
+def main(argv=None) -> int:
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--contend", type=int, default=0,
+                        help="processes spinning on the CPUs beside the run")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    with _contenders(args.contend), _background() as pool:
+        if args.contend:
+            print(f"beside {args.contend} processes spinning on the "
+                  f"host's {os.cpu_count()} CPUs", flush=True)
+        return _main(pool)
+
+
+def _main(pool) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -5994,6 +6667,8 @@ def main() -> int:
           flush=True)
 
     rows = _timed(check_kernels, dev)
+    cpu_ref = pool.submit(cpu_sweeps)
+    dry_jobs = submit_dry_jobs(pool)
     _timed(check_p0_equivalence, dev)
     curve_counts, wall, curves = _timed(run_main_path, dev)
     _timed(check_against_cpu, dev)
@@ -6009,7 +6684,7 @@ def main() -> int:
     faulty = _timed(run_faulty_serving, dev, serve)
     faulty_profile = _timed(profile_faulty_serving, dev, serve)
     _timed(check_new_paths_against_cpu, dev)
-    swept = _timed(run_sweep_phase, dev)
+    swept = _timed(run_sweep_phase, dev, cpu_ref)
     dp = _timed(run_dp_phase, dev)
     dp_profile = _timed(profile_dp, dev)
     train = _timed(run_train_phase, dev)
@@ -6032,9 +6707,10 @@ def main() -> int:
     ranks = _timed(run_ranks_phase, dev, curves, swept, dp)
     tp = _timed(run_tp_phase, dev, train)
     tpm = _timed(run_tp_models_phase, dev)
-    dry = _timed(run_dryrun_phase, dev, tp, tpm)
+    dry = _timed(run_dryrun_phase, dev, tp, tpm, dry_jobs)
     analysis = _timed(run_analysis_phase, dev, train)
     examples = _timed(run_examples_phase, dev)
+    split = _timed(run_split_phase, dev, train)
 
     line = []
     keep = ("shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
@@ -6120,7 +6796,11 @@ def main() -> int:
                    "tp_models_serve": tpm["counts"]["serve"][name],
                    "analysis": analysis["counts"][name],
                    "remat": analysis["remat_counts"][name],
-                   "examples": examples["counts"][name]}
+                   "examples": examples["counts"][name],
+                   "split_cache_serve": sum(
+                       split["counts"][k][name]
+                       for k in ("boundary", "long", "rows")),
+                   "zero_train": split["counts"]["zero"][name]}
         line.append(dict(rec, launches=sum(by_path.values()),
                          launches_by_path=by_path))
     print(f"run_curves wall seconds: {wall}", flush=True)
@@ -6212,6 +6892,12 @@ def main() -> int:
     print(f"analysis: {analysis['wall']:.3f} s in process, remat "
           f"{analysis['remat']}; examples wall seconds "
           f"{examples['walls']}; {smi}", flush=True)
+    print(f"split placements: (2 x 1) mesh of gloo ranks on cuda:0, "
+          f"walls by rank {split['walls']} (one device "
+          f"{split['one_walls']}; ticks {split['ticks']}), cache bytes a "
+          f"rank {split['cache_bytes']}, equal to the one-device run "
+          f"{split['same']}, zero walls {split['zero_walls']}, spawn to "
+          f"join {split['spawn_wall']:.3f} s; {smi}", flush=True)
     print(f"phase wall seconds: {_PHASE_SECONDS}", flush=True)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

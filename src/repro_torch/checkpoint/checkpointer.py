@@ -24,9 +24,14 @@ them, in the JAX package's format.
 
 Leaves are stored whole, so a checkpoint restores onto any mesh (elastic
 re-meshing).  Under a mesh, ``save`` takes the leaves' shardings, gathers
-every leaf over the ranks that split it, and rank 0 writes while the
+every leaf over the ranks that split it (the model axis's blocks, and a
+ZeRO or FSDP block over the fsdp axis alike), and rank 0 writes while the
 others wait at a barrier; ``restore(shardings=)`` reads the whole leaves
-and keeps this rank's block of each.
+and keeps this rank's block of each, a ZeRO block where the shardings
+split the state so.  A checkpoint is thus the same file whatever mesh
+and placement wrote it; the index's ``"axes"`` says how its writer split
+each leaf (``trainer.train`` with a ``sharding.Placement`` names the
+optimizer state's ZeRO axes under each state leaf's own key).
 """
 
 from __future__ import annotations
@@ -110,10 +115,14 @@ def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
 
 
 def _from_numpy(a: np.ndarray, dtype_name: str) -> torch.Tensor:
+    """The tensor of a loaded array, sharing its memory (a copy only of an
+    array that is not writable)."""
+    if not a.flags.writeable:
+        a = a.copy()
     if dtype_name in _ML_DTYPES:
         word, dtype = _ML_DTYPES[dtype_name]
-        return torch.from_numpy(np.array(a).view(word)).view(dtype)
-    return torch.from_numpy(np.array(a))
+        return torch.from_numpy(a.view(word)).view(dtype)
+    return torch.from_numpy(a)
 
 
 def save(ckpt_dir: str, step: int, values, axes_tree=None,
@@ -216,15 +225,17 @@ def restore(ckpt_dir: str, step: Optional[int] = None, template=None,
     path = os.path.join(ckpt_dir, f"step_{step:010d}")
     with open(os.path.join(path, "index.json")) as f:
         index = json.load(f)
+    if template is None:
+        raise ValueError("restore requires a structure template")
+    flat_template = _flatten_with_paths(template)
+    # only the leaves the template names are read
     data = {}
     for name in os.listdir(path):
         if name.startswith("shard_") and name.endswith(".npz"):
             with np.load(os.path.join(path, name)) as z:
                 for k in z.files:
-                    data[k] = z[k]
-    if template is None:
-        raise ValueError("restore requires a structure template")
-    flat_template = _flatten_with_paths(template)
+                    if k in flat_template:
+                        data[k] = z[k]
     missing = set(flat_template) - set(data)
     if missing:
         raise KeyError(f"checkpoint missing keys: {sorted(missing)[:5]} ...")
@@ -233,7 +244,7 @@ def restore(ckpt_dir: str, step: Optional[int] = None, template=None,
                 if shardings is not None else {})
 
     def materialize(key, like):
-        t = _from_numpy(data[key], index["dtypes"][key])
+        t = _from_numpy(data.pop(key), index["dtypes"][key])
         if key in flat_shd:
             t = sh.block(t, flat_shd[key].spec,
                          flat_shd[key].mesh).contiguous()

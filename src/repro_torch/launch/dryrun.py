@@ -19,8 +19,11 @@ Placements, as the JAX dry-run's: the parameters split over the model
 axis (the logical rules of ``launch/mesh.rules_for``), the AdamW master
 and moments also over ``fsdp`` (ZeRO), and the parameters too where the
 model axis alone leaves more than :data:`FSDP_PARAM_BYTES` a rank (FSDP).
-Every rank passes the whole batch, and a decode step the whole cache
-(the port's contract; its rows are split inside).  The port runs every
+Every rank passes the whole batch (the port's contract; its rows are
+split inside), and a decode step its block of the cache, as the JAX
+dry-run's ``cache_sh`` places it: its rows where the batch axis splits
+them, its ``kv_seq`` block under the long-context rules
+(``model.cache_init`` under the mesh).  The port runs every
 period, so the counts are exact; :func:`_scaled_variants` still runs on
 the single-pod cells, and the record holds its two-point figures beside
 the exact ones.
@@ -126,10 +129,9 @@ def _microbatches(arch: str, shape_name: str,
 
 def _split_kv_seq(cfg, rules, mesh) -> bool:
     """Whether the rules split a decode cache's ``kv_seq`` over ranks."""
-    entry = sh.resolve_axes(("kv_seq",), mesh, rules)[0]
-    names = (entry,) if isinstance(entry, str) else entry or ()
-    if sh.mesh_axes(mesh, names) is None:
-        return False
+    with sh.use_mesh(mesh, rules):
+        if sh.kv_seq_axis() is None:
+            return False
     found = []
     sh.map_axes(lambda ax: found.append("kv_seq" in ax), M.cache_axes(cfg))
     return any(found)
@@ -161,29 +163,25 @@ def build_cell(arch: str, shape_name: str, mesh, tp_fusion: str = "max",
 
 def place(m, whole, mesh, rules, optimizer=None) -> Dict[str, Any]:
     """The dry-run's placements of the whole parameters ``whole`` (real
-    or fake tensors) on ``mesh``: ``values``, this rank's blocks, and
-    ``leaf_shardings``, theirs in leaf order: the model axis's split, and
-    the fsdp axis's too where the model axis alone leaves more than
-    :data:`FSDP_PARAM_BYTES` a rank (``fsdp``).  With ``optimizer``
-    (AdamW) also ``state``, its state of ``whole`` with master, m and v
-    split over the fsdp axis as well (ZeRO), and ``state_shardings``."""
+    or fake tensors) on ``mesh`` (``sharding.placement``, with FSDP where
+    the model axis alone leaves more than :data:`FSDP_PARAM_BYTES` a
+    rank): ``values``, this rank's blocks, ``leaf_shardings``, theirs in
+    leaf order, and ``fsdp``.  With ``optimizer`` (AdamW) also ``state``,
+    its state of ``whole`` with master, m and v split over the fsdp axis
+    as well (ZeRO), and ``state_shardings``."""
     axes = m.axes()
-    param_sh = sh.tree_shardings_for_values(axes, whole, mesh, rules)
     # FSDP for very large models: TP alone leaves too many bytes per rank
-    fsdp = _block_bytes(whole, param_sh) > FSDP_PARAM_BYTES
-    if fsdp:
-        axes = sh.zero_axes_tree(axes, whole, mesh, rules)
-        param_sh = sh.tree_shardings_for_values(axes, whole, mesh, rules)
-    out = {"values": sh.shard_values(whole, axes, mesh, rules),
-           "leaf_shardings": sh.flat_shardings(param_sh), "fsdp": fsdp}
+    fsdp = _block_bytes(whole, sh.tree_shardings_for_values(
+        axes, whole, mesh, rules)) > FSDP_PARAM_BYTES
+    pl = sh.placement(axes, whole, mesh, rules, fsdp=fsdp)
+    out = {"values": sh.shard_values(whole, pl.axes, mesh, rules),
+           "leaf_shardings": sh.flat_shardings(pl.shardings), "fsdp": fsdp}
     if optimizer is not None:
-        zaxes = sh.zero_axes_tree(axes, whole, mesh, rules)
         state = optimizer.init(whole)
         for k in ("master", "m", "v"):
-            state[k] = sh.shard_values(state[k], zaxes, mesh, rules)
+            state[k] = sh.shard_values(state[k], pl.state_axes, mesh, rules)
         out["state"] = state
-        out["state_shardings"] = sh.flat_shardings(
-            sh.tree_shardings_for_values(zaxes, whole, mesh, rules))
+        out["state_shardings"] = sh.flat_shardings(pl.state_shardings)
     return out
 
 
@@ -199,12 +197,6 @@ def build_step(cfg, shape, mesh, rules, microbatches: int = 1,
     splits the parameters and how many microbatches a train step
     takes."""
     m = M.build(cfg)
-    if shape.kind == "decode" and _split_kv_seq(cfg, rules, mesh):
-        raise NotImplementedError(
-            f"{shape.name} splits the decode cache's kv_seq over "
-            f"{sh.resolve_axes(('kv_seq',), mesh, rules)[0]}, and no decode "
-            f"path of the port reads a split cache (ROADMAP)")
-
     whole = tree.map(lambda t: t.to(device),
                      m.init(torch.Generator().manual_seed(0)))
     train = shape.kind == "train"
@@ -216,7 +208,8 @@ def build_step(cfg, shape, mesh, rules, microbatches: int = 1,
     if inputs is not None:
         specs = inputs
     info = {"cfg": cfg, "fsdp": placed["fsdp"],
-            "microbatches": microbatches}
+            "microbatches": microbatches,
+            "split_kv_seq": _split_kv_seq(cfg, rules, mesh)}
 
     if train:
         state, state_sh = placed["state"], placed["state_shardings"]
@@ -242,12 +235,14 @@ def build_step(cfg, shape, mesh, rules, microbatches: int = 1,
         raise ValueError(shape.kind)
     token = _fake_like(specs["token"], device)
     positions = _fake_like(specs["positions"], device)
-    # the cache as the engine makes it under the mesh: the rank's share
-    # of the workers, every row
+    # the cache as the engine makes it under the mesh: the rank's rows,
+    # its kv_seq block, its share of the workers
     with sh.use_mesh(mesh, rules):
         cache = m.cache_init(
             shape.global_batch, shape.seq_len, device=device,
             cross_len=shape.seq_len if cfg.encoder_decoder else 0)
+    info["cache_bytes"] = sum(t.numel() * t.element_size()
+                              for t in tree.leaves(cache))
 
     def step():
         with sh.use_mesh(mesh, rules), sh.use_leaf_shardings(leaf_sh):
@@ -472,7 +467,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
             "use_flash": cfg.use_flash,
             "fsdp": full["info"]["fsdp"],
             "microbatches": full["info"]["microbatches"],
-            "memory": _memory(full),
+            "split_kv_seq": full["info"]["split_kv_seq"],
+            "memory": dict(_memory(full), cache_bytes=full["info"].get(
+                "cache_bytes")),
             "cost_raw_scanned": {"flops": flops,
                                  "bytes accessed": full["hbm_bytes"]},
             "flops_per_dev": flops,

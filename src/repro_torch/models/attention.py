@@ -20,9 +20,16 @@ keys and values, which stay as the prefill left them.
 
 Under a mesh whose model axis splits the heads (``wq`` holds ``H/R`` of
 them), each rank projects q for its heads and k/v for every KV head (the
-cache stays whole on every rank, as the JAX package's ``CACHE_AXES``), and
-attends with its heads against the KV heads they read under GQA, at a
-prefill and at a decode step alike.  The input and ``wk``/``wv``/``bk``/
+cache holds every KV head on every rank, as the JAX package's
+``CACHE_AXES``), and attends with its heads against the KV heads they
+read under GQA, at a prefill and at a decode step alike.  Where the rules
+split the cache's sequence over ``kv_seq`` (``sharding.kv_seq_axis``, the
+long-context cells), a rank's cache holds one block of the positions: a
+decode step writes the new row on the rank whose block holds its
+position, and the softmax over the split keys combines over the group
+(the split-softmax decode: the row maxima by an all-reduce(max), the
+float32 denominators and the float32 partial products P.V by
+all-reduce(sum)).  The input and ``wk``/``wv``/``bk``/
 ``bv`` pass through the model group's *f* copy, so their gradients, each
 rank's share, add up over the group.  The "worker" layout fuses the local
 workers' partials over the group (``fusion.worker_reduce``); the "plain"
@@ -173,12 +180,26 @@ def _qkv(cfg, p, x, kv_x, heads: Heads):
     return q, k, v
 
 
-def _sdpa(cfg, q, k, v, mask) -> torch.Tensor:
+def _seq_sum(x: torch.Tensor, seq: sharding.Axis) -> torch.Tensor:
+    """The softmax denominators of every block of the sequence: the sum of
+    each rank's over the ``kv_seq`` group.  A function of its own so that
+    a control fault can replace it (a rank keeping its own block's
+    denominators) and show that the split decode's limits catch that."""
+    return comm.all_reduce(x, "sum", seq.group)
+
+
+def _sdpa(cfg, q, k, v, mask, seq: Optional[sharding.Axis] = None
+          ) -> torch.Tensor:
     """q: (B,S,H,Dh), k/v: (B,T,Kv,Dh), mask: (B, S, T) bool or None.
 
     The scores are float32 products of the working-type q and k (JAX's
     ``preferred_element_type``), or bfloat16 with ``scores_dtype='bf16'``;
-    the probabilities are cast to ``cfg.dtype`` before P.V."""
+    the probabilities are cast to ``cfg.dtype`` before P.V.  With ``seq``
+    the keys are this rank's block of a sequence split over that axis:
+    the scores are the block's, exactly so computed, against the row
+    maxima over the group; the float32 denominators are summed over it,
+    and so are the float32 products P.V, cast to ``cfg.dtype`` once.  A
+    block without a valid key adds exact zeros."""
     b, s, h, hd = q.shape
     kv = k.shape[2]
     g = h // kv
@@ -194,10 +215,19 @@ def _sdpa(cfg, q, k, v, mask) -> torch.Tensor:
                           device=q.device).to(sdt)
         scores = torch.where(mask[:, None, None], scores, fill)
     smax = torch.amax(scores, dim=-1, keepdim=True).detach()
+    if seq is not None:
+        smax = comm.all_reduce(smax, "max", seq.group)
     unnorm = torch.exp((scores - smax).to(sdt))
     denom = torch.sum(unnorm.float(), dim=-1, keepdim=True)
+    if seq is not None:
+        denom = _seq_sum(denom, seq)
     probs = (unnorm / denom.to(sdt)).to(cfg.dtype)
-    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    if seq is None:
+        out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    else:
+        out = comm.all_reduce(torch.einsum("bkgst,btkd->bskgd",
+                                           probs.float(), v.float()),
+                              "sum", seq.group).to(cfg.dtype)
     return out.reshape(b, s, h, hd)
 
 
@@ -260,9 +290,13 @@ def attn_step(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     clamped to the cache (JAX's ``dynamic_update_slice`` clamps the
     same way), and ``cache`` is returned.  With ``cross`` the cache holds
     the encoder's keys and values: every entry is valid, no row is
-    written and no rotary position applied."""
+    written and no rotary position applied.  Under a ``kv_seq`` split the
+    cache is this rank's block of the positions (module doc): the
+    position is clamped to the whole cache, the rank whose block holds it
+    writes the row, and the validity mask reads global positions."""
     d = cfg.dtype
     heads = Heads(cfg, p)
+    seq, offset = sharding.kv_seq_block(cache["k"].shape[1])
     if cross:
         q = _proj(heads.copy(x), p["wq"].to(d))
         if "bq" in p:
@@ -270,7 +304,7 @@ def attn_step(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
         k, v = cache["k"], cache["v"]
         valid = torch.ones((x.shape[0], 1, k.shape[1]), dtype=torch.bool,
                            device=x.device)
-        out = _sdpa(cfg, q, heads.kv(k), heads.kv(v), valid)
+        out = _sdpa(cfg, q, heads.kv(k), heads.kv(v), valid, seq)
         return _project_out(cfg, p, out, heads), cache
     q, knew, vnew = _qkv(cfg, p, x, None, heads)
     if cfg.use_rope:
@@ -278,10 +312,28 @@ def attn_step(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
         knew = layers.apply_rope(cfg, knew, positions[:, None])
     k, v = cache["k"], cache["v"]
     rows = torch.arange(x.shape[0], device=x.device)
-    at = positions.clamp(max=k.shape[1] - 1).long()
-    k[rows, at] = knew[:, 0].to(k.dtype)
-    v[rows, at] = vnew[:, 0].to(v.dtype)
-    t = torch.arange(k.shape[1], device=x.device)
+    if seq is None:
+        at = positions.clamp(max=k.shape[1] - 1).long()
+        k[rows, at] = knew[:, 0].to(k.dtype)
+        v[rows, at] = vnew[:, 0].to(v.dtype)
+        t = torch.arange(k.shape[1], device=x.device)
+    else:
+        _write_block(k, v, knew, vnew, rows, positions, offset,
+                     k.shape[1] * seq.size)
+        t = torch.arange(offset, offset + k.shape[1], device=x.device)
     valid = (t[None, :] <= positions[:, None])[:, None, :]   # (B,1,S_max)
-    out = _sdpa(cfg, q, heads.kv(k), heads.kv(v), valid)
+    out = _sdpa(cfg, q, heads.kv(k), heads.kv(v), valid, seq)
     return _project_out(cfg, p, out, heads), cache
+
+
+def _write_block(k, v, knew, vnew, rows, positions, offset: int,
+                 whole: int) -> None:
+    """The new key and value rows into this rank's block ``k``/``v`` of a
+    cache of ``whole`` positions from ``offset``, at ``positions`` clamped
+    to the whole cache; a row whose position lies in another rank's block
+    rewrites what it read (no host read decides)."""
+    local = positions.clamp(max=whole - 1).long() - offset
+    mine = ((local >= 0) & (local < k.shape[1]))[:, None, None]
+    at = local.clamp(0, k.shape[1] - 1)
+    k[rows, at] = torch.where(mine, knew[:, 0].to(k.dtype), k[rows, at])
+    v[rows, at] = torch.where(mine, vnew[:, 0].to(v.dtype), v[rows, at])

@@ -27,18 +27,23 @@ tensor (shape and type, nothing allocated) with its logical axes.
 
 Under a mesh (``repro_torch.parallel.sharding.use_mesh``) the entry
 points take this rank's blocks of the parameters and the whole batch,
-whose rows they split over the data axis where it divides them.  The loss
-is a vocabulary-parallel log-sum-exp over the model group, each data
-rank's rows summed over the global token count and added over the data
-group, so every rank returns the whole loss; ``prefill`` and the decode
-steps gather the logits (and a prefill's cache) over both axes, so every
-rank samples the same token from the same key.  Every config runs so: the
-MoE experts, the mLSTM and mamba workers (and their states), the heads of
+whose rows they split over the data axis where it divides them.  The
+loss is a vocabulary-parallel log-sum-exp over the model group, each
+data rank's rows summed over the global token count and added over the
+data group, so every rank returns the whole loss; ``prefill`` and the
+decode steps gather the logits over both axes, so every rank samples the
+same token from the same key.  A decode cache holds this rank's block,
+as the JAX package's ``CACHE_AXES`` place it
+(``sharding.cache_splits``): its rows where the batch axis splits them,
+its block of the sequence where ``kv_seq`` does (the long-context
+rules), its workers of a recurrent state; ``cache_init`` allocates that
+block, ``prefill`` returns it and the decode steps take it, with the
+whole batch's tokens and positions.  Every config runs so: the MoE
+experts, the mLSTM and mamba workers (and their states), the heads of
 self- and cross-attention, the workers and the vocabulary are split over
 the model axis where it divides them; the router, the sLSTM and the
-frontend's projection run whole on every rank.  A cache's rows are
-split and gathered along each leaf's own batch axis
-(:func:`cache_rows`).
+frontend's projection run whole on every rank.  A cache's rows lie along
+each leaf's own batch axis (:func:`cache_rows`).
 """
 
 from __future__ import annotations
@@ -263,7 +268,8 @@ def loss_fn(cfg, v, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
 @_entry
 def prefill(cfg, v, batch, max_seq: Optional[int] = None
             ) -> Tuple[torch.Tensor, dict]:
-    """Returns (last-position logits (B,V), decode cache)."""
+    """Returns (last-position logits (B,V), decode cache); under a mesh
+    the cache is this rank's block (its rows, its ``kv_seq`` block)."""
     with sharding.split_batch(_batch_rows(batch)) as rows:
         batch = tree.map(lambda t: sharding.split_dim(t, rows), batch)
         enc_out = _enc_out(cfg, v, batch)
@@ -274,11 +280,6 @@ def prefill(cfg, v, batch, max_seq: Optional[int] = None
             enc_out=enc_out)
         x = layers.norm_apply(cfg, v["final_norm"], x)
         logits = layers.unembed_apply(cfg, _head(v), v["embed"], x[:, -1:])
-        if rows is not None:
-            # the stacked caches' rows of every data block
-            cache = tree.map(lambda t, axis: comm.gather_from_group(
-                t, rows.group, axis, sum_grads=True), cache,
-                cache_rows(cfg, cache))
         return _whole_logits(cfg, logits[:, 0], rows), cache
 
 
@@ -313,15 +314,20 @@ def decode_step(cfg, v, token: torch.Tensor, positions: torch.Tensor,
 
 
 def _decode_rows(cfg, token, positions, cache, rows):
-    """A decode step's token, positions and cache rows of this rank's
-    data block (the cache's as views, so the step writes into ``cache``);
-    all of them without a data split."""
+    """A decode step's token and positions of this rank's data block (all
+    of them without a data split), and the cache, which holds that
+    block's rows already (:func:`cache_init`)."""
+    leaf = tree.leaves(cache)[0]
+    held = leaf.shape[tree.leaves(cache_rows(cfg, cache))[0]]
+    want = sharding.local_size(token.shape[0], rows)
+    if held != want:
+        raise ValueError(
+            f"a decode step of {token.shape[0]} rows takes a cache of "
+            f"this rank's {want} (cache_init under the mesh), not {held}")
     if rows is None:
         return token, positions, cache
     return (sharding.split_dim(token, rows),
-            sharding.split_dim(positions, rows),
-            tree.map(lambda t, axis: sharding.split_dim(t, rows, axis),
-                     cache, cache_rows(cfg, cache)))
+            sharding.split_dim(positions, rows), cache)
 
 
 @_entry
@@ -357,19 +363,28 @@ def _max_pos(cfg, cache) -> int:
     sequence length of the first stacked attention cache (layers, B, S,
     kv_heads, head_dim) in the JAX package's leaf order, which sorts
     ``"cross"`` before ``"self"``; so for an encoder-decoder it is the
-    encoder's length, as in the JAX package (ROADMAP queue 3)."""
+    encoder's length, as in the JAX package (ROADMAP queue 3).  Under a
+    ``kv_seq`` split the leaf holds a block: the whole length is its
+    length times the axis's ranks."""
     for leaf in tree.leaves(cache):
         if (leaf.ndim == 5 and leaf.shape[-2] == cfg.n_kv_heads
                 and leaf.shape[-1] == cfg.head_dim_):
-            return leaf.shape[2]
+            seq = sharding.kv_seq_axis()
+            return leaf.shape[2] * (1 if seq is None else seq.size)
     return 32768
 
 
 def cache_init(cfg, batch: int, max_seq: int, device=None,
                cross_len: int = 0) -> dict:
+    """The decode cache of ``batch`` rows and ``max_seq`` positions (an
+    encoder-decoder's cross cache of ``cross_len``); under a mesh only
+    this rank's block of it (:func:`sharding.cache_splits`)."""
+    rows, seq = sharding.cache_splits(batch, max_seq)
+    cross = sharding.cache_splits(batch, cross_len)[1] if cross_len else None
     return transformer.stack_cache_init(
-        cfg, cfg.layer_plan(), cfg.n_periods, batch, max_seq, cfg.dtype,
-        device, cross_len)
+        cfg, cfg.layer_plan(), cfg.n_periods,
+        sharding.local_size(batch, rows), sharding.local_size(max_seq, seq),
+        cfg.dtype, device, sharding.local_size(cross_len, cross))
 
 
 def cache_axes(cfg) -> dict:
@@ -392,9 +407,10 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig
     if shape.kind == "decode":
         specs["token"], axes["token"] = spec((b, 1)), ("batch", None)
         specs["positions"], axes["positions"] = spec((b,)), ("batch",)
-        specs["cache"] = cache_init(
-            cfg, b, s, device="meta",
-            cross_len=s if cfg.encoder_decoder else 0)
+        with sharding.use_mesh(None):       # the whole cache
+            specs["cache"] = cache_init(
+                cfg, b, s, device="meta",
+                cross_len=s if cfg.encoder_decoder else 0)
         axes["cache"] = cache_axes(cfg)
         return specs, axes
     if shape.kind not in ("train", "prefill"):
@@ -440,6 +456,7 @@ def build(cfg: ModelConfig) -> types.SimpleNamespace:
         channel_sites=functools.partial(channel_sites, cfg),
         cache_init=functools.partial(cache_init, cfg),
         cache_axes=functools.partial(cache_axes, cfg),
+        cache_rows=functools.partial(cache_rows, cfg),
         input_specs=functools.partial(input_specs, cfg),
         min_prompt=functools.partial(min_prompt, cfg),
         recurrent_leaves=functools.partial(recurrent_leaves, cfg),

@@ -202,12 +202,31 @@ def block_step(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     return x + y, new_cache, _zero(x), fusion.chan_from_acct(acct)
 
 
+def _seq_block(cfg, kv: dict, length: int) -> dict:
+    """The keys and values ``kv`` (B, S, Kv, Dh) as a cache of ``length``
+    positions, zero past ``S``; under a ``kv_seq`` split
+    (``sharding.cache_splits``) this rank's block of it."""
+    _, seq = sharding.cache_splits(kv["k"].shape[0], length)
+    if seq is None and length <= kv["k"].shape[1]:
+        return kv
+    local = sharding.local_size(length, seq)
+    lo = 0 if seq is None else seq.index * local
+    hi = min(lo + local, kv["k"].shape[1])
+    buf = attention.init_cache(cfg, kv["k"].shape[0], local, cfg.dtype,
+                               kv["k"].device)
+    if hi > lo:
+        for name in ("k", "v"):
+            buf[name][:, :hi - lo] = kv[name][:, lo:hi]
+    return buf
+
+
 def block_prefill(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
                   mixer: str, ffn: str, max_seq: int, enc_out=None):
     """Full-sequence forward that also materializes the decode cache: a
     KV cache padded with zeros to ``max_seq``, or the recurrent state
     after the last position; with a cross-attention also the encoder's
-    keys and values, unpadded.  Returns (x, cache, aux)."""
+    keys and values, unpadded.  Under a ``kv_seq`` split each KV cache is
+    this rank's block of its sequence.  Returns (x, cache, aux)."""
     h = layers.norm_apply(cfg, p["norm1"], x)
     if mixer not in ATTENTION:
         out, kv = RECURRENT[mixer].full(cfg, p["mixer"], h,
@@ -216,16 +235,11 @@ def block_prefill(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
         out, kv = attention.attn_full(cfg, p["mixer"], h, positions,
                                       causal=(mixer == "attn"),
                                       return_kv=True)
-        if max_seq > kv["k"].shape[1]:
-            buf = attention.init_cache(cfg, x.shape[0], max_seq, cfg.dtype,
-                                       x.device)
-            for name in ("k", "v"):
-                buf[name][:, :kv[name].shape[1]] = kv[name]
-            kv = buf
+        kv = _seq_block(cfg, kv, max(max_seq, kv["k"].shape[1]))
     cache = {"self": kv}
     x, ckv = _cross_full(cfg, p, x + out, positions, enc_out)
     if ckv is not None:
-        cache["cross"] = ckv
+        cache["cross"] = _seq_block(cfg, ckv, ckv["k"].shape[1])
     x, aux = _ffn(cfg, p, x, ffn)
     return x, cache, aux
 

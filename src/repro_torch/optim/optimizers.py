@@ -163,6 +163,21 @@ def _zero_dims(n: int) -> list:
             for p, s in zip(_fsdp_dims(n), state)]
 
 
+def zero_blocks(params):
+    """This rank's block of each parameter leaf where the state shardings
+    named with ``use_leaf_shardings(..., state=)`` split its state over
+    the fsdp axis and the parameter is whole (ZeRO): the tree AdamW's
+    master weights and moments are of.  ``params`` itself where no leaf
+    is so split."""
+    leaves = tree.leaves(params)
+    dims = _zero_dims(len(leaves))
+    if all(d is None for d in dims):
+        return params
+    return tree.unflatten(params, [
+        p if d is None else sharding.split_dim(p, sharding.fsdp_axis(), d)
+        for p, d in zip(leaves, dims)])
+
+
 def _step_counter(params) -> torch.Tensor:
     """The int32 step counter, on the parameters' device: the update
     advances it in place."""

@@ -115,17 +115,31 @@ def _entry_names(entry) -> Tuple[str, ...]:
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
+def _entry_of(names: Tuple[str, ...]):
+    """The spec entry of the mesh axes ``names``: ``None``, one name, or
+    the tuple of them."""
+    if not names:
+        return None
+    return names[0] if len(names) == 1 else names
+
+
 def sharding_for_shape(logical_axes, shape, mesh,
                        rules: dict = DEFAULT_RULES) -> NamedSharding:
     """The spec of :func:`resolve_axes` with every dim that its mesh
     extent does not divide replicated (36 heads or a 122753 vocab over a
-    16-way axis stay whole)."""
+    16-way axis stay whole).  A mesh axis that an earlier dim's entry
+    names, divided or not, leaves a later dim whole: a decode cache's
+    ``kv_seq`` under :data:`DEFAULT_RULES`, which map it and ``batch``
+    both to ``data`` (JAX refuses such a spec; the cache's rows take the
+    axis)."""
     sizes = mesh_axis_sizes(mesh)
-    spec = []
+    spec, taken = [], set()
     for entry, dim in zip(resolve_axes(logical_axes, mesh, rules),
                           tuple(shape)):
-        ways = math.prod(sizes[nm] for nm in _entry_names(entry))
-        spec.append(entry if entry is not None and dim % ways == 0 else None)
+        names = tuple(nm for nm in _entry_names(entry) if nm not in taken)
+        taken.update(_entry_names(entry))
+        ways = math.prod(sizes[nm] for nm in names)
+        spec.append(_entry_of(names) if dim % ways == 0 else None)
     return NamedSharding(mesh, tuple(spec))
 
 
@@ -326,6 +340,61 @@ def split_dim(x: torch.Tensor, axis: Optional[Axis],
 
 
 # ---------------------------------------------------------------------------
+# decode caches: a rank's rows and its kv_seq block
+# ---------------------------------------------------------------------------
+
+def kv_seq_axis() -> Optional[Axis]:
+    """The axis that splits a decode cache's sequence under the active
+    mesh and rules: the mesh axes ``kv_seq`` maps to that the cache's rows
+    (``batch``) do not already take (:func:`sharding_for_shape`'s rule),
+    combined as :func:`mesh_axes` combines them; ``None`` outside a mesh
+    or where they are one rank.  The long-context rules
+    (``launch/mesh.rules_for``) map ``batch`` to nothing and ``kv_seq`` to
+    ``(pod,) data``; the other cells' rules and :data:`DEFAULT_RULES`
+    leave the sequence whole."""
+    mesh = _CTX.mesh
+    if mesh is None:
+        return None
+    batch, seq = resolve_axes(("batch", "kv_seq"), mesh, _CTX.rules)
+    return mesh_axes(mesh, [nm for nm in _entry_names(seq)
+                            if nm not in _entry_names(batch)])
+
+
+def kv_seq_block(local: int) -> Tuple[Optional[Axis], int]:
+    """``(kv_seq_axis(), offset)`` for a cache leaf that holds ``local``
+    positions: this rank's block starts at global position ``offset``, so
+    local row ``t`` is position ``offset + t`` of a sequence of ``local *
+    axis.size``."""
+    axis = kv_seq_axis()
+    return axis, 0 if axis is None else axis.index * local
+
+
+def cache_splits(batch: int, seq: int) -> Tuple[Optional[Axis],
+                                                Optional[Axis]]:
+    """The axes that split a decode cache of ``batch`` rows and ``seq``
+    positions under the active mesh and rules, ``(rows, sequence)``, as
+    :func:`sharding_for_shape` places its ``("batch", "kv_seq")`` dims
+    (``None`` for a dim held whole).  The sequence axis must divide
+    ``seq``: a decode step reads a split from the rules alone."""
+    mesh = _CTX.mesh
+    if mesh is None:
+        return None, None
+    spec = sharding_for_shape(("batch", "kv_seq"), (batch, seq), mesh,
+                              _CTX.rules).spec
+    seq_axis = kv_seq_axis()
+    if seq_axis is not None and spec[1] is None:
+        raise ValueError(f"a cache of {seq} positions over a "
+                         f"{seq_axis.size}-way kv_seq axis")
+    return mesh_axes(mesh, _entry_names(spec[0])), seq_axis
+
+
+def local_size(n: int, axis: Optional[Axis]) -> int:
+    """A rank's share of ``n`` entries that ``axis`` splits (all of them
+    for no axis)."""
+    return n if axis is None else n // axis.size
+
+
+# ---------------------------------------------------------------------------
 # blocks of leaves
 # ---------------------------------------------------------------------------
 
@@ -422,8 +491,8 @@ def replicated(mesh, ndim: int) -> NamedSharding:
 
 # ---------------------------------------------------------------------------
 # ZeRO-1 optimizer-state axes: the fsdp axis on the largest unsharded and
-# divisible dim of each parameter (the dry-run's placements of the AdamW
-# state, and of the parameters under FSDP: launch/dryrun.place)
+# divisible dim of each parameter (the placements of the AdamW state, and
+# of the parameters under FSDP: placement below)
 # ---------------------------------------------------------------------------
 
 def _resolves_unsharded(ax, mesh_names, rules) -> bool:
@@ -549,3 +618,40 @@ def fsdp_period(stacked: torch.Tensor, view: torch.Tensor) -> torch.Tensor:
     if dims[id(stacked)] == 0:
         raise NotImplementedError("FSDP over the period axis")
     return _gather(view, dims[id(stacked)] - 1, axis)
+
+
+# ---------------------------------------------------------------------------
+# the placement of a model's parameters and AdamW state
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """Where a model's parameters and its AdamW state live on a mesh:
+    ``axes`` and ``shardings``, the values' logical axes and
+    :class:`NamedSharding` tree (the fsdp axis added where FSDP splits the
+    values), and ``state_axes`` and ``state_shardings``, those of the
+    master weights and both moments (ZeRO: the fsdp axis added), each a
+    tree of the values' structure."""
+
+    axes: Any
+    shardings: Any
+    state_axes: Any
+    state_shardings: Any
+
+
+def placement(axes, whole, mesh, rules: dict = DEFAULT_RULES,
+              fsdp: bool = False) -> Placement:
+    """The placement of parameters of logical axes ``axes`` whose whole
+    leaves are ``whole`` (or anything with their shapes): the values
+    split over the mesh axes their logical axes map to, and with ``fsdp``
+    over the fsdp axis too; the AdamW master and moments split over the
+    fsdp axis (:func:`zero_axes_tree`).  The dry-run's placements
+    (``launch/dryrun.place``) and ``trainer.train``'s under ZeRO and
+    FSDP."""
+    if fsdp:
+        axes = zero_axes_tree(axes, whole, mesh, rules)
+    state_axes = zero_axes_tree(axes, whole, mesh, rules)
+    return Placement(
+        axes, tree_shardings_for_values(axes, whole, mesh, rules),
+        state_axes, tree_shardings_for_values(state_axes, whole, mesh,
+                                              rules))

@@ -10,11 +10,17 @@ host reads the tick's tokens, positions and channel slots back in one
 copy.  Finished slots (EOS, budget or length cap) retire and refill from
 the arrival queue by a single-request prefill whose cache (KV rows,
 recurrent states) is copied into the batch cache at the slot, in place,
-along each leaf's batch axis (:func:`_batch_axis`, the JAX engine's rule:
-axis 1 of a stacked KV buffer, axis 2 of a stacked mLSTM memory or mamba
-state, whose axis 1 is the workers').  A prompt has at least
-``model.min_prompt()`` tokens: a mamba layer caches the last
-``conv_width - 1`` rows of its prompt.
+along each leaf's batch axis (``model.cache_rows``: axis 1 of a stacked
+KV buffer, axis 2 of a stacked mLSTM memory or mamba state, whose axis 1
+is the workers').  A prompt has at least ``model.min_prompt()`` tokens: a
+mamba layer caches the last ``conv_width - 1`` rows of its prompt.
+
+Under a mesh (``sharding.use_mesh`` around the engine's construction and
+its runs) the batch cache is this rank's block (``model.cache_init``): a
+data split gives each rank its block of the slots, whose prefills only
+that rank copies in; a ``kv_seq`` split gives each rank its block of
+every slot's positions, and the prefill's cache is that block already.
+Every rank decodes the whole batch's tokens and returns every request.
 
 Airtime accounting: the contention core measures the channel slots each
 tick consumed (``ProtocolAccounting`` summed over the stack's
@@ -58,6 +64,7 @@ import torch
 from repro_torch import faults
 from repro_torch import random as jr
 from repro_torch import tree
+from repro_torch.parallel import sharding
 from repro_torch.protocol import Protocol
 
 _DISPATCH_COUNTS = {"tick": 0}
@@ -183,6 +190,11 @@ class ServeEngine:
         self._d_model = model.cfg.d_model
         self._n_workers = model.cfg.n_workers
         self.cache = model.cache_init(self.B, self.max_seq, dev)
+        self._cache_rows = model.cache_rows(self.cache)
+        # the slots of this rank's block, under a data split of them
+        rows, _ = sharding.cache_splits(self.B, self.max_seq)
+        self._slots = sharding.local_size(self.B, rows)
+        self._first_slot = 0 if rows is None else rows.index * self._slots
         # the cache's recurrent states, which a held retry tick restores
         self._recurrent = model.recurrent_leaves(self.cache)
         self._min_prompt = model.min_prompt()
@@ -225,12 +237,12 @@ class ServeEngine:
         logits, cache1 = self.m.prefill(self.values, {"tokens": tokens},
                                         max_seq=self.max_seq)
 
-        def put(batch_leaf, one_leaf):
+        at = slot - self._first_slot
+        if 0 <= at < self._slots:
             # e.g. (periods, B, S, kv, hd) <- (periods, 1, S, kv, hd)
-            axis = _batch_axis(batch_leaf.shape, one_leaf.shape, self.B)
-            batch_leaf.narrow(axis, slot, 1).copy_(one_leaf)
-
-        tree.map(put, self.cache, cache1)
+            tree.map(lambda batch_leaf, one_leaf, axis: batch_leaf.narrow(
+                axis, at, 1).copy_(one_leaf), self.cache, cache1,
+                self._cache_rows)
         tok = int(torch.argmax(logits, -1)[0])
         self.cur_token[slot, 0] = tok
         self.positions[slot] = len(req.prompt)
@@ -412,15 +424,3 @@ class ServeEngine:
                     self._retire(slot)
         return self.outputs
 
-
-def _batch_axis(batch_shape, one_shape, b: int) -> int:
-    """The batch axis of a cache leaf: the first axis of size ``b`` in the
-    batch cache and 1 in a single request's, else the first of size ``b``
-    (the JAX engine's rule)."""
-    for i, (bs, os) in enumerate(zip(batch_shape, one_shape)):
-        if bs == b and os == 1:
-            return i
-    for i, bs in enumerate(batch_shape):
-        if bs == b:
-            return i
-    raise ValueError(f"no batch axis in {batch_shape} vs {one_shape}")

@@ -14,13 +14,20 @@ Fault-tolerance model:
     full carry at once.
 
 Under a mesh (``repro_torch.parallel.sharding.use_mesh``) the values are
-this rank's blocks and ``shardings``, a tree of ``NamedSharding`` of the
-values' structure, names their placement, as the JAX package's target
-shardings do; the optimizer state's trees of the values' structure take
-the same shardings and every other leaf of the carry stays whole.  The checkpoints hold
-whole leaves (every rank gathers, rank 0 writes), a resume keeps this
-rank's blocks of them (any mesh to any mesh), and the global norm adds
-the split leaves' squares over the model group.
+this rank's blocks and ``shardings`` names their placement, as the JAX
+package's target shardings do: a tree of ``NamedSharding`` of the values'
+structure, which the optimizer state's trees of that structure take too,
+or a ``sharding.Placement`` (``sharding.placement``, the dry-run's
+placements), whose state shardings split AdamW's master weights and
+moments over the fsdp axis (ZeRO) and whose value shardings may split the
+values over it too (FSDP).  Every other leaf of the carry stays whole.
+The step runs under ``sharding.use_leaf_shardings(values, state=)``: the
+global norm adds the split leaves' squares over the model group, and
+AdamW updates this rank's ZeRO block of its state.  The checkpoints hold
+whole leaves (every rank gathers, rank 0 writes; with a ``Placement`` the
+index names each leaf's logical axes, the state's ZeRO axes under its
+own key), so a resume keeps this rank's blocks of them, from any mesh to
+any mesh, split state or not.
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ import torch
 from repro_torch import random as jr
 from repro_torch import tree
 from repro_torch.checkpoint import checkpointer
-from repro_torch.optim import grad_compression
+from repro_torch.optim import grad_compression, optimizers
 from repro_torch.optim.compressed_allreduce import CompressedAllReduce
 from repro_torch.parallel import sharding
 from repro_torch.train.train_step import make_train_step
@@ -113,25 +120,54 @@ def _paths(t) -> list:
     return list(checkpointer._flatten_with_paths(t))
 
 
-def carry_shardings(shardings, carry):
-    """The whole ``carry``'s shardings from the values' (``shardings``):
-    the values' for ``values`` and for every subtree of the carry with
-    the values' structure (the optimizer's moments and master weights),
-    every other leaf whole."""
-    shape = _paths(carry["values"])
-    mesh = sharding.flat_shardings(shardings)[0].mesh
+# the optimizer state's subtrees that ZeRO splits (AdamW's)
+ZERO_STATE = ("master", "m", "v")
 
-    def like(sub):
+
+def _placement(shardings) -> sharding.Placement:
+    """``train``'s ``shardings`` as a placement: a tree of the values'
+    shardings places the optimizer state as the values (no ZeRO)."""
+    if isinstance(shardings, sharding.Placement):
+        return shardings
+    return sharding.Placement(None, shardings, None, shardings)
+
+
+def _carry_tree(carry, values, state, other):
+    """A tree of the carry's structure: ``values`` for the values and for
+    every subtree of the values' structure (the error-feedback memory,
+    SGD's momentum), ``state`` for AdamW's master weights and moments,
+    ``other(leaf)`` for every other leaf."""
+    shape = _paths(carry["values"])
+
+    def like(sub, key=None):
         if isinstance(sub, dict) and _paths(sub) == shape:
-            return shardings
+            return state if key in ZERO_STATE else values
         if isinstance(sub, dict):
-            return {k: like(v) for k, v in sub.items()}
+            return {k: like(v, k) for k, v in sub.items()}
         if isinstance(sub, (list, tuple)):
             return type(sub)(like(x) for x in sub)
-        if isinstance(sub, torch.Tensor):
-            return sharding.replicated(mesh, sub.ndim)
-        return None
-    return {k: like(v) for k, v in carry.items()}
+        return other(sub)
+    return {k: like(v) if k != "values" else values
+            for k, v in carry.items()}
+
+
+def carry_shardings(shardings, carry):
+    """The whole ``carry``'s shardings from ``train``'s ``shardings``: the
+    values' for ``values`` and every other subtree of the values'
+    structure, the state shardings (ZeRO's under a ``Placement``) for the
+    optimizer's master weights and moments, every other leaf whole."""
+    pl = _placement(shardings)
+    mesh = sharding.flat_shardings(pl.shardings)[0].mesh
+    return _carry_tree(carry, pl.shardings, pl.state_shardings,
+                       lambda t: sharding.replicated(mesh, t.ndim)
+                       if isinstance(t, torch.Tensor) else None)
+
+
+def carry_axes(placement: sharding.Placement, carry):
+    """The logical axes of the carry's leaves that a placement names (the
+    values', the state's ZeRO axes), for the checkpoint's index."""
+    return _carry_tree(carry, placement.axes, placement.state_axes,
+                       lambda t: None)
 
 
 def train(loss_fn: Callable, init_values, optimizer, data_fn: Callable,
@@ -140,19 +176,38 @@ def train(loss_fn: Callable, init_values, optimizer, data_fn: Callable,
           ) -> TrainResult:
     """``data_fn(step)`` -> the batch; ``delay_injector(step)`` -> the
     simulated data latency of a slow host, in seconds; ``shardings`` the
-    placement of the values under a mesh."""
+    placement of the values under a mesh (module doc): a tree of their
+    ``NamedSharding``, or a ``sharding.Placement`` with the state's."""
     if shardings is None:
         return _train(loss_fn, init_values, optimizer, data_fn, tcfg, None,
                       delay_injector)
-    with sharding.use_leaf_shardings(sharding.flat_shardings(shardings)):
+    pl = _placement(shardings)
+    with sharding.use_leaf_shardings(
+            sharding.flat_shardings(pl.shardings),
+            state=sharding.flat_shardings(pl.state_shardings)):
         return _train(loss_fn, init_values, optimizer, data_fn, tcfg,
                       shardings, delay_injector)
+
+
+def _zero_init(optimizer, values):
+    """The optimizer's state of ``values`` with AdamW's master weights and
+    moments this rank's ZeRO blocks (``optimizers.zero_blocks``; the
+    state itself where nothing is split)."""
+    blocks = optimizers.zero_blocks(values)
+    if blocks is values:
+        return optimizer.init(values)
+    state = optimizer.init(blocks)
+    if not all(k in state for k in ZERO_STATE):
+        raise NotImplementedError(
+            "ZeRO splits AdamW's master weights and moments; this "
+            "optimizer's state has none")
+    return state
 
 
 def _train(loss_fn, init_values, optimizer, data_fn, tcfg, shardings,
            delay_injector) -> TrainResult:
     values = _copy(init_values)
-    opt_state = optimizer.init(values)
+    opt_state = _zero_init(optimizer, values)
     # the error-feedback memory only where a compressed step carries it
     # (float32, twice a bf16 model's parameters)
     err = (grad_compression.init_error(values)
@@ -182,12 +237,15 @@ def _train(loss_fn, init_values, optimizer, data_fn, tcfg, shardings,
 
     shd = (None if shardings is None
            else carry_shardings(shardings, carry_state()))
+    axes = (carry_axes(shardings, carry_state())
+            if isinstance(shardings, sharding.Placement) else None)
 
     saved = None            # the step of the newest checkpoint written
 
     def save(step):
         nonlocal saved
-        checkpointer.save(tcfg.ckpt_dir, step, carry_state(), shardings=shd)
+        checkpointer.save(tcfg.ckpt_dir, step, carry_state(), axes_tree=axes,
+                          shardings=shd)
         saved = step
 
     if tcfg.ckpt_dir and tcfg.resume:

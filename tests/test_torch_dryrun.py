@@ -395,12 +395,80 @@ def test_rank_zero_stands_for_the_last_rank():
             comm.summarize(last["records"])
 
 
-def test_long_context_cells_refuse_a_split_cache():
-    rec = dryrun.run_cell("jamba-1.5-large-398b", "long_500k", False,
-                          device="cpu")
-    assert rec["status"] == "error" and "kv_seq" in rec["error"]
+def _jax_cache_bytes(arch, shape_name, multi_pod) -> int:
+    """A rank's bytes of a decode cell's cache by the JAX dry-run's
+    placement: the JAX ``input_specs`` cache of the cell's config under
+    ``sharding_for_shape`` of the JAX ``CACHE_AXES`` (and the recurrent
+    states' axes) with the JAX ``rules_for``."""
+    import jax
+
+    from repro.configs import SHAPES as JSHAPES
+    from repro.configs import get_config as jget
+    from repro.launch import mesh as jmesh
+    from repro.models import model as JM
+    from repro.parallel import sharding as jsh
+    mesh = _duck(multi_pod)
+    shape = JSHAPES[shape_name]
+    specs, axes = JM.build(jget(arch, n_workers=16, tp_fusion="max")) \
+        .input_specs(shape)
+    rules = jmesh.rules_for(shape_name, shape.global_batch, mesh)
+    leaves = jax.tree.leaves(specs["cache"])
+    jspecs = jax.tree.leaves(
+        jax.tree.map(lambda a, v: tuple(jsh.sharding_for_shape(
+            a, v.shape, mesh, rules).spec), axes["cache"], specs["cache"],
+            is_leaf=sh.is_axes), is_leaf=lambda x: isinstance(x, tuple))
+    return _bytes_from_specs(leaves, jspecs, mesh)
+
+
+# (arch, shape, multi_pod, the ways that split the attention caches)
+CACHE_CELLS = [("jamba-1.5-large-398b", "long_500k", False, 16),
+               ("jamba-1.5-large-398b", "long_500k", True, 32),
+               ("qwen1.5-0.5b", "decode_32k", False, 16)]
+
+
+def test_long_context_cells_refuse_a_split_cache(monkeypatch):
+    """Named for the refusal it held until the port's decode read a split
+    cache.  Now both jamba ``long_500k`` cells give ``ok`` records, a
+    rank's cache holding its ``kv_seq`` block (16 and 32 ways) and a
+    ``decode_32k`` cell's its rows (16 ways): a rank's cache argument
+    bytes equal the JAX placement's arithmetic on the JAX ``CACHE_AXES``,
+    and each attention cache's are the whole one's over the ways.  glm4's
+    ``long_500k`` stays skipped."""
+    from repro.parallel import sharding as jsh
+    monkeypatch.setattr(jsh, "NamedSharding",
+                        lambda mesh, spec: types.SimpleNamespace(spec=spec))
+    import multiprocessing
+    with concurrent.futures.ProcessPoolExecutor(
+            len(CACHE_CELLS),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        recs = list(pool.map(_cache_cell, CACHE_CELLS))
+    for (arch, shape_name, multi_pod, ways), rec in zip(CACHE_CELLS, recs):
+        assert rec["status"] == "ok", rec.get("error")
+        assert rec["split_kv_seq"] == (shape_name == "long_500k")
+        got = rec["memory"]["cache_bytes"]
+        assert got == _jax_cache_bytes(arch, shape_name, multi_pod), arch
+        cfg = get_config(arch, n_workers=16)
+        shape = SHAPES[shape_name]
+        whole = M.cache_init(cfg, shape.global_batch, shape.seq_len,
+                             device="meta")
+        attn = [t for t in tree.leaves(whole) if t.ndim == 5
+                and t.shape[-2:] == (cfg.n_kv_heads, cfg.head_dim_)]
+        rest = [t for t in tree.leaves(whole) if all(t is not a
+                                                      for a in attn)]
+        attn_bytes = sum(t.numel() * t.element_size() for t in attn)
+        assert attn_bytes % ways == 0
+        assert got >= attn_bytes // ways
+        assert got - attn_bytes // ways <= sum(
+            t.numel() * t.element_size() for t in rest)
     rec = dryrun.run_cell("glm4-9b", "long_500k", True, device="cpu")
     assert rec["status"] == "skipped" and "sub-quadratic" in rec["reason"]
+
+
+def _cache_cell(cell) -> dict:
+    arch, shape_name, multi_pod, _ = cell
+    torch.set_num_threads(1)
+    return dryrun.run_cell(arch, shape_name, multi_pod, device="cpu",
+                           extrapolate=False)
 
 
 def test_the_dry_run_refuses_a_live_group(tmp_path):

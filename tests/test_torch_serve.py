@@ -436,21 +436,26 @@ def test_mamba_prompts_need_conv_width_rows():
 
 
 def test_batch_axis_of_every_cache_leaf():
-    """``_batch_axis`` finds the slot axis of each stacked cache leaf:
-    axis 1 of the KV buffers, the mLSTM (n, m) and the sLSTM state; axis 2
-    of the mLSTM memory and the mamba conv window and state, whose axis 1
-    is the workers (here as many as the slots)."""
+    """``cache_rows``, where the engine copies a prefill into its slot,
+    names the slot axis of each stacked cache leaf: axis 1 of the KV
+    buffers, the mLSTM (n, m) and the sLSTM state; axis 2 of the mLSTM
+    memory and the mamba conv window and state, whose axis 1 is the
+    workers (here as many as the slots); the one-request cache has 1 row
+    there and the batch cache ``b``."""
     for arch in ("xlstm-125m", "jamba-1.5-large-398b"):
         cfg = get_reduced(arch)
         b = cfg.n_workers
         batch = TM.cache_init(cfg, b, 16)
         one = TM.cache_init(cfg, 1, 16)
+        rows = TM.cache_rows(cfg, batch)
         for i, (mixer, _) in enumerate(cfg.layer_plan()):
             want = {"attn": (1, 1), "mlstm": (2, 1, 1),
                     "slstm": (1, 1, 1, 1), "mamba": (2, 2)}[mixer]
-            got = tuple(se._batch_axis(x.shape, y.shape, b) for x, y in zip(
-                tree_leaves(batch[f"pos{i}"]), tree_leaves(one[f"pos{i}"])))
+            got = tuple(tree_leaves(rows[f"pos{i}"]))
             assert got == want, (arch, mixer, got)
+            for x, y, axis in zip(tree_leaves(batch[f"pos{i}"]),
+                                  tree_leaves(one[f"pos{i}"]), got):
+                assert (x.shape[axis], y.shape[axis]) == (b, 1)
 
 
 # -- refill / retire semantics ---------------------------------------------
